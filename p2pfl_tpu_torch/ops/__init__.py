@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (see the JAX package's module of the same path)."""
