@@ -1,28 +1,39 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``p2pfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --only kernels
+    python3 chip_smoke.py                 # every phase, one card
+    python3 chip_smoke.py --only kernels offs
 
-Phases, each of which makes the script exit non-zero if it fails:
+Phases, each of which makes the script exit non-zero if it fails (the
+``--only`` name in brackets):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``p2pfl_tpu_torch/csrc`` with ``nvcc``;
-3. hold every kernel against its plain PyTorch version on the card at the
-   main path's attention shape (4 nodes x batch 1, T 1024, 32 heads, head
-   dim 64, bf16), causal and full, and time kernel, plain version, the
-   analytic bound and one PyTorch library call as a yardstick;
-4. the main path at full width and depth: federated LoRA on the
+3. [kernels] hold kernels 1-4 against their plain PyTorch versions on the
+   card at the flash path's attention shape (4 nodes x batch 1, T 1024,
+   32 heads, head dim 64, bf16), causal and full, and time kernel, plain
+   version, the analytic bound and one PyTorch library call as a yardstick;
+4. [offs] the same for the offset-aware kernels 5-8 at a ring hop's shape
+   (2 nodes x 32 heads, T_local 1024, bf16) in four visibility cases
+   (diagonal, fully visible, fully masked, off-tile), both backward
+   structures with a nonzero lse cotangent; then ``ring_attention(impl=
+   "flash")`` at [2, 4096, 32, 64] with R = 4 against unsharded flash;
+5. [main] the flash path at full width and depth: federated LoRA on the
    TinyLlama-architecture causal LM (22L/2048d/32h/kv4/ffn5632, vocab 4096,
    seq 1024, LoRA rank 8 with lora_mlp) through ``tiny_transformer(attn=
    "flash")`` → ``SpmdLoraFederation.from_dataset`` → ``run_round`` →
    ``run_fused(1)`` → ``evaluate``, once with the default (fused) backward
    and once with ``bwd_mode="split"``; launch counts are zeroed before and
    read after each drive, and every kernel of that drive must have run;
-5. one round on the CPU (plain versions) against one round on the card
-   (kernels) from the same init and data, at 2L/256d/4h/kv2 (head dim
-   64), seq 256;
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
+6. [ring] the long-context path at the same widths and depth: seq 4096
+   sharded over a ring of R = 4 (``federation_mesh(model_parallel=4,
+   devices=["cuda:0"] * 4)``), 2 nodes x batch 1, through
+   ``tiny_transformer(attn="ring_flash", mesh=...)`` and the same
+   federation calls, fused backward and then split;
+7. [parity] one round on the CPU (plain versions) against one round on the
+   card (kernels) from the same init and data, at 2L/256d/4h/kv2 (head dim
+   64): flash at seq 256, then ring flash at seq 512 with R = 4;
+8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports only torch, numpy and ``p2pfl_tpu_torch``. Weights are random,
@@ -53,7 +64,12 @@ REPLACES = {
     "flash_bwd_dkvq": "p2pfl_tpu/ops/flash_attention.py:327",
     "flash_bwd_dq": "p2pfl_tpu/ops/flash_attention.py:216",
     "flash_bwd_dkv": "p2pfl_tpu/ops/flash_attention.py:294",
+    "flash_fwd_offs": "p2pfl_tpu/ops/flash_attention.py:669",
+    "flash_bwd_dkvq_offs": "p2pfl_tpu/ops/flash_attention.py:815",
+    "flash_bwd_dq_offs": "p2pfl_tpu/ops/flash_attention.py:688",
+    "flash_bwd_dkv_offs": "p2pfl_tpu/ops/flash_attention.py:786",
 }
+NEG_INF = -1e30
 # tolerances against the plain versions on the same inputs. Both sides
 # round at the same points (bf16 operands, fp32 sums, P and dS cast to
 # bf16); they differ in fp32 summation order, and dQ of the fused kernel
@@ -103,12 +119,15 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
 
 def check(got, want) -> tuple[float, float, float]:
     """(max abs error, ATOL, worst share of the per-element limit used):
-    the check passes when the share is at most 1."""
+    the check passes when the share is at most 1. An all-zero reference
+    (a fully masked hop) has a zero limit: only exact zeros pass."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     atol = RTOL * want.pow(2).mean().sqrt().item()
-    used = (err / (RTOL * want.abs() + atol)).max().item()
-    return err.max().item(), atol, used
+    limit = RTOL * want.abs() + atol
+    share = torch.where(limit > 0, err / limit.clamp_min(1e-38),
+                        torch.where(err > 0, torch.full_like(err, math.inf), torch.zeros_like(err)))
+    return err.max().item(), atol, share.max().item()
 
 
 def fmt(name: str, res: tuple[float, float, float]) -> str:
@@ -218,7 +237,171 @@ def check_kernels(results: dict) -> bool:
     return ok
 
 
-# ---- phase 4: the main path ----
+# ---- phase 4: the offset-aware kernels against their plain versions ----
+
+# (q_off, k_off) of one ring hop with T_local 1024: the diagonal hop, a hop
+# from an earlier shard (fully visible), one from a later shard (fully
+# masked), and an off-tile pair whose mask cuts through the kernels' 64-row
+# tiles at an offset the non-offset kernels never mask
+OFFSET_CASES = {
+    "diagonal": (1024, 1024), "visible": (2048, 0), "masked": (0, 1024), "offtile": (1024 + 32, 1024),
+}
+
+
+def visible_pairs(b: int, h: int, t: int, q_off: int, k_off: int) -> int:
+    """(q, k) pairs the hop attends: row i sees k_off + j <= q_off + i."""
+    return b * h * sum(min(max(q_off + i - k_off + 1, 0), t) for i in range(t))
+
+
+def offset_mask(t: int, q_off: int, k_off: int, device) -> torch.Tensor:
+    rows = q_off + torch.arange(t, device=device)[:, None]
+    return rows >= k_off + torch.arange(t, device=device)[None, :]
+
+
+def check_offs_kernels(results: dict) -> bool:
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+
+    b, h, t, d = 2, 32, 1024, 64  # 2 nodes x batch 1, one shard of a 4096 ring
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (
+        torch.randn((b, h, t, d), generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    cfg = default_flash_config(t, d)
+    bq, bk = cfg.block_q, cfg.block_k
+    bf16, f32 = 2, 4
+    tensor_bytes, row_bytes = b * h * t * d * bf16, b * h * t * f32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ok = True
+    for case, (q_off, k_off) in OFFSET_CASES.items():
+        pairs = visible_pairs(b, h, t, q_off, k_off)
+        o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+        o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk)
+        r_o = check(o, o_ref)
+        e_l = (lse - lse_ref).abs().max().item()
+        good = r_o[2] <= 1 and e_l <= LSE_TOL
+        if case == "masked":  # nothing visible: O exactly 0, lse at the sentinel
+            good &= torch.count_nonzero(o).item() == 0 and bool((lse == NEG_INF).all())
+        ok &= good
+        limits = {"flash_fwd_offs": f"{fmt('O', r_o)}; lse max err {e_l:.3e} (limit {LSE_TOL})"}
+        log(f"[offs] flash_fwd_offs {case}: {limits['flash_fwd_offs']} {'OK' if good else 'FAIL'}")
+        delta = (do.float() * o.float()).sum(-1)
+        glse = torch.randn(lse.shape, generator=gen, device="cuda")
+        glse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(glse), glse)
+        args = (q, k, v, do, lse, delta, glse, q_off, k_off)
+
+        ref = fa.flash_bwd_fused_offs_plain(*args, bq, bk)
+        res = [check(x, y) for x, y in zip(_kernels.flash_bwd_fused_offs(*args), ref)]
+        res_split = [check(x, y) for x, y in zip(_kernels.flash_bwd_split_offs(*args), ref)]
+        good = all(used <= 1 for _, _, used in res + res_split)
+        ok &= good
+        limits["flash_bwd_dkvq_offs"] = "; ".join(fmt(n, r) for n, r in zip(("dQ", "dK", "dV"), res))
+        limits["flash_bwd_dq_offs"] = fmt("dQ", res_split[0])
+        limits["flash_bwd_dkv_offs"] = "; ".join(fmt(n, r) for n, r in zip(("dK", "dV"), res_split[1:]))
+        log(f"[offs] flash_bwd_dkvq_offs {case}: {limits['flash_bwd_dkvq_offs']}; split "
+            f"{limits['flash_bwd_dq_offs']}; {limits['flash_bwd_dkv_offs']} {'OK' if good else 'FAIL'}")
+        torch.cuda.synchronize()
+
+        # ---- timing: kernel, plain version, library yardstick, bound ----
+        if case == "diagonal":
+            lib_fwd = lambda: sdpa(q, k, v, is_causal=True)  # noqa: E731
+        elif case == "visible":
+            lib_fwd = lambda: sdpa(q, k, v)  # noqa: E731
+        elif case == "offtile":
+            mask = offset_mask(t, q_off, k_off, "cuda")
+            lib_fwd = lambda: sdpa(q, k, v, attn_mask=mask)  # noqa: E731
+        else:
+            lib_fwd = None  # no library call computes a fully masked attention
+        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+        def lib_fwd_bwd():
+            kw = {"is_causal": True} if case == "diagonal" else (
+                {"attn_mask": mask} if case == "offtile" else {})
+            sdpa(qg, kg, vg, **kw).backward(do)
+
+        lib_b = time_ms(lib_fwd_bwd) if lib_fwd is not None else None
+        rows = {}
+        bms, by = bound(3 * tensor_bytes + tensor_bytes + row_bytes, 4 * d * pairs)
+        rows["flash_fwd_offs"] = dict(
+            max_abs_err=max(r_o[0], e_l), ms=time_ms(lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off)),
+            plain_ms=time_ms(lambda: fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk), iters=3, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fwd) if lib_fwd is not None else None)
+        bwd_in = 4 * tensor_bytes + 3 * row_bytes  # q, k, v, dO, lse, delta, g_lse
+        for name, kernel, plain, n_out, flops, err in (
+            ("flash_bwd_dkvq_offs", _kernels.flash_bwd_fused_offs, fa.flash_bwd_fused_offs_plain, 3, 10,
+             max(e for e, _, _ in res)),
+            ("flash_bwd_dq_offs", _kernels.flash_bwd_dq_offs, fa.flash_bwd_dq_offs_plain, 1, 6, res_split[0][0]),
+            ("flash_bwd_dkv_offs", _kernels.flash_bwd_dkv_offs, fa.flash_bwd_dkv_offs_plain, 2, 8,
+             max(e for e, _, _ in res_split[1:])),
+        ):
+            bms, by = bound(bwd_in + n_out * tensor_bytes, flops * d * pairs)
+            rows[name] = dict(
+                max_abs_err=err, ms=time_ms(lambda: kernel(*args)),
+                plain_ms=time_ms(lambda: plain(*args, bq, bk), iters=3, warmup=1),
+                bound_ms=bms, bound_by=by, library_ms=lib_b)
+        for name, row in rows.items():
+            log(f"[offs] {name} {case} (q_off {q_off}, k_off {k_off}) [{b}x{h}, {t}, {d}] bf16: "
+                f"{json.dumps(row)} limit: {limits[name]}")
+        results[case] = rows
+    return ok
+
+
+def time_ring(results: dict) -> bool:
+    """ring_attention(impl="flash") over R = 4 shards of one card against
+    unsharded flash attention on the same [2, 4096, 32, 64] bf16 inputs:
+    the forward and forward + backward of both, and one launch of the
+    unsharded kernels over [64, 4096, 64]; the ring's output is held
+    against the unsharded one."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.attention import ring_attention
+    from p2pfl_tpu_torch.ops.flash_attention import flash_attention
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+
+    b, t, h, d, ring = 2, 4096, 32, 64, 4
+    mesh = federation_mesh(model_parallel=ring, devices=["cuda:0"] * ring)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, g = (
+        torch.randn((b, t, h, d), generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    ring_fn = lambda *x: ring_attention(*x, mesh, "model", impl="flash")  # noqa: E731
+    with torch.no_grad():
+        res = check(ring_fn(q, k, v), flash_attention(q, k, v))
+    good = res[2] <= 1
+    log(f"[offs] ring vs unsharded output: {fmt('O', res)} {'OK' if good else 'FAIL'}")
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def fwd_bwd(fn):
+        return lambda: fn(*xs).backward(g)
+
+    def fwd(fn):
+        def run():
+            with torch.no_grad():
+                fn(q, k, v)
+        return run
+
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    o, lse = _kernels.flash_fwd(qt, kt, vt, True)
+    delta = (gt.float() * o.float()).sum(-1)
+    row = {
+        "shape": [b, t, h, d], "ring": ring,
+        "ring_fwd_ms": time_ms(fwd(ring_fn), iters=10),
+        "ring_fwd_bwd_ms": time_ms(fwd_bwd(ring_fn), iters=10),
+        "flash_fwd_ms": time_ms(fwd(flash_attention), iters=10),
+        "flash_fwd_bwd_ms": time_ms(fwd_bwd(flash_attention), iters=10),
+        "kernel_flash_fwd_ms": time_ms(lambda: _kernels.flash_fwd(qt, kt, vt, True)),
+        "kernel_flash_bwd_dkvq_ms": time_ms(lambda: _kernels.flash_bwd_fused(qt, kt, vt, gt, lse, delta, True)),
+        "kernel_flash_bwd_dq_ms": time_ms(lambda: _kernels.flash_bwd_dq(qt, kt, vt, gt, lse, delta, True)),
+        "kernel_flash_bwd_dkv_ms": time_ms(lambda: _kernels.flash_bwd_dkv(qt, kt, vt, gt, lse, delta, True)),
+    }
+    log(f"[offs] ring vs unsharded timing: {json.dumps(row)}")
+    results["ring_vs_unsharded"] = row
+    return good
+
+
+# ---- phase 5: the flash path ----
 
 
 def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
@@ -275,10 +458,77 @@ def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
     return ok, summary
 
 
-# ---- phase 5: one round, CPU plain versions against card kernels ----
+# ---- phase 6: the long-context ring path ----
 
 
-def round_parity() -> tuple[bool, dict]:
+def drive_ring_path(bwd_mode: str, depth: int) -> tuple[bool, dict]:
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.flash_attention import FlashConfig
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    n_nodes, seq, ring = 2, 4096, 4
+    cfg = TransformerConfig(
+        vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=depth,
+        ffn_hidden=5632, lora_rank=8, lora_mlp=True, scan_layers=True,
+        flash_config=None if bwd_mode == "auto" else FlashConfig(bwd_mode=bwd_mode),
+    )
+    data = FederatedDataset.synthetic_lm(
+        vocab_size=4096, seq_len=seq, n_train=n_nodes * 2, n_test=n_nodes * 2, shift_frac=0.15
+    )
+    mesh = federation_mesh(model_parallel=ring, devices=["cuda:0"] * ring)
+    model = tiny_transformer(seq_len=seq, seed=0, cfg=cfg, attn="ring_flash", mesh=mesh)
+    n_params = model.param_count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    fed = SpmdLoraFederation.from_dataset(
+        model, data, n_nodes=n_nodes, batch_size=1, vote=False, seed=3
+    )
+    first = fed.run_round()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fused = fed.run_fused(rounds=1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    metrics = fed.evaluate()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+
+    losses = [float(first["train_loss"])] + [float(e["train_loss"]) for e in fused]
+    steps = 2 * fed._nb  # training steps in the two rounds
+    # every hop of every layer is launched, fully masked ones included
+    fwd_want = depth * ring * ring * (steps + 1)  # + the eval forward
+    bwd = ["flash_bwd_dkvq_offs"] if bwd_mode != "split" else ["flash_bwd_dq_offs", "flash_bwd_dkv_offs"]
+    ok = all(math.isfinite(x) for x in losses) and launches["flash_fwd_offs"] == fwd_want
+    ok &= all(launches[name] == depth * ring * ring * steps for name in bwd)
+    ok &= all(launches[name] == 0 for name in ("flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv"))
+    ok &= math.isfinite(metrics["test_loss"]) and 0.0 <= metrics["test_acc"] <= 1.0
+    summary = {
+        "bwd_mode": bwd_mode, "layers": depth, "params": n_params, "seq": seq, "ring": ring,
+        "nodes": n_nodes, "s_round_first": t1 - t0, "s_round_fused": t2 - t1,
+        "train_losses": losses, "test_loss": metrics["test_loss"],
+        "test_acc": metrics["test_acc"], "launches": launches,
+        "launches_fwd_offs_expected": fwd_want,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "steps_per_round": fed._nb,
+    }
+    log(f"[ring] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    del fed, model
+    torch.cuda.empty_cache()
+    return ok, summary
+
+
+# ---- phase 7: one round, CPU plain versions against card kernels ----
+
+
+def round_parity(attn: str = "flash", seq: int = 256, ring: int = 1) -> tuple[bool, dict]:
+    """``attn="flash"``, or ``"ring_flash"`` over ``ring`` shards (a mesh
+    of the CPU on the CPU, of the card on the card)."""
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.base import TorchModel
     from p2pfl_tpu_torch.models.transformer import (
@@ -286,9 +536,10 @@ def round_parity() -> tuple[bool, dict]:
     )
     from p2pfl_tpu_torch.ops.autotune import default_flash_config
     from p2pfl_tpu_torch.ops.tree import tree_leaves, tree_map
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
     from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
 
-    seq, lr = 256, 1e-3
+    lr = 1e-3
     cfg = TransformerConfig(
         vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2, ffn_hidden=688,
         lora_rank=8, lora_mlp=True,
@@ -302,10 +553,12 @@ def round_parity() -> tuple[bool, dict]:
         for sub in (blk["attn"], blk["mlp"]):
             for dense in sub.values():
                 dense["lora_b"] = torch.randn(dense["lora_b"].shape, generator=gen) * 0.02
-    attn = resolve_attention("flash", config=default_flash_config(seq, cfg.head_dim))
+    flash_cfg = default_flash_config(seq // ring, cfg.head_dim)
     out = {}
     for dev in ("cpu", "cuda"):
-        model = TorchModel(CausalLM(cfg, attn), tree_map(lambda x: x.to(dev), params), (seq,),
+        mesh = federation_mesh(model_parallel=ring, devices=[dev] * ring) if attn == "ring_flash" else None
+        attn_fn = resolve_attention(attn, config=flash_cfg, mesh=mesh)
+        model = TorchModel(CausalLM(cfg, attn_fn), tree_map(lambda x: x.to(dev), params), (seq,),
                            cfg.vocab_size, {"config": cfg})
         fed = SpmdLoraFederation.from_dataset(
             model, data, n_nodes=4, batch_size=1, vote=False, seed=3, learning_rate=lr,
@@ -325,15 +578,19 @@ def round_parity() -> tuple[bool, dict]:
     # and the loss must stay far below that
     steps = fed._nb
     ok = max(diffs) <= 2 * lr * steps and mean_diff <= 0.1 * lr and abs(l_cpu - l_gpu) <= 1e-2 * abs(l_cpu)
-    summary = {"max_abs_diff": max(diffs), "mean_abs_diff": mean_diff, "tol_max": 2 * lr * steps,
+    summary = {"attn": attn, "seq": seq, "ring": ring,
+               "max_abs_diff": max(diffs), "mean_abs_diff": mean_diff, "tol_max": 2 * lr * steps,
                "tol_mean": 0.1 * lr, "loss_cpu": l_cpu, "loss_cuda": l_gpu, "cpu_s": s_cpu}
     log(f"[parity] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
     return ok, summary
 
 
+PHASES = ("kernels", "offs", "main", "ring", "parity")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=("kernels", "main", "parity"), default=None)
+    parser.add_argument("--only", nargs="+", choices=PHASES, default=list(PHASES))
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -352,30 +609,56 @@ def main(argv=None) -> int:
     lib = _kernels.build()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if "registers" in line or "spill" in line or "error" in line.lower() or "Compiling" in line:
             log(f"[build] {line.strip()}")
 
     ok = True
     timings: dict = {}
+    offs_timings: dict = {}
     launches: dict = {}
-    if args.only in (None, "kernels"):
-        ok &= check_kernels(timings)
-    if args.only in (None, "main"):
-        good, fused = drive_main_path("auto")
+    phase_s: dict = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        result = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        return result
+
+    if "kernels" in args.only:
+        ok &= timed("kernels", check_kernels, timings)
+    if "offs" in args.only:
+        ok &= timed("offs", check_offs_kernels, offs_timings)
+        ok &= timed("ring_timing", time_ring, offs_timings)
+    if "main" in args.only:
+        good, fused = timed("main_fused", drive_main_path, "auto")
         ok &= good
         launches.update({k: v for k, v in fused["launches"].items() if k in ("flash_fwd", "flash_bwd_dkvq")})
-        good, split = drive_main_path("split")
+        good, split = timed("main_split", drive_main_path, "split")
         ok &= good
         launches.update({k: v for k, v in split["launches"].items() if k in ("flash_bwd_dq", "flash_bwd_dkv")})
-    if args.only in (None, "parity"):
-        good, _ = round_parity()
+    if "ring" in args.only:
+        good, fused = timed("ring_fused", drive_ring_path, "auto", 22)
         ok &= good
+        launches.update({k: v for k, v in fused["launches"].items()
+                         if k in ("flash_fwd_offs", "flash_bwd_dkvq_offs")})
+        good, split = timed("ring_split", drive_ring_path, "split", 22)
+        ok &= good
+        launches.update({k: v for k, v in split["launches"].items()
+                         if k in ("flash_bwd_dq_offs", "flash_bwd_dkv_offs")})
+    if "parity" in args.only:
+        good, _ = timed("parity_flash", round_parity)
+        ok &= good
+        good, _ = timed("parity_ring", round_parity, "ring_flash", 512, 4)
+        ok &= good
+    log(f"[time] seconds per phase: {json.dumps(phase_s)}")
 
-    if timings:
+    # kernels 1-4 report the causal case, the offset kernels the diagonal hop
+    rows = {**timings.get("causal", {}), **offs_timings.get("diagonal", {})}
+    if rows:
         kernels = [
             {"name": name, "route": "cuda", "source": SRC, "replaces": REPLACES[name],
-             "launches": launches.get(name, 0), **timings["causal"][name]}
-            for name in REPLACES
+             "launches": launches.get(name, 0), **rows[name]}
+            for name in REPLACES if name in rows
         ]
         print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,13 +3,29 @@
 // (nvcuda::wmma, bf16 operands, fp32 accumulation).
 //
 // Port of the Pallas kernels in p2pfl_tpu/ops/flash_attention.py:
-//   p2p_flash_fwd      <- _flash_kernel (+ _fwd_tile)
-//   p2p_flash_bwd_dkvq <- _dkvq_kernel  (+ _dkv_step with dq_acc)
-//   p2p_flash_bwd_dq   <- _dq_kernel
-//   p2p_flash_bwd_dkv  <- _dkv_kernel   (+ _dkv_step)
+//   p2p_flash_fwd           <- _flash_kernel      (+ _fwd_tile)
+//   p2p_flash_bwd_dkvq      <- _dkvq_kernel       (+ _dkv_step with dq_acc)
+//   p2p_flash_bwd_dq        <- _dq_kernel
+//   p2p_flash_bwd_dkv       <- _dkv_kernel        (+ _dkv_step)
+//   p2p_flash_fwd_offs      <- _flash_kernel_offs (+ _fwd_tile_offs)
+//   p2p_flash_bwd_dkvq_offs <- _dkvq_kernel_offs  (+ _dkv_step_offs, _offs_kv_bounds)
+//   p2p_flash_bwd_dq_offs   <- _dq_kernel_offs
+//   p2p_flash_bwd_dkv_offs  <- _dkv_kernel_offs   (+ _dkv_step_offs, _offs_kv_bounds)
+//
+// The offset-aware variants are the blocks of ring attention: q row i
+// attends k row j where q_off + i >= k_off + j, with the two global
+// offsets as plain int arguments (SMEM scalars on the TPU). They are the
+// same kernels instantiated with OFFS = true: the loop bounds and tile
+// masks move to global coordinates, a row that sees nothing in the call
+// (lse at the sentinel) gets P = 0 in the backward, and the lse cotangent
+// adds into dS = P * (dP - delta + g_lse). With OFFS = false the offsets
+// fold to 0 at compile time and kernels 1-4 are what they were. Loop
+// bounds divide with C's '/', which truncates toward zero like lax.div:
+// with a negative numerator a q tile may keep one fully masked k tile,
+// which adds nothing.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [BH, T, D] bf16, contiguous;
-// lse and delta are [BH, T] fp32 (the JAX [B, H, 1, T] row layout).
+// lse, delta and g_lse are [BH, T] fp32 (the JAX [B, H, 1, T] row layout).
 // T must be a multiple of 64; D (head_dim) is 64, the only width built.
 //
 // Rounding points follow the JAX kernels: operands stay bf16 and every
@@ -164,11 +180,22 @@ struct FwdSmem {
   static constexpr size_t total = o + align128(BQ * LDO * sizeof(float));
 };
 
-template <int D>
+__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+
+// k tiles [0, n_k) that q tile q0 streams; the offset form is
+// _fwd_tile_offs's n_blocks (global coordinates, truncating division)
+template <bool OFFS>
+__device__ __forceinline__ int fwd_k_tiles(int q0, int T, int causal, int q_off, int k_off) {
+  if (OFFS) return clampi((q_off + q0 + BQ - 1 - k_off) / BK + 1, 0, T / BK);
+  return causal ? (q0 + BQ + BK - 1) / BK : T / BK;
+}
+
+template <int D, bool OFFS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int causal, float scale) {
+                 float* __restrict__ lse, int T, int causal, int q_off, int k_off,
+                 float scale) {
   typedef FwdSmem<D> L;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
@@ -184,17 +211,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = lane >> 1, h = lane & 1;  // lane pair per row, half the columns each
   const int wrow = warp * 16;
-  const int grow = q0 + wrow + r;  // this lane's global q row
+  const int grow = q0 + wrow + r;  // this lane's q row in the block
+  const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
 
   load_tile<D>(Qs, q + base + (size_t)q0 * D, BQ);
   for (int i = lane; i < 16 * D; i += 32)
     Os[(wrow + i / D) * L::LDO + i % D] = 0.f;
 
   float m = NEG_INF, l = 0.f;
-  const int n_k = causal ? (q0 + BQ + BK - 1) / BK : T / BK;
+  const int n_k = fwd_k_tiles<OFFS>(q0, T, causal, qo, ko);
   for (int j = 0; j < n_k; ++j) {
     const int k0 = j * BK;
-    const bool masked = causal && (k0 + BK - 1 > q0);
+    // a tile whose last column passes the q tile's first row takes the mask
+    const bool masked = (OFFS || causal) && (ko + k0 + BK - 1 > qo + q0);
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<D>(Ks, k + base + (size_t)k0 * D, BK);
     load_tile<D>(Vs, v + base + (size_t)k0 * D, BK);
@@ -207,7 +236,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float mx = NEG_INF;
 #pragma unroll 8
     for (int c = 0; c < 32; ++c) {
-      const float s = masked_score(srow[c], scale, masked, grow, k0 + h * 32 + c);
+      const float s = masked_score(srow[c], scale, masked, qo + grow, ko + k0 + h * 32 + c);
       srow[c] = s;
       mx = fmaxf(mx, s);
     }
@@ -266,7 +295,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // 16 q rows for the scores and 16 k rows for dK/dV, so one block barrier
 // per q tile separates the two phases.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool OFFS>
 struct BwdSmem {
   static constexpr int LDH = D + PAD_H, LDQ = D + PAD_F;
   static constexpr size_t k = 0;
@@ -280,31 +309,39 @@ struct BwdSmem {
   static constexpr size_t lse = ds + align128(BQ * LDP * sizeof(bf16));
   static constexpr size_t delta = lse + align128(BQ * sizeof(float));
   static constexpr size_t stage = delta + align128(BQ * sizeof(float));
-  static constexpr size_t total = stage + align128(BQ * LDQ * sizeof(float));
+  static constexpr size_t glse = stage + align128(BQ * LDQ * sizeof(float));  // OFFS only
+  static constexpr size_t total = glse + (OFFS ? align128(BQ * sizeof(float)) : 0);
 };
 
 // P = exp(S - lse) and dS = P * (dP - delta) for this lane's half row;
-// S masked as in the forward. Writes both bf16 tiles.
+// S masked as in the forward. Writes both bf16 tiles. With OFFS, a row at
+// the lse sentinel (it sees nothing in this call, and its masked scores
+// are the sentinel too, so exp(S - lse) would be 1) gets P = 0, and the
+// lse cotangent adds in: dS = P * (dP - delta + g_lse).
+template <bool OFFS>
 __device__ __forceinline__ void softmax_grad_row(
     const float* srow, const float* dprow, bf16* prow, bf16* dsrow, float lse_r,
-    float delta_r, float scale, bool masked, int grow, int col0) {
+    float delta_r, float glse_r, float scale, bool masked, int grow, int col0) {
+  const bool dead = OFFS && lse_r <= NEG_INF / 2;
 #pragma unroll 8
   for (int c = 0; c < 32; ++c) {
     const float s = masked_score(srow[c], scale, masked, grow, col0 + c);
-    const float p = expf(s - lse_r);  // masked entries underflow to 0
+    const float p = dead ? 0.f : expf(s - lse_r);  // masked entries underflow to 0
+    const float dp = OFFS ? dprow[c] - delta_r + glse_r : dprow[c] - delta_r;
     prow[c] = __float2bfloat16(p);
-    dsrow[c] = __float2bfloat16(p * (dprow[c] - delta_r));
+    dsrow[c] = __float2bfloat16(p * dp);
   }
 }
 
-template <int D, bool WITH_DQ>
+template <int D, bool WITH_DQ, bool OFFS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    float* __restrict__ dq_acc, int T, int causal, float scale) {
-  typedef BwdSmem<D> L;
+                    const float* __restrict__ glse, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, float* __restrict__ dq_acc, int T, int causal,
+                    int q_off, int k_off, float scale) {
+  typedef BwdSmem<D, OFFS> L;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
   bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
@@ -317,6 +354,7 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* lses = reinterpret_cast<float*>(smem + L::lse);
   float* deltas = reinterpret_cast<float*>(smem + L::delta);
   float* stage = reinterpret_cast<float*>(smem + L::stage);
+  float* glses = reinterpret_cast<float*>(smem + L::glse);
 
   const int kj = blockIdx.x;
   const size_t base = (size_t)blockIdx.y * T * D;
@@ -337,17 +375,20 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   const int nq = T / BQ;
-  // q tiles strictly above this k tile's diagonal never see it
-  const int start = causal ? k0 / BQ : 0;
+  const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
+  // q tiles whose last row comes before this k tile's first column never
+  // see it (the offset form is _offs_kv_bounds's start)
+  const int start = OFFS ? clampi((ko + k0 - qo) / BQ, 0, nq) : (causal ? k0 / BQ : 0);
   for (int i = start; i < nq; ++i) {
     const int q0 = i * BQ;
-    const bool masked = causal && (q0 < k0 + BK - 1);
+    const bool masked = (OFFS || causal) && (qo + q0 < ko + k0 + BK - 1);
     __syncthreads();  // the previous q tile's products are done
     load_tile<D>(Qs, q + base + (size_t)q0 * D, BQ);
     load_tile<D>(dOs, dO + base + (size_t)q0 * D, BQ);
     if (threadIdx.x < BQ) {
       lses[threadIdx.x] = lse[rbase + q0 + threadIdx.x];
       deltas[threadIdx.x] = delta[rbase + q0 + threadIdx.x];
+      if (OFFS) glses[threadIdx.x] = glse[rbase + q0 + threadIdx.x];
     }
     __syncthreads();
 
@@ -355,9 +396,10 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     warp_abT<D>(dPs + wrow * LDS, dOs + wrow * L::LDH, Vs);
     __syncwarp();
     const int row = wrow + r;
-    softmax_grad_row(Ss + row * LDS + h * 32, dPs + row * LDS + h * 32,
-                     Ps + row * LDP + h * 32, dSs + row * LDP + h * 32,
-                     lses[row], deltas[row], scale, masked, q0 + row, k0 + h * 32);
+    softmax_grad_row<OFFS>(Ss + row * LDS + h * 32, dPs + row * LDS + h * 32,
+                           Ps + row * LDP + h * 32, dSs + row * LDP + h * 32, lses[row],
+                           deltas[row], OFFS ? glses[row] : 0.f, scale, masked,
+                           qo + q0 + row, ko + k0 + h * 32);
     __syncthreads();  // dV/dK read every q row of P and dS
 
     warp_xTy<D>(dv_acc, Ps, wrow, dOs);
@@ -397,13 +439,14 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // accumulator registers; every warp's rows depend only on its own scores,
 // so only the K/V loads need a block barrier.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool OFFS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int T, int causal, float scale) {
-  typedef BwdSmem<D> L;  // same tiles; K/V stream, Q/dO stay resident
+                    const float* __restrict__ glse, bf16* __restrict__ dq, int T,
+                    int causal, int q_off, int k_off, float scale) {
+  typedef BwdSmem<D, false> L;  // same tiles; K/V stream, Q/dO stay resident
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
   bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
@@ -428,15 +471,17 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<D>(dOs, dO + base + (size_t)q0 * D, BQ);
   const float lse_r = lse[rbase + q0 + row];
   const float delta_r = delta[rbase + q0 + row];
+  const float glse_r = OFFS ? glse[rbase + q0 + row] : 0.f;
+  const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
 
   FragC acc[D / 16];
 #pragma unroll
   for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
 
-  const int n_k = causal ? (q0 + BQ + BK - 1) / BK : T / BK;
+  const int n_k = fwd_k_tiles<OFFS>(q0, T, causal, qo, ko);
   for (int j = 0; j < n_k; ++j) {
     const int k0 = j * BK;
-    const bool masked = causal && (k0 + BK - 1 > q0);
+    const bool masked = (OFFS || causal) && (ko + k0 + BK - 1 > qo + q0);
     __syncthreads();
     load_tile<D>(Ks, k + base + (size_t)k0 * D, BK);
     load_tile<D>(Vs, v + base + (size_t)k0 * D, BK);
@@ -445,9 +490,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     warp_abT<D>(Ss + wrow * LDS, Qs + wrow * L::LDH, Ks);
     warp_abT<D>(dPs + wrow * LDS, dOs + wrow * L::LDH, Vs);
     __syncwarp();
-    softmax_grad_row(Ss + row * LDS + h * 32, dPs + row * LDS + h * 32,
-                     Ps + row * LDP + h * 32, dSs + row * LDP + h * 32,
-                     lse_r, delta_r, scale, masked, q0 + row, k0 + h * 32);
+    softmax_grad_row<OFFS>(Ss + row * LDS + h * 32, dPs + row * LDS + h * 32,
+                           Ps + row * LDP + h * 32, dSs + row * LDP + h * 32, lse_r,
+                           delta_r, glse_r, scale, masked, qo + q0 + row, ko + k0 + h * 32);
     __syncwarp();
     warp_xy<D>(acc, dSs + wrow * LDP, Ks);
   }
@@ -464,42 +509,46 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D>
+template <int D, bool OFFS>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-               int T, int causal, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<D>, FwdSmem<D>::total);
+               int T, int causal, int q_off, int k_off, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, OFFS>, FwdSmem<D>::total);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T / BQ, bh);
-  flash_fwd_kernel<D><<<grid, NTHREADS, FwdSmem<D>::total, stream>>>(
+  flash_fwd_kernel<D, OFFS><<<grid, NTHREADS, FwdSmem<D>::total, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, T, causal,
-      1.0f / sqrtf((float)D));
+      q_off, k_off, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <int D, bool WITH_DQ>
+template <int D, bool WITH_DQ, bool OFFS>
 int launch_bwd_kv(const void* q, const void* k, const void* v, const void* dO,
-                  const void* lse, const void* delta, void* dk, void* dv, void* dq_acc,
-                  int bh, int T, int causal, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_kv_kernel<D, WITH_DQ>, BwdSmem<D>::total);
+                  const void* lse, const void* delta, const void* glse, void* dk, void* dv,
+                  void* dq_acc, int bh, int T, int causal, int q_off, int k_off,
+                  cudaStream_t stream) {
+  typedef BwdSmem<D, OFFS> L;
+  cudaError_t err = allow_smem(flash_bwd_kv_kernel<D, WITH_DQ, OFFS>, L::total);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T / BK, bh);
-  flash_bwd_kv_kernel<D, WITH_DQ><<<grid, NTHREADS, BwdSmem<D>::total, stream>>>(
+  flash_bwd_kv_kernel<D, WITH_DQ, OFFS><<<grid, NTHREADS, L::total, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
-      (const float*)delta, (bf16*)dk, (bf16*)dv, (float*)dq_acc, T, causal,
-      1.0f / sqrtf((float)D));
+      (const float*)delta, (const float*)glse, (bf16*)dk, (bf16*)dv, (float*)dq_acc, T,
+      causal, q_off, k_off, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool OFFS>
 int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
-                  const void* lse, const void* delta, void* dq, int bh, int T, int causal,
-                  cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, BwdSmem<D>::total);
+                  const void* lse, const void* delta, const void* glse, void* dq, int bh,
+                  int T, int causal, int q_off, int k_off, cudaStream_t stream) {
+  typedef BwdSmem<D, false> L;
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, OFFS>, L::total);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T / BQ, bh);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, BwdSmem<D>::total, stream>>>(
+  flash_bwd_dq_kernel<D, OFFS><<<grid, NTHREADS, L::total, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
-      (const float*)delta, (bf16*)dq, T, causal, 1.0f / sqrtf((float)D));
+      (const float*)delta, (const float*)glse, (bf16*)dq, T, causal, q_off, k_off,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -515,7 +564,7 @@ constexpr int HEAD_DIM = 64;  // the slice's head width; add others when a path 
 extern "C" int p2p_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int bh, int T, int D, int causal, void* stream) {
   if (D != HEAD_DIM || T % BQ != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_fwd<HEAD_DIM>(q, k, v, o, lse, bh, T, causal, (cudaStream_t)stream);
+  return launch_fwd<HEAD_DIM, false>(q, k, v, o, lse, bh, T, causal, 0, 0, (cudaStream_t)stream);
 }
 
 extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, const void* dO,
@@ -523,21 +572,59 @@ extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, c
                                   void* dq_acc, int bh, int T, int D, int causal,
                                   void* stream) {
   if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_kv<HEAD_DIM, true>(q, k, v, dO, lse, delta, dk, dv, dq_acc, bh, T, causal,
-                                       (cudaStream_t)stream);
+  return launch_bwd_kv<HEAD_DIM, true, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc,
+                                              bh, T, causal, 0, 0, (cudaStream_t)stream);
 }
 
 extern "C" int p2p_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  int bh, int T, int D, int causal, void* stream) {
   if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_kv<HEAD_DIM, false>(q, k, v, dO, lse, delta, dk, dv, nullptr, bh, T, causal,
-                                        (cudaStream_t)stream);
+  return launch_bwd_kv<HEAD_DIM, false, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr,
+                                               bh, T, causal, 0, 0, (cudaStream_t)stream);
 }
 
 extern "C" int p2p_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                 const void* lse, const void* delta, void* dq, int bh, int T,
                                 int D, int causal, void* stream) {
   if (D != HEAD_DIM || T % BQ != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_dq<HEAD_DIM>(q, k, v, dO, lse, delta, dq, bh, T, causal, (cudaStream_t)stream);
+  return launch_bwd_dq<HEAD_DIM, false>(q, k, v, dO, lse, delta, nullptr, dq, bh, T, causal, 0, 0,
+                                        (cudaStream_t)stream);
+}
+
+// ---- offset-aware variants (ring attention hops); causal by construction ----
+
+extern "C" int p2p_flash_fwd_offs(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int bh, int T, int D, int q_off, int k_off,
+                                  void* stream) {
+  if (D != HEAD_DIM || T % BQ != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
+  return launch_fwd<HEAD_DIM, true>(q, k, v, o, lse, bh, T, 1, q_off, k_off, (cudaStream_t)stream);
+}
+
+extern "C" int p2p_flash_bwd_dkvq_offs(const void* q, const void* k, const void* v,
+                                       const void* dO, const void* lse, const void* delta,
+                                       const void* glse, void* dk, void* dv, void* dq_acc,
+                                       int bh, int T, int D, int q_off, int k_off,
+                                       void* stream) {
+  if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
+  return launch_bwd_kv<HEAD_DIM, true, true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T,
+                                             1, q_off, k_off, (cudaStream_t)stream);
+}
+
+extern "C" int p2p_flash_bwd_dkv_offs(const void* q, const void* k, const void* v,
+                                      const void* dO, const void* lse, const void* delta,
+                                      const void* glse, void* dk, void* dv, int bh, int T,
+                                      int D, int q_off, int k_off, void* stream) {
+  if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
+  return launch_bwd_kv<HEAD_DIM, false, true>(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh,
+                                              T, 1, q_off, k_off, (cudaStream_t)stream);
+}
+
+extern "C" int p2p_flash_bwd_dq_offs(const void* q, const void* k, const void* v, const void* dO,
+                                     const void* lse, const void* delta, const void* glse,
+                                     void* dq, int bh, int T, int D, int q_off, int k_off,
+                                     void* stream) {
+  if (D != HEAD_DIM || T % BQ != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
+  return launch_bwd_dq<HEAD_DIM, true>(q, k, v, dO, lse, delta, glse, dq, bh, T, 1, q_off, k_off,
+                                       (cudaStream_t)stream);
 }

@@ -16,9 +16,12 @@ with one more leading axis than usual (``lora_a`` of ``[N, in, r]``) is a
 node-stacked adapter and pairs with an input whose first axis is N: the
 federation runs all nodes in one call this way instead of vmapping.
 
-Attention backends: ``"dense"`` (``ops/attention.py``) and ``"flash"``
+Attention backends: ``"dense"`` (``ops/attention.py``), ``"flash"``
 (``ops/flash_attention.py``: CUDA kernels on the GPU, their plain
-versions on the CPU). The layers always loop in Python; ``scan_layers``
+versions on the CPU), and the sequence-sharded rings ``"ring"`` and
+``"ring_flash"`` (``ops/attention.py::ring_attention``); the node-stacked
+batch is flattened to ``[N·bs, T, H, D]`` before attention, so a ring
+sees it as one batch. The layers always loop in Python; ``scan_layers``
 only says which JAX layout :mod:`p2pfl_tpu_torch.convert` reads and
 writes.
 """
@@ -200,21 +203,37 @@ class CausalLM(nn.Module):
         return (x @ emb.to(dt).t()).float()  # tied embeddings
 
 
-def resolve_attention(attn: str, config: Optional[FlashConfig] = None) -> Optional[Callable]:
+def resolve_attention(
+    attn: str, config: Optional[FlashConfig] = None, mesh: Any = None
+) -> Optional[Callable]:
     """Map a backend name to an ``(q, k, v) -> out`` callable (``None`` =
-    dense, as in JAX)."""
+    dense, as in JAX). ``"ring"`` and ``"ring_flash"`` shard the sequence
+    over the ``Settings.MESH_MODEL_AXIS`` axis of ``mesh``; ``config`` is
+    the flash schedule of ``"flash"`` and of every ring hop of
+    ``"ring_flash"``."""
     if attn == "dense":
         return None
     if attn == "flash":
         from p2pfl_tpu_torch.ops.flash_attention import flash_attention
 
         return partial(flash_attention, causal=True, config=config)
-    if attn in ("ring", "ring_flash", "auto"):
-        raise NotImplementedError(
-            f"attn={attn!r} is not ported yet (ROADMAP Queue B4: ring flash over "
-            "torch.distributed; 'auto' waits for a measured crossover)"
+    if attn in ("ring", "ring_flash"):
+        if mesh is None:
+            raise ValueError(f"attn={attn!r} needs a mesh (sequence is sharded over it)")
+        from p2pfl_tpu_torch.ops.attention import ring_attention
+        from p2pfl_tpu_torch.settings import Settings
+
+        flash = attn == "ring_flash"
+        return partial(
+            ring_attention, mesh=mesh, axis_name=Settings.MESH_MODEL_AXIS,
+            impl="flash" if flash else "dense", flash_config=config if flash else None,
         )
-    raise ValueError(f"unknown attention backend {attn!r} (dense|flash)")
+    if attn == "auto":
+        raise NotImplementedError(
+            "attn='auto' is not ported yet: it waits for a crossover measured "
+            "on the card (ROADMAP Queue A7, pick_attention)"
+        )
+    raise ValueError(f"unknown attention backend {attn!r} (dense|flash|ring|ring_flash)")
 
 
 # ---- initialisation (flax's initialisers, from a torch.Generator) ----
@@ -279,27 +298,40 @@ def tiny_transformer(
     attn_fn: Optional[Callable] = None,
     attn: str = "dense",
     device=None,
+    mesh: Any = None,
 ) -> TorchModel:
     """A LoRA-ready causal LM bound to fresh parameters on ``device``.
 
-    ``attn`` is ``"dense"`` or ``"flash"``; ``attn_fn`` overrides it. For
-    flash, ``cfg.flash_config`` pins the schedule, else the defaults row
-    of :mod:`p2pfl_tpu_torch.ops.autotune` is resolved here.
+    ``attn`` is ``"dense"``, ``"flash"``, ``"ring"`` or ``"ring_flash"``
+    (the ring ones need ``mesh``, a
+    :func:`~p2pfl_tpu_torch.parallel.mesh.federation_mesh` whose ``model``
+    axis shards the sequence); ``attn_fn`` overrides it. For flash,
+    ``cfg.flash_config`` pins the schedule, else the defaults row of
+    :mod:`p2pfl_tpu_torch.ops.autotune` is resolved here for the attended
+    length: the whole sequence for ``"flash"``, one shard for
+    ``"ring_flash"`` (each hop's kernel sees ``seq_len // model``).
     """
     cfg = cfg or TransformerConfig()
     if attn_fn is None:
-        if attn == "flash":
+        if attn in ("flash", "ring_flash"):
             from p2pfl_tpu_torch.ops.autotune import _fit, default_flash_config
 
-            if _fit(seq_len, 512) > 512:
+            basis = seq_len
+            if attn == "ring_flash":
+                if mesh is None:
+                    raise ValueError("attn='ring_flash' needs a mesh")
+                from p2pfl_tpu_torch.settings import Settings
+
+                basis = seq_len // mesh.shape[Settings.MESH_MODEL_AXIS]
+            if _fit(basis, 512) > 512:
                 raise ValueError(
-                    f"attn='flash' needs a flash block <= 512 dividing the attended "
-                    f"length: {seq_len} has no multiple-of-8 divisor"
+                    f"attn={attn!r} needs a flash block <= 512 dividing the attended "
+                    f"length: {basis} (seq_len per shard) has no multiple-of-8 divisor"
                 )
-            flash_cfg = cfg.flash_config or default_flash_config(seq_len, cfg.head_dim)
-            attn_fn = resolve_attention("flash", config=flash_cfg)
+            flash_cfg = cfg.flash_config or default_flash_config(basis, cfg.head_dim)
+            attn_fn = resolve_attention(attn, config=flash_cfg, mesh=mesh)
         else:
-            attn_fn = resolve_attention(attn)
+            attn_fn = resolve_attention(attn, mesh=mesh)
     module = CausalLM(cfg, attn_fn)
     params = init_params(cfg, seed, device)
     model = TorchModel(module, params, (seq_len,), cfg.vocab_size)

@@ -42,6 +42,22 @@ TILE = 64  # the kernels' q/k tile: T must be a multiple
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkvq": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "flash_fwd_offs": 0, "flash_bwd_dkvq_offs": 0, "flash_bwd_dq_offs": 0,
+    "flash_bwd_dkv_offs": 0,
+}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ctypes argument types of every C entry point (pointers and the stream
+#: are c_void_p, ints c_int: ctypes would otherwise cut a pointer to 32 bits)
+SIGNATURES = {
+    "p2p_flash_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    "p2p_flash_bwd_dkvq": [_P] * 9 + [_I] * 4 + [_P],
+    "p2p_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
+    "p2p_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
+    "p2p_flash_fwd_offs": [_P] * 5 + [_I] * 5 + [_P],
+    "p2p_flash_bwd_dkvq_offs": [_P] * 10 + [_I] * 5 + [_P],
+    "p2p_flash_bwd_dkv_offs": [_P] * 9 + [_I] * 5 + [_P],
+    "p2p_flash_bwd_dq_offs": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -97,14 +113,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            sigs = {
-                "p2p_flash_fwd": [p, p, p, p, p, i, i, i, i, p],
-                "p2p_flash_bwd_dkvq": [p, p, p, p, p, p, p, p, p, i, i, i, i, p],
-                "p2p_flash_bwd_dkv": [p, p, p, p, p, p, p, p, i, i, i, i, p],
-                "p2p_flash_bwd_dq": [p, p, p, p, p, p, p, i, i, i, i, p],
-            }
-            for name, argtypes in sigs.items():
+            for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -131,7 +140,7 @@ def _check_inputs(**tensors: torch.Tensor) -> tuple[int, int, int, int]:
             raise ValueError(f"{name} must lie on the CUDA device of q")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        row = name in ("lse", "delta")
+        row = name in ("lse", "delta", "glse")
         want_dtype = torch.float32 if row else torch.bfloat16
         if x.dtype != want_dtype:
             raise TypeError(f"{name}: the kernels take {want_dtype}, got {x.dtype}")
@@ -210,3 +219,82 @@ def flash_bwd_split(q, k, v, do, lse, delta, causal: bool):
     """Two passes with no cross-block state: (dQ, dK, dV)."""
     dq = flash_bwd_dq(q, k, v, do, lse, delta, causal)
     return (dq, *flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+
+
+# ---- offset-aware variants: one ring-attention hop, causal by global
+# offsets (q row i attends k row j where q_off + i >= k_off + j) ----
+
+
+def _check_offsets(q_off: int, k_off: int) -> tuple[int, int]:
+    q_off, k_off = int(q_off), int(k_off)
+    if not (0 <= q_off < 2 ** 31 and 0 <= k_off < 2 ** 31):
+        raise ValueError(f"offsets ({q_off}, {k_off}) must fit a non-negative int32")
+    return q_off, k_off
+
+
+def flash_fwd_offs(q, k, v, q_off: int, k_off: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, H, T, D] bf16 → (O, lse [B, H, T] fp32); a row that sees
+    nothing gets O = 0 and lse = -1e30."""
+    b, h, t, d = _check_inputs(q=q, k=k, v=v)
+    q_off, k_off = _check_offsets(q_off, k_off)
+    lib = _load()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    rc = lib.p2p_flash_fwd_offs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        b * h, t, d, q_off, k_off, _stream(),
+    )
+    _check("flash_fwd_offs", rc)
+    return o, lse
+
+
+def flash_bwd_fused_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
+    """Single pass with the lse cotangent ``glse`` [B, H, T] fp32: (dQ, dK,
+    dV). dQ rows no k tile reaches keep the zeroed buffer's 0."""
+    b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta, glse=glse)
+    q_off, k_off = _check_offsets(q_off, k_off)
+    lib = _load()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    rc = lib.p2p_flash_bwd_dkvq_offs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+        b * h, t, d, q_off, k_off, _stream(),
+    )
+    _check("flash_bwd_dkvq_offs", rc)
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def flash_bwd_dq_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int) -> torch.Tensor:
+    """Split pass 1 of the offset backward: dQ per q tile."""
+    b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta, glse=glse)
+    q_off, k_off = _check_offsets(q_off, k_off)
+    lib = _load()
+    dq = torch.empty_like(q)
+    rc = lib.p2p_flash_bwd_dq_offs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), glse.data_ptr(), dq.data_ptr(), b * h, t, d, q_off, k_off, _stream(),
+    )
+    _check("flash_bwd_dq_offs", rc)
+    return dq
+
+
+def flash_bwd_dkv_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
+    """Split pass 2 of the offset backward: dK/dV per k tile."""
+    b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta, glse=glse)
+    q_off, k_off = _check_offsets(q_off, k_off)
+    lib = _load()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = lib.p2p_flash_bwd_dkv_offs(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, d,
+        q_off, k_off, _stream(),
+    )
+    _check("flash_bwd_dkv_offs", rc)
+    return dk, dv
+
+
+def flash_bwd_split_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
+    """Two offset passes with no cross-block state: (dQ, dK, dV)."""
+    dq = flash_bwd_dq_offs(q, k, v, do, lse, delta, glse, q_off, k_off)
+    return (dq, *flash_bwd_dkv_offs(q, k, v, do, lse, delta, glse, q_off, k_off))

@@ -1,10 +1,15 @@
-"""Flash attention, forward and backward, as a ``torch.autograd.Function``.
+"""Flash attention, forward and backward, as ``torch.autograd.Function``s.
 
-Counterpart of ``p2pfl_tpu/ops/flash_attention.py`` (kernels 1-4 of the
-Pallas set: ``_flash_kernel``, ``_dkvq_kernel``, ``_dq_kernel``,
-``_dkv_kernel``). The public layout stays ``[B, T, H, D]`` (GQA heads
-already repeated); inside, everything is ``[B, H, T, D]`` with the
-log-sum-exp in the block-size-independent ``[B, H, T]`` fp32 row layout.
+Counterpart of ``p2pfl_tpu/ops/flash_attention.py``: kernels 1-4 of the
+Pallas set (``_flash_kernel``, ``_dkvq_kernel``, ``_dq_kernel``,
+``_dkv_kernel``) behind :func:`flash_attention`, and their offset-aware
+siblings 5-8 (``_flash_kernel_offs``, ``_dkvq_kernel_offs``,
+``_dq_kernel_offs``, ``_dkv_kernel_offs``) behind
+:func:`flash_attention_block`, the per-hop call of ring attention. The
+public layout stays ``[B, T, H, D]`` (GQA heads already repeated); inside,
+everything is ``[B, H, T, D]`` with the log-sum-exp in the
+block-size-independent ``[B, H, T]`` fp32 row layout
+(:func:`flash_attention_block` returns it as JAX's ``[B, H, 1, T]``).
 Residuals are ``(q, k, v, o, lse)``; Δ = rowsum(dO∘O) is an fp32 torch op
 outside the kernels, as in JAX.
 
@@ -20,12 +25,19 @@ Dispatch is by the device of the tensors and nothing else:
 
 ``config=None`` resolves the ``cpu`` row of
 :func:`p2pfl_tpu_torch.ops.autotune.default_flash_config`.
+
+Loop bounds of the offset variants divide with :func:`_tdiv`, which
+truncates toward zero like JAX's ``lax.div`` and CUDA's ``/`` (Python's
+``//`` floors). Where the numerator is negative that can keep one fully
+masked k block in a q block's stream; it adds nothing to the output, and
+all three versions keep it, so they walk the same blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from functools import partial
+from typing import Callable, Optional
 
 import torch
 
@@ -109,7 +121,58 @@ def _bwd_blocks(t: int, d: int, cfg: FlashConfig) -> tuple[int, int]:
     return bq, bk
 
 
-# ---- plain PyTorch versions of the four kernels ([B, H, T, D] layout) ----
+# ---- loop bounds: (first, split, end) block indices of one sweep ----
+
+
+def _tdiv(a: int, b: int) -> int:
+    """a / b truncated toward zero (``lax.div``, CUDA ``/``), for b > 0."""
+    q = abs(a) // b
+    return q if a >= 0 else -q
+
+
+def _clip(x: int, lo: int, hi: int) -> int:
+    return min(max(x, lo), hi)
+
+
+def _causal_q_bounds(qi, block_q, block_k, nk, causal):
+    """k blocks of q block ``qi``: ``[0, n_full)`` unmasked, then
+    ``[n_full, n_all)`` masked (``_fwd_tile``'s split)."""
+    if not causal:
+        return nk, nk
+    return qi * block_q // block_k, ((qi + 1) * block_q + block_k - 1) // block_k
+
+
+def _offs_q_bounds(qi, q_off, k_off, block_q, block_k, nk):
+    """The same in global coordinates (``_fwd_tile_offs``, ``_dq_kernel_offs``):
+    stream the k blocks whose first column is <= the q block's last row;
+    those whose last column is <= its first row need no mask."""
+    last_row = q_off + (qi + 1) * block_q - 1
+    n_blocks = _clip(_tdiv(last_row - k_off, block_k) + 1, 0, nk)
+    n_full = _clip(_tdiv(q_off + qi * block_q - k_off + 1, block_k), 0, n_blocks)
+    return n_full, n_blocks
+
+
+def _causal_kv_bounds(kj, block_q, block_k, nq, causal):
+    """q blocks of k block ``kj``: from ``start`` on; ``[start, full)``
+    masked (``_dkv_kernel``)."""
+    if not causal:
+        return 0, 0
+    return kj * block_k // block_q, ((kj + 1) * block_k + block_q - 1) // block_q
+
+
+def _offs_kv_bounds(kj, q_off, k_off, block_q, block_k, nq):
+    """``_offs_kv_bounds`` of JAX: (start, full) in global coordinates."""
+    first_col = k_off + kj * block_k
+    start = _clip(_tdiv(first_col - q_off, block_q), 0, nq)
+    full = _clip(_tdiv(k_off + (kj + 1) * block_k - 1 - q_off + block_q - 1, block_q), start, nq)
+    return start, full
+
+
+# ---- plain PyTorch versions of the kernels ([B, H, T, D] layout) ----
+#
+# One sweep per kernel structure, parametrised by its loop bounds and the
+# global offsets of row 0 and column 0; kernels 1-4 pass offsets 0 and no
+# lse cotangent, kernels 5-8 their ring hop's offsets and ``glse``.
 
 
 def _causal_mask(s, row0: int, col0: int):
@@ -119,12 +182,11 @@ def _causal_mask(s, row0: int, col0: int):
     return torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
 
 
-def flash_fwd_plain(q, k, v, causal: bool, block_q: int, block_k: int):
-    """Plain version of ``_flash_kernel``: → (O [B,H,T,D], lse [B,H,T] fp32).
-
-    Every q block streams its visible k blocks with an online softmax;
-    under ``causal`` the blocks fully below the diagonal take no mask and
-    only the frontier blocks do (``_fwd_tile``'s split)."""
+def _fwd_sweep(q, k, v, block_q: int, block_k: int, bounds: Callable, q_off=0, k_off=0):
+    """Every q block streams its k blocks ``bounds(qi) = (n_full, n_all)``
+    with an online softmax; only the blocks from ``n_full`` on take the
+    mask. → (O [B,H,T,D], lse [B,H,T] fp32). A row that sees nothing keeps
+    O = 0 and lse = NEG_INF."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     dt, acc_t = q.dtype, acc_dtype(q.dtype)
@@ -137,17 +199,13 @@ def flash_fwd_plain(q, k, v, causal: bool, block_q: int, block_k: int):
         acc = torch.zeros((b, h, block_q, d), dtype=acc_t, device=q.device)
         m = torch.full((b, h, block_q, 1), NEG_INF, dtype=acc_t, device=q.device)
         l = torch.zeros((b, h, block_q, 1), dtype=acc_t, device=q.device)
-        if causal:
-            n_full = qi * block_q // block_k
-            n_all = ((qi + 1) * block_q + block_k - 1) // block_k
-        else:
-            n_full = n_all = t // block_k
+        n_full, n_all = bounds(qi)
         for j in range(n_all):
             masked = j >= n_full
             cols = slice(j * block_k, (j + 1) * block_k)
             s = (qb @ kf[:, :, cols].transpose(-1, -2)) * scale
             if masked:
-                s = _causal_mask(s, qi * block_q, j * block_k)
+                s = _causal_mask(s, q_off + qi * block_q, k_off + j * block_k)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
             if masked:
@@ -164,19 +222,42 @@ def flash_fwd_plain(q, k, v, causal: bool, block_q: int, block_k: int):
     return out, lse
 
 
-def _p_ds(qb, kb, vb, dob, lse_b, delta_b, scale, dt, masked, row0, col0):
+def flash_fwd_plain(q, k, v, causal: bool, block_q: int, block_k: int):
+    """Plain version of ``_flash_kernel``: → (O [B,H,T,D], lse [B,H,T] fp32)."""
+    nk = q.shape[2] // block_k
+    return _fwd_sweep(q, k, v, block_q, block_k,
+                      partial(_causal_q_bounds, block_q=block_q, block_k=block_k, nk=nk, causal=causal))
+
+
+def flash_fwd_offs_plain(q, k, v, q_off: int, k_off: int, block_q: int, block_k: int):
+    """Plain version of ``_flash_kernel_offs``: q row i attends k row j
+    where ``q_off + i >= k_off + j``."""
+    nk = q.shape[2] // block_k
+    bounds = partial(_offs_q_bounds, q_off=q_off, k_off=k_off, block_q=block_q, block_k=block_k, nk=nk)
+    return _fwd_sweep(q, k, v, block_q, block_k, bounds, q_off, k_off)
+
+
+def _p_ds(qb, kb, vb, dob, lse_b, delta_b, scale, masked, row0, col0, glse_b=None):
     """One (q block, k block) pair of the backward: P and dS (fp32; dS
-    before its cast), recomputing S from the saved lse."""
+    before its cast), recomputing S from the saved lse. ``glse_b`` is the
+    lse cotangent of the offset variants: dS = P·(dP − Δ + g_lse)."""
     s = scale * (qb @ kb.transpose(-1, -2))
     if masked:
         s = _causal_mask(s, row0, col0)
-    p = torch.exp(s - lse_b[..., None])  # masked entries underflow to 0
-    dp = dob @ vb.transpose(-1, -2)
-    return p, p * (dp - delta_b[..., None])
+    lse_c = lse_b[..., None]
+    # a row that sees nothing in this call keeps lse at the sentinel, and
+    # its masked scores are the sentinel too: exp(s - lse) would be 1 there,
+    # so P is forced to 0 (JAX: _dq_kernel_offs, _dkv_step_offs). Rows of
+    # kernels 1-4 always see their diagonal, so this changes nothing there.
+    p = torch.where(lse_c <= NEG_INF / 2, torch.zeros_like(s), torch.exp(s - lse_c))
+    dp = dob @ vb.transpose(-1, -2) - delta_b[..., None]
+    if glse_b is not None:
+        dp = dp + glse_b[..., None]
+    return p, p * dp
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, block_q: int, block_k: int):
-    """Plain version of ``_dq_kernel``: dQ per q block."""
+def _dq_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, bounds, q_off=0, k_off=0):
+    """dQ per q block over its k blocks ``bounds(qi) = (n_full, n_all)``."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     dt, acc_t = q.dtype, acc_dtype(q.dtype)
@@ -185,27 +266,25 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, block_q: int, bloc
     for qi in range(t // block_q):
         rows = slice(qi * block_q, (qi + 1) * block_q)
         acc = torch.zeros((b, h, block_q, d), dtype=acc_t, device=q.device)
-        if causal:
-            n_full = qi * block_q // block_k
-            n_all = ((qi + 1) * block_q + block_k - 1) // block_k
-        else:
-            n_full = n_all = t // block_k
+        n_full, n_all = bounds(qi)
         for j in range(n_all):
             cols = slice(j * block_k, (j + 1) * block_k)
             _, ds = _p_ds(
                 qf[:, :, rows], kf[:, :, cols], vf[:, :, cols], dof[:, :, rows],
-                lse[:, :, rows], delta[:, :, rows], scale, dt, j >= n_full,
-                qi * block_q, j * block_k,
+                lse[:, :, rows], delta[:, :, rows], scale, j >= n_full,
+                q_off + qi * block_q, k_off + j * block_k,
+                None if glse is None else glse[:, :, rows],
             )
             acc = acc + scale * (ds.to(dt).to(acc_t) @ kf[:, :, cols])
         dq[:, :, rows] = acc.to(dt)
     return dq
 
 
-def _dkv_sweep(q, k, v, do, lse, delta, causal, block_q, block_k, with_dq):
-    """Plain version of ``_dkv_kernel`` (``with_dq=False``) and of the fused
-    ``_dkvq_kernel`` (``with_dq=True``): per k block, stream the q blocks
-    from the causal frontier on; the diagonal band takes the mask."""
+def _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, bounds, with_dq, q_off=0, k_off=0):
+    """Plain version of the dK/dV kernels (``with_dq=False``) and of the
+    fused ones (``with_dq=True``): per k block, stream the q blocks from
+    ``start`` on, where ``bounds(kj) = (start, full)``; ``[start, full)``
+    takes the mask. q rows no k block reaches keep a zero dQ."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     dt, acc_t = q.dtype, acc_dtype(q.dtype)
@@ -218,17 +297,14 @@ def _dkv_sweep(q, k, v, do, lse, delta, causal, block_q, block_k, with_dq):
         kb, vb = kf[:, :, cols], vf[:, :, cols]
         dk_acc = torch.zeros((b, h, block_k, d), dtype=acc_t, device=q.device)
         dv_acc = torch.zeros_like(dk_acc)
-        if causal:
-            start = kj * block_k // block_q
-            full = ((kj + 1) * block_k + block_q - 1) // block_q
-        else:
-            start = full = 0
+        start, full = bounds(kj)
         for i in range(start, nq):
             rows = slice(i * block_q, (i + 1) * block_q)
             qb, dob = qf[:, :, rows], dof[:, :, rows]
             p, ds = _p_ds(
-                qb, kb, vb, dob, lse[:, :, rows], delta[:, :, rows], scale, dt,
-                i < full, i * block_q, kj * block_k,
+                qb, kb, vb, dob, lse[:, :, rows], delta[:, :, rows], scale,
+                i < full, q_off + i * block_q, k_off + kj * block_k,
+                None if glse is None else glse[:, :, rows],
             )
             ds = ds.to(dt).to(acc_t)
             dv_acc = dv_acc + p.to(dt).to(acc_t).transpose(-1, -2) @ dob
@@ -240,15 +316,57 @@ def _dkv_sweep(q, k, v, do, lse, delta, causal, block_q, block_k, with_dq):
     return dq_acc, dk, dv
 
 
+def _causal_bounds(q, causal, block_q, block_k):
+    t = q.shape[2]
+    return (
+        partial(_causal_q_bounds, block_q=block_q, block_k=block_k, nk=t // block_k, causal=causal),
+        partial(_causal_kv_bounds, block_q=block_q, block_k=block_k, nq=t // block_q, causal=causal),
+    )
+
+
+def _offs_bounds(q, q_off, k_off, block_q, block_k):
+    t = q.shape[2]
+    kw = dict(q_off=q_off, k_off=k_off, block_q=block_q, block_k=block_k)
+    return partial(_offs_q_bounds, nk=t // block_k, **kw), partial(_offs_kv_bounds, nq=t // block_q, **kw)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, block_q: int, block_k: int):
+    """Plain version of ``_dq_kernel``: dQ per q block."""
+    qb, _ = _causal_bounds(q, causal, block_q, block_k)
+    return _dq_sweep(q, k, v, do, lse, delta, None, block_q, block_k, qb)
+
+
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, block_q: int, block_k: int):
     """Plain version of ``_dkv_kernel``: (dK, dV)."""
-    _, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, causal, block_q, block_k, False)
+    _, kvb = _causal_bounds(q, causal, block_q, block_k)
+    _, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, None, block_q, block_k, kvb, False)
     return dk, dv
 
 
 def flash_bwd_fused_plain(q, k, v, do, lse, delta, causal: bool, block_q: int, block_k: int):
     """Plain version of ``_dkvq_kernel``: (dQ, dK, dV) in one sweep."""
-    dq_acc, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, causal, block_q, block_k, True)
+    _, kvb = _causal_bounds(q, causal, block_q, block_k)
+    dq_acc, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, None, block_q, block_k, kvb, True)
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def flash_bwd_dq_offs_plain(q, k, v, do, lse, delta, glse, q_off: int, k_off: int, block_q: int, block_k: int):
+    """Plain version of ``_dq_kernel_offs``."""
+    qb, _ = _offs_bounds(q, q_off, k_off, block_q, block_k)
+    return _dq_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, qb, q_off, k_off)
+
+
+def flash_bwd_dkv_offs_plain(q, k, v, do, lse, delta, glse, q_off: int, k_off: int, block_q: int, block_k: int):
+    """Plain version of ``_dkv_kernel_offs``: (dK, dV)."""
+    _, kvb = _offs_bounds(q, q_off, k_off, block_q, block_k)
+    _, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, kvb, False, q_off, k_off)
+    return dk, dv
+
+
+def flash_bwd_fused_offs_plain(q, k, v, do, lse, delta, glse, q_off: int, k_off: int, block_q: int, block_k: int):
+    """Plain version of ``_dkvq_kernel_offs``: (dQ, dK, dV) in one sweep."""
+    _, kvb = _offs_bounds(q, q_off, k_off, block_q, block_k)
+    dq_acc, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, kvb, True, q_off, k_off)
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -259,6 +377,12 @@ def _device_kind(x: torch.Tensor) -> str:
     if x.device.type in ("cuda", "cpu"):
         return x.device.type
     raise ValueError(f"flash attention runs on cuda or cpu tensors, not {x.device}")
+
+
+def _delta(do, o):
+    """Δ_i = Σ_d dO_id · O_id in fp32, the lse row layout."""
+    acc = acc_dtype(do.dtype)
+    return (do.to(acc) * o.to(acc)).sum(-1)
 
 
 def flash_fwd_bhtd(q, k, v, causal: bool, cfg: FlashConfig):
@@ -276,8 +400,7 @@ def flash_fwd_bhtd(q, k, v, causal: bool, cfg: FlashConfig):
 def flash_bwd_bhtd(q, k, v, o, lse, do, causal: bool, cfg: FlashConfig):
     """→ (dQ, dK, dV), all [B, H, T, D]."""
     t, d = q.shape[2], q.shape[3]
-    # Δ_i = Σ_d dO_id · O_id in fp32, the lse row layout
-    delta = (do.to(acc_dtype(q.dtype)) * o.to(acc_dtype(q.dtype))).sum(-1)
+    delta = _delta(do, o)
     fused = _bwd_use_fused(t, d, cfg.bwd_mode)
     if _device_kind(q) == "cuda":
         from p2pfl_tpu_torch.ops import _kernels
@@ -289,6 +412,38 @@ def flash_bwd_bhtd(q, k, v, o, lse, do, causal: bool, cfg: FlashConfig):
         return flash_bwd_fused_plain(q, k, v, do, lse, delta, causal, bq, bk)
     dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, bq, bk)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, bq, bk)
+    return dq, dk, dv
+
+
+def flash_fwd_offs_bhtd(q, k, v, q_off: int, k_off: int, cfg: FlashConfig):
+    """Offset-aware forward, [B, H, T, D] → (O, lse [B, H, T] fp32)."""
+    if _device_kind(q) == "cuda":
+        from p2pfl_tpu_torch.ops import _kernels
+
+        return _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+    bq, bk = _clamp_blocks(q.shape[2], cfg.block_q, cfg.block_k)
+    return flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk)
+
+
+def flash_bwd_offs_bhtd(q, k, v, o, lse, do, glse, q_off: int, k_off: int, cfg: FlashConfig):
+    """Offset-aware backward with the lse cotangent ``glse`` [B, H, T]
+    (``_fab_bwd``) → (dQ, dK, dV)."""
+    t, d = q.shape[2], q.shape[3]
+    delta = _delta(do, o)
+    # rows invisible in this call (lse at the -1e30 sentinel) carry no lse
+    # gradient; NEG_INF is finite, so compare, never isfinite
+    glse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), glse.to(lse.dtype))
+    fused = _bwd_use_fused(t, d, cfg.bwd_mode)
+    if _device_kind(q) == "cuda":
+        from p2pfl_tpu_torch.ops import _kernels
+
+        run = _kernels.flash_bwd_fused_offs if fused else _kernels.flash_bwd_split_offs
+        return run(q, k, v, do, lse, delta, glse, q_off, k_off)
+    bq, bk = _bwd_blocks(t, d, cfg)
+    if fused:
+        return flash_bwd_fused_offs_plain(q, k, v, do, lse, delta, glse, q_off, k_off, bq, bk)
+    dq = flash_bwd_dq_offs_plain(q, k, v, do, lse, delta, glse, q_off, k_off, bq, bk)
+    dk, dv = flash_bwd_dkv_offs_plain(q, k, v, do, lse, delta, glse, q_off, k_off, bq, bk)
     return dq, dk, dv
 
 
@@ -316,3 +471,35 @@ def flash_attention(q, k, v, causal: bool = True, config: Optional[FlashConfig] 
     """Flash attention. q, k, v: [B, T, H, D] (GQA heads pre-repeated)."""
     cfg = _resolve(config, q.shape[1], q.shape[-1])
     return FlashAttention.apply(q, k, v, causal, cfg)
+
+
+class FlashAttentionBlock(torch.autograd.Function):
+    """The ``custom_vjp`` of JAX's ``flash_attention_block``: two outputs,
+    (O, lse), and a backward that takes both cotangents; the ring merge
+    differentiates through lse. Δ comes from this call's own output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_off: int, k_off: int, config: FlashConfig):
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        o, lse = flash_fwd_offs_bhtd(qt, kt, vt, q_off, k_off, config)
+        ctx.save_for_backward(qt, kt, vt, o, lse)
+        ctx.offs, ctx.config = (q_off, k_off), config
+        return o.transpose(1, 2), lse.unsqueeze(2)
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        qt, kt, vt, o, lse = ctx.saved_tensors
+        do = g.transpose(1, 2).contiguous()
+        glse = g_lse[:, :, 0].contiguous()
+        dq, dk, dv = flash_bwd_offs_bhtd(qt, kt, vt, o, lse, do, glse, *ctx.offs, ctx.config)
+        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None, None, None
+
+
+def flash_attention_block(q, k, v, q_off: int, k_off: int, config: Optional[FlashConfig] = None):
+    """One causal-by-global-offset attention block: q row i attends k row j
+    where ``q_off + i >= k_off + j``. q, k, v: [B, T, H, D] (T = the local
+    shard); the offsets are Python ints. Returns ``(out, lse)`` with lse
+    ``[B, H, 1, T]`` fp32, which makes results mergeable across ring hops;
+    a row that sees nothing gets out 0 and lse NEG_INF."""
+    cfg = _resolve(config, q.shape[1], q.shape[-1])
+    return FlashAttentionBlock.apply(q, k, v, int(q_off), int(k_off), cfg)

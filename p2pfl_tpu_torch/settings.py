@@ -16,3 +16,9 @@ class Settings:
     # secure aggregation is a gossip-plane protocol; the SPMD federation
     # refuses it (one program is one trust domain)
     SECURE_AGGREGATION: bool = False
+
+    # --- mesh ---
+    # ``nodes`` indexes federated nodes (mesh slots); ``model`` is
+    # intra-node parallelism, here the sequence shards of ring attention
+    MESH_NODES_AXIS: str = "nodes"
+    MESH_MODEL_AXIS: str = "model"

@@ -91,3 +91,65 @@ def test_launch_counts_and_refusals(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.flash_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True)
     assert _kernels.LAUNCHES["flash_fwd"] == 1
+
+
+# (q_off, k_off) of one ring hop at T 128: diagonal, fully visible, fully
+# masked, and off-tile (the mask cuts through 64-row tiles, with rows that
+# see nothing inside a visited tile)
+OFFSETS = {"diagonal": (128, 128), "visible": (256, 0), "masked": (0, 128), "offtile": (128 + 32, 128 + 8)}
+
+
+@pytest.mark.parametrize("case", list(OFFSETS))
+def test_offset_kernels_match_plain(cuda, case):
+    q_off, k_off = OFFSETS[case]
+    q, k, v, do = _inputs(cuda)
+    o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+    o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64)
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    if case == "masked":
+        assert torch.count_nonzero(o) == 0 and bool((lse == -1e30).all())
+    delta = (do.float() * o.float()).sum(-1)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    glse = torch.randn(lse.shape, generator=gen, device=cuda)
+    glse = torch.where(lse <= -0.5e30, torch.zeros_like(glse), glse)
+    want = fa.flash_bwd_fused_offs_plain(q, k, v, do, lse, delta, glse, q_off, k_off, 64, 64)
+    for got_fused, got_split, ref in zip(
+        _kernels.flash_bwd_fused_offs(q, k, v, do, lse, delta, glse, q_off, k_off),
+        _kernels.flash_bwd_split_offs(q, k, v, do, lse, delta, glse, q_off, k_off),
+        want,
+    ):
+        _close(got_fused, ref)
+        _close(got_split, ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("bwd_mode", ["fused", "split"])
+def test_ring_flash_on_card_matches_cpu_plain(cuda, bwd_mode):
+    """ring_attention(impl="flash") with 4 shards on one card against the
+    same ring on the CPU's plain versions, forward and gradients."""
+    from p2pfl_tpu_torch.ops.attention import ring_attention
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+
+    q, k, v, g = (x.transpose(1, 2) for x in _inputs(cuda, t=512))
+    cfg = fa.FlashConfig(64, 64, bwd_mode=bwd_mode)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        mesh = federation_mesh(model_parallel=4, devices=[dev] * 4)
+        xs = [x.detach().to(dev).requires_grad_(True) for x in (q, k, v)]
+        _kernels.reset_launches()
+        out = ring_attention(*xs, mesh, "model", impl="flash", flash_config=cfg)
+        out.backward(g.to(dev))
+        if dev.type == "cuda":
+            assert _kernels.LAUNCHES["flash_fwd_offs"] == 16
+            bwd = ["flash_bwd_dkvq_offs"] if bwd_mode == "fused" else ["flash_bwd_dq_offs", "flash_bwd_dkv_offs"]
+            assert all(_kernels.LAUNCHES[name] == 16 for name in bwd)
+        grads.append([out.detach().cpu()] + [x.grad.cpu() for x in xs])
+    for got, want in zip(*grads):
+        _close(got, want)
+
+
+def test_offset_wrappers_refuse_bad_offsets(cuda):
+    q, k, v, _ = _inputs(cuda)
+    with pytest.raises(ValueError, match="offsets"):
+        _kernels.flash_fwd_offs(q, k, v, -1, 0)

@@ -165,7 +165,14 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         _kernels.flash_bwd_fused(q, k, v, q, lse, lse, True)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.flash_bwd_split(q, k, v, q, lse, lse, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.flash_fwd_offs(q, k, v, 64, 0)
+    for offs_bwd in (_kernels.flash_bwd_fused_offs, _kernels.flash_bwd_split_offs,
+                     _kernels.flash_bwd_dq_offs, _kernels.flash_bwd_dkv_offs):
+        with pytest.raises(ValueError, match="CUDA"):
+            offs_bwd(q, k, v, q, lse, lse, lse, 64, 0)
     assert _kernels.LAUNCHES == before
+    assert _kernels._lib is None  # nothing was built
 
 
 def test_dispatch_refuses_other_devices():

@@ -3,6 +3,7 @@ its entry points default to CUDA and raise without a GPU instead of
 running on the CPU, and the CUDA sources it builds are in the package."""
 
 import ast
+import ctypes
 import pkgutil
 import re
 import subprocess
@@ -110,15 +111,28 @@ def test_kernel_sources_and_bindings_agree():
     source with the same number of parameters, the build targets sm_90a,
     and importing the module built nothing."""
     src = (PKG / "csrc" / "flash_attention.cu").read_text()
-    for name, argc in {
+    argcs = {
         "p2p_flash_fwd": 10, "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dq": 12,
-    }.items():
+        "p2p_flash_fwd_offs": 11, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_dkv_offs": 15,
+        "p2p_flash_bwd_dq_offs": 14,
+    }
+    for name, argc in argcs.items():
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
         assert m, name
-        assert len(m.group(1).split(",")) == argc, name
+        params = m.group(1).split(",")
+        assert len(params) == argc, name
+        # the ctypes binding declares a pointer for each pointer, an int for each int
+        want = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params]
+        assert _kernels.SIGNATURES[name] == want, name
+        assert f"lib.{name}(" in (PKG / "ops" / "_kernels.py").read_text(), name
+    assert len(re.findall(r'extern "C" int p2p_', src)) == len(argcs) == len(_kernels.SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels._lib is None
-    assert set(_kernels.LAUNCHES) == {"flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv"}
+    assert set(_kernels.LAUNCHES) == {
+        "flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv",
+        "flash_fwd_offs", "flash_bwd_dkvq_offs", "flash_bwd_dq_offs", "flash_bwd_dkv_offs",
+    }
+    assert [s.name for s in _kernels.SOURCES] == [p.name for p in sorted((PKG / "csrc").glob("*.cu"))]
     for rel in ("torch", "TORCH", "ATen"):
         assert f"#include <{rel}" not in src  # plain C interface: no PyTorch headers
 

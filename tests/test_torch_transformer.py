@@ -218,7 +218,24 @@ def test_unported_options_raise(kwargs, match):
 
 @pytest.mark.parametrize("attn", ["ring", "ring_flash", "auto"])
 def test_unported_attention_backends_raise(attn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.tiny_transformer(seq_len=SEQ, cfg=ttr.TransformerConfig(**SMALL), attn=attn, device="cpu")
+    """"auto" is not ported and raises. The rings are ported: without a
+    mesh they raise, with a CPU ring of 4 shards their logits equal the
+    dense model's (fp32, 3e-5)."""
+    cfg = ttr.TransformerConfig(**SMALL, dtype=torch.float32)
     with pytest.raises(ValueError, match="unknown"):
         ttr.resolve_attention("sparse")
+    if attn == "auto":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ttr.tiny_transformer(seq_len=SEQ, cfg=cfg, attn=attn, device="cpu")
+        return
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+
+    with pytest.raises(ValueError, match="needs a mesh"):
+        ttr.tiny_transformer(seq_len=SEQ, cfg=cfg, attn=attn, device="cpu")
+    mesh = federation_mesh(model_parallel=4, devices=["cpu"] * 4)
+    ring = ttr.tiny_transformer(seq_len=SEQ, seed=2, cfg=cfg, attn=attn, mesh=mesh, device="cpu")
+    dense = ttr.tiny_transformer(seq_len=SEQ, seed=2, cfg=cfg, device="cpu")
+    x, _ = _tokens(seed=4)
+    want = dense.module(dense.params, torch.tensor(x))
+    got = ring.module(ring.params, torch.tensor(x))
+    torch.testing.assert_close(got, want, atol=LOGIT_TOL["fp32"], rtol=0)
