@@ -14,8 +14,9 @@ Phases, each of which makes the script exit non-zero if it fails (the
    32 heads, head dim 64, bf16), causal and full, and time kernel, plain
    version, the analytic bound and one PyTorch library call as a yardstick;
 4. [offs] the same for the offset-aware kernels 5-8 at a ring hop's shape
-   (2 nodes x 32 heads, T_local 1024, bf16) in four visibility cases
-   (diagonal, fully visible, fully masked, off-tile), both backward
+   (2 nodes x 32 heads, T_local 1024, bf16) in five visibility cases
+   (diagonal, fully visible, fully masked, and two off-tile pairs, one
+   with rows that see nothing inside a visited tile), both backward
    structures with a nonzero lse cotangent; then ``ring_attention(impl=
    "flash")`` at [2, 4096, 32, 64] with R = 4 against unsharded flash;
 5. [main] the flash path at full width and depth: federated LoRA on the
@@ -241,16 +242,28 @@ def check_kernels(results: dict) -> bool:
 
 # (q_off, k_off) of one ring hop with T_local 1024: the diagonal hop, a hop
 # from an earlier shard (fully visible), one from a later shard (fully
-# masked), and an off-tile pair whose mask cuts through the kernels' 64-row
-# tiles at an offset the non-offset kernels never mask
+# masked), and two off-tile pairs whose mask cuts through the kernels'
+# 64-row tiles at an offset the non-offset kernels never mask. In
+# "offtile" every row sees key 0; in "offtile_late" (q_off < k_off) rows
+# 0-31 see nothing inside the one k tile their q tile visits, which runs
+# the kernels' sentinel guard (O 0, lse -1e30, P 0 in the backward)
 OFFSET_CASES = {
     "diagonal": (1024, 1024), "visible": (2048, 0), "masked": (0, 1024), "offtile": (1024 + 32, 1024),
+    "offtile_late": (1024, 1024 + 32),
 }
 
 
 def visible_pairs(b: int, h: int, t: int, q_off: int, k_off: int) -> int:
     """(q, k) pairs the hop attends: row i sees k_off + j <= q_off + i."""
     return b * h * sum(min(max(q_off + i - k_off + 1, 0), t) for i in range(t))
+
+
+def seen_rows(t: int, q_off: int, k_off: int) -> int:
+    """Rows of the hop's inputs the function must read: the q rows that see
+    some key (i >= k_off - q_off) and the keys some row sees (j <= q_off +
+    t - 1 - k_off) are equally many. A fully masked hop reads nothing: the
+    offsets alone fix its outputs."""
+    return min(max(q_off + t - k_off, 0), t)
 
 
 def offset_mask(t: int, q_off: int, k_off: int, device) -> torch.Tensor:
@@ -277,13 +290,18 @@ def check_offs_kernels(results: dict) -> bool:
     ok = True
     for case, (q_off, k_off) in OFFSET_CASES.items():
         pairs = visible_pairs(b, h, t, q_off, k_off)
+        # bytes: the rows that must be read (q, k, v, dO and the fp32 rows
+        # lse, Δ, g_lse of seen rows only), every output written once
+        n_seen = seen_rows(t, q_off, k_off) * b * h
+        seen_tensor, seen_row = n_seen * d * bf16, n_seen * f32
         o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
         o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk)
         r_o = check(o, o_ref)
         e_l = (lse - lse_ref).abs().max().item()
         good = r_o[2] <= 1 and e_l <= LSE_TOL
-        if case == "masked":  # nothing visible: O exactly 0, lse at the sentinel
-            good &= torch.count_nonzero(o).item() == 0 and bool((lse == NEG_INF).all())
+        dead = min(max(k_off - q_off, 0), t)  # leading rows that see nothing
+        if dead:  # there O is exactly 0 and lse at the sentinel
+            good &= torch.count_nonzero(o[..., :dead, :]).item() == 0 and bool((lse[..., :dead] == NEG_INF).all())
         ok &= good
         limits = {"flash_fwd_offs": f"{fmt('O', r_o)}; lse max err {e_l:.3e} (limit {LSE_TOL})"}
         log(f"[offs] flash_fwd_offs {case}: {limits['flash_fwd_offs']} {'OK' if good else 'FAIL'}")
@@ -306,29 +324,28 @@ def check_offs_kernels(results: dict) -> bool:
 
         # ---- timing: kernel, plain version, library yardstick, bound ----
         if case == "diagonal":
-            lib_fwd = lambda: sdpa(q, k, v, is_causal=True)  # noqa: E731
+            kw = {"is_causal": True}
         elif case == "visible":
-            lib_fwd = lambda: sdpa(q, k, v)  # noqa: E731
-        elif case == "offtile":
-            mask = offset_mask(t, q_off, k_off, "cuda")
-            lib_fwd = lambda: sdpa(q, k, v, attn_mask=mask)  # noqa: E731
+            kw = {}
+        elif case.startswith("offtile"):
+            # a yardstick only: SDPA gives NaN on rows that see nothing
+            kw = {"attn_mask": offset_mask(t, q_off, k_off, "cuda")}
         else:
-            lib_fwd = None  # no library call computes a fully masked attention
+            kw = None  # no library call computes a fully masked attention
+        lib_fwd = (lambda: sdpa(q, k, v, **kw)) if kw is not None else None
         qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
 
         def lib_fwd_bwd():
-            kw = {"is_causal": True} if case == "diagonal" else (
-                {"attn_mask": mask} if case == "offtile" else {})
             sdpa(qg, kg, vg, **kw).backward(do)
 
-        lib_b = time_ms(lib_fwd_bwd) if lib_fwd is not None else None
+        lib_b = time_ms(lib_fwd_bwd) if kw is not None else None
         rows = {}
-        bms, by = bound(3 * tensor_bytes + tensor_bytes + row_bytes, 4 * d * pairs)
+        bms, by = bound(3 * seen_tensor + tensor_bytes + row_bytes, 4 * d * pairs)
         rows["flash_fwd_offs"] = dict(
             max_abs_err=max(r_o[0], e_l), ms=time_ms(lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off)),
             plain_ms=time_ms(lambda: fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk), iters=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fwd) if lib_fwd is not None else None)
-        bwd_in = 4 * tensor_bytes + 3 * row_bytes  # q, k, v, dO, lse, delta, g_lse
+        bwd_in = 4 * seen_tensor + 3 * seen_row  # q, k, v, dO, lse, delta, g_lse
         for name, kernel, plain, n_out, flops, err in (
             ("flash_bwd_dkvq_offs", _kernels.flash_bwd_fused_offs, fa.flash_bwd_fused_offs_plain, 3, 10,
              max(e for e, _, _ in res)),

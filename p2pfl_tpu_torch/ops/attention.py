@@ -79,13 +79,14 @@ def _dense_hop(state, q, kb, vb, q_off, k_off, scale, causal):
 
 def merge_lse(out, lse, ob, lb):
     """Log-sum-exp merge of one flash block ``(ob, lb)`` into the running
-    ``(out [B,T,H,D] fp32, lse [B,H,1,T] fp32)``. NEG_INF is a finite
-    sentinel, so rows are tested with ``<= NEG_INF / 2``, never isfinite;
-    two sentinel rows merge to weights 0 with finite gradients."""
+    ``(out [B,H,T,D] fp32, lse [B,H,T] fp32)``, the kernels' layout.
+    NEG_INF is a finite sentinel, so rows are tested with
+    ``<= NEG_INF / 2``, never isfinite; two sentinel rows merge to weights
+    0 with finite gradients."""
     new = torch.logaddexp(lse, lb)
     wo = torch.where(lse <= NEG_INF / 2, torch.zeros_like(lse), torch.exp(lse - new))
     wn = torch.where(lb <= NEG_INF / 2, torch.zeros_like(lb), torch.exp(lb - new))
-    return out * _as_bthd(wo[:, :, 0]) + ob.to(out.dtype) * _as_bthd(wn[:, :, 0]), new
+    return out * wo[..., None] + ob.to(out.dtype) * wn[..., None], new
 
 
 def _ring_attention_sharded(qs, ks, vs, devices, causal: bool):
@@ -115,25 +116,30 @@ def _ring_attention_sharded(qs, ks, vs, devices, causal: bool):
 def _ring_flash_sharded(qs, ks, vs, devices, config):
     """Flash ring body: every hop runs the offset-aware flash kernel on the
     shard's Q against the incoming K/V shard (O(T_local·D) memory instead of
-    the dense body's O(T_local²) logits) and merges by log-sum-exp."""
-    from p2pfl_tpu_torch.ops.flash_attention import flash_attention_block
+    the dense body's O(T_local²) logits) and merges by log-sum-exp.
+
+    Each shard is transposed to the kernels' [B, H, T_local, D] once, so
+    every hop of a shard reads (and saves for the backward) the same
+    tensors, and its gradients sum in that layout before one transpose
+    back. The running output and lse stay in that layout too, so hop merges
+    never depend on the configured block shapes."""
+    from p2pfl_tpu_torch.ops.flash_attention import FlashAttentionBlock
 
     ring = len(qs)
-    b, tl, h, d = qs[0].shape
-    acc_t = acc_dtype(qs[0].dtype)
-    # lse rides the kernels' [B, H, 1, T_local] row layout, so hop merges
-    # never depend on the configured block shapes
-    outs = [torch.zeros((b, tl, h, d), dtype=acc_t, device=dev) for dev in devices]
-    lses = [torch.full((b, h, 1, tl), NEG_INF, dtype=acc_t, device=dev) for dev in devices]
-    kb, vb = list(ks), list(vs)
+    dt = qs[0].dtype
+    qs, kb, vb = ([x.transpose(1, 2).contiguous() for x in xs] for xs in (qs, ks, vs))
+    b, h, tl, d = qs[0].shape
+    acc_t = acc_dtype(dt)
+    outs = [torch.zeros((b, h, tl, d), dtype=acc_t, device=dev) for dev in devices]
+    lses = [torch.full((b, h, tl), NEG_INF, dtype=acc_t, device=dev) for dev in devices]
     for i in range(ring):
         for my in range(ring):
             src = (my - i) % ring
-            ob, lb = flash_attention_block(qs[my], kb[my], vb[my], my * tl, src * tl, config)
+            ob, lb = FlashAttentionBlock.apply(qs[my], kb[my], vb[my], my * tl, src * tl, config)
             outs[my], lses[my] = merge_lse(outs[my], lses[my], ob, lb.to(acc_t))
         if i + 1 < ring:
             kb, vb = _rotate(kb, devices), _rotate(vb, devices)
-    return [o.to(q.dtype) for o, q in zip(outs, qs)]
+    return [o.to(dt).transpose(1, 2) for o in outs]
 
 
 def _rotate(blocks, devices):

@@ -474,25 +474,26 @@ def flash_attention(q, k, v, causal: bool = True, config: Optional[FlashConfig] 
 
 
 class FlashAttentionBlock(torch.autograd.Function):
-    """The ``custom_vjp`` of JAX's ``flash_attention_block``: two outputs,
-    (O, lse), and a backward that takes both cotangents; the ring merge
-    differentiates through lse. Δ comes from this call's own output."""
+    """The ``custom_vjp`` of JAX's ``flash_attention_block`` in the kernels'
+    layout: q, k, v, O ``[B, H, T, D]`` contiguous, lse ``[B, H, T]`` fp32.
+    Two outputs and a backward that takes both cotangents; the ring merge
+    differentiates through lse. Δ comes from this call's own output. The
+    inputs are saved as given, so a ring that hands every hop the same
+    shard tensors keeps one copy of each."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_off: int, k_off: int, config: FlashConfig):
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        o, lse = flash_fwd_offs_bhtd(qt, kt, vt, q_off, k_off, config)
-        ctx.save_for_backward(qt, kt, vt, o, lse)
+        o, lse = flash_fwd_offs_bhtd(q, k, v, q_off, k_off, config)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.offs, ctx.config = (q_off, k_off), config
-        return o.transpose(1, 2), lse.unsqueeze(2)
+        return o, lse
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        qt, kt, vt, o, lse = ctx.saved_tensors
-        do = g.transpose(1, 2).contiguous()
-        glse = g_lse[:, :, 0].contiguous()
-        dq, dk, dv = flash_bwd_offs_bhtd(qt, kt, vt, o, lse, do, glse, *ctx.offs, ctx.config)
-        return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2), None, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_offs_bhtd(q, k, v, o, lse, g.contiguous(), g_lse.contiguous(),
+                                         *ctx.offs, ctx.config)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_block(q, k, v, q_off: int, k_off: int, config: Optional[FlashConfig] = None):
@@ -500,6 +501,9 @@ def flash_attention_block(q, k, v, q_off: int, k_off: int, config: Optional[Flas
     where ``q_off + i >= k_off + j``. q, k, v: [B, T, H, D] (T = the local
     shard); the offsets are Python ints. Returns ``(out, lse)`` with lse
     ``[B, H, 1, T]`` fp32, which makes results mergeable across ring hops;
-    a row that sees nothing gets out 0 and lse NEG_INF."""
+    a row that sees nothing gets out 0 and lse NEG_INF. The ring calls
+    :class:`FlashAttentionBlock` directly on shards it transposed once."""
     cfg = _resolve(config, q.shape[1], q.shape[-1])
-    return FlashAttentionBlock.apply(q, k, v, int(q_off), int(k_off), cfg)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    o, lse = FlashAttentionBlock.apply(qt, kt, vt, int(q_off), int(k_off), cfg)
+    return o.transpose(1, 2), lse.unsqueeze(2)

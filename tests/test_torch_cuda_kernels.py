@@ -94,9 +94,14 @@ def test_launch_counts_and_refusals(cuda):
 
 
 # (q_off, k_off) of one ring hop at T 128: diagonal, fully visible, fully
-# masked, and off-tile (the mask cuts through 64-row tiles, with rows that
-# see nothing inside a visited tile)
-OFFSETS = {"diagonal": (128, 128), "visible": (256, 0), "masked": (0, 128), "offtile": (128 + 32, 128 + 8)}
+# masked, and two off-tile pairs whose mask cuts through the 64-row tiles:
+# in "offtile" every row sees key 0; in "offtile_late" (q_off < k_off) rows
+# 0-31 see nothing inside the k tile their q tile visits, which runs the
+# kernels' sentinel guard
+OFFSETS = {
+    "diagonal": (128, 128), "visible": (256, 0), "masked": (0, 128), "offtile": (128 + 32, 128 + 8),
+    "offtile_late": (128, 128 + 32),
+}
 
 
 @pytest.mark.parametrize("case", list(OFFSETS))
@@ -107,8 +112,9 @@ def test_offset_kernels_match_plain(cuda, case):
     o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64)
     _close(o, o_ref)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
-    if case == "masked":
-        assert torch.count_nonzero(o) == 0 and bool((lse == -1e30).all())
+    dead = min(max(k_off - q_off, 0), q.shape[2])  # leading rows that see nothing
+    if dead:
+        assert torch.count_nonzero(o[..., :dead, :]) == 0 and bool((lse[..., :dead] == -1e30).all())
     delta = (do.float() * o.float()).sum(-1)
     gen = torch.Generator(device=cuda).manual_seed(1)
     glse = torch.randn(lse.shape, generator=gen, device=cuda)

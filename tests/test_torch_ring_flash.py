@@ -210,14 +210,14 @@ def test_merge_of_a_shard_that_sees_nothing_has_finite_grads():
     q, k, v, g = (torch.tensor(x) for x in _arrays(1, 8, 2, 4, n=4, seed=9))
     cfg = tfa.FlashConfig(4, 4)
 
-    def run(hops):
+    def run(hops):  # as the ring runs them: [B, H, T, D] blocks, [B, H, T] lse
         xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
-        out = torch.zeros((1, 8, 2, 4))
-        lse = torch.full((1, 2, 1, 8), NEG_INF)
+        out = torch.zeros((1, 2, 8, 4))
+        lse = torch.full((1, 2, 8), NEG_INF)
         for q_off, k_off in hops:
-            ob, lb = tfa.flash_attention_block(*xs, q_off, k_off, cfg)
+            ob, lb = tfa.FlashAttentionBlock.apply(*(x.transpose(1, 2).contiguous() for x in xs), q_off, k_off, cfg)
             out, lse = tatt.merge_lse(out, lse, ob, lb)
-        (out * g).sum().backward()
+        (out.transpose(1, 2) * g).sum().backward()
         return out.detach(), [x.grad for x in xs]
 
     out, grads = run([(0, 8), (0, 16), (8, 0)])  # two empty hops, then a visible one
