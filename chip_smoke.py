@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only kernels offs
+    python3 chip_smoke.py --only exchange gossip
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -34,8 +35,25 @@ Phases, each of which makes the script exit non-zero if it fails (the
 7. [parity] one round on the CPU (plain versions) against one round on the
    card (kernels) from the same init and data, at 2L/256d/4h/kv2 (head dim
    64): flash at seq 256, then ring flash at seq 512 with R = 4;
-8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
+8. [exchange] kernel 9 (``csrc/ici_exchange.cu``, the ICI plane's shard
+   transfer) against its plain version, bit for bit, on four trees: the
+   MLP's six fp32 leaves, a bf16 tree, odd byte counts at unaligned
+   offsets, and the leaf shapes of the 0.98B config-5 model's bf16
+   weights (~2 GB); each timed with its bound, plain version and
+   ``torch._foreach_copy_`` as the yardstick;
+9. [gossip] the gossip Node path of ``p2pfl_tpu_torch/examples/mnist.py``
+   at full MLP width: 4 nodes on ``submesh_federation_mesh(4,
+   devices=["cuda:0"] * 4)``, full topology, 8192 synthetic MNIST
+   samples, batch 128, 2 rounds of 1 epoch, once with
+   ``WEIGHTS_PLANE="bytes"`` and once with ``"ici"``: kernel 9 must have
+   launched, the plane must have moved bytes with no fallback, alignment
+   fix-up or failed transfer, every node must end on one model and the
+   two planes on the same one;
+10. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
    ``{"ok": true, "device": {...}}``.
+
+``--only exchange_peer`` (never run by default: it needs two cards) times
+kernel 9 storing from cuda:0 into cuda:1's memory over NVLink.
 
 Imports only torch, numpy and ``p2pfl_tpu_torch``. Weights are random,
 drawn from seeded ``torch.Generator``s.
@@ -60,6 +78,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 SRC = "p2pfl_tpu_torch/csrc/flash_attention.cu"
+SOURCES = {"ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
 REPLACES = {
     "flash_fwd": "p2pfl_tpu/ops/flash_attention.py:189",
     "flash_bwd_dkvq": "p2pfl_tpu/ops/flash_attention.py:327",
@@ -69,6 +88,7 @@ REPLACES = {
     "flash_bwd_dkvq_offs": "p2pfl_tpu/ops/flash_attention.py:815",
     "flash_bwd_dq_offs": "p2pfl_tpu/ops/flash_attention.py:688",
     "flash_bwd_dkv_offs": "p2pfl_tpu/ops/flash_attention.py:786",
+    "ici_exchange": "p2pfl_tpu/parallel/ici_plane.py:162",
 }
 NEG_INF = -1e30
 # tolerances against the plain versions on the same inputs. Both sides
@@ -105,6 +125,25 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_device_ms(fn, iters: int = 20) -> float:
+    """Median device time of ``fn``'s work alone: a sleep kernel queued
+    first keeps the card busy while the host prepares and launches, so
+    the events bracket the launched work only, not the wrapper's host
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # ~10 ms of the card's clock
         start.record()
         fn()
         end.record()
@@ -602,12 +641,228 @@ def round_parity(attn: str = "flash", seq: int = 256, ring: int = 1) -> tuple[bo
     return ok, summary
 
 
-PHASES = ("kernels", "offs", "main", "ring", "parity")
+# ---- phase 8: kernel 9 (the ICI plane's shard transfer) ----
+
+
+def exchange_trees(gen: torch.Generator) -> dict:
+    """name → (sources, destinations) on the card. The unaligned tree's
+    sources are views at odd offsets into one flat buffer; half its
+    destinations share the sources' misalignment (the kernel's vector path
+    with byte head and tail), half are whole allocations (its byte path)."""
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, init_params
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    def fresh(srcs):
+        return [torch.empty_like(s) for s in srcs]
+
+    mlp_leaves = tree_leaves(mlp(seed=0, device="cuda").params)
+    bf16 = [
+        torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        for shape in ((4096, 2048), (2048,), (2048, 256), (8, 2048), (5632, 2048), (3, 5, 7))
+    ]
+    flat = torch.randint(0, 256, (1 << 20,), generator=gen, device="cuda", dtype=torch.uint8)
+    spans = [(1, 1001), (3 + 4096, 17), (5 + 8192, 65537), (16 + 200000, 15), (7 + 300000, 123457)]
+    odd = [flat[o:o + n] for o, n in spans]
+    # dtype views need offsets that are multiples of their element size
+    odd += [flat[600002:600002 + 2 * 333].view(torch.bfloat16), flat[700012:700012 + 4 * 999].view(torch.float32)]
+    shadow = torch.empty_like(flat)
+    odd_dst = [shadow[o:o + n] for o, n in spans] + fresh(odd[len(spans):])
+    cfg = TransformerConfig(
+        vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=22, ffn_hidden=5632,
+        lora_rank=8, lora_mlp=True,
+    )
+    big = [x.to(torch.bfloat16) for x in tree_leaves(init_params(cfg, seed=0, device="cuda"))]
+    return {
+        "mlp_fp32": (mlp_leaves, fresh(mlp_leaves)),
+        "bf16": (bf16, fresh(bf16)),
+        "odd_unaligned": (odd, odd_dst),
+        "config5_bf16": (big, fresh(big)),
+    }
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def check_exchange(results: dict) -> bool:
+    """Kernel 9 against its plain version on each tree, bit for bit, and
+    timed: median of 20 CUDA-event-timed wrapper calls; bound = (bytes
+    read + bytes written) / 3.35 TB/s; the plain version (per-leaf
+    ``copy_``) and ``torch._foreach_copy_`` over the same tree; and the
+    device time of the kernel and of ``_foreach_copy_`` alone, without
+    the host's share (:func:`time_device_ms`)."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.ici_plane import exchange_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ok = True
+    for name, (srcs, dsts) in exchange_trees(gen).items():
+        refs = [torch.empty_like(d) for d in dsts]
+        for d in dsts:
+            d.fill_(0)
+        _kernels.ici_exchange(srcs, dsts)
+        exchange_plain(srcs, refs)
+        torch.cuda.synchronize()
+        good = all(bits_equal(d, r) and bits_equal(d, s) for d, r, s in zip(dsts, refs, srcs))
+        # as values (NaN where random bytes spell one counts as equal)
+        err = max((d.float() - r.float()).nan_to_num().abs().max().item() for d, r in zip(dsts, refs))
+        ok &= good
+        n_bytes = sum(s.numel() * s.element_size() for s in srcs)
+        bms, by = bound(2 * n_bytes, 0)
+        row = dict(
+            max_abs_err=err, ms=time_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
+            plain_ms=time_ms(lambda: exchange_plain(srcs, refs)), bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: torch._foreach_copy_(refs, srcs)),
+        )
+        device_only = dict(
+            kernel=time_device_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
+            library=time_device_ms(lambda: torch._foreach_copy_(refs, srcs)),
+        )
+        log(f"[exchange] {name}: {len(srcs)} leaves, {n_bytes} bytes, bit-equal to the plain "
+            f"version: {good}; {json.dumps(row)}; device time alone (ms): {json.dumps(device_only)} "
+            f"{'OK' if good else 'FAIL'}")
+        results[name] = row
+        del srcs, dsts, refs
+    torch.cuda.empty_cache()
+    return ok
+
+
+def check_exchange_peer(results: dict) -> bool:
+    """Kernel 9 across two cards (only with ``--only exchange_peer`` on a
+    machine with two or more): the MLP and config-5 trees from cuda:0 into
+    cuda:1's memory, bit-exact, timed like phase ``exchange``; the bound
+    is the payload over one NVLink direction (450 GB/s)."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.ici_plane import exchange_plain
+
+    if torch.cuda.device_count() < 2:
+        log("[exchange_peer] needs two cards")
+        return False
+    src_dev, dst_dev = torch.device("cuda", 0), torch.device("cuda", 1)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ok = True
+    for name, (srcs, _) in exchange_trees(gen).items():
+        if name not in ("mlp_fp32", "config5_bf16"):
+            continue
+        dsts = [torch.empty_like(s, device=dst_dev) for s in srcs]
+        refs = [torch.empty_like(d) for d in dsts]
+        _kernels.ici_exchange(srcs, dsts)
+        exchange_plain(srcs, refs)
+        torch.cuda.synchronize(src_dev)
+        torch.cuda.synchronize(dst_dev)
+        good = all(bits_equal(d, r) for d, r in zip(dsts, refs))
+        ok &= good
+        n_bytes = sum(s.numel() * s.element_size() for s in srcs)
+        row = dict(
+            ms=time_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
+            device_ms=time_device_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
+            plain_ms=time_ms(lambda: exchange_plain(srcs, refs)),
+            library_ms=time_ms(lambda: torch._foreach_copy_(refs, srcs)),
+            nvlink_bound_ms=n_bytes / 450e9 * 1e3,
+        )
+        log(f"[exchange_peer] {name} cuda:0 -> cuda:1: {len(srcs)} leaves, {n_bytes} bytes, "
+            f"bit-equal: {good}; {json.dumps(row)} {'OK' if good else 'FAIL'}")
+        results[name] = row
+    return ok
+
+
+# ---- phase 9: the gossip Node path over both weights planes ----
+
+
+def drive_gossip() -> tuple[bool, dict]:
+    """``examples/mnist.py``'s path at full MLP width, bytes then ici,
+    after an unreported 2-node warm-up drive; the launch counts are zeroed
+    before each drive and read after it, and each drive's seconds per
+    node in every stage and dispatch site come from its spans."""
+    import logging
+
+    from p2pfl_tpu_torch.communication.ici import ici_stats, reset_ici_stats
+    from p2pfl_tpu_torch.examples import mnist as example
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    set_test_settings()
+    logger.set_level("WARNING")
+    failures: list = []
+
+    class _Failed(logging.Handler):
+        def emit(self, record):
+            if "ICI shard transfer" in record.getMessage():
+                failures.append(record.getMessage())
+
+    def breakdown() -> dict:
+        """Seconds per node in each stage and dispatch site of the drive,
+        from the in-process spans (host clock)."""
+        per: dict = {}
+        for s in telemetry.spans():
+            if s.kind in ("stage", "dispatch"):
+                key = f"{s.kind}:{s.name}"
+                per[key] = per.get(key, 0.0) + s.duration_ns / 1e9 / kw["nodes"]
+        return {k: round(v, 4) for k, v in sorted(per.items())}
+
+    handler = _Failed()
+    logger._logger.addHandler(handler)
+    kw = dict(nodes=4, rounds=2, epochs=1, samples=8192, batch_size=128, device="cuda", topology="full")
+    runs, ok = {}, True
+    try:
+        # warm-up, not reported: CUDA context, cuBLAS and the allocator
+        # would otherwise bill their first use to the first plane's round 0
+        example.run(nodes=2, rounds=1, samples=1024, batch_size=128, device="cuda", weights_plane="bytes")
+        for plane in ("bytes", "ici"):
+            reset_ici_stats()
+            telemetry.reset_spans()
+            _kernels.reset_launches()
+            out = example.run(weights_plane=plane, **kw)
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+            leaves = [[x.float().cpu() for x in tree_leaves(p)] for p in out["params"]]
+            spread = max((a - b).abs().max().item() for other in leaves[1:] for a, b in zip(leaves[0], other))
+            runs[plane] = dict(
+                s_per_round=out["round_s"], elapsed_s=out["elapsed_s"],
+                test_acc=[m["test_acc"] for m in out["metrics"]],
+                test_loss=[m["test_loss"] for m in out["metrics"]],
+                ici_stats=ici_stats(), launches_ici_exchange=launches["ici_exchange"],
+                within_run_max_diff=spread, seconds_per_node=breakdown(), leaves=leaves,
+            )
+    finally:
+        logger._logger.removeHandler(handler)
+    ici, byt = runs["ici"], runs["bytes"]
+    between = max(
+        (a - b).abs().max().item() for la, lb in zip(ici.pop("leaves"), byt.pop("leaves")) for a, b in zip(la, lb)
+    )
+    stats = ici["ici_stats"]
+    checks = {
+        "kernel 9 launched": ici["launches_ici_exchange"] > 0,
+        "bytes plane launched no kernel 9": byt["launches_ici_exchange"] == 0,
+        "shard_sends > 0": stats["shard_sends"] > 0,
+        "bytes_moved > 0": stats["bytes_moved"] > 0,
+        "no fallback": stats["fallback_bytes"] == 0,
+        "no alignment fix-up": stats["align_violations"] == 0,
+        "no failed transfer": not failures,
+        "within-run spread <= 1e-5": max(ici["within_run_max_diff"], byt["within_run_max_diff"]) <= 1e-5,
+        "bytes vs ici <= 1e-3": between <= 1e-3,
+        "accuracy finite": all(math.isfinite(x) for x in ici["test_loss"] + byt["test_loss"]),
+    }
+    ok = all(checks.values())
+    summary = {"nodes": 4, "rounds": 2, "samples": 8192, "batch": 128, "bytes": byt, "ici": ici,
+               "bytes_vs_ici_max_diff": between, "failed_transfer_logs": failures[:3],
+               "checks": checks}
+    log(f"[gossip] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+PHASES = ("kernels", "offs", "main", "ring", "parity", "exchange", "gossip")
+#: phases that need more than one card: run only when named in --only
+MULTI_CARD_PHASES = ("exchange_peer",)
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", nargs="+", choices=PHASES, default=list(PHASES))
+    parser.add_argument("--only", nargs="+", choices=PHASES + MULTI_CARD_PHASES, default=list(PHASES))
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -667,13 +922,25 @@ def main(argv=None) -> int:
         ok &= good
         good, _ = timed("parity_ring", round_parity, "ring_flash", 512, 4)
         ok &= good
+    exchange_timings: dict = {}
+    if "exchange" in args.only:
+        ok &= timed("exchange", check_exchange, exchange_timings)
+    if "gossip" in args.only:
+        good, gossip = timed("gossip", drive_gossip)
+        ok &= good
+        launches["ici_exchange"] = gossip["ici"]["launches_ici_exchange"]
+    if "exchange_peer" in args.only:
+        ok &= timed("exchange_peer", check_exchange_peer, {})
     log(f"[time] seconds per phase: {json.dumps(phase_s)}")
 
-    # kernels 1-4 report the causal case, the offset kernels the diagonal hop
+    # kernels 1-4 report the causal case, the offset kernels the diagonal
+    # hop, kernel 9 the gossip path's tree (the MLP's six fp32 leaves)
     rows = {**timings.get("causal", {}), **offs_timings.get("diagonal", {})}
+    if "mlp_fp32" in exchange_timings:
+        rows["ici_exchange"] = exchange_timings["mlp_fp32"]
     if rows:
         kernels = [
-            {"name": name, "route": "cuda", "source": SRC, "replaces": REPLACES[name],
+            {"name": name, "route": "cuda", "source": SOURCES.get(name, SRC), "replaces": REPLACES[name],
              "launches": launches.get(name, 0), **rows[name]}
             for name in REPLACES if name in rows
         ]

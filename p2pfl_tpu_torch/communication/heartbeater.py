@@ -1,0 +1,134 @@
+"""Heartbeat membership / failure detection (a copy of ``p2pfl_tpu/communication/heartbeater.py``).
+
+Reference semantics (``p2pfl/communication/heartbeater.py:33-111``): a daemon
+thread broadcasts a ``beat`` control message every ``HEARTBEAT_PERIOD``
+seconds; every second tick it evicts neighbors whose last beat is older than
+``HEARTBEAT_TIMEOUT``. Because ``beat`` TTL-floods the overlay, every node
+discovers every other node as a *non-direct* neighbor within roughly one
+heartbeat period (reference ``grpc_neighbors.py:34-55``).
+
+Three hardenings over the reference:
+
+- **Origin-time validation**: beats carry the origin's wall clock, and a
+  beat whose origin stamp is older than ``HEARTBEAT_TIMEOUT`` is rejected
+  instead of refreshing ``last_beat`` with *local* time — a TTL-flooded
+  beat relayed (or fault-injected) after its origin died must not keep a
+  dead node "live" indefinitely.
+- **Suspect fast path**: every tick, neighbors the protocol's circuit
+  breaker marks suspect (consecutive send failures) are evicted after
+  only ``Settings.BREAKER_SUSPECT_TIMEOUT`` of beat silence — send-path
+  evidence accelerates detection instead of waiting out the full binary
+  timeout.
+- **One-way-partition eviction**: a neighbor whose breaker has been open
+  for a full ``HEARTBEAT_TIMEOUT`` — not one successful send in all that
+  time — is evicted even though its beats still arrive. Liveness without
+  reachability is useless to the overlay, and inbound beats would
+  otherwise keep the unreachable peer a member forever. (The reference
+  evicted on the FIRST failed send, losing the message with it.)
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import TYPE_CHECKING
+
+from p2pfl_tpu_torch.management.logger import logger
+from p2pfl_tpu_torch.settings import Settings
+
+if TYPE_CHECKING:
+    from p2pfl_tpu_torch.communication.protocol import CommunicationProtocol
+
+BEAT_CMD = "beat"
+
+
+class Heartbeater:
+    def __init__(self, self_addr: str, protocol: "CommunicationProtocol") -> None:
+        self.self_addr = self_addr
+        self._protocol = protocol
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._run, name=f"heartbeater-{self.self_addr}", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
+            self._thread = None
+
+    def beat(self, source: str, t: float) -> None:
+        """Record an incoming beat (called by the ``beat`` command handler).
+
+        ``t`` is the ORIGIN's wall clock (``time.time()`` stamped into the
+        beat args by the sender). A beat relayed long after its origin
+        stamped it says nothing about the origin being alive NOW — without
+        this check a TTL-flooded beat redelivered after the origin died
+        still refreshed ``last_beat`` with local monotonic time and kept a
+        dead node in the membership forever. ``t <= 0`` means "no origin
+        info" (older senders / tests) and is accepted for compatibility.
+
+        Cross-host caveat: the check compares wall clocks, so peers whose
+        clocks disagree by more than ``HEARTBEAT_TIMEOUT`` would reject
+        each other's beats; keep clocks within a few seconds (NTP) or
+        raise the timeout on skew-prone deployments.
+        """
+        if t > 0 and time.time() - t > Settings.HEARTBEAT_TIMEOUT:
+            logger.log_comm_metric(self.self_addr, "stale_beat_rejected")
+            logger.debug(
+                self.self_addr,
+                f"Rejecting stale beat from {source}: origin stamp "
+                f"{time.time() - t:.1f}s old (> HEARTBEAT_TIMEOUT)",
+            )
+            return
+        self._protocol.neighbors.heartbeat(source, t=None)
+
+    def _run(self) -> None:
+        tick = 0
+        while not self._stop.is_set():
+            msg = self._protocol.build_msg(BEAT_CMD, [str(time.time())])
+            self._protocol.broadcast(msg)
+            tick += 1
+            if tick % 2 == 0:
+                self._protocol.neighbors.evict_stale(Settings.HEARTBEAT_TIMEOUT)
+            # breaker fast path: suspects go on a shorter silence clock
+            suspects = self._protocol.breaker.suspects()
+            if suspects:
+                evicted = self._protocol.neighbors.evict_stale(
+                    Settings.BREAKER_SUSPECT_TIMEOUT, only=suspects
+                )
+                if evicted:
+                    logger.log_comm_metric(
+                        self.self_addr, "breaker_suspect_evict", len(evicted)
+                    )
+                # one-way partition: a neighbor we have not managed ONE
+                # successful send to for a full HEARTBEAT_TIMEOUT is
+                # evicted even though its beats still arrive — it is alive
+                # but unreachable, useless as a gossip target (and its
+                # inbound beats would otherwise keep it "live" forever).
+                # The freshness bound demands the failures be ONGOING:
+                # a breaker left open because the peer fell out of every
+                # send path (stale evidence, no attempts at all) must not
+                # evict a live neighbor — beats to direct neighbors go out
+                # every HEARTBEAT_PERIOD, so a real partition keeps its
+                # evidence fresher than two periods for free
+                for addr in self._protocol.breaker.suspects_older_than(
+                    Settings.HEARTBEAT_TIMEOUT,
+                    fresh_within=2 * Settings.HEARTBEAT_PERIOD,
+                ):
+                    if self._protocol.neighbors.get(addr) is None:
+                        continue
+                    logger.info(
+                        self.self_addr,
+                        f"Evicting {addr}: breaker open for a full "
+                        "HEARTBEAT_TIMEOUT (unreachable despite beats)",
+                    )
+                    logger.log_comm_metric(self.self_addr, "breaker_unreachable_evict")
+                    self._protocol.neighbors.evict(addr, quarantine=True)
+            if self._stop.wait(timeout=Settings.HEARTBEAT_PERIOD):
+                return

@@ -1,0 +1,189 @@
+"""Thread-safe neighbor registry (a copy of ``p2pfl_tpu/communication/neighbors.py``).
+
+Semantics from the reference's ``p2pfl/communication/neighbors.py:27-170``:
+a map addr → :class:`NeighborInfo`; *direct* neighbors were connected
+explicitly (transport connection + handshake), *non-direct* neighbors are
+learned from TTL-flooded heartbeats and can only be reached by creating an
+ad-hoc connection.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+from p2pfl_tpu_torch.management.logger import logger
+from p2pfl_tpu_torch.settings import Settings
+
+
+@dataclass
+class NeighborInfo:
+    direct: bool
+    conn: Any = None  # transport-specific handle (channel/stub/server ref)
+    last_beat: float = field(default_factory=time.monotonic)
+
+
+class Neighbors:
+    """Base neighbors manager. Transports override the connect/disconnect hooks."""
+
+    def __init__(self, self_addr: str) -> None:
+        self.self_addr = self_addr
+        self._lock = threading.Lock()
+        self._neis: dict[str, NeighborInfo] = {}
+        #: addr → monotonic deadline: peers evicted DESPITE arriving beats
+        #: (one-way partition: alive but unreachable) are quarantined for a
+        #: HEARTBEAT_TIMEOUT so the very next beat cannot immediately
+        #: re-add them — without this, evict/re-add flaps once per beat
+        #: period and the unreachable-eviction guarantee is hollow.
+        #: Silence-based evictions do NOT quarantine: a briefly-paused node
+        #: that resumes beating should rejoin on its next beat, not sit out
+        #: an extra timeout. A deliberate direct connect overrides the
+        #: quarantine.
+        self._quarantine: dict[str, float] = {}
+        #: fired with each heartbeat-evicted address (NOT on deliberate
+        #: removes) — the protocol fans it out to its evict listeners
+        #: (mid-round train-set repair, breaker cleanup)
+        self.on_evict: Optional[Any] = None
+
+    # ---- transport hooks ----
+
+    def _connect(self, addr: str, handshake: bool) -> Optional[Any]:
+        """Open a transport connection; return the handle or raise. Base: none."""
+        return None
+
+    def _disconnect(self, addr: str, conn: Any, notify: bool) -> None:
+        """Close a transport connection (best-effort)."""
+
+    # ---- registry ----
+
+    def add(self, addr: str, non_direct: bool = False, handshake: bool = True) -> bool:
+        """Register a neighbor. Direct adds open a connection + handshake.
+
+        Re-adding an already-direct neighbor is a no-op; a heartbeat from a
+        direct neighbor must NOT demote it to non-direct
+        (reference ``neighbors.py:73-110``).
+        """
+        if addr == self.self_addr:
+            return False
+        with self._lock:
+            if non_direct:
+                if self._quarantined_locked(addr):
+                    return False
+            # a DELIBERATE direct connect overrides quarantine — but only
+            # once it SUCCEEDS (pop below, after _connect): popping here
+            # would let a failed connect attempt clear the entry, and the
+            # unreachable peer's very next beat would re-admit it — the
+            # exact evict/re-add flap quarantine exists to prevent
+            existing = self._neis.get(addr)
+            if existing is not None:
+                if non_direct:
+                    existing.last_beat = time.monotonic()
+                    return True
+                if existing.direct:
+                    logger.debug(self.self_addr, f"Already connected to {addr}")
+                    return False
+                # upgrade non-direct → direct below (outside dict mutation)
+        if non_direct:
+            with self._lock:
+                if addr not in self._neis:
+                    self._neis[addr] = NeighborInfo(direct=False)
+            return True
+        try:
+            conn = self._connect(addr, handshake)
+        except Exception as exc:  # noqa: BLE001 — connection errors are expected
+            logger.info(self.self_addr, f"Cannot connect to {addr}: {exc}")
+            return False
+        with self._lock:
+            self._quarantine.pop(addr, None)
+            self._neis[addr] = NeighborInfo(direct=True, conn=conn)
+        return True
+
+    def remove(self, addr: str, disconnect_msg: bool = False) -> None:
+        with self._lock:
+            info = self._neis.pop(addr, None)
+        if info is not None and info.direct:
+            try:
+                self._disconnect(addr, info.conn, notify=disconnect_msg)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def _quarantined_locked(self, addr: str) -> bool:
+        """Caller holds ``_lock``. Expired entries are dropped lazily."""
+        until = self._quarantine.get(addr)
+        if until is None:
+            return False
+        if time.monotonic() >= until:
+            del self._quarantine[addr]
+            return False
+        return True
+
+    def heartbeat(self, addr: str, t: Optional[float] = None) -> None:
+        """Record a beat; unknown senders become non-direct neighbors —
+        unless quarantined (recently evicted: beats alone must not re-admit
+        a peer the overlay just decided it cannot reach)."""
+        with self._lock:
+            info = self._neis.get(addr)
+            if info is None:
+                if addr != self.self_addr and not self._quarantined_locked(addr):
+                    self._neis[addr] = NeighborInfo(direct=False)
+                return
+            info.last_beat = time.monotonic() if t is None else t
+
+    def evict_stale(self, timeout: float, only: Optional[set] = None) -> list[str]:
+        """Drop neighbors whose last beat is older than ``timeout`` seconds.
+
+        ``only`` restricts the sweep to a subset — the heartbeater uses it
+        to evict breaker-suspect neighbors on a shorter clock than the
+        full ``HEARTBEAT_TIMEOUT``. Each eviction fires ``on_evict``.
+        """
+        now = time.monotonic()
+        with self._lock:
+            stale = [
+                a
+                for a, i in self._neis.items()
+                if now - i.last_beat > timeout and (only is None or a in only)
+            ]
+        for addr in stale:
+            logger.info(self.self_addr, f"Heartbeat timeout — evicting {addr}")
+            self.evict(addr)
+        return stale
+
+    def evict(self, addr: str, quarantine: bool = False) -> None:
+        """Remove ``addr`` and fire ``on_evict`` regardless of last_beat.
+
+        ``quarantine=True`` is the heartbeater's unreachable-despite-beats
+        (one-way partition) path: the peer's beats keep arriving, so without
+        a quarantine window the next one would re-add it immediately.
+        Silence-based evictions leave it False — no beats are arriving, and
+        a node that resumes beating should rejoin right away.
+        """
+        with self._lock:
+            if addr not in self._neis:
+                return
+            if quarantine:
+                self._quarantine[addr] = time.monotonic() + Settings.HEARTBEAT_TIMEOUT
+        self.remove(addr)
+        if self.on_evict is not None:
+            try:
+                self.on_evict(addr)
+            except Exception:  # noqa: BLE001 — observers must not break the sweep
+                pass
+
+    def get(self, addr: str) -> Optional[NeighborInfo]:
+        with self._lock:
+            return self._neis.get(addr)
+
+    def get_all(self, only_direct: bool = False) -> dict[str, NeighborInfo]:
+        with self._lock:
+            if only_direct:
+                return {a: i for a, i in self._neis.items() if i.direct}
+            return dict(self._neis)
+
+    def clear(self, disconnect: bool = False) -> None:
+        for addr in list(self.get_all(only_direct=True)):
+            self.remove(addr, disconnect_msg=disconnect)
+        with self._lock:
+            self._neis.clear()
+            self._quarantine.clear()

@@ -5,7 +5,10 @@ The port keeps flax's leaf names (``wq/kernel``, ``lora_a``, ``lora_b``,
 so conversion is a 1:1 copy of leaves. Two JAX layouts exist for the
 transformer: unrolled (``layer_{i}/...``) and scanned
 (``layers/block/...`` with a leading ``[L]`` axis, ``scan_layers=True``).
-The port always holds the unrolled one.
+The port always holds the unrolled one. The vision MLP's tree
+(``Dense_{i}/kernel`` as ``[in, out]``, ``Dense_{i}/bias``) has a single
+layout and converts leaf for leaf, dtypes kept, so a JAX ``mlp(seed)``
+init loads into ``p2pfl_tpu_torch.models.vision.MLP`` unchanged.
 
 The JAX side is plain nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``); nothing here imports JAX.

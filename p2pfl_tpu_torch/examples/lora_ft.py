@@ -4,7 +4,8 @@ the PyTorch port.
 The ``--spmd`` path of ``p2pfl_tpu/examples/lora_ft.py``: nodes train and
 exchange only low-rank adapters, the whole federation runs as one
 node-stacked program on one device. Synthetic Markov-chain text stands in
-for a real corpus. The gossip path waits for the node slice of the port.
+for a real corpus. The gossip path waits for ``LoRALearner`` on the Node
+(ROADMAP).
 
     python -m p2pfl_tpu_torch.examples.lora_ft --spmd --attn flash
     python -m p2pfl_tpu_torch.examples.lora_ft --spmd --device cpu --layers 2 --dim 128
@@ -33,7 +34,7 @@ def main(argv=None) -> None:
     parser.add_argument("--measure_time", action="store_true")
     args = parser.parse_args(argv)
     if not args.spmd:
-        parser.error("only --spmd is ported yet (the gossip Node path is ROADMAP Queue A 3)")
+        parser.error("only --spmd is ported yet (LoRALearner on the gossip Node is ROADMAP Queue A)")
 
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer

@@ -1,6 +1,6 @@
 """Framework exceptions of the port (counterpart of ``p2pfl_tpu/exceptions.py``).
 
-Only what the ported slice raises lives here.
+Only what the ported slices raise lives here.
 """
 
 
@@ -14,3 +14,25 @@ class DeviceUnavailableError(RuntimeError):
 
 class KernelBuildError(RuntimeError):
     """Raised when ``nvcc`` cannot build the CUDA kernels from ``csrc/``."""
+
+
+class NodeRunningException(Exception):
+    """``Node.start`` on a node that is already running."""
+
+
+class ZeroRoundsException(Exception):
+    """``set_start_learning`` with fewer than one round."""
+
+
+class ModelNotMatchingError(Exception):
+    """Incoming parameters do not match the learner's model structure."""
+
+
+class NeighborNotConnectedError(Exception):
+    """The transport cannot reach the requested peer."""
+
+
+class UnsupportedByPortError(ValueError):
+    """A configuration the JAX package supports but the port does not yet
+    (the byte codec, secure aggregation, lossy compression, ...): raised
+    at ``Node.start``, never in the middle of a round."""

@@ -1,0 +1,282 @@
+"""Aggregator base: partial-aggregation bookkeeping around a pure kernel.
+
+Counterpart of ``p2pfl_tpu/learning/aggregators/aggregator.py`` without
+the Byzantine screen and the secure-aggregation hooks (neither is ported):
+
+- ``set_nodes_to_aggregate(train_set)`` opens the round's collection window.
+- ``add_model(update)`` accepts a model or partial aggregation:
+  * a full-coverage update replaces everything collected so far,
+  * a contributor-disjoint update accumulates,
+  * overlapping / foreign / duplicate contributors are rejected,
+  * in *waiting* mode (non-train-set nodes) the first full update IS the
+    result.
+- ``wait_and_get_aggregation()`` blocks until coverage is complete or
+  ``Settings.AGGREGATION_TIMEOUT``, then aggregates whatever arrived.
+- ``get_partial_aggregation(except_nodes)`` pre-aggregates everything a
+  peer has not seen — the payload of train-set gossip.
+- ``discard_member(addr)`` — mid-round train-set repair: an evicted member
+  that never contributed is dropped from the round's coverage target.
+
+Subclasses implement one pure function, :meth:`aggregate`, over a list of
+:class:`ModelUpdate`.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+from p2pfl_tpu_torch.learning.weights import ModelUpdate
+from p2pfl_tpu_torch.management.logger import logger
+from p2pfl_tpu_torch.settings import Settings
+
+
+class Aggregator:
+    """Base aggregation strategy + round collection state."""
+
+    #: False for strategies that need the individual models
+    SUPPORTS_PARTIALS: bool = True
+    #: True for stateful strategies whose :meth:`aggregate` must run once
+    #: per round even when a single update covers the train set
+    ALWAYS_AGGREGATE: bool = False
+
+    def __init__(self, node_name: str = "unknown") -> None:
+        self.node_name = node_name
+        self._lock = threading.Lock()
+        self._complete = threading.Event()
+        self._complete.set()  # no aggregation in progress
+        self._train_set: list[str] = []
+        self._waiting: bool = False
+        #: members evicted before contributing: the coverage TARGET is
+        #: ``train_set - removed`` while the foreign-contributor check stays
+        #: against the full train set
+        self._removed: set[str] = set()
+        self._models: dict[frozenset, ModelUpdate] = {}
+        # one combined update per exact set of source groups (gossip ships
+        # the same partial to several peers per tick); the generation
+        # counter keeps an aggregate of a superseded model set out
+        self._partial_memo: dict[frozenset, ModelUpdate] = {}
+        self._memo_gen = 0
+
+    # ---- round lifecycle ----
+
+    def set_nodes_to_aggregate(self, nodes: list[str]) -> None:
+        if not self._complete.is_set():
+            raise Exception(f"({self.node_name}) aggregation already in progress")
+        with self._lock:
+            self._train_set = list(nodes)
+            self._waiting = False
+            self._reset_locked()
+            self._complete.clear()
+
+    def set_waiting_aggregated_model(self, nodes: list[str]) -> None:
+        """Non-train-set path: accept the first full update as the result."""
+        with self._lock:
+            self._train_set = list(nodes)
+            self._waiting = True
+            self._reset_locked()
+            self._complete.clear()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._train_set = []
+            self._waiting = False
+            self._reset_locked()
+            self._complete.set()
+
+    def _reset_locked(self) -> None:
+        self._removed = set()
+        self._models = {}
+        self._partial_memo = {}
+        self._memo_gen += 1
+
+    def reset_experiment(self) -> None:
+        """Experiment boundary: drop cross-round strategy state (none in
+        FedAvg)."""
+
+    # ---- collection ----
+
+    def get_aggregated_models(self) -> list[str]:
+        """Names of all contributors currently folded into collected models."""
+        with self._lock:
+            return sorted({c for key in self._models for c in key})
+
+    def add_model(self, update: ModelUpdate, source: Optional[str] = None) -> list[str]:
+        """Add a model/partial. Returns the updated contributor coverage list;
+        empty when rejected (duplicate, overlapping, foreign contributor, or
+        no collection window open). ``source`` is the delivering peer."""
+        contributors = frozenset(update.contributors)
+        if not contributors:
+            logger.debug(self.node_name, "Rejecting model with no contributors")
+            return []
+        with self._lock:
+            if self._waiting:
+                # only a full aggregate is acceptable while waiting; after
+                # mid-round repair the survivors' aggregate counts as full
+                target = frozenset(self._train_set) - self._removed
+                if not target:
+                    target = frozenset(self._train_set)
+                if not (target <= contributors <= frozenset(self._train_set)):
+                    logger.debug(
+                        self.node_name,
+                        f"Rejecting model while waiting: coverage {sorted(contributors)} "
+                        f"outside [{sorted(target)}, {sorted(self._train_set)}]",
+                    )
+                    return []
+                if self._models:  # first full update wins
+                    logger.debug(self.node_name, "Rejecting model: already received while waiting")
+                    return []
+                self._models = {contributors: update}
+                self._partial_memo = {}
+                self._memo_gen += 1
+                self._complete.set()
+                return list(update.contributors)
+
+            if self._complete.is_set():
+                logger.debug(self.node_name, "Rejecting model: no aggregation in progress")
+                return []
+
+            train = set(self._train_set)
+            if not contributors <= train:
+                logger.debug(
+                    self.node_name,
+                    f"Rejecting model with foreign contributors {sorted(contributors - train)}",
+                )
+                return []
+
+            if not self.SUPPORTS_PARTIALS and len(contributors) > 1 and contributors != train:
+                logger.debug(
+                    self.node_name,
+                    f"Rejecting partial aggregation {sorted(contributors)}: "
+                    f"{type(self).__name__} needs individual models",
+                )
+                return []
+
+            if contributors == train:
+                # full-coverage update replaces everything
+                self._models = {contributors: update}
+                self._partial_memo = {}
+                self._memo_gen += 1
+                self._complete.set()
+                return sorted(train)
+
+            covered = {c for key in self._models for c in key}
+            if contributors & covered:
+                logger.debug(
+                    self.node_name,
+                    f"Rejecting overlapping model {sorted(contributors)} (covered: {sorted(covered)})",
+                )
+                return []
+
+            self._models[contributors] = update
+            self._partial_memo = {}
+            self._memo_gen += 1
+            covered |= contributors
+            if covered >= train - self._removed:
+                self._complete.set()
+            return sorted(covered)
+
+    def discard_member(self, addr: str) -> Optional[list[str]]:
+        """Mid-round train-set repair: ``addr`` was evicted. If its
+        contribution has not arrived, shrink the coverage target to the
+        survivors. Returns the coverage list to re-broadcast, or None."""
+        with self._lock:
+            if addr not in self._train_set or addr in self._removed:
+                return None
+            if self._complete.is_set() and not self._waiting:
+                return None  # no collection window open
+            covered = {c for key in self._models for c in key}
+            if addr in covered:
+                logger.debug(
+                    self.node_name,
+                    f"Train-set member {addr} evicted but already contributed — keeping",
+                )
+                return None
+            self._removed.add(addr)
+            target = set(self._train_set) - self._removed
+            logger.log_comm_metric(self.node_name, "train_set_repair")
+            logger.warning(
+                self.node_name,
+                f"Train-set repair: {addr} evicted before contributing — "
+                f"coverage target shrunk to {sorted(target)}",
+            )
+            if self._waiting:
+                return None
+            if covered and covered >= target:
+                self._complete.set()
+            return sorted(covered)
+
+    # ---- results ----
+
+    def wait_and_get_aggregation(self, timeout: Optional[float] = None) -> ModelUpdate:
+        """Block until coverage completes (or timeout), then aggregate."""
+        timeout = Settings.AGGREGATION_TIMEOUT if timeout is None else timeout
+        finished = self._complete.wait(timeout=timeout)
+        with self._lock:
+            models = list(self._models.values())
+            train = set(self._train_set)
+            waiting = self._waiting
+            # close the collection window: late updates are rejected
+            self._complete.set()
+        if not models:
+            raise Exception(f"({self.node_name}) aggregation produced no models (timeout={not finished})")
+        if not finished:
+            covered = {c for m in models for c in m.contributors}
+            logger.info(
+                self.node_name,
+                f"Aggregation timeout — proceeding with partial coverage {sorted(covered)} of {sorted(train)}",
+            )
+        if len(models) == 1 and (
+            waiting or not self.ALWAYS_AGGREGATE or len(models[0].contributors) > 1
+        ):
+            return models[0]
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+
+        with dispatch_span("aggregate", self.node_name, n_models=len(models)):
+            return self.aggregate(models)
+
+    def get_partial_aggregation(self, except_nodes: list[str]) -> Optional[ModelUpdate]:
+        """Aggregate collected models not already covered by ``except_nodes``."""
+        todo = self._models_not_covered(except_nodes)
+        if not todo:
+            return None
+        if len(todo) == 1:
+            return todo[0]
+        if not self.SUPPORTS_PARTIALS:
+            return None
+        return self._memoized_aggregate(todo)
+
+    def get_models_to_send(self, except_nodes: list[str]) -> list[ModelUpdate]:
+        """Payloads for a peer that already covers ``except_nodes``."""
+        todo = self._models_not_covered(except_nodes)
+        if not todo:
+            return []
+        if self.SUPPORTS_PARTIALS and len(todo) > 1:
+            return [self._memoized_aggregate(todo)]
+        return todo
+
+    def _memoized_aggregate(self, todo: list[ModelUpdate]) -> ModelUpdate:
+        memo_key = frozenset(frozenset(m.contributors) for m in todo)
+        with self._lock:
+            hit = self._partial_memo.get(memo_key)
+            gen = self._memo_gen
+        if hit is not None:
+            return hit
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+
+        with dispatch_span("aggregate", self.node_name, n_models=len(todo)):
+            result = self.aggregate(todo)
+        with self._lock:
+            if self._memo_gen == gen:  # collected set unchanged since read
+                self._partial_memo[memo_key] = result
+        return result
+
+    def _models_not_covered(self, except_nodes: list[str]) -> list[ModelUpdate]:
+        skip = set(except_nodes)
+        with self._lock:
+            return [m for key, m in self._models.items() if not (key & skip)]
+
+    # ---- strategy ----
+
+    def aggregate(self, models: list[ModelUpdate]) -> ModelUpdate:
+        raise NotImplementedError

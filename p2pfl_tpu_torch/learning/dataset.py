@@ -1,9 +1,10 @@
-"""Federated dataset: the synthetic LM task and per-node partitioning.
+"""Federated dataset: synthetic tasks, per-node partitioning, batching.
 
 A copy of the numpy-only parts of ``p2pfl_tpu/learning/dataset.py`` that
-the LoRA slice uses: the same seed gives bit-identical arrays in both
-packages (held by ``tests/test_torch_spmd_lora.py``). Data stays numpy;
-the federation moves it to the device once.
+the ported slices use: the same seed gives bit-identical arrays and the
+same rng gives bit-identical epoch batches in both packages (held by
+``tests/test_torch_spmd_lora.py`` and ``tests/test_torch_node.py``). Data
+stays numpy; learners move it to the device.
 """
 
 from __future__ import annotations
@@ -25,6 +26,39 @@ class FederatedDataset:
     num_classes: int = 10
     #: data provenance ("synthetic" | "idx"), recorded by benchmarks
     source: str = "synthetic"
+
+    @classmethod
+    def synthetic_mnist(
+        cls,
+        n_train: int = 60_000,
+        n_test: int = 10_000,
+        num_classes: int = 10,
+        dim: tuple[int, ...] = (28, 28, 1),
+        seed: int = 31,
+        noise: float = 0.35,
+        modes: int = 1,
+        proto_scale: float = 1.0,
+    ) -> "FederatedDataset":
+        """MNIST-shaped classification: class prototypes (``modes`` per
+        class) plus Gaussian noise, squashed to [0, 1]. Downloads nothing."""
+        rng = np.random.default_rng(seed)
+        d = int(np.prod(dim))
+        protos = rng.normal(0.0, proto_scale, size=(num_classes, modes, d)).astype(np.float32)
+
+        def make(n: int, split_seed: int):
+            r = np.random.default_rng(seed + split_seed)
+            y = r.integers(0, num_classes, size=n)
+            if modes > 1:
+                mode = r.integers(0, modes, size=n)
+            else:
+                mode = np.zeros(n, dtype=np.int64)
+            x = protos[y, mode] + r.normal(0.0, noise, size=(n, d)).astype(np.float32)
+            x = 1.0 / (1.0 + np.exp(-x))  # pixel-like range
+            return x.reshape((n, *dim)).astype(np.float32), y.astype(np.int32)
+
+        x_tr, y_tr = make(n_train, 1)
+        x_te, y_te = make(n_test, 2)
+        return cls(x_tr, y_tr, x_te, y_te, num_classes)
 
     @classmethod
     def synthetic_lm(
@@ -91,6 +125,19 @@ class FederatedDataset:
     @property
     def num_samples(self) -> int:
         return len(self.y_train)
+
+    def epoch_batches(self, batch_size: int, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+        """One shuffled epoch as ``[nb, bs, ...]`` arrays (remainder dropped)."""
+        n = len(self.y_train)
+        nb = max(n // batch_size, 1)
+        take = min(nb * batch_size, n)
+        perm = rng.permutation(n)[:take]
+        xs = self.x_train[perm].reshape(nb, -1, *self.x_train.shape[1:])
+        ys = self.y_train[perm].reshape(nb, -1, *self.y_train.shape[1:])
+        return xs, ys
+
+    def test_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        return self.x_test, self.y_test
 
 
 def _partition_indices(

@@ -1,0 +1,1 @@
+"""management of the PyTorch port (see the JAX package's module of the same path)."""

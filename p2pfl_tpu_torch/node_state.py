@@ -1,0 +1,88 @@
+"""Per-node mutable learning state (counterpart of ``p2pfl_tpu/node_state.py``,
+without the secure-aggregation and async fields).
+
+The reference's four lock-latches are real :class:`threading.Event`
+objects here, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, List, Optional
+
+
+class NodeState:
+    def __init__(self, addr: str, simulation: bool = False) -> None:
+        self.addr = addr
+        self.simulation = simulation
+        self.status = "Idle"
+        self.experiment_name: Optional[str] = None
+        #: fleet-wide experiment identity, minted by the start_learning
+        #: initiator and stamped on every frame as ``xp``
+        self.experiment_xid: Optional[str] = None
+        self.round: Optional[int] = None
+        self.total_rounds: Optional[int] = None
+        self.learner: Optional[Any] = None
+
+        # addr -> list of contributors that addr has already aggregated
+        self.models_aggregated: Dict[str, List[str]] = {}
+        # addr -> last round that addr reported finishing (-1 = model init'd)
+        self.nei_status: Dict[str, int] = {}
+
+        self.train_set: List[str] = []
+        # members evicted mid-round (Node._on_peer_evicted): train_set stays
+        # the full elected set (the aggregator still accepts an evicted
+        # member's contributions that reached peers); gossip targeting
+        # subtracts this set. Writers replace it, never mutate it.
+        self.train_set_evicted: set = set()
+        self.train_set_votes: Dict[str, Dict[str, int]] = {}
+
+        # counts experiments entered: tells "never started" from "finished"
+        self.experiment_epoch = 0
+        self.last_transition: Optional[float] = None
+        self.current_stage: str = ""
+
+        # train_set has two writers (the vote tally on the learning thread,
+        # mid-round repair on the heartbeater): both take this lock
+        self.train_set_lock = threading.Lock()
+        # serializes the control handlers' monotone merges of
+        # models_aggregated / nei_status
+        self.status_merge_lock = threading.Lock()
+        self.train_set_votes_lock = threading.Lock()
+        self.start_thread_lock = threading.Lock()
+        self.votes_ready_event = threading.Event()
+        self.model_initialized_event = threading.Event()
+
+    def set_experiment(self, exp_name: str, total_rounds: int, xid: Optional[str] = None) -> None:
+        """Enter learning mode."""
+        self.status = "Learning"
+        self.experiment_name = exp_name
+        self.experiment_xid = xid
+        self.total_rounds = total_rounds
+        self.round = 0
+        self.experiment_epoch += 1
+
+    def increase_round(self) -> None:
+        """Advance the round; clears per-round caches. The round is bumped
+        BEFORE models_aggregated is replaced (ModelsAggregatedCommand
+        relies on that order)."""
+        if self.round is None:
+            raise ValueError("round not initialized")
+        self.round += 1
+        self.models_aggregated = {}
+
+    def clear(self) -> None:
+        """Back to idle."""
+        self.status = "Idle"
+        self.experiment_name = None
+        self.experiment_xid = None
+        self.round = None
+        self.total_rounds = None
+        self.models_aggregated = {}
+        self.nei_status = {}
+        with self.train_set_lock:
+            self.train_set = []
+            self.train_set_evicted = set()
+        self.train_set_votes = {}
+        self.votes_ready_event.clear()
+        self.model_initialized_event.clear()

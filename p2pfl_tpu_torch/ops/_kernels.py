@@ -1,11 +1,13 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-``csrc/flash_attention.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under ``build/p2pfl_tpu_torch/`` (beside the package, git
-ignored) at first use, and bound through ``ctypes`` with its plain C
-interface. The library's name carries a hash of the source, so an edited
-source is never served by a stale build. Nothing here runs at import: the
-build happens inside the first launch.
+``csrc/flash_attention.cu`` (kernels 1-8) and ``csrc/ici_exchange.cu``
+(kernel 9) are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
+source, all started together, and linked into one shared library under
+``build/p2pfl_tpu_torch/`` (beside the package, git ignored) at first use,
+bound through ``ctypes`` with their plain C interface. The library's name
+carries a hash of the sources, so an edited source is never served by a
+stale build. Nothing here runs at import: the build happens inside the
+first launch.
 
 Each wrapper checks device, dtype, contiguity and shapes and raises on
 anything the kernels were not built for; it launches on PyTorch's current
@@ -16,6 +18,7 @@ entry in :data:`LAUNCHES`. Outputs and scratch are allocated here with
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,12 +33,11 @@ import torch
 from p2pfl_tpu_torch.exceptions import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "flash_attention.cu",)
+SOURCES = (CSRC / "flash_attention.cu", CSRC / "ici_exchange.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2pfl_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: flags of each source's compile (``-c``); the link adds ``-shared``
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HEAD_DIM = 64  # the only head width built (the slice's)
 TILE = 64  # the kernels' q/k tile: T must be a multiple
 
@@ -43,7 +45,7 @@ TILE = 64  # the kernels' q/k tile: T must be a multiple
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkvq": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_fwd_offs": 0, "flash_bwd_dkvq_offs": 0, "flash_bwd_dq_offs": 0,
-    "flash_bwd_dkv_offs": 0,
+    "flash_bwd_dkv_offs": 0, "ici_exchange": 0,
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -58,6 +60,9 @@ SIGNATURES = {
     "p2p_flash_bwd_dkvq_offs": [_P] * 10 + [_I] * 5 + [_P],
     "p2p_flash_bwd_dkv_offs": [_P] * 9 + [_I] * 5 + [_P],
     "p2p_flash_bwd_dq_offs": [_P] * 8 + [_I] * 5 + [_P],
+    "p2p_ici_exchange": [_P, _I, _P],
+    "p2p_ici_max_entries": [],
+    "p2p_enable_peer_access": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -85,25 +90,43 @@ def library_path() -> Path:
     for src in SOURCES:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libp2pfl_flash_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libp2pfl_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile ``csrc/`` into the build directory unless already built.
-    The compiler's report (registers, shared memory, spills) is kept in
+    """Compile ``csrc/`` into the build directory unless already built:
+    one ``nvcc -c`` per source, all running at once, then one link. The
+    compilers' reports (registers, shared memory, spills) are kept in
     ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(SOURCES, procs)]
+    failed = [src.name for src, proc in zip(SOURCES, procs) if proc.returncode != 0]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *GENCODE, "-shared", "-o", str(tmp), *(str(o) for o in objs)],
+            capture_output=True, text=True, check=False,
+        )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    out.with_suffix(".log").write_text("\n".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise KernelBuildError(f"nvcc failed for {failed}:\n{chr(10).join(logs)[-4000:]}")
     os.replace(tmp, out)
     return out
 
@@ -298,3 +321,76 @@ def flash_bwd_split_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
     """Two offset passes with no cross-block state: (dQ, dK, dV)."""
     dq = flash_bwd_dq_offs(q, k, v, do, lse, delta, glse, q_off, k_off)
     return (dq, *flash_bwd_dkv_offs(q, k, v, do, lse, delta, glse, q_off, k_off))
+
+
+# ---- kernel 9: the ICI weights plane's shard transfer ----
+
+#: (device, peer) pairs whose peer access this process enabled
+_peers: set = set()
+
+
+def _enable_peer(device: int, peer: int) -> None:
+    if (device, peer) in _peers:
+        return
+    if not torch.cuda.can_device_access_peer(device, peer):
+        raise RuntimeError(
+            f"cuda:{device} cannot store into cuda:{peer} (no peer access): the ICI "
+            "plane never stages a transfer through the host"
+        )
+    rc = _load().p2p_enable_peer_access(device, peer)
+    if rc != 0:
+        raise RuntimeError(f"enabling peer access cuda:{device} -> cuda:{peer}: cudaError {rc}")
+    _peers.add((device, peer))
+
+
+def ici_exchange(srcs: list, dsts: list) -> None:
+    """Copy every ``srcs[i]`` into ``dsts[i]`` (same shape and dtype, both
+    contiguous) with kernel 9: one launch for the whole tree (several only
+    past the per-launch table limit), on the current stream of the
+    sources' card. All sources lie on one card, all destinations on one
+    card; with two cards the destinations' card must be peer-accessible,
+    and its current stream waits for the launch."""
+    if len(srcs) != len(dsts):
+        raise ValueError(f"{len(srcs)} sources for {len(dsts)} destinations")
+    if not srcs:
+        return
+    src_dev, dst_dev = srcs[0].device, dsts[0].device
+    if src_dev.type != "cuda" or dst_dev.type != "cuda":
+        raise ValueError("ici_exchange: sources and destinations must lie on CUDA devices")
+    # one pass, few attribute reads a leaf: for a 500-leaf tree this host
+    # work is of the order of the copy itself
+    rows: list = []
+    for s, d in zip(srcs, dsts):
+        if s.device != src_dev or d.device != dst_dev:
+            raise ValueError("ici_exchange: sources on one CUDA device, destinations on one")
+        n = s.nbytes
+        if s.dtype != d.dtype or n != d.nbytes:
+            raise ValueError(f"ici_exchange: {tuple(s.shape)} {s.dtype} into {tuple(d.shape)} {d.dtype}")
+        if not (s.is_contiguous() and d.is_contiguous()):
+            raise ValueError("ici_exchange: sources and destinations must be contiguous")
+        if n:
+            rows += (s.data_ptr(), d.data_ptr(), n)
+    if not rows:
+        return
+    lib = _load()
+    cross = src_dev != dst_dev
+    if cross:
+        _enable_peer(src_dev.index, dst_dev.index)
+    # a launch goes to a stream of the current card
+    here = src_dev.index is None or src_dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if here else torch.cuda.device(src_dev):
+        stream = torch.cuda.current_stream(src_dev)
+        if cross:
+            # the destinations' memory may still be in use by work queued
+            # on their own card: start only after it
+            stream.wait_stream(torch.cuda.current_stream(dst_dev))
+        per_launch = 3 * lib.p2p_ici_max_entries()
+        for i in range(0, len(rows), per_launch):
+            chunk = rows[i:i + per_launch]
+            table = (ctypes.c_uint64 * len(chunk))(*chunk)
+            rc = lib.p2p_ici_exchange(ctypes.cast(table, ctypes.c_void_p), len(chunk) // 3, stream.cuda_stream)
+            _check("ici_exchange", rc)
+    if cross:
+        # the receiver's stream sees the stores complete (the TPU kernel's
+        # recv semaphore)
+        torch.cuda.current_stream(dst_dev).wait_stream(stream)

@@ -9,7 +9,10 @@ dicts.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Iterator
+
+import torch
 
 Tree = Any
 
@@ -33,6 +36,38 @@ def tree_items(tree: Tree, prefix: str = "") -> Iterator[tuple[str, Any]]:
 
 def tree_leaves(tree: Tree) -> list:
     return [leaf for _, leaf in tree_items(tree)]
+
+
+def tree_structure(tree: Tree) -> tuple:
+    """The tree's leaf paths in leaf order: equal for two trees exactly
+    when they have the same structure (``jax.tree.structure`` equality)."""
+    return tuple(path for path, _ in tree_items(tree)) if isinstance(tree, dict) else ("",)
+
+
+def tree_stack(trees: list) -> Tree:
+    """Stack same-structure trees leafwise on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+#: per-THREAD count of leaves :func:`tree_align_devices` had to move (a
+#: consumer measures the delta around its own call, as in JAX)
+_align = threading.local()
+
+
+def tree_align_copy_count() -> int:
+    """Leaves re-placed by :func:`tree_align_devices` on this thread."""
+    return getattr(_align, "copies", 0)
+
+
+def tree_align_devices(tree: Tree, like: Tree) -> Tree:
+    """``tree`` with every leaf on the device of the matching leaf of
+    ``like``; the input comes back untouched when nothing differs. Each
+    moved leaf is counted (:func:`tree_align_copy_count`)."""
+    pairs = list(zip(tree_leaves(tree), tree_leaves(like)))
+    if all(a.device == b.device for a, b in pairs):
+        return tree
+    _align.copies = tree_align_copy_count() + sum(a.device != b.device for a, b in pairs)
+    return tree_map(lambda a, b: a if a.device == b.device else a.to(b.device), tree, like)
 
 
 def tree_unflatten(items: dict[str, Any]) -> Tree:

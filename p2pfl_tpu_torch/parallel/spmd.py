@@ -26,6 +26,7 @@ from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import adam
 from p2pfl_tpu_torch.models.base import TorchModel
+from p2pfl_tpu_torch.ops.aggregation import fedavg
 from p2pfl_tpu_torch.ops.tree import tree_map
 from p2pfl_tpu_torch.settings import Settings
 
@@ -42,12 +43,7 @@ def _aggregate(p_used: dict, mask, weights, agg: str) -> dict:
         raise NotImplementedError(
             f"aggregator {agg!r} is not ported yet (ROADMAP Queue A 6: SPMD breadth)"
         )
-    w = (mask * weights).to(torch.float32)
-    wn = w / w.sum()
-    return tree_map(
-        lambda x: torch.tensordot(wn, x.to(torch.float32), dims=([0], [0])).to(x.dtype),
-        p_used,
-    )
+    return fedavg(p_used, mask * weights)
 
 
 def stage_node_shards(datasets, batch_size: int) -> dict:

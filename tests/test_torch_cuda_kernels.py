@@ -159,3 +159,142 @@ def test_offset_wrappers_refuse_bad_offsets(cuda):
     q, k, v, _ = _inputs(cuda)
     with pytest.raises(ValueError, match="offsets"):
         _kernels.flash_fwd_offs(q, k, v, -1, 0)
+
+
+# ---- kernel 9: the ICI plane's shard transfer (bit-exact, any dtype) ----
+
+
+def _exchange_tree(cuda, name):
+    """The trees of chip_smoke's exchange phase: the MLP's fp32 leaves, a
+    bf16 tree, odd byte counts at unaligned offsets (destinations half
+    co-misaligned, half whole allocations), the config-5 model's bf16
+    weight shapes."""
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, init_params
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    if name == "mlp_fp32":
+        srcs = tree_leaves(mlp(seed=0, device=cuda).params)
+    elif name == "bf16":
+        srcs = [torch.randn(s, generator=gen, device=cuda).to(torch.bfloat16) for s in ((4096, 2048), (8, 2048), (3, 5, 7))]
+    elif name == "odd_unaligned":
+        flat = torch.randint(0, 256, (1 << 20,), generator=gen, device=cuda, dtype=torch.uint8)
+        spans = [(1, 1001), (3 + 4096, 17), (5 + 8192, 65537), (16 + 200000, 15), (7 + 300000, 123457)]
+        shadow = torch.empty_like(flat)
+        srcs = [flat[o:o + n] for o, n in spans] + [
+            flat[600002:600002 + 666].view(torch.bfloat16), flat[700012:700012 + 3996].view(torch.float32)
+        ]
+        return srcs, [shadow[o:o + n] for o, n in spans] + [torch.empty_like(s) for s in srcs[len(spans):]]
+    else:
+        cfg = TransformerConfig(vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=22,
+                                ffn_hidden=5632, lora_rank=8, lora_mlp=True)
+        srcs = [x.to(torch.bfloat16) for x in tree_leaves(init_params(cfg, seed=0, device=cuda))]
+    return srcs, [torch.empty_like(s) for s in srcs]
+
+
+def _bits(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("tree", ["mlp_fp32", "bf16", "odd_unaligned", "config5_bf16"])
+def test_ici_exchange_matches_plain_bit_exact(cuda, tree):
+    from p2pfl_tpu_torch.parallel.ici_plane import exchange_plain
+
+    srcs, dsts = _exchange_tree(cuda, tree)
+    refs = [torch.empty_like(d) for d in dsts]
+    _kernels.reset_launches()
+    _kernels.ici_exchange(srcs, dsts)
+    exchange_plain(srcs, refs)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["ici_exchange"] == 1  # one launch for the whole tree
+    for s, d, r in zip(srcs, dsts, refs):
+        assert torch.equal(_bits(d), _bits(r)) and torch.equal(_bits(d), _bits(s))
+
+
+def test_shard_transfer_between_slots_of_one_card(cuda):
+    """Two nodes' slots of one card: the transfer launches kernel 9 once,
+    lands in fresh buffers, and leaves the filler unwritten."""
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel import ici_plane
+    from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
+
+    a, b = node_slices(submesh_federation_mesh(2, devices=[cuda, cuda]))
+    tree, filler = mlp(seed=0, device=cuda).params, mlp(seed=1, device=cuda).params
+    kept = [x.clone() for x in tree_leaves(filler)]
+    src, dst = ici_plane.slice_info_of(tree, a), ici_plane.slice_info_of(filler, b)
+    _kernels.reset_launches()
+    out = ici_plane.shard_transfer(tree, filler, src, dst)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["ici_exchange"] == 1
+    for x, y, f, k in zip(tree_leaves(tree), tree_leaves(out), tree_leaves(filler), kept):
+        assert torch.equal(_bits(x), _bits(y)) and y.data_ptr() != x.data_ptr()
+        assert torch.equal(f, k)
+
+
+def test_ici_exchange_refusals(cuda):
+    x = torch.arange(10.0, device=cuda)
+    _kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        _kernels.ici_exchange([x], [torch.empty(10)])
+    with pytest.raises(ValueError):
+        _kernels.ici_exchange([x], [torch.empty(11, device=cuda)])
+    with pytest.raises(ValueError, match="contiguous"):
+        _kernels.ici_exchange([x.view(2, 5).t()], [torch.empty(5, 2, device=cuda)])
+    _kernels.ici_exchange([x[:0]], [torch.empty(0, device=cuda)])  # nothing to move: no launch
+    assert _kernels.LAUNCHES["ici_exchange"] == 0
+
+
+# ---- kernel 9 across two cards (peer stores; needs a machine with >= 2) ----
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (kernel 9's peer stores)")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_ici_exchange_across_two_cards(two_cards):
+    """Sources on one card, destinations on the other: one launch on the
+    source card stores into the peer's memory, bit for bit, both ways."""
+    from p2pfl_tpu_torch.parallel.ici_plane import exchange_plain
+
+    for src_dev, dst_dev in (two_cards, two_cards[::-1]):
+        srcs, _ = _exchange_tree(src_dev, "bf16")
+        srcs += _exchange_tree(src_dev, "mlp_fp32")[0]
+        dsts = [torch.empty_like(s, device=dst_dev) for s in srcs]
+        refs = [torch.empty_like(d) for d in dsts]
+        _kernels.reset_launches()
+        _kernels.ici_exchange(srcs, dsts)
+        exchange_plain(srcs, refs)
+        torch.cuda.synchronize(src_dev)
+        torch.cuda.synchronize(dst_dev)
+        assert _kernels.LAUNCHES["ici_exchange"] == 1
+        for s, d, r in zip(srcs, dsts, refs):
+            assert d.device == dst_dev
+            assert torch.equal(_bits(d), _bits(r)) and torch.equal(_bits(d).cpu(), _bits(s).cpu())
+
+
+def test_ici_gossip_federation_across_two_cards(two_cards):
+    """Two gossip Nodes, one slot on each card, the ICI plane: every model
+    payload crosses cards through kernel 9's peer stores; both nodes end
+    on one model with no fallback or failed transfer."""
+    from p2pfl_tpu_torch.communication.ici import ici_stats, reset_ici_stats
+    from p2pfl_tpu_torch.examples import mnist as example
+
+    reset_ici_stats()
+    _kernels.reset_launches()
+    out = example.run(nodes=2, rounds=2, samples=2048, batch_size=128, device=None,
+                      weights_plane="ici", topology="full", devices=list(two_cards))
+    torch.cuda.synchronize()
+    stats = ici_stats()
+    assert stats["shard_sends"] > 0 and stats["bytes_moved"] > 0
+    assert stats["fallback_bytes"] == 0 and stats["align_violations"] == 0
+    assert _kernels.LAUNCHES["ici_exchange"] == stats["shard_sends"]
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    a, b = (tree_leaves(p) for p in out["params"])
+    assert a[0].device == two_cards[0] and b[0].device == two_cards[1]
+    assert max((x.cpu() - y.cpu()).abs().max().item() for x, y in zip(a, b)) <= 1e-5

@@ -104,37 +104,58 @@ def test_entry_points_raise_without_cuda():
         SpmdLoraFederation.from_dataset(model, data, n_nodes=2, batch_size=2)
     fed = SpmdLoraFederation.from_dataset(model, data, n_nodes=2, batch_size=2, device="cpu")
     assert fed.x_all.device.type == "cpu"
+    # the gossip Node path: model, learner, slices, example
+    from p2pfl_tpu_torch.examples.mnist import run
+    from p2pfl_tpu_torch.learning.learner import DummyLearner
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.parallel.mesh import submesh_federation_mesh
+
+    for call in (mlp, DummyLearner, lambda: submesh_federation_mesh(2), lambda: run(nodes=2, rounds=1)):
+        with pytest.raises(DeviceUnavailableError):
+            call()
 
 
 def test_kernel_sources_and_bindings_agree():
     """The C entry points the ctypes binding declares exist in the CUDA
-    source with the same number of parameters, the build targets sm_90a,
+    sources (every ``.cu`` under ``csrc/``) with the same number of
+    parameters, each is called by the bindings, the build targets sm_90a,
     and importing the module built nothing."""
-    src = (PKG / "csrc" / "flash_attention.cu").read_text()
+    sources = {p.name: p.read_text() for p in sorted((PKG / "csrc").glob("*.cu"))}
     argcs = {
-        "p2p_flash_fwd": 10, "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dq": 12,
-        "p2p_flash_fwd_offs": 11, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_dkv_offs": 15,
-        "p2p_flash_bwd_dq_offs": 14,
+        "flash_attention.cu": {
+            "p2p_flash_fwd": 10, "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dq": 12,
+            "p2p_flash_fwd_offs": 11, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_dkv_offs": 15,
+            "p2p_flash_bwd_dq_offs": 14,
+        },
+        "ici_exchange.cu": {"p2p_ici_exchange": 3, "p2p_ici_max_entries": 0, "p2p_enable_peer_access": 2},
     }
-    for name, argc in argcs.items():
-        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
-        assert m, name
-        params = m.group(1).split(",")
-        assert len(params) == argc, name
-        # the ctypes binding declares a pointer for each pointer, an int for each int
-        want = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params]
-        assert _kernels.SIGNATURES[name] == want, name
-        assert f"lib.{name}(" in (PKG / "ops" / "_kernels.py").read_text(), name
-    assert len(re.findall(r'extern "C" int p2p_', src)) == len(argcs) == len(_kernels.SIGNATURES)
+    assert sorted(sources) == sorted(argcs)
+    bindings = (PKG / "ops" / "_kernels.py").read_text()
+    for file, entry_points in argcs.items():
+        src = sources[file]
+        for name, argc in entry_points.items():
+            m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+            assert m, name
+            params = [p for p in m.group(1).split(",") if p.strip() not in ("", "void")]
+            assert len(params) == argc, name
+            # the ctypes binding declares a pointer for each pointer, an int for each int
+            want = [ctypes.c_void_p if "*" in prm else ctypes.c_int for prm in params]
+            assert _kernels.SIGNATURES[name] == want, name
+            assert f"lib.{name}(" in bindings or f"_load().{name}(" in bindings, name
+        assert len(re.findall(r'extern "C" int p2p_', src)) == len(entry_points), file
+        for rel in ("torch", "TORCH", "ATen"):
+            assert f"#include <{rel}" not in src  # plain C interface: no PyTorch headers
+    assert sum(map(len, argcs.values())) == len(_kernels.SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels._lib is None
     assert set(_kernels.LAUNCHES) == {
         "flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv",
         "flash_fwd_offs", "flash_bwd_dkvq_offs", "flash_bwd_dq_offs", "flash_bwd_dkv_offs",
+        "ici_exchange",
     }
     assert [s.name for s in _kernels.SOURCES] == [p.name for p in sorted((PKG / "csrc").glob("*.cu"))]
-    for rel in ("torch", "TORCH", "ATen"):
-        assert f"#include <{rel}" not in src  # plain C interface: no PyTorch headers
+    # kernel 9 stores every payload byte itself: no copy call in its source
+    assert "cudaMemcpy" not in sources["ici_exchange.cu"]
 
 
 def test_launch_counter_reset():
