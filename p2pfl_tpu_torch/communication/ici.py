@@ -194,7 +194,7 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
     transport must not deliver it again), or ``None`` when this envelope
     or peer is not eligible and the transport's path proceeds.
     """
-    from p2pfl_tpu_torch.settings import Settings, ici_backend
+    from p2pfl_tpu_torch.settings import Settings
 
     if Settings.WEIGHTS_PLANE != "ici" or not isinstance(env, WeightsEnvelope):
         return None
@@ -243,7 +243,6 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
         return None
 
     mode = Settings.WIRE_COMPRESSION
-    backend = ici_backend(dst_info.device)
     try:
         if same_devices(src_info, dst_info):
             # the tensors already lie where the receiver wants them: a
@@ -251,7 +250,7 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
             moved, params = 0, update.params
         else:
             moved = tree_device_bytes(update.params)
-            params = shard_transfer(update.params, template, src_info, dst_info, backend)
+            params = shard_transfer(update.params, template, src_info, dst_info)
     except Exception as exc:  # noqa: BLE001 — a failed transfer is a failed send
         logger.error(src, f"ICI shard transfer to {nei} failed: {exc!r}")
         return False
@@ -290,6 +289,6 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
     logger.log_comm_metric(src, "ici_bytes_moved", moved)
     telemetry.event(
         src, "ici_transfer", kind="gossip",
-        attrs={"peer": nei, "backend": backend, "codec": mode, "bytes": moved},
+        attrs={"peer": nei, "codec": mode, "bytes": moved},
     )
     return bool(result.ok)

@@ -67,11 +67,14 @@ SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+#: guards :data:`LAUNCHES`: kernel 9 launches from the gossip send workers
+_launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -149,7 +152,8 @@ def _check(name: str, rc: int) -> None:
         raise ValueError(f"{name}: shape not supported by the kernel")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def _check_inputs(**tensors: torch.Tensor) -> tuple[int, int, int, int]:

@@ -35,7 +35,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_structure, tree_unflatten
+from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_structure, tree_unflatten
 from p2pfl_tpu_torch.parallel.mesh import Mesh
 
 Tree = Any
@@ -146,17 +146,14 @@ def exchange(srcs: list, dsts: list) -> None:
         exchange_plain(srcs, dsts)
 
 
-def shard_transfer(
-    tree: Tree, filler: Tree, src: SliceInfo, dst: SliceInfo, backend: str = "cuda"
-) -> Tree:
+def shard_transfer(tree: Tree, filler: Tree, src: SliceInfo, dst: SliceInfo) -> Tree:
     """Move ``tree`` from slice ``src`` onto slice ``dst``, slot to slot.
 
     ``filler`` is a structurally identical tree already on ``dst`` (the
     receiver's current parameters); it fixes where the output lands and
     is never written. The output leaves are fresh buffers on ``dst``'s
-    device, filled by one exchange: ``backend="cuda"`` is
-    :func:`exchange` (kernel 9 on a card), ``"plain"`` is
-    :func:`exchange_plain`."""
+    device, filled by one :func:`exchange` (kernel 9 on a card, the
+    plain version on the CPU)."""
     if tree_structure(tree) != tree_structure(filler):
         raise ValueError("shard_transfer: tree and filler differ in structure")
     if not transfer_compatible(src, dst):
@@ -171,23 +168,6 @@ def shard_transfer(
                              f"for filler {tuple(fill.shape)} {fill.dtype}")
     srcs = [x for _, x in items]
     outs = [torch.empty(x.shape, dtype=x.dtype, device=dst.device) for x in srcs]
-    (exchange_plain if backend == "plain" else exchange)(srcs, outs)
+    exchange(srcs, outs)
     return tree_unflatten({k: o for (k, _), o in zip(items, outs)})
 
-
-def conform_specs(tree: Tree, mesh: Mesh, specs: tuple) -> tuple[Tree, int]:
-    """Re-lay a tree out to ``specs`` on ``mesh``, counting moved leaves.
-
-    Every leaf of the port is whole on its slot (spec ``()``), so this
-    checks that and moves nothing: ``(tree, 0)``. A spec other than the
-    replicated one raises (sharded leaves are ROADMAP A6)."""
-    if any(spec != REPLICATED for spec in specs):
-        raise NotImplementedError("sharded leaf specs are not ported yet (ROADMAP A6)")
-    return tree, 0
-
-
-def replicate_on_slice(tree: Tree, info: SliceInfo) -> Tree:
-    """Place a tree whole on a slice's slot: each leaf not already on the
-    slice's device moves there (within the card, or host to card for a
-    leaf built on the host)."""
-    return tree_map(lambda x: x if x.device == info.device else x.to(info.device), tree)

@@ -58,9 +58,6 @@ class Settings:
     # refuses it (one program is one trust domain) and the Node's secagg
     # verbs are not ported (True raises at Node.start)
     SECURE_AGGREGATION: bool = False
-    # fused overlay round: the port's learners return None from
-    # fused_round, so TrainStage always takes the staged evaluate + fit
-    ROUND_FUSED: bool = True
     # aggregation accumulates in this dtype
     AGG_DTYPE: str = "float32"
 
@@ -88,24 +85,6 @@ class Settings:
     # parallel/ici_plane.py (kernel 9 on the card), the control plane
     # staying on the transport (communication/ici.py)
     WEIGHTS_PLANE: str = "bytes"
-    # exchange backend of the ICI plane: "auto" (the CUDA kernel for slices
-    # on CUDA, the plain copy for slices on the CPU — :func:`ici_backend`),
-    # or an explicit "cuda" / "plain"
-    ICI_BACKEND: str = "auto"
-
-
-def ici_backend(device=None) -> str:
-    """Resolve ``Settings.ICI_BACKEND`` ("auto" = by the slices' device).
-
-    "auto" is ``"cuda"`` (kernel 9, ``csrc/ici_exchange.cu``) when the
-    slices lie on a CUDA device and ``"plain"`` (a per-leaf copy) on the
-    CPU; an explicit value overrides, as in JAX."""
-    explicit = Settings.ICI_BACKEND
-    if explicit != "auto":
-        if explicit not in ("cuda", "plain"):
-            raise ValueError(f"unknown ICI_BACKEND {explicit!r}")
-        return explicit
-    return "cuda" if device is not None and device.type == "cuda" else "plain"
 
 
 def set_test_settings() -> None:
@@ -129,13 +108,11 @@ def set_test_settings() -> None:
     Settings.BREAKER_SUSPECT_TIMEOUT = 0.6
     Settings.TRAIN_SET_REPAIR = True
     Settings.EARLY_INIT_TTL = 15.0
-    Settings.ROUND_FUSED = True
     Settings.TELEMETRY_ENABLED = True
     Settings.TELEMETRY_RING_SPANS = 4096
     Settings.TELEMETRY_BEAT_SPANS = False
     Settings.WIRE_COMPRESSION = "none"
     Settings.WEIGHTS_PLANE = "bytes"
-    Settings.ICI_BACKEND = "auto"
     Settings.TRAIN_SET_SIZE = 4
     Settings.VOTE_TIMEOUT = 10.0
     Settings.AGGREGATION_TIMEOUT = 10.0

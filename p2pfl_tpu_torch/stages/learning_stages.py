@@ -104,7 +104,6 @@ class StartLearningStage(Stage):
         node.aggregator.reset_experiment()
         node.learner.set_epochs(node.epochs)
         node.learner.set_addr(node.addr)
-        node.learner.pop_round_metrics()
         if not sync_initial_model(node):
             return None
         # let heartbeats flood so the full membership is known before voting
@@ -189,20 +188,15 @@ class TrainStage(Stage):
         for gone in list(state.train_set_evicted):
             node.aggregator.discard_member(gone)
 
-        own = None
-        if Settings.ROUND_FUSED and not node.learning_interrupted():
-            own = node.learner.fused_round()
-        if own is None:
-            # the staged path: evaluate and share metrics, train, contribute
-            broadcast_metrics(node, node.learner.evaluate())
-            if node.learning_interrupted():
-                return None
-            node.learner.fit()
-            if node.learning_interrupted():
-                return None
-            own = node.learner.get_model_update()
+        # the staged path (the port has no fused round): evaluate and share
+        # metrics, train, contribute
+        broadcast_metrics(node, node.learner.evaluate())
         if node.learning_interrupted():
             return None
+        node.learner.fit()
+        if node.learning_interrupted():
+            return None
+        own = node.learner.get_model_update()
         covered = node.aggregator.add_model(own)
         node.protocol.broadcast(
             node.protocol.build_msg("models_aggregated", covered, round=state.round or 0)

@@ -37,10 +37,10 @@ from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.models.vision import MLP, mlp
 from p2pfl_tpu_torch.node import Node, stop_leaked_nodes
 from p2pfl_tpu_torch.ops import _kernels
-from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves
+from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map
 from p2pfl_tpu_torch.parallel import ici_plane
 from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
-from p2pfl_tpu_torch.settings import Settings, ici_backend, set_test_settings
+from p2pfl_tpu_torch.settings import Settings, set_test_settings
 from p2pfl_tpu_torch.utils import full_connection, wait_convergence, wait_to_finish
 
 torch.set_num_threads(2)
@@ -110,7 +110,7 @@ def test_shard_transfer_plain_bit_exact_under_receiver_slice():
     src = ici_plane.slice_info_of(tree, a)
     dst = ici_plane.slice_info_of(filler, b)
     assert ici_plane.transfer_compatible(src, dst) and not ici_plane.same_devices(src, dst)
-    out = ici_plane.shard_transfer(tree, filler, src, dst, backend="plain")
+    out = ici_plane.shard_transfer(tree, filler, src, dst)
     assert ici_plane.slice_info_of(out, b) is not None
     for (ka, x), (kb, y), (_, f) in zip(tree_items(tree), tree_items(out), tree_items(filler)):
         assert ka == kb and x.dtype == y.dtype and x.shape == y.shape
@@ -118,10 +118,8 @@ def test_shard_transfer_plain_bit_exact_under_receiver_slice():
         assert y.data_ptr() not in (x.data_ptr(), f.data_ptr())
     for k, v in tree_items(filler):
         assert torch.equal(_bits(v), _bits(filler_before[k]))
-    # the default backend dispatches by device: the plain version on the CPU
-    out2 = ici_plane.shard_transfer(tree, filler, src, dst)
-    for x, y in zip(tree_leaves(tree), tree_leaves(out2)):
-        assert torch.equal(_bits(x), _bits(y))
+    # the tensors lie on the CPU, so the plain version served the exchange
+    assert _kernels._lib is None and _kernels.LAUNCHES["ici_exchange"] == 0
 
 
 def test_shard_transfer_refuses_mismatches():
@@ -163,27 +161,6 @@ def test_slice_info_of_rejections():
     info = ici_plane.slice_info_of(_tree(0), a)
     assert info.shape == (1, 1) and all(s == ici_plane.REPLICATED for s in info.specs)
     assert ici_plane.tree_device_bytes(_tree(0)) == (35 + 5 + 1) * 4 + 33 * 2
-    tree = _tree(0)
-    conformed, moved = ici_plane.conform_specs(tree, a, info.specs)
-    assert conformed is tree and moved == 0
-    with pytest.raises(NotImplementedError, match="A6"):
-        ici_plane.conform_specs(tree, a, (("model",),) + info.specs[1:])
-    placed = ici_plane.replicate_on_slice(tree, info)
-    assert all(x is y for x, y in zip(tree_leaves(tree), tree_leaves(placed)))
-
-
-def test_ici_backend_resolver():
-    assert Settings.ICI_BACKEND == "auto"
-    assert ici_backend(torch.device("cpu")) == "plain"
-    assert ici_backend(torch.device("cuda", 0)) == "cuda"
-    try:
-        Settings.ICI_BACKEND = "plain"
-        assert ici_backend(torch.device("cuda", 0)) == "plain"
-        Settings.ICI_BACKEND = "nccl"
-        with pytest.raises(ValueError):
-            ici_backend(torch.device("cpu"))
-    finally:
-        Settings.ICI_BACKEND = "auto"
 
 
 def test_kernel_wrapper_takes_only_card_tensors():
@@ -378,10 +355,44 @@ def test_ici_placed_federation_matches_jax(monkeypatch):
         node.stop()
 
 
+def _pair_leaves(plane: str) -> list:
+    """``examples/mnist.py``'s path with 2 nodes on disjoint CPU slots,
+    equal shards, 2 rounds: each node's final leaves as fp32."""
+    from p2pfl_tpu_torch.examples import mnist as example
+
+    out = example.run(nodes=2, rounds=2, samples=256, batch_size=32, device="cpu",
+                      weights_plane=plane, topology="full", timeout=60)
+    return [[x.float() for x in tree_leaves(p)] for p in out["params"]]
+
+
+def _max_gap(a: list, b: list) -> float:
+    return max((x - y).abs().max().item() for la, lb in zip(a, b) for x, y in zip(la, lb))
+
+
+def test_two_node_planes_agree_bit_for_bit_and_a_wrong_delivery_does_not(monkeypatch):
+    """Two nodes with equal shards: FedAvg of two halves is exact in either
+    arrival order, so the bytes and ICI runs end bit-equal (gap 0). The
+    control: the same ICI run with a delivery that hands each receiver
+    its own model (the filler) instead of the sender's ends far apart
+    (above 1e-3: each node keeps its own model)."""
+    byt = _pair_leaves("bytes")
+    ici.reset_ici_stats()
+    via_ici = _pair_leaves("ici")
+    stats = ici.ici_stats()
+    assert stats["shard_sends"] > 0 and stats["bytes_moved"] > 0 and stats["fallback_bytes"] == 0
+    assert _max_gap(byt, via_ici) == 0.0
+    assert _max_gap(via_ici[:1], via_ici[1:]) == 0.0
+
+    monkeypatch.setattr(ici, "shard_transfer", lambda tree, filler, src, dst: tree_map(torch.clone, filler))
+    wrong = _pair_leaves("ici")
+    assert _max_gap(byt, wrong) > 1e-3
+    assert _max_gap(wrong[:1], wrong[1:]) > 1e-3
+
+
 def test_plane_counters_lose_no_update_under_threads():
-    """The plane's stats and the comm counters are read-modify-writes hit
-    from every gossip worker: 16 threads, a 1 µs switch interval, no lost
-    increment."""
+    """The plane's stats, the comm counters and the kernels' launch counts
+    are read-modify-writes hit from every gossip worker: 16 threads, a
+    1 µs switch interval, no lost increment."""
     import sys
     import threading
 
@@ -394,6 +405,7 @@ def test_plane_counters_lose_no_update_under_threads():
             for _ in range(2000):
                 ici._count("shard_sends")
                 telemetry.inc("comm", "stress", "ici_send_shard")
+                _kernels._check("ici_exchange", 0)  # a launch that returned cudaSuccess
 
         threads = [threading.Thread(target=work) for _ in range(16)]
         for t in threads:
@@ -405,4 +417,6 @@ def test_plane_counters_lose_no_update_under_threads():
         sys.setswitchinterval(prev)
     assert ici.ici_stats()["shard_sends"] == 16 * 2000
     assert telemetry.counters("comm", "stress")["ici_send_shard"] == 16 * 2000
+    assert _kernels.LAUNCHES["ici_exchange"] == 16 * 2000
     telemetry.reset_counters("comm")
+    _kernels.reset_launches()

@@ -218,11 +218,6 @@ def test_fedavg_matches_jax():
         np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
 
 
-def test_fused_round_is_staged():
-    learner = TorchLearner(mlp(seed=0, device="cpu"), FederatedDataset.synthetic_mnist(n_train=64, n_test=16))
-    assert learner.fused_round() is None and learner.pop_round_metrics() == {}
-
-
 def test_learner_refuses_a_slice_of_several_slots():
     from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
 
