@@ -9,11 +9,15 @@ Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
 
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``p2pfl_tpu_torch/csrc`` with ``nvcc``;
+2. build the CUDA kernels from ``p2pfl_tpu_torch/csrc`` with ``nvcc`` (one
+   per source, in parallel) and print what ``-Xptxas -v`` says of each,
+   with the forward's registers, spills and dynamic shared memory;
 3. [kernels] hold kernels 1-4 against their plain PyTorch versions on the
    card at the flash path's attention shape (4 nodes x batch 1, T 1024,
    32 heads, head dim 64, bf16), causal and full, and time kernel, plain
-   version, the analytic bound and one PyTorch library call as a yardstick;
+   version, the analytic bound and one PyTorch library call as a yardstick
+   (for the forward also its device time alone, its host time a call, and
+   the library call's device time alone);
 4. [offs] the same for the offset-aware kernels 5-8 at a ring hop's shape
    (2 nodes x 32 heads, T_local 1024, bf16) in five visibility cases
    (diagonal, fully visible, fully masked, and two off-tile pairs, one
@@ -79,7 +83,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 SRC = "p2pfl_tpu_torch/csrc/flash_attention.cu"
-SOURCES = {"ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
+FWD_SRC = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"
+SOURCES = {"flash_fwd": FWD_SRC, "flash_fwd_offs": FWD_SRC, "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
 REPLACES = {
     "flash_fwd": "p2pfl_tpu/ops/flash_attention.py:189",
     "flash_bwd_dkvq": "p2pfl_tpu/ops/flash_attention.py:327",
@@ -176,6 +181,46 @@ def fmt(name: str, res: tuple[float, float, float]) -> str:
     return f"{name} max err {e:.3e} (limit {RTOL:g}·|ref| + {atol:.3e}, worst element at {used:.2f} of it)"
 
 
+def host_ms(fn, iters: int = 50) -> float:
+    """Host time of one call (the wrapper's checks, allocations, tensor
+    maps and launch), by the host clock over calls that only enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e3
+
+
+def fwd_device_times(kernel, library) -> dict:
+    """The forward's device time alone (without the wrapper's host work)
+    and host time a call, and the device time of its library yardstick,
+    where there is one."""
+    return {"device_ms": time_device_ms(kernel), "host_ms": host_ms(kernel),
+            "library_device_ms": time_device_ms(library) if library is not None else None}
+
+
+def build_report(log_text: str) -> list:
+    """Lines of the ``-Xptxas -v`` report worth printing, then one summary
+    line per instantiation of the forward (registers, spills) and its
+    dynamic shared memory, which ptxas does not report."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    words = ("registers", "spill", "error", "Compiling", "warning", "Potential")
+    lines = [line.strip() for line in log_text.splitlines() if any(w in line for w in words)]
+    section = log_text.split("== flash_fwd_sm90.cu", 1)[-1].split("\n== ", 1)[0]
+    for entry in section.split("Compiling entry function")[1:]:
+        name = entry.split("'")[1]
+        inst = "OFFS=true" if "ILb1E" in name else "OFFS=false"
+        regs = next((w.split("Used ")[1].split(" ")[0] for w in entry.splitlines() if "Used " in w), "?")
+        spill = [w.strip() for w in entry.splitlines() if "spill" in w]
+        lines.append(f"flash_fwd_sm90<{inst}>: {regs} registers; {'; '.join(spill) or 'no spill line'}; "
+                     f"{_kernels.flash_fwd_smem_bytes()} bytes of dynamic shared memory a block")
+    return lines
+
+
 # ---- phase 3: kernels against their plain versions ----
 
 
@@ -243,6 +288,9 @@ def check_kernels(results: dict) -> bool:
         bms, by = bound(qkv_bytes + b * h * t * d * bf16 + row_bytes, 4 * d * pairs)
         rows["flash_fwd"] = dict(max_abs_err=max(r_o[0], e_l), ms=ms, plain_ms=plain,
                                  bound_ms=bms, bound_by=by, library_ms=lib)
+        rows["flash_fwd"].update(fwd_device_times(
+            lambda: _kernels.flash_fwd(q, k, v, causal),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)))
 
         qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
 
@@ -385,6 +433,8 @@ def check_offs_kernels(results: dict) -> bool:
             max_abs_err=max(r_o[0], e_l), ms=time_ms(lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off)),
             plain_ms=time_ms(lambda: fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk), iters=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fwd) if lib_fwd is not None else None)
+        rows["flash_fwd_offs"].update(fwd_device_times(
+            lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off), lib_fwd))
         bwd_in = 4 * seen_tensor + 3 * seen_row  # q, k, v, dO, lse, delta, g_lse
         for name, kernel, plain, n_out, flops, err in (
             ("flash_bwd_dkvq_offs", _kernels.flash_bwd_fused_offs, fa.flash_bwd_fused_offs_plain, 3, 10,
@@ -918,9 +968,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib = _kernels.build()
     log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower() or "Compiling" in line:
-            log(f"[build] {line.strip()}")
+    for line in build_report(lib.with_suffix(".log").read_text()):
+        log(f"[build] {line}")
 
     ok = True
     timings: dict = {}

@@ -1,13 +1,12 @@
-// Flash attention for Hopper (sm_90a): forward, fused backward and split
-// backward, hand-written in CUDA C++ with warp-level tensor-core products
-// (nvcuda::wmma, bf16 operands, fp32 accumulation).
+// Flash attention backward for Hopper (sm_90a): fused and split backward,
+// hand-written in CUDA C++ with warp-level tensor-core products
+// (nvcuda::wmma, bf16 operands, fp32 accumulation). The forward is
+// flash_fwd_sm90.cu.
 //
 // Port of the Pallas kernels in p2pfl_tpu/ops/flash_attention.py:
-//   p2p_flash_fwd           <- _flash_kernel      (+ _fwd_tile)
 //   p2p_flash_bwd_dkvq      <- _dkvq_kernel       (+ _dkv_step with dq_acc)
 //   p2p_flash_bwd_dq        <- _dq_kernel
 //   p2p_flash_bwd_dkv       <- _dkv_kernel        (+ _dkv_step)
-//   p2p_flash_fwd_offs      <- _flash_kernel_offs (+ _fwd_tile_offs)
 //   p2p_flash_bwd_dkvq_offs <- _dkvq_kernel_offs  (+ _dkv_step_offs, _offs_kv_bounds)
 //   p2p_flash_bwd_dq_offs   <- _dq_kernel_offs
 //   p2p_flash_bwd_dkv_offs  <- _dkv_kernel_offs   (+ _dkv_step_offs, _offs_kv_bounds)
@@ -17,21 +16,19 @@
 // offsets as plain int arguments (SMEM scalars on the TPU). They are the
 // same kernels instantiated with OFFS = true: the loop bounds and tile
 // masks move to global coordinates, a row that sees nothing in the call
-// (lse at the sentinel) gets P = 0 in the backward, and the lse cotangent
-// adds into dS = P * (dP - delta + g_lse). With OFFS = false the offsets
-// fold to 0 at compile time and kernels 1-4 are what they were. Loop
-// bounds divide with C's '/', which truncates toward zero like lax.div:
-// with a negative numerator a q tile may keep one fully masked k tile,
-// which adds nothing.
+// (lse at the sentinel) gets P = 0, and the lse cotangent adds into
+// dS = P * (dP - delta + g_lse). With OFFS = false the offsets fold to 0
+// at compile time and kernels 2-4 are what they were. Loop bounds divide
+// with C's '/', which truncates toward zero like lax.div: with a negative
+// numerator a q tile may keep one fully masked k tile, which adds nothing.
 //
-// Layout: q, k, v, o, dO, dq, dk, dv are [BH, T, D] bf16, contiguous;
+// Layout: q, k, v, dO, dq, dk, dv are [BH, T, D] bf16, contiguous;
 // lse, delta and g_lse are [BH, T] fp32 (the JAX [B, H, 1, T] row layout).
 // T must be a multiple of 64; D (head_dim) is 64, the only width built.
 //
 // Rounding points follow the JAX kernels: operands stay bf16 and every
 // product accumulates in fp32; P is cast to bf16 before P.V and P^T.dO;
-// dS is cast to bf16 before dS.K and dS^T.Q; the output is
-// acc / max(l, 1e-30); fully masked rows keep lse = NEG_INF.
+// dS is cast to bf16 before dS.K and dS^T.Q.
 //
 // Each extern "C" entry point launches one kernel on the given stream and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -155,137 +152,21 @@ __device__ __forceinline__ void warp_store_rows(bf16* out, float* stage, FragC* 
   __syncwarp();
 }
 
-// ---------------------------------------------------------------------------
-// Forward.  Replaces _flash_kernel / _fwd_tile.
-//
-// Bound on the H100: at T = 1024, D = 64 the causal forward does ~2 T^2 D
-// flops per head against 4 T D bytes, far above the card's ~295 flop/byte
-// ridge, so it is bound by tensor-core work. Design: one block of 4 warps
-// per (bh, 64-row q tile); each warp owns 16 q rows end to end (scores,
-// online softmax, rescale, P.V), so only the K/V tile loads need a block
-// barrier. The running output accumulates in fp32 shared memory and
-// goes through the tensor cores as the wmma accumulator. Blocks are
-// issued longest first (highest q tile) to shorten the causal tail.
-// Simple and right first: no TMA, no wgmma, no pipelining of the K/V loads.
-// ---------------------------------------------------------------------------
-template <int D>
-struct FwdSmem {
-  static constexpr int LDH = D + PAD_H, LDO = D + PAD_F;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + align128(BQ * LDH * sizeof(bf16));
-  static constexpr size_t v = k + align128(BK * LDH * sizeof(bf16));
-  static constexpr size_t s = v + align128(BK * LDH * sizeof(bf16));
-  static constexpr size_t p = s + align128(BQ * LDS * sizeof(float));
-  static constexpr size_t o = p + align128(BQ * LDP * sizeof(bf16));
-  static constexpr size_t total = o + align128(BQ * LDO * sizeof(float));
-};
-
 __device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
-// k tiles [0, n_k) that q tile q0 streams; the offset form is
-// _fwd_tile_offs's n_blocks (global coordinates, truncating division)
+// k tiles [0, n_k) that q tile q0 streams (the dQ pass walks the
+// forward's bounds); the offset form is _fwd_tile_offs's n_blocks (global coordinates, truncating division)
 template <bool OFFS>
 __device__ __forceinline__ int fwd_k_tiles(int q0, int T, int causal, int q_off, int k_off) {
   if (OFFS) return clampi((q_off + q0 + BQ - 1 - k_off) / BK + 1, 0, T / BK);
   return causal ? (q0 + BQ + BK - 1) / BK : T / BK;
 }
 
-template <int D, bool OFFS>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int causal, int q_off, int k_off,
-                 float scale) {
-  typedef FwdSmem<D> L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p);
-  float* Os = reinterpret_cast<float*>(smem + L::o);
-
-  const int qi = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const size_t base = (size_t)blockIdx.y * T * D;
-  const int q0 = qi * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane >> 1, h = lane & 1;  // lane pair per row, half the columns each
-  const int wrow = warp * 16;
-  const int grow = q0 + wrow + r;  // this lane's q row in the block
-  const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
-
-  load_tile<D>(Qs, q + base + (size_t)q0 * D, BQ);
-  for (int i = lane; i < 16 * D; i += 32)
-    Os[(wrow + i / D) * L::LDO + i % D] = 0.f;
-
-  float m = NEG_INF, l = 0.f;
-  const int n_k = fwd_k_tiles<OFFS>(q0, T, causal, qo, ko);
-  for (int j = 0; j < n_k; ++j) {
-    const int k0 = j * BK;
-    // a tile whose last column passes the q tile's first row takes the mask
-    const bool masked = (OFFS || causal) && (ko + k0 + BK - 1 > qo + q0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(Ks, k + base + (size_t)k0 * D, BK);
-    load_tile<D>(Vs, v + base + (size_t)k0 * D, BK);
-    __syncthreads();
-
-    warp_abT<D>(Ss + wrow * LDS, Qs + wrow * L::LDH, Ks);
-    __syncwarp();
-
-    float* srow = Ss + (wrow + r) * LDS + h * 32;
-    float mx = NEG_INF;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float s = masked_score(srow[c], scale, masked, qo + grow, ko + k0 + h * 32 + c);
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = (m <= NEG_INF / 2) ? 0.f : expf(m - m_new);
-    const bool dead = m_new <= NEG_INF / 2;
-    bf16* prow = Ps + (wrow + r) * LDP + h * 32;
-    float sum = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const float p = dead ? 0.f : expf(srow[c] - m_new);
-      sum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    l = l * alpha + sum;
-    m = m_new;
-    float* orow = Os + (wrow + r) * L::LDO + h * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-    FragC acc[D / 16];
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::load_matrix_sync(acc[n], Os + wrow * L::LDO + n * 16, L::LDO, wmma::mem_row_major);
-    warp_xy<D>(acc, Ps + wrow * LDP, Vs);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n)
-      wmma::store_matrix_sync(Os + wrow * L::LDO + n * 16, acc[n], L::LDO, wmma::mem_row_major);
-    __syncwarp();
-  }
-
-  const float l_safe = fmaxf(l, 1e-30f);
-  const float* orow = Os + (wrow + r) * L::LDO + h * (D / 2);
-  bf16* out = o + base + (size_t)grow * D + h * (D / 2);
-#pragma unroll
-  for (int c = 0; c < D / 2; ++c) out[c] = __float2bfloat16(orow[c] / l_safe);
-  if (h == 0)
-    lse[(size_t)blockIdx.y * T + grow] =
-        (m <= NEG_INF / 2) ? NEG_INF : m + logf(fmaxf(l, 1e-30f));
-}
-
 // ---------------------------------------------------------------------------
 // Backward, per k tile.  WITH_DQ = true replaces _dkvq_kernel (fused
 // single pass), WITH_DQ = false replaces _dkv_kernel (split pass).
 //
-// Bound on the H100: tensor-core work again (5 block products per tile
+// Bound on the H100: tensor-core work (5 block products per tile
 // pair fused, 4 here plus 3 in the dq pass split). The TPU kernel carries
 // dQ across a sequential k grid in VMEM scratch; blocks on Hopper run in
 // no order, so each block adds its dQ share into an fp32 [BH, T, D]
@@ -509,18 +390,6 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D, bool OFFS>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-               int T, int causal, int q_off, int k_off, cudaStream_t stream) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, OFFS>, FwdSmem<D>::total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(T / BQ, bh);
-  flash_fwd_kernel<D, OFFS><<<grid, NTHREADS, FwdSmem<D>::total, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, T, causal,
-      q_off, k_off, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
-}
-
 template <int D, bool WITH_DQ, bool OFFS>
 int launch_bwd_kv(const void* q, const void* k, const void* v, const void* dO,
                   const void* lse, const void* delta, const void* glse, void* dk, void* dv,
@@ -561,12 +430,6 @@ constexpr int HEAD_DIM = 64;  // the slice's head width; add others when a path 
 // Every function returns 0 on success, a cudaError_t on a failed launch,
 // or -1 for a head_dim / length it was not built for.
 
-extern "C" int p2p_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int bh, int T, int D, int causal, void* stream) {
-  if (D != HEAD_DIM || T % BQ != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_fwd<HEAD_DIM, false>(q, k, v, o, lse, bh, T, causal, 0, 0, (cudaStream_t)stream);
-}
-
 extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, const void* dO,
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   void* dq_acc, int bh, int T, int D, int causal,
@@ -593,13 +456,6 @@ extern "C" int p2p_flash_bwd_dq(const void* q, const void* k, const void* v, con
 }
 
 // ---- offset-aware variants (ring attention hops); causal by construction ----
-
-extern "C" int p2p_flash_fwd_offs(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, int bh, int T, int D, int q_off, int k_off,
-                                  void* stream) {
-  if (D != HEAD_DIM || T % BQ != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_fwd<HEAD_DIM, true>(q, k, v, o, lse, bh, T, 1, q_off, k_off, (cudaStream_t)stream);
-}
 
 extern "C" int p2p_flash_bwd_dkvq_offs(const void* q, const void* k, const void* v,
                                        const void* dO, const void* lse, const void* delta,

@@ -1,13 +1,14 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
-``csrc/flash_attention.cu`` (kernels 1-8) and ``csrc/ici_exchange.cu``
-(kernel 9) are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per
-source, all started together, and linked into one shared library under
-``build/p2pfl_tpu_torch/`` (beside the package, git ignored) at first use,
-bound through ``ctypes`` with their plain C interface. The library's name
-carries a hash of the sources, so an edited source is never served by a
-stale build. Nothing here runs at import: the build happens inside the
-first launch.
+``csrc/flash_fwd_sm90.cu`` (kernels 1 and 5, the forward: TMA, ``wgmma``),
+``csrc/flash_attention.cu`` (kernels 2-4 and 6-8, the backward) and
+``csrc/ici_exchange.cu`` (kernel 9) are compiled with ``nvcc`` for
+``sm_90a``, one ``nvcc`` per source, all started together, and linked
+into one shared library under ``build/p2pfl_tpu_torch/`` (beside the
+package, git ignored) at first use, bound through ``ctypes`` with their
+plain C interface. The library's name carries a hash of the sources, so
+an edited source is never served by a stale build. Nothing here runs at
+import: the build happens inside the first launch.
 
 Each wrapper checks device, dtype, contiguity and shapes and raises on
 anything the kernels were not built for; it launches on PyTorch's current
@@ -33,7 +34,7 @@ import torch
 from p2pfl_tpu_torch.exceptions import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "flash_attention.cu", CSRC / "ici_exchange.cu")
+SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_fwd_sm90.cu", CSRC / "ici_exchange.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2pfl_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (``-c``); the link adds ``-shared``
@@ -57,6 +58,7 @@ SIGNATURES = {
     "p2p_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
     "p2p_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
     "p2p_flash_fwd_offs": [_P] * 5 + [_I] * 5 + [_P],
+    "p2p_flash_fwd_smem_bytes": [],
     "p2p_flash_bwd_dkvq_offs": [_P] * 10 + [_I] * 5 + [_P],
     "p2p_flash_bwd_dkv_offs": [_P] * 9 + [_I] * 5 + [_P],
     "p2p_flash_bwd_dq_offs": [_P] * 8 + [_I] * 5 + [_P],
@@ -197,6 +199,13 @@ def flash_fwd(q, k, v, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
     )
     _check("flash_fwd", rc)
     return o, lse
+
+
+def flash_fwd_smem_bytes() -> int:
+    """Dynamic shared memory of one block of the forward (kernels 1 and 5),
+    as the built library sizes it (``-Xptxas -v`` reports static memory
+    only)."""
+    return _load().p2p_flash_fwd_smem_bytes()
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, causal: bool):

@@ -4,10 +4,12 @@ Only the shipped ``"cpu"`` row is carried over, so the plain PyTorch
 versions on the CPU walk the same blocks as the JAX kernels in interpret
 mode. There is no GPU row: nothing has been measured on a card yet.
 
-On CUDA the kernels of ``csrc/flash_attention.cu`` use their own fixed
-64 x 64 tiles. From a :class:`FlashConfig` they read only ``bwd_mode``
-(fused or split backward, through ``_bwd_use_fused``) and the ``causal``
-flag passed beside it; block sizes and ``q_span`` shape only the plain
+On CUDA the kernels use their own fixed tiles: the forward of
+``csrc/flash_fwd_sm90.cu`` 128 q rows a block (two warpgroups of 64)
+against 64-row K/V tiles, the backward of ``csrc/flash_attention.cu``
+64 x 64. From a :class:`FlashConfig` they read only ``bwd_mode`` (fused
+or split backward, through ``_bwd_use_fused``) and the ``causal`` flag
+passed beside it; block sizes and ``q_span`` shape only the plain
 versions. Tuning caches and sweeps are not ported.
 """
 

@@ -77,6 +77,48 @@ def test_autograd_on_card_matches_cpu_plain(cuda, bwd_mode):
         _close(got, want)
 
 
+# the forward's edges (b, h, T, causal): one 64-row tile (a block's second
+# warpgroup lies past T), a half 128-row tile, a long full sweep, one head
+# and an odd number of heads
+FWD_SHAPES = {
+    "t64": (2, 4, 64, True), "t192": (2, 4, 192, True), "t192_full": (2, 4, 192, False),
+    "t4096_full": (1, 2, 4096, False), "bh1": (1, 1, 256, True), "bh_odd": (1, 3, 320, True),
+}
+
+
+def _check_fwd(o, lse, o_ref, lse_ref, dead=0):
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    if dead:  # rows that see nothing: O exactly 0, lse exactly the sentinel
+        assert torch.count_nonzero(o[..., :dead, :]) == 0 and bool((lse[..., :dead] == -1e30).all())
+
+
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
+def test_forward_edges_match_plain(cuda, shape):
+    b, h, t, causal = FWD_SHAPES[shape]
+    q, k, v = _inputs(cuda, b=b, h=h, t=t, n=3)
+    _check_fwd(*_kernels.flash_fwd(q, k, v, causal), *fa.flash_fwd_plain(q, k, v, causal, 64, 64))
+    torch.cuda.synchronize()
+
+
+# ring hops at T 192 (a half 128-row tile): the five cases of OFFSETS, and
+# "split", where the first block's first warpgroup streams no tile while
+# the second streams one in which none of its rows sees a key
+FWD_OFFSETS = {
+    "diagonal": (192, 192), "visible": (384, 0), "masked": (0, 192), "offtile": (192 + 32, 192 + 8),
+    "offtile_late": (192, 192 + 32), "split": (0, 128),
+}
+
+
+@pytest.mark.parametrize("case", list(FWD_OFFSETS))
+def test_offset_forward_half_tile_matches_plain(cuda, case):
+    q_off, k_off = FWD_OFFSETS[case]
+    q, k, v = _inputs(cuda, b=1, h=3, t=192, n=3)
+    _check_fwd(*_kernels.flash_fwd_offs(q, k, v, q_off, k_off),
+               *fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64), dead=min(max(k_off - q_off, 0), 192))
+    torch.cuda.synchronize()
+
+
 def test_launch_counts_and_refusals(cuda):
     q, k, v, _ = _inputs(cuda)
     _kernels.reset_launches()
