@@ -11,13 +11,17 @@ Phases, each of which makes the script exit non-zero if it fails (the
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``p2pfl_tpu_torch/csrc`` with ``nvcc`` (one
    per source, in parallel) and print what ``-Xptxas -v`` says of each,
-   with the forward's registers, spills and dynamic shared memory;
+   with the registers, spills and dynamic shared memory of the forward
+   (``flash_fwd_sm90<OFFS>``) and of the fused backward
+   (``flash_bwd_sm90<OFFS>``);
 3. [kernels] hold kernels 1-4 against their plain PyTorch versions on the
    card at the flash path's attention shape (4 nodes x batch 1, T 1024,
    32 heads, head dim 64, bf16), causal and full, and time kernel, plain
    version, the analytic bound and one PyTorch library call as a yardstick
-   (for the forward also its device time alone, its host time a call, and
-   the library call's device time alone);
+   (SDPA's forward for the forward; for the backward SDPA's backward
+   alone, after one forward with grad), each kernel also by its device
+   time alone and its host time a call, and the library call by its
+   device time alone;
 4. [offs] the same for the offset-aware kernels 5-8 at a ring hop's shape
    (2 nodes x 32 heads, T_local 1024, bf16) in five visibility cases
    (diagonal, fully visible, fully masked, and two off-tile pairs, one
@@ -84,7 +88,9 @@ PEAK_BYTES = 3.35e12
 
 SRC = "p2pfl_tpu_torch/csrc/flash_attention.cu"
 FWD_SRC = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"
-SOURCES = {"flash_fwd": FWD_SRC, "flash_fwd_offs": FWD_SRC, "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
+BWD_SRC = "p2pfl_tpu_torch/csrc/flash_bwd_sm90.cu"
+SOURCES = {"flash_fwd": FWD_SRC, "flash_fwd_offs": FWD_SRC, "flash_bwd_dkvq": BWD_SRC,
+           "flash_bwd_dkvq_offs": BWD_SRC, "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
 REPLACES = {
     "flash_fwd": "p2pfl_tpu/ops/flash_attention.py:189",
     "flash_bwd_dkvq": "p2pfl_tpu/ops/flash_attention.py:327",
@@ -194,30 +200,41 @@ def host_ms(fn, iters: int = 50) -> float:
     return elapsed / iters * 1e3
 
 
-def fwd_device_times(kernel, library) -> dict:
-    """The forward's device time alone (without the wrapper's host work)
-    and host time a call, and the device time of its library yardstick,
-    where there is one."""
+def device_times(kernel, library) -> dict:
+    """A kernel's device time alone (without the wrapper's host work) and
+    host time a call, and the device time of its library yardstick, where
+    there is one."""
     return {"device_ms": time_device_ms(kernel), "host_ms": host_ms(kernel),
             "library_device_ms": time_device_ms(library) if library is not None else None}
 
 
+def sdpa_backward(q, k, v, do, **kw):
+    """SDPA's backward alone as a call: its forward runs once with grad
+    here, the call is ``torch.autograd.grad`` through the kept graph."""
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, **kw)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+
 def build_report(log_text: str) -> list:
     """Lines of the ``-Xptxas -v`` report worth printing, then one summary
-    line per instantiation of the forward (registers, spills) and its
-    dynamic shared memory, which ptxas does not report."""
+    line per instantiation of the forward and of the fused backward
+    (registers, spills) with its dynamic shared memory, which ptxas does
+    not report."""
     from p2pfl_tpu_torch.ops import _kernels
 
     words = ("registers", "spill", "error", "Compiling", "warning", "Potential")
     lines = [line.strip() for line in log_text.splitlines() if any(w in line for w in words)]
-    section = log_text.split("== flash_fwd_sm90.cu", 1)[-1].split("\n== ", 1)[0]
-    for entry in section.split("Compiling entry function")[1:]:
-        name = entry.split("'")[1]
-        inst = "OFFS=true" if "ILb1E" in name else "OFFS=false"
-        regs = next((w.split("Used ")[1].split(" ")[0] for w in entry.splitlines() if "Used " in w), "?")
-        spill = [w.strip() for w in entry.splitlines() if "spill" in w]
-        lines.append(f"flash_fwd_sm90<{inst}>: {regs} registers; {'; '.join(spill) or 'no spill line'}; "
-                     f"{_kernels.flash_fwd_smem_bytes()} bytes of dynamic shared memory a block")
+    for kernel, smem in (("flash_fwd_sm90", _kernels.flash_fwd_smem_bytes),
+                         ("flash_bwd_sm90", _kernels.flash_bwd_smem_bytes)):
+        section = log_text.split(f"== {kernel}.cu", 1)[-1].split("\n== ", 1)[0]
+        for entry in section.split("Compiling entry function")[1:]:
+            name = entry.split("'")[1]
+            inst = "OFFS=true" if "ILb1E" in name else "OFFS=false"
+            regs = next((w.split("Used ")[1].split(" ")[0] for w in entry.splitlines() if "Used " in w), "?")
+            spill = [w.strip() for w in entry.splitlines() if "spill" in w]
+            lines.append(f"{kernel}<{inst}>: {regs} registers; {'; '.join(spill) or 'no spill line'}; "
+                         f"{smem()} bytes of dynamic shared memory a block")
     return lines
 
 
@@ -288,37 +305,26 @@ def check_kernels(results: dict) -> bool:
         bms, by = bound(qkv_bytes + b * h * t * d * bf16 + row_bytes, 4 * d * pairs)
         rows["flash_fwd"] = dict(max_abs_err=max(r_o[0], e_l), ms=ms, plain_ms=plain,
                                  bound_ms=bms, bound_by=by, library_ms=lib)
-        rows["flash_fwd"].update(fwd_device_times(
+        rows["flash_fwd"].update(device_times(
             lambda: _kernels.flash_fwd(q, k, v, causal),
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)))
 
-        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-
-        def sdpa_fwd_bwd():
-            out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-            out.backward(do)
-
-        lib_bwd = time_ms(sdpa_fwd_bwd)
+        lib_bwd = sdpa_backward(q, k, v, do, is_causal=causal)
+        lib_bwd_ms = time_ms(lib_bwd)
         bwd_in = qkv_bytes + b * h * t * d * bf16 + 2 * row_bytes  # q, k, v, dO, lse, delta
         out1 = b * h * t * d * bf16
-        ms = time_ms(lambda: _kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal))
-        plain = time_ms(lambda: fa.flash_bwd_fused_plain(q, k, v, do, lse, delta, causal, bq, bk),
-                        iters=3, warmup=1)
-        bms, by = bound(bwd_in + 3 * out1, 10 * d * pairs)
-        rows["flash_bwd_dkvq"] = dict(max_abs_err=e_fused, ms=ms, plain_ms=plain,
-                                      bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-        ms = time_ms(lambda: _kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal))
-        plain = time_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, bq, bk),
-                        iters=3, warmup=1)
-        bms, by = bound(bwd_in + out1, 6 * d * pairs)
-        rows["flash_bwd_dq"] = dict(max_abs_err=e_dq, ms=ms, plain_ms=plain,
-                                    bound_ms=bms, bound_by=by, library_ms=lib_bwd)
-        ms = time_ms(lambda: _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
-        plain = time_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, bq, bk),
-                        iters=3, warmup=1)
-        bms, by = bound(bwd_in + 2 * out1, 8 * d * pairs)
-        rows["flash_bwd_dkv"] = dict(max_abs_err=e_kv, ms=ms, plain_ms=plain,
-                                     bound_ms=bms, bound_by=by, library_ms=lib_bwd)
+        args = (q, k, v, do, lse, delta, causal)
+        for name, kernel, plain_fn, n_out, flops, err in (
+            ("flash_bwd_dkvq", _kernels.flash_bwd_fused, fa.flash_bwd_fused_plain, 3, 10, e_fused),
+            ("flash_bwd_dq", _kernels.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6, e_dq),
+            ("flash_bwd_dkv", _kernels.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8, e_kv),
+        ):
+            bms, by = bound(bwd_in + n_out * out1, flops * d * pairs)
+            rows[name] = dict(
+                max_abs_err=err, ms=time_ms(lambda: kernel(*args)),
+                plain_ms=time_ms(lambda: plain_fn(*args, bq, bk), iters=3, warmup=1),
+                bound_ms=bms, bound_by=by, library_ms=lib_bwd_ms)
+            rows[name].update(device_times(lambda: kernel(*args), lib_bwd))
         for name, row in rows.items():
             log(f"[kernels] {name} {tag} [{b}x{h}, {t}, {d}] bf16: {json.dumps(row)} "
                 f"limit: {limits[name]}")
@@ -421,19 +427,15 @@ def check_offs_kernels(results: dict) -> bool:
         else:
             kw = None  # no library call computes a fully masked attention
         lib_fwd = (lambda: sdpa(q, k, v, **kw)) if kw is not None else None
-        qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-
-        def lib_fwd_bwd():
-            sdpa(qg, kg, vg, **kw).backward(do)
-
-        lib_b = time_ms(lib_fwd_bwd) if kw is not None else None
+        lib_bwd = sdpa_backward(q, k, v, do, **kw) if kw is not None else None
+        lib_b = time_ms(lib_bwd) if lib_bwd is not None else None
         rows = {}
         bms, by = bound(3 * seen_tensor + tensor_bytes + row_bytes, 4 * d * pairs)
         rows["flash_fwd_offs"] = dict(
             max_abs_err=max(r_o[0], e_l), ms=time_ms(lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off)),
             plain_ms=time_ms(lambda: fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk), iters=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fwd) if lib_fwd is not None else None)
-        rows["flash_fwd_offs"].update(fwd_device_times(
+        rows["flash_fwd_offs"].update(device_times(
             lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off), lib_fwd))
         bwd_in = 4 * seen_tensor + 3 * seen_row  # q, k, v, dO, lse, delta, g_lse
         for name, kernel, plain, n_out, flops, err in (
@@ -448,6 +450,7 @@ def check_offs_kernels(results: dict) -> bool:
                 max_abs_err=err, ms=time_ms(lambda: kernel(*args)),
                 plain_ms=time_ms(lambda: plain(*args, bq, bk), iters=3, warmup=1),
                 bound_ms=bms, bound_by=by, library_ms=lib_b)
+            rows[name].update(device_times(lambda: kernel(*args), lib_bwd))
         for name, row in rows.items():
             log(f"[offs] {name} {case} (q_off {q_off}, k_off {k_off}) [{b}x{h}, {t}, {d}] bf16: "
                 f"{json.dumps(row)} limit: {limits[name]}")

@@ -75,8 +75,8 @@ ABLATIONS = {
 }
 
 
-def ablated_source(edits) -> str:
-    text = SRC.read_text()
+def ablated_source(edits, src: Path = SRC) -> str:
+    text = src.read_text()
     for old, new in edits:
         if old not in text:
             raise ValueError(f"ablation edit no longer matches the source: {old!r}")
@@ -84,14 +84,14 @@ def ablated_source(edits) -> str:
     return text
 
 
-def build_all() -> dict:
+def build_all(ablations: dict = ABLATIONS, src_path: Path = SRC, out: Path = OUT) -> dict:
     """One nvcc per ablation, all at once: name -> (library or None, ptxas report)."""
-    OUT.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in ABLATIONS.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(ablated_source(edits))
-        lib = OUT / f"lib_{name}.so"
+    for name, edits in ablations.items():
+        src = out / f"{name}.cu"
+        src.write_text(ablated_source(edits, src_path))
+        lib = out / f"lib_{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

@@ -1,13 +1,11 @@
-// Flash attention backward for Hopper (sm_90a): fused and split backward,
-// hand-written in CUDA C++ with warp-level tensor-core products
-// (nvcuda::wmma, bf16 operands, fp32 accumulation). The forward is
-// flash_fwd_sm90.cu.
+// Flash attention split backward for Hopper (sm_90a), hand-written in
+// CUDA C++ with warp-level tensor-core products (nvcuda::wmma, bf16
+// operands, fp32 accumulation). This file holds the split backward only:
+// the forward is flash_fwd_sm90.cu, the fused backward flash_bwd_sm90.cu.
 //
 // Port of the Pallas kernels in p2pfl_tpu/ops/flash_attention.py:
-//   p2p_flash_bwd_dkvq      <- _dkvq_kernel       (+ _dkv_step with dq_acc)
 //   p2p_flash_bwd_dq        <- _dq_kernel
 //   p2p_flash_bwd_dkv       <- _dkv_kernel        (+ _dkv_step)
-//   p2p_flash_bwd_dkvq_offs <- _dkvq_kernel_offs  (+ _dkv_step_offs, _offs_kv_bounds)
 //   p2p_flash_bwd_dq_offs   <- _dq_kernel_offs
 //   p2p_flash_bwd_dkv_offs  <- _dkv_kernel_offs   (+ _dkv_step_offs, _offs_kv_bounds)
 //
@@ -18,7 +16,7 @@
 // masks move to global coordinates, a row that sees nothing in the call
 // (lse at the sentinel) gets P = 0, and the lse cotangent adds into
 // dS = P * (dP - delta + g_lse). With OFFS = false the offsets fold to 0
-// at compile time and kernels 2-4 are what they were. Loop bounds divide
+// at compile time and kernels 3 and 4 are what they were. Loop bounds divide
 // with C's '/', which truncates toward zero like lax.div: with a negative
 // numerator a q tile may keep one fully masked k tile, which adds nothing.
 //
@@ -27,8 +25,8 @@
 // T must be a multiple of 64; D (head_dim) is 64, the only width built.
 //
 // Rounding points follow the JAX kernels: operands stay bf16 and every
-// product accumulates in fp32; P is cast to bf16 before P.V and P^T.dO;
-// dS is cast to bf16 before dS.K and dS^T.Q.
+// product accumulates in fp32; P is cast to bf16 before P^T.dO; dS is
+// cast to bf16 before dS.K and dS^T.Q.
 //
 // Each extern "C" entry point launches one kernel on the given stream and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
@@ -163,18 +161,13 @@ __device__ __forceinline__ int fwd_k_tiles(int q0, int T, int causal, int q_off,
 }
 
 // ---------------------------------------------------------------------------
-// Backward, per k tile.  WITH_DQ = true replaces _dkvq_kernel (fused
-// single pass), WITH_DQ = false replaces _dkv_kernel (split pass).
+// Backward dK/dV per k tile.  Replaces _dkv_kernel (split pass).
 //
-// Bound on the H100: tensor-core work (5 block products per tile
-// pair fused, 4 here plus 3 in the dq pass split). The TPU kernel carries
-// dQ across a sequential k grid in VMEM scratch; blocks on Hopper run in
-// no order, so each block adds its dQ share into an fp32 [BH, T, D]
-// buffer with atomics (the wrapper zeroes it and casts it to bf16), which
-// makes dQ's summation order vary from run to run. dK and dV stay in
-// tensor-core accumulator registers for the whole q sweep. Each warp owns
-// 16 q rows for the scores and 16 k rows for dK/dV, so one block barrier
-// per q tile separates the two phases.
+// Bound on the H100: tensor-core work (4 block products per tile pair
+// here plus 3 in the dq pass). dK and dV stay in tensor-core accumulator
+// registers for the whole q sweep. Each warp owns 16 q rows for the
+// scores and 16 k rows for dK/dV, so one block barrier per q tile
+// separates the two phases.
 // ---------------------------------------------------------------------------
 template <int D, bool OFFS>
 struct BwdSmem {
@@ -189,7 +182,7 @@ struct BwdSmem {
   static constexpr size_t ds = p + align128(BQ * LDP * sizeof(bf16));
   static constexpr size_t lse = ds + align128(BQ * LDP * sizeof(bf16));
   static constexpr size_t delta = lse + align128(BQ * sizeof(float));
-  static constexpr size_t stage = delta + align128(BQ * sizeof(float));
+  static constexpr size_t stage = delta + align128(BQ * sizeof(float));  // [BQ, D] fp32 rows out
   static constexpr size_t glse = stage + align128(BQ * LDQ * sizeof(float));  // OFFS only
   static constexpr size_t total = glse + (OFFS ? align128(BQ * sizeof(float)) : 0);
 };
@@ -214,14 +207,14 @@ __device__ __forceinline__ void softmax_grad_row(
   }
 }
 
-template <int D, bool WITH_DQ, bool OFFS>
+template <int D, bool OFFS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dO,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const float* __restrict__ glse, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, float* __restrict__ dq_acc, int T, int causal,
-                    int q_off, int k_off, float scale) {
+                    bf16* __restrict__ dv, int T, int causal, int q_off, int k_off,
+                    float scale) {
   typedef BwdSmem<D, OFFS> L;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem + L::k);
@@ -285,21 +278,6 @@ flash_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     warp_xTy<D>(dv_acc, Ps, wrow, dOs);
     warp_xTy<D>(dk_acc, dSs, wrow, Qs);
-    if (WITH_DQ) {
-      FragC dq_part[D / 16];
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_part[n], 0.f);
-      warp_xy<D>(dq_part, dSs + wrow * LDP, Ks);
-      float* st = stage + wrow * L::LDQ;
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n)
-        wmma::store_matrix_sync(st + n * 16, dq_part[n], L::LDQ, wmma::mem_row_major);
-      __syncwarp();
-      float* dst = dq_acc + base + (size_t)(q0 + wrow) * D;
-      for (int e = lane; e < 16 * D; e += 32)
-        atomicAdd(dst + e, scale * st[(e / D) * L::LDQ + e % D]);
-      __syncwarp();
-    }
   }
 
 #pragma unroll
@@ -390,19 +368,18 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int D, bool WITH_DQ, bool OFFS>
+template <int D, bool OFFS>
 int launch_bwd_kv(const void* q, const void* k, const void* v, const void* dO,
                   const void* lse, const void* delta, const void* glse, void* dk, void* dv,
-                  void* dq_acc, int bh, int T, int causal, int q_off, int k_off,
-                  cudaStream_t stream) {
+                  int bh, int T, int causal, int q_off, int k_off, cudaStream_t stream) {
   typedef BwdSmem<D, OFFS> L;
-  cudaError_t err = allow_smem(flash_bwd_kv_kernel<D, WITH_DQ, OFFS>, L::total);
+  cudaError_t err = allow_smem(flash_bwd_kv_kernel<D, OFFS>, L::total);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(T / BK, bh);
-  flash_bwd_kv_kernel<D, WITH_DQ, OFFS><<<grid, NTHREADS, L::total, stream>>>(
+  flash_bwd_kv_kernel<D, OFFS><<<grid, NTHREADS, L::total, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dO, (const float*)lse,
-      (const float*)delta, (const float*)glse, (bf16*)dk, (bf16*)dv, (float*)dq_acc, T,
-      causal, q_off, k_off, 1.0f / sqrtf((float)D));
+      (const float*)delta, (const float*)glse, (bf16*)dk, (bf16*)dv, T, causal, q_off, k_off,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -430,21 +407,12 @@ constexpr int HEAD_DIM = 64;  // the slice's head width; add others when a path 
 // Every function returns 0 on success, a cudaError_t on a failed launch,
 // or -1 for a head_dim / length it was not built for.
 
-extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, const void* dO,
-                                  const void* lse, const void* delta, void* dk, void* dv,
-                                  void* dq_acc, int bh, int T, int D, int causal,
-                                  void* stream) {
-  if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_kv<HEAD_DIM, true, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc,
-                                              bh, T, causal, 0, 0, (cudaStream_t)stream);
-}
-
 extern "C" int p2p_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  int bh, int T, int D, int causal, void* stream) {
   if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_kv<HEAD_DIM, false, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr,
-                                               bh, T, causal, 0, 0, (cudaStream_t)stream);
+  return launch_bwd_kv<HEAD_DIM, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, bh, T, causal, 0,
+                                        0, (cudaStream_t)stream);
 }
 
 extern "C" int p2p_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
@@ -457,23 +425,13 @@ extern "C" int p2p_flash_bwd_dq(const void* q, const void* k, const void* v, con
 
 // ---- offset-aware variants (ring attention hops); causal by construction ----
 
-extern "C" int p2p_flash_bwd_dkvq_offs(const void* q, const void* k, const void* v,
-                                       const void* dO, const void* lse, const void* delta,
-                                       const void* glse, void* dk, void* dv, void* dq_acc,
-                                       int bh, int T, int D, int q_off, int k_off,
-                                       void* stream) {
-  if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_kv<HEAD_DIM, true, true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T,
-                                             1, q_off, k_off, (cudaStream_t)stream);
-}
-
 extern "C" int p2p_flash_bwd_dkv_offs(const void* q, const void* k, const void* v,
                                       const void* dO, const void* lse, const void* delta,
                                       const void* glse, void* dk, void* dv, int bh, int T,
                                       int D, int q_off, int k_off, void* stream) {
   if (D != HEAD_DIM || T % BK != 0 || T <= 0 || bh <= 0) return BAD_SHAPE;
-  return launch_bwd_kv<HEAD_DIM, false, true>(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh,
-                                              T, 1, q_off, k_off, (cudaStream_t)stream);
+  return launch_bwd_kv<HEAD_DIM, true>(q, k, v, dO, lse, delta, glse, dk, dv, bh, T, 1, q_off,
+                                       k_off, (cudaStream_t)stream);
 }
 
 extern "C" int p2p_flash_bwd_dq_offs(const void* q, const void* k, const void* v, const void* dO,

@@ -1,0 +1,780 @@
+// Fused flash attention backward for Hopper (sm_90a): TMA loads, wgmma
+// products with P and dS in registers, dQ added by bulk tensor
+// reductions.
+//
+// Port of the Pallas kernels in p2pfl_tpu/ops/flash_attention.py:
+//   p2p_flash_bwd_dkvq      <- _dkvq_kernel      (+ _dkv_step with dq_acc)       kernel 2
+//   p2p_flash_bwd_dkvq_offs <- _dkvq_kernel_offs (+ _dkv_step_offs,
+//                                                  _offs_kv_bounds)             kernel 6
+// Both are flash_bwd_sm90<OFFS>. They compute dQ, dK and dV in one sweep,
+// five block products per (q, k) tile pair. With OFFS the causal mask is
+// in global coordinates (q row i sees k row j where q_off + i >= k_off +
+// j, the two offsets being plain int arguments), loop bounds divide with
+// C's '/' (truncating like lax.div), a q row at the lse sentinel (it sees
+// nothing in the call) gets P = 0, and the lse cotangent enters as
+// dS = P (dP - delta + g_lse).
+//
+// Layout: q, k, v, dO, dk, dv are [BH, T, 64] bf16, contiguous; lse,
+// delta and g_lse are [BH, T] fp32 (natural log); dq_acc is [BH, T, 64]
+// fp32 followed by 16 bytes (the blocks' work counter), all zeroed by the
+// caller, which casts dQ afterwards. T must be a multiple of 64. Rounding
+// points follow the JAX kernel: bf16 operands and fp32 sums, P cast to
+// bf16 before P^T dO, dS cast to bf16 before dS^T Q and dS K, dK scaled
+// once at the end, dQ's share scaled by `scale` before it is added.
+//
+// Bound on the H100: the causal backward at T = 1024, D = 64 does 5
+// products of 2 D flops a visible (q, k) pair against about 14 T D bytes
+// a head, T·5/14 ~ 360 flop/byte, above the card's ~295 flop/byte ridge:
+// the tensor cores set the least time. One exp2 a pair against 10 D = 640
+// tensor-core flops leaves the special-function unit far behind them. So
+// the design keeps every product on wgmma with its operands where the
+// tensor cores read them, and keeps the loads out of the way:
+//   - persistent blocks, one an SM: a work item is (bh, 128 k rows); two
+//     consumer warpgroups own 64 k rows each for the item's whole q
+//     sweep, and one producer warp issues the TMA loads and takes the
+//     next item from a counter all blocks share, so a block that finishes
+//     early takes more. Items go out 16 heads at a time (the blocks in
+//     flight share those heads' Q, dO and dQ rows in L2; all heads at once
+//     overflow it), and within the 16 k block by k block, so the longest
+//     blocks start first;
+//   - the producer loads each item's K and V once, into one of two
+//     buffers, so the next item's K and V and first q tiles load while
+//     this item runs; each 64-row q tile's Q and dO (128-byte swizzle)
+//     and its lse, delta (and g_lse) rows stream through a ring of STAGES
+//     stages with one full and one empty barrier each, which runs on
+//     across items;
+//   - products with swapped operands: S^T = K Q^T and dP^T = V dO^T are
+//     wgmma m64n64k16 from shared memory (both K-major), so the
+//     accumulators lie by k row; P^T = exp2(S^T scale log2e - lse log2e)
+//     (ex2.approx.ftz, one FMA; the mask compiled into the tiles at the
+//     causal frontier only) and dS^T = P^T (dP^T - delta) convert in
+//     registers into the A operands of dV += P^T dO and dK += dS^T Q
+//     (dO and Q MN-major B operands from the stage); dK and dV stay in
+//     fp32 registers for the whole sweep;
+//   - dQ = dS K contracts over the item's 128 k rows: each warpgroup
+//     writes its dS^T rows to a swizzled shared tile (double-buffered),
+//     the two meet at a named barrier, and each computes one half of D
+//     (wgmma m64n32k16, dS an MN-major A from shared memory, K^T a K-major
+//     B transposed once per item into shared memory);
+//   - each warpgroup stages its fp32 [64, 32] half of the tile's dQ
+//     (swizzled, double-buffered) and one thread adds it into dq_acc with
+//     one bulk tensor reduction (cp.reduce.async.bulk.tensor ... add.f32),
+//     in place of per-element atomics;
+//   - a warpgroup whose k rows no row of the q tile sees (or past T)
+//     skips S, dP and the softmax gradient and contributes dS = 0; an
+//     item whose k rows no q row sees loads nothing and writes dK = dV =
+//     0;
+//   - 288 threads: a sub-partition of the SM holds three of the nine
+//     warps, which caps a thread at 168 registers. dK, dV, S^T, dP^T and
+//     the packed P^T and dS^T fit there, and each product is waited on
+//     before its result is read. Forms that keep more in flight (S^T and
+//     dP^T of the next tile issued behind this tile's dQ; P^T computed
+//     while dP^T runs) need more: ptxas then serialises the wgmmas
+//     (C7512), and the first, given 240 registers by setmaxnreg on a full
+//     producer warpgroup, was no faster on the card;
+//   - the epilogue stages dK and dV as bf16 in the warpgroup's halves of
+//     the item's K and V tiles (swizzled) and writes them with 16-byte
+//     stores.
+// The tensor maps hold the tensors' base addresses, so the C entry points
+// encode them per call (cuTensorMapEncodeTiled, reached through the
+// runtime's driver entry point: the library links the runtime alone) and
+// pass them as __grid_constant__ parameters.
+//
+// Each extern "C" entry point launches one kernel on the given stream and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
+// launch. Nothing here allocates or synchronises.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <cmath>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int D = 64;          // head_dim, the only width built
+constexpr int BK = 128;        // k rows per block: two warpgroups of 64
+constexpr int WG_ROWS = 64;    // k rows per consumer warpgroup (wgmma M)
+constexpr int BQ = 64;         // q rows per streamed tile
+constexpr int STAGES = 3;      // Q/dO ring depth
+constexpr int N_CONSUMERS = 2; // consumer warpgroups
+constexpr int NTHREADS = N_CONSUMERS * 128 + 32;  // + one producer warp
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+constexpr uint32_t ROW_BYTES = D * sizeof(bf16);        // 128: one swizzle row
+constexpr uint32_t KV_BYTES = BK * ROW_BYTES;           // 16 KB: a block's K (or V)
+constexpr uint32_t WG_BYTES = WG_ROWS * ROW_BYTES;      // 8 KB: a warpgroup's half
+constexpr uint32_t TILE_BYTES = BQ * ROW_BYTES;         // 8 KB: a q tile of Q (or dO)
+constexpr uint32_t ROWS_BYTES = BQ * sizeof(float);     // 256: a tile's lse (delta, g_lse)
+constexpr uint32_t DQ_HALF_BYTES = BQ * 32 * sizeof(float);  // 8 KB: [64, 32] fp32
+// shared memory, every tile 1024-byte aligned (the swizzle repeats every
+// 8 rows of 128 bytes):
+// [K0 V0 K1 V1 (two items' K and V) | K^T (two [64 d, 64 k] tiles) |
+//  Q0 dO0 Q1 dO1 ... | dS^T x 2 | dQ staging: warpgroup 0 x 2, warpgroup 1 x 2 |
+//  rows: lse, delta, g_lse a stage | barriers]
+constexpr uint32_t OFF_KV = 0;
+constexpr uint32_t OFF_KT = OFF_KV + 4 * KV_BYTES;
+constexpr uint32_t OFF_QDO = OFF_KT + KV_BYTES;
+constexpr uint32_t OFF_DS = OFF_QDO + STAGES * 2 * TILE_BYTES;
+constexpr uint32_t OFF_DQ = OFF_DS + 2 * KV_BYTES;
+constexpr uint32_t OFF_ROWS = OFF_DQ + N_CONSUMERS * 2 * DQ_HALF_BYTES;
+constexpr uint32_t OFF_BAR = OFF_ROWS + STAGES * 3 * ROWS_BYTES;
+// full and empty per K/V buffer, then full and empty per stage
+constexpr uint32_t N_BARS = 4 + 2 * STAGES;
+constexpr uint32_t SMEM_BYTES = 1024 + OFF_BAR + N_BARS * 8 + 2 * 4;  // + item ids, alignment slack
+
+// ---- PTX wrappers: mbarrier, TMA, bulk reduction, wgmma ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One [rows, 64] bf16 box of a [BH, T, 64] tensor map into shared memory,
+// completing on `bar`; rows past T arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Add a [64 rows, 32] fp32 box from shared memory (128-byte swizzle) into
+// the [BH, T, 64] fp32 tensor at (col, row, bh); one bulk group.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int col,
+                                               int row, int bh) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row), "r"(bh)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's generic shared-memory writes visible to the async
+// proxy (wgmma operands, bulk reductions)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile written with the 128-byte
+// swizzle: 8-row groups 1024 bytes apart (SBO), layout type SWIZZLE_128B.
+// The same form serves K-major tiles (K, Q, dO for S^T and dP^T; K^T for
+// dQ) and MN-major tiles of 64 columns, one swizzle atom wide (Q and dO
+// for dK and dV, dS^T for dQ), whose leading offset is unused.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across the
+// wait of the asynchronous wgmma that writes it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC16(d)                                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
+      "+f"(d[15])
+
+#define ACC32(d)                                                                                   \
+  ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),  \
+      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define ACC16_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define ACC32_REGS                                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs), B
+// MN-major in shared memory (the transpose bit of the bf16 instruction).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] (+)= A[64 x 16] . B[16 x 32], A MN-major and B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_n32_ta(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " ACC16_REGS
+      ", %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : ACC16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+
+// First q tile that k block `k0` streams (the offset form is
+// _offs_kv_bounds's start: global coordinates, truncating division); q
+// tiles before it end before the block's first key.
+template <bool OFFS>
+__device__ __forceinline__ int first_q_tile(int k0, int nq, int causal, int q_off, int k_off) {
+  if (OFFS) return clampi((k_off + k0 - q_off) / BQ, 0, nq);
+  return causal ? k0 / BQ : 0;
+}
+
+// P^T and dS^T of one tile on the accumulator layout of S^T and dP^T:
+// thread (g, t) of warp wi holds k rows 16 wi + g + 8h, q columns 8i + 2t
+// + e in sc[4i + 2h + e]. Masks (MASKED tiles only) the columns that come
+// before each row; q columns at the lse sentinel (OFFS) get P = 0. Leaves
+// P^T and dS^T packed as bf16 pairs in the A-register layout of the dV
+// and dK products (columns 16kk .. 16kk + 15 are blocks 2kk and 2kk + 1).
+template <bool MASKED, bool OFFS>
+__device__ __forceinline__ void softmax_grad(const float (&sc)[32], const float (&dp)[32],
+                                             uint32_t (&pa)[16], uint32_t (&da)[16],
+                                             const float* lse_s, const float* delta_s,
+                                             const float* glse_s, int lim0, int t,
+                                             float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
+    const float2 dl = *reinterpret_cast<const float2*>(delta_s + 8 * i + 2 * t);
+    float2 gl = make_float2(0.f, 0.f);
+    if (OFFS) gl = *reinterpret_cast<const float2*>(glse_s + 8 * i + 2 * t);
+    float p[2][2], ds[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float lse = e ? l.y : l.x;
+      // exp2(S scale log2e - lse log2e): a sentinel column's -inf exponent gives 0
+      const float m = (OFFS && lse <= NEG_INF / 2) ? INFINITY : lse * LOG2E;
+      const float dl_e = e ? dl.y : dl.x, gl_e = e ? gl.y : gl.x;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * i + 2 * h + e;
+        float pv = ex2(fmaf(sc[idx], scale_log2, -m));
+        if (MASKED && 8 * i + e < lim0 + 8 * h) pv = 0.f;
+        p[h][e] = pv;
+        ds[h][e] = OFFS ? pv * (dp[idx] - dl_e + gl_e) : pv * (dp[idx] - dl_e);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      pa[2 * i + h] = pack_bf16(p[h][0], p[h][1]);
+      da[2 * i + h] = pack_bf16(ds[h][0], ds[h][1]);
+    }
+  }
+}
+
+// One work item: the k block k0 of head bh and the q tiles it streams.
+struct Item {
+  int bh, k0, start, n_tiles;
+};
+
+constexpr int GROUP = 16;  // heads whose items are handed out together
+
+// Item w of a launch. Items go out group by group of GROUP heads (the
+// blocks in flight share few heads' Q, dO and dQ rows in L2); inside a
+// group k block by k block, so each head's k block 0 (which sees every q
+// tile) goes first and the short blocks last.
+template <bool OFFS>
+__device__ __forceinline__ Item item(int w, int n_bh, int T, int causal, int q_off, int k_off) {
+  const int n_kb = (T + BK - 1) / BK;
+  const int full_items = (n_bh / GROUP) * GROUP * n_kb;  // items of the whole groups
+  const int heads = w < full_items ? GROUP : n_bh % GROUP;  // the group's heads
+  const int first = w < full_items ? w / (GROUP * n_kb) * GROUP : n_bh - heads;
+  const int r = w < full_items ? w % (GROUP * n_kb) : w - full_items;
+  Item it;
+  it.bh = first + r % heads;
+  it.k0 = (r / heads) * BK;
+  it.start = first_q_tile<OFFS>(it.k0, T / BQ, causal, q_off, k_off);
+  it.n_tiles = T / BQ - it.start;
+  return it;
+}
+
+// ---------------------------------------------------------------------------
+// The kernel: persistent, one block an SM. The producer takes the next
+// item from a counter the launch's blocks share (`next`, zeroed by the
+// caller), so a block that finishes early takes more, and hands it to the
+// consumers with the item's K/V buffer. Threads 0-255 are the two
+// consumer warpgroups, 256-287 the producer warp; after the barrier
+// set-up the producer never meets the consumers at a barrier again. A
+// tile counter runs across the block's items, so the Q/dO ring, the dS^T
+// buffers and the dQ staging carry over from one item to the next; K and
+// V alternate between two buffers, so the producer loads the next item's
+// K and V and first tiles while this item runs, and an item's dK and dV
+// leave through its own K/V buffer. Named barriers: 1 and 2 each warpgroup's own, 3 both
+// consumer warpgroups (0 is __syncthreads').
+// ---------------------------------------------------------------------------
+template <bool OFFS>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
+               const float* __restrict__ delta, const float* __restrict__ glse,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int* __restrict__ next, int n_bh,
+               int T, int causal, int q_off, int k_off, float scale, float scale_log2) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar0 = base + OFF_BAR;
+  auto k_buf = [&](int b) { return OFF_KV + (2 * b) * KV_BYTES; };  // V follows K
+  auto kv_full = [&](int b) { return bar0 + 8 * b; };
+  auto kv_empty = [&](int b) { return bar0 + 8 * (2 + b); };
+  auto q_tile = [&](int s) { return base + OFF_QDO + (2 * s) * TILE_BYTES; };
+  auto do_tile = [&](int s) { return base + OFF_QDO + (2 * s + 1) * TILE_BYTES; };
+  auto rows = [&](int s, int which) { return OFF_ROWS + (3 * s + which) * ROWS_BYTES; };
+  auto full = [&](int s) { return bar0 + 8 * (4 + s); };
+  auto empty = [&](int s) { return bar0 + 8 * (4 + STAGES + s); };
+  // the item each K/V buffer holds, -1 when the launch's items are done
+  volatile int* item_of = reinterpret_cast<volatile int*>(smem + OFF_BAR + N_BARS * 8);
+
+  const int n_items = n_bh * ((T + BK - 1) / BK);
+  const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kv_full(b), 1);
+      mbar_init(kv_empty(b), N_CONSUMERS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), N_CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  if (warp == N_CONSUMERS * 4) {
+    // ---- producer: one thread issues every load ----
+    if (threadIdx.x % 32 != 0) return;
+    const uint32_t tile_tx = 2 * TILE_BYTES + (OFFS ? 3 : 2) * ROWS_BYTES;
+    int c = 0;  // tiles loaded
+    for (int n_kv = 0;; ++n_kv) {  // items handed out
+      const int w = atomicAdd(next, 1);
+      // the buffer's item two back is done (its dK and dV are written)
+      const int b = n_kv & 1;
+      if (n_kv >= 2) mbar_wait(kv_empty(b), ((n_kv >> 1) - 1) & 1);
+      if (w >= n_items) {
+        item_of[b] = -1;
+        mbar_arrive(kv_full(b));
+        break;
+      }
+      item_of[b] = w;
+      const Item it = item<OFFS>(w, n_bh, T, causal, qo, ko);
+      if (it.n_tiles == 0) {  // nothing to load: the consumers write zeros
+        mbar_arrive(kv_full(b));
+        continue;
+      }
+      mbar_expect_tx(kv_full(b), 2 * KV_BYTES);
+      tma_load(base + k_buf(b), &tk, kv_full(b), it.k0, it.bh);
+      tma_load(base + k_buf(b) + KV_BYTES, &tv, kv_full(b), it.k0, it.bh);
+      const size_t row0 = (size_t)it.bh * T;
+      for (int j = 0; j < it.n_tiles; ++j, ++c) {
+        const int s = c % STAGES, use = c / STAGES;
+        const int q0 = (it.start + j) * BQ;
+        if (use > 0) mbar_wait(empty(s), (use - 1) & 1);  // both warpgroups released it
+        mbar_expect_tx(full(s), tile_tx);
+        tma_load(q_tile(s), &tq, full(s), q0, it.bh);
+        tma_load(do_tile(s), &tdo, full(s), q0, it.bh);
+        bulk_load(base + rows(s, 0), lse + row0 + q0, ROWS_BYTES, full(s));
+        bulk_load(base + rows(s, 1), delta + row0 + q0, ROWS_BYTES, full(s));
+        if (OFFS) bulk_load(base + rows(s, 2), glse + row0 + q0, ROWS_BYTES, full(s));
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: k rows [k0 + 64 wg, k0 + 64 wg + 64) of each item ----
+  const int wg = warp / 4, tid = threadIdx.x % 128;
+  const int wi = warp % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
+  const int lim_row = 16 * wi + g - 2 * t;
+  float dk_acc[32], dv_acc[32], dq[16];
+  float sc[32], dp[32];
+  uint32_t pa[16], da[16];  // P^T and dS^T, bf16 pairs
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+  int c = 0;  // tiles consumed
+
+  for (int n_kv = 0;; ++n_kv) {
+    const int b = n_kv & 1;
+    mbar_wait(kv_full(b), (n_kv >> 1) & 1);
+    const int w = item_of[b];
+    if (w < 0) break;
+    const Item it = item<OFFS>(w, n_bh, T, causal, qo, ko);
+    const int r0 = it.k0 + wg * WG_ROWS;
+    const bool dead = r0 >= T;  // the k rows past T of a half block
+    const size_t row0 = (size_t)it.bh * T;
+    if (it.n_tiles == 0) {
+      // no q row sees this k block: dK = dV = 0 without loading anything
+      if (!dead) {
+        const uint4 zero = make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int n = 0; n < WG_BYTES / 16 / 128; ++n) {
+          const int cc = tid + 128 * n, r = cc / 8, ch = cc % 8;
+          *reinterpret_cast<uint4*>(dk + (row0 + r0 + r) * D + ch * 8) = zero;
+          *reinterpret_cast<uint4*>(dv + (row0 + r0 + r) * D + ch * 8) = zero;
+        }
+      }
+      // every warp has read the item id before the buffer can take the
+      // next one (without this a late warp can miss a phase and hang)
+      named_bar(1 + wg, 128);
+      if (tid == 0) mbar_arrive(kv_empty(b));
+      continue;
+    }
+
+    const uint32_t off_k = k_buf(b), off_v = off_k + KV_BYTES;
+    const uint64_t dk_desc = smem_desc(base + off_k + wg * WG_BYTES);
+    const uint64_t dv_desc = smem_desc(base + off_v + wg * WG_BYTES);
+    // both warpgroups are done with the last item's K^T
+    named_bar(3, N_CONSUMERS * 128);
+    // K^T for the dQ product: two K-major [64 d, 64 k] tiles, swizzled;
+    // each thread moves two 8-column chunks of two neighbouring k rows
+    for (int n = threadIdx.x; n < (BK / 2) * (D / 8); n += N_CONSUMERS * 128) {
+      const int kr = 2 * (n % (BK / 2)), ch = n / (BK / 2);  // k rows kr, kr + 1; d columns 8ch ..
+      const uint4 lo = *reinterpret_cast<const uint4*>(smem + off_k + kr * ROW_BYTES + ((ch ^ (kr & 7)) << 4));
+      const uint4 hi = *reinterpret_cast<const uint4*>(smem + off_k + (kr + 1) * ROW_BYTES +
+                                                       ((ch ^ ((kr + 1) & 7)) << 4));
+      const uint16_t* ea = reinterpret_cast<const uint16_t*>(&lo);
+      const uint16_t* eb = reinterpret_cast<const uint16_t*>(&hi);
+      unsigned char* kt = smem + OFF_KT + (kr / 64) * WG_BYTES;
+      const int kc = kr % 64;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int d = 8 * ch + u;
+        *reinterpret_cast<uint32_t*>(kt + d * ROW_BYTES + (((kc / 8) ^ (d & 7)) << 4) + (kc % 8) * 2) =
+            (uint32_t)ea[u] | ((uint32_t)eb[u] << 16);
+      }
+    }
+    fence_async_smem();  // K^T is read by wgmma after the first named barrier 3
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    // the tile's first q row against this warpgroup's first k row
+    const int kq = ko + r0 - qo;
+
+    for (int j = 0; j < it.n_tiles; ++j, ++c) {
+      const int s = c % STAGES;
+      const int q0 = (it.start + j) * BQ;
+      mbar_wait(full(s), (c / STAGES) & 1);
+      const float* lse_s = reinterpret_cast<const float*>(smem + rows(s, 0));
+      const float* delta_s = reinterpret_cast<const float*>(smem + rows(s, 1));
+      const float* glse_s = reinterpret_cast<const float*>(smem + rows(s, 2));
+      const uint64_t q_desc = smem_desc(q_tile(s)), do_desc = smem_desc(do_tile(s));
+      // a tile whose last q row comes before this warpgroup's first k row
+      // adds nothing; one whose first q row comes before its last k row
+      // takes the mask
+      const bool skip = dead || ((OFFS || causal) && q0 + BQ - 1 < kq);
+      if (!skip) {
+        // S^T = K Q^T and dP^T = V dO^T, both from shared memory
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, dk_desc + 2 * kk, q_desc + 2 * kk, kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, dv_desc + 2 * kk, do_desc + 2 * kk, kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sc);
+        reg_fence(dp);
+        const int lim0 = kq - q0 + lim_row;  // column 8i + e of row half h is masked below lim0 + 8h
+        if ((OFFS || causal) && q0 < kq + WG_ROWS - 1)
+          softmax_grad<true, OFFS>(sc, dp, pa, da, lse_s, delta_s, glse_s, lim0, t, scale_log2);
+        else
+          softmax_grad<false, OFFS>(sc, dp, pa, da, lse_s, delta_s, glse_s, lim0, t, scale_log2);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) pa[i] = da[i] = 0u;
+      }
+      // this thread's bulk reduction of two tiles ago has read its staging
+      if (tid == 0) bulk_wait_read<1>();
+      // dS^T rows of this warpgroup into the tile's dS^T buffer
+      unsigned char* ds_t = smem + OFF_DS + (c & 1) * KV_BYTES + wg * WG_BYTES;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wi + g + 8 * h;
+          *reinterpret_cast<uint32_t*>(ds_t + r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t) = da[2 * i + h];
+        }
+      fence_async_smem();
+      // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dv_acc, pa + 4 * kk, do_desc + (16 * ROW_BYTES >> 4) * kk);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dk_acc, da + 4 * kk, q_desc + (16 * ROW_BYTES >> 4) * kk);
+      wgmma_commit();
+      named_bar(3, N_CONSUMERS * 128);  // both halves of dS^T are written
+      // dQ[:, 32 wg .. 32 wg + 31] = dS K over the item's 128 k rows: dS^T
+      // an MN-major A (16 k rows a step), K^T a K-major B (32 bytes a step)
+      wgmma_fence();
+      const uint32_t ds_all = base + OFF_DS + (c & 1) * KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_ss_n32_ta(dq, smem_desc(ds_all + kk * 16 * ROW_BYTES),
+                        smem_desc(base + OFF_KT + (kk / 4) * WG_BYTES + wg * 32 * ROW_BYTES) + 2 * (kk % 4),
+                        kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dv_acc);
+      reg_fence(dk_acc);
+      reg_fence(dq);
+      if (tid == 0) mbar_arrive(empty(s));  // Q, dO and the rows of the stage are consumed
+      // scale dQ's share into this warpgroup's staging half (fp32, 128-byte
+      // swizzle) and add it into dq_acc with one bulk reduction
+      const uint32_t stage_off = OFF_DQ + (2 * wg + (c & 1)) * DQ_HALF_BYTES;
+      unsigned char* st = smem + stage_off;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wi + g + 8 * h;
+          *reinterpret_cast<float2*>(st + r * 128 + (((2 * i + (t >> 1)) ^ (r & 7)) << 4) + 8 * (t & 1)) =
+              make_float2(dq[4 * i + 2 * h] * scale, dq[4 * i + 2 * h + 1] * scale);
+        }
+      fence_async_smem();
+      named_bar(1 + wg, 128);
+      if (tid == 0) tma_reduce_add(&tdq, base + stage_off, 32 * wg, q0, it.bh);
+    }
+    // ---- dK scale and dV as bf16 through this warpgroup's halves of the
+    // item's K and V tiles (only this warpgroup read them) ----
+    if (dead) {
+      if (tid == 0) mbar_arrive(kv_empty(b));
+      continue;
+    }
+    unsigned char* out_k = smem + off_k + wg * WG_BYTES;
+    unsigned char* out_v = smem + off_v + wg * WG_BYTES;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * wi + g + 8 * h;
+        const uint32_t off = r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(out_k + off) =
+            pack_bf16(dk_acc[4 * i + 2 * h] * scale, dk_acc[4 * i + 2 * h + 1] * scale);
+        *reinterpret_cast<uint32_t*>(out_v + off) = pack_bf16(dv_acc[4 * i + 2 * h], dv_acc[4 * i + 2 * h + 1]);
+      }
+    named_bar(1 + wg, 128);
+    bf16* gk = dk + (row0 + r0) * D;
+    bf16* gv = dv + (row0 + r0) * D;
+#pragma unroll
+    for (int n = 0; n < WG_BYTES / 16 / 128; ++n) {
+      const int cc = tid + 128 * n, r = cc / 8, ch = cc % 8;
+      const uint32_t off = r * ROW_BYTES + ((ch ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(gk + r * D + ch * 8) = *reinterpret_cast<const uint4*>(out_k + off);
+      *reinterpret_cast<uint4*>(gv + r * D + ch * 8) = *reinterpret_cast<const uint4*>(out_v + off);
+    }
+    named_bar(1 + wg, 128);  // the buffer is read: an item two on may load into it
+    if (tid == 0) mbar_arrive(kv_empty(b));
+  }
+  if (tid == 0) bulk_wait_read<0>();  // the staging stays valid until read
+}
+
+// ---- host side ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [BH, T, 64] at `ptr` (bf16, or fp32), read or reduced in boxes of
+// [rows, cols] with the 128-byte swizzle (cols · element size <= 128)
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int T, int rows, int cols,
+            bool fp32) {
+  const cuuint64_t elem_bytes = fp32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {D * elem_bytes, (cuuint64_t)T * D * elem_bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// streaming multiprocessors of the current device (the persistent grid's
+// size), read once a device: the host work of a call counts in every ring hop
+int sm_count(int dev) {
+  static int n[MAX_DEVICES] = {};
+  if (dev < 0 || dev >= MAX_DEVICES) return 132;
+  if (n[dev] <= 0 && (cudaDeviceGetAttribute(&n[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+                      n[dev] <= 0))
+    n[dev] = 132;
+  return n[dev];
+}
+
+template <bool OFFS>
+int launch(const void* q, const void* k, const void* v, const void* dO, const void* lse,
+           const void* delta, const void* glse, void* dk, void* dv, void* dq_acc, int bh, int T,
+           int causal, int q_off, int k_off, cudaStream_t stream) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!encode(fn, &mq, q, bh, T, BQ, D, false) || !encode(fn, &mk, k, bh, T, BK, D, false) ||
+      !encode(fn, &mv, v, bh, T, BK, D, false) || !encode(fn, &mdo, dO, bh, T, BQ, D, false) ||
+      !encode(fn, &mdq, dq_acc, bh, T, BQ, 32, true))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static bool smem_set[MAX_DEVICES] = {};  // the attribute, once a device
+  if (dev >= MAX_DEVICES || !smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_bwd_sm90<OFFS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) smem_set[dev] = true;
+  }
+  const float scale = 1.0f / sqrtf((float)D);
+  const int n_items = bh * ((T + BK - 1) / BK);
+  int* next = reinterpret_cast<int*>(static_cast<float*>(dq_acc) + (size_t)bh * T * D);
+  flash_bwd_sm90<OFFS><<<min(n_items, sm_count(dev)), NTHREADS, SMEM_BYTES, stream>>>(
+      mq, mk, mv, mdo, mdq, (const float*)lse, (const float*)delta, (const float*)glse, (bf16*)dk,
+      (bf16*)dv, next, bh, T, causal, q_off, k_off, scale, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+constexpr int BAD_SHAPE = -1;
+
+// TMA and the bulk copies read from 16-byte aligned addresses; the
+// 16-byte stores need the same of dk and dv
+bool bad_shape(const void* q, const void* k, const void* v, const void* dO, const void* lse,
+               const void* delta, const void* glse, const void* dk, const void* dv,
+               const void* dq_acc, int bh, int T, int d) {
+  const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dO |
+                        (uintptr_t)lse | (uintptr_t)delta | (uintptr_t)glse | (uintptr_t)dk |
+                        (uintptr_t)dv | (uintptr_t)dq_acc;
+  return d != D || T % BQ != 0 || T <= 0 || bh <= 0 || (any & 15) != 0;
+}
+
+}  // namespace
+
+// ---- plain C interface (bound with ctypes) ----
+// Every function returns 0 on success, a cudaError_t on a failed launch or
+// tensor-map encoding, or -1 for a head_dim / length / alignment it was not
+// built for.
+
+extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, const void* dO,
+                                  const void* lse, const void* delta, void* dk, void* dv,
+                                  void* dq_acc, int bh, int T, int D, int causal,
+                                  void* stream) {
+  if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, D)) return BAD_SHAPE;
+  return launch<false>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, causal, 0, 0,
+                       (cudaStream_t)stream);
+}
+
+// offset-aware (ring attention hops); causal by construction
+extern "C" int p2p_flash_bwd_dkvq_offs(const void* q, const void* k, const void* v,
+                                       const void* dO, const void* lse, const void* delta,
+                                       const void* glse, void* dk, void* dv, void* dq_acc,
+                                       int bh, int T, int D, int q_off, int k_off,
+                                       void* stream) {
+  if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, D)) return BAD_SHAPE;
+  return launch<true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, 1, q_off, k_off,
+                      (cudaStream_t)stream);
+}
+
+// dynamic shared memory of one block of the fused backward, in bytes
+extern "C" int p2p_flash_bwd_smem_bytes() { return (int)SMEM_BYTES; }

@@ -1,9 +1,11 @@
 """Build, bind and launch the hand-written CUDA kernels of ``csrc/``.
 
 ``csrc/flash_fwd_sm90.cu`` (kernels 1 and 5, the forward: TMA, ``wgmma``),
-``csrc/flash_attention.cu`` (kernels 2-4 and 6-8, the backward) and
-``csrc/ici_exchange.cu`` (kernel 9) are compiled with ``nvcc`` for
-``sm_90a``, one ``nvcc`` per source, all started together, and linked
+``csrc/flash_bwd_sm90.cu`` (kernels 2 and 6, the fused backward: TMA,
+``wgmma``, dQ by bulk reductions), ``csrc/flash_attention.cu`` (kernels
+3, 4, 7 and 8, the split backward) and ``csrc/ici_exchange.cu`` (kernel
+9) are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+all started together, and linked
 into one shared library under ``build/p2pfl_tpu_torch/`` (beside the
 package, git ignored) at first use, bound through ``ctypes`` with their
 plain C interface. The library's name carries a hash of the sources, so
@@ -34,7 +36,8 @@ import torch
 from p2pfl_tpu_torch.exceptions import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = (CSRC / "flash_attention.cu", CSRC / "flash_fwd_sm90.cu", CSRC / "ici_exchange.cu")
+SOURCES = tuple(CSRC / name for name in (
+    "flash_attention.cu", "flash_bwd_sm90.cu", "flash_fwd_sm90.cu", "ici_exchange.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2pfl_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (``-c``); the link adds ``-shared``
@@ -60,6 +63,7 @@ SIGNATURES = {
     "p2p_flash_fwd_offs": [_P] * 5 + [_I] * 5 + [_P],
     "p2p_flash_fwd_smem_bytes": [],
     "p2p_flash_bwd_dkvq_offs": [_P] * 10 + [_I] * 5 + [_P],
+    "p2p_flash_bwd_smem_bytes": [],
     "p2p_flash_bwd_dkv_offs": [_P] * 9 + [_I] * 5 + [_P],
     "p2p_flash_bwd_dq_offs": [_P] * 8 + [_I] * 5 + [_P],
     "p2p_ici_exchange": [_P, _I, _P],
@@ -208,13 +212,28 @@ def flash_fwd_smem_bytes() -> int:
     return _load().p2p_flash_fwd_smem_bytes()
 
 
+def flash_bwd_smem_bytes() -> int:
+    """Dynamic shared memory of one block of the fused backward (kernels 2
+    and 6)."""
+    return _load().p2p_flash_bwd_smem_bytes()
+
+
+def _dq_accumulator(q: torch.Tensor) -> torch.Tensor:
+    """The fused backward's zeroed fp32 dQ sum, shaped like ``q``, with 16
+    zeroed bytes after it: the kernel's work counter (one allocation, one
+    fill)."""
+    flat = torch.zeros(q.numel() + 4, dtype=torch.float32, device=q.device)
+    return flat[: q.numel()].view(q.shape)
+
+
 def flash_bwd_fused(q, k, v, do, lse, delta, causal: bool):
-    """Single pass: (dQ, dK, dV). dQ sums in an fp32 buffer through atomics
-    and is cast to the input dtype here."""
+    """Single pass: (dQ, dK, dV). dQ sums in an fp32 buffer, zeroed here,
+    through one bulk reduction a (k block, q tile) pair, and is cast to
+    the input dtype here."""
     b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     lib = _load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq_acc = _dq_accumulator(q)
     rc = lib.p2p_flash_bwd_dkvq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
@@ -291,7 +310,7 @@ def flash_bwd_fused_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
     q_off, k_off = _check_offsets(q_off, k_off)
     lib = _load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq_acc = _dq_accumulator(q)
     rc = lib.p2p_flash_bwd_dkvq_offs(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),

@@ -15,9 +15,8 @@ outside the kernels, as in JAX.
 
 Dispatch is by the device of the tensors and nothing else:
 
-- a CUDA tensor goes to the hand-written kernels of
-  ``csrc/flash_attention.cu`` (:mod:`p2pfl_tpu_torch.ops._kernels`), or
-  the wrapper raises;
+- a CUDA tensor goes to the hand-written kernels of ``csrc/``
+  (:mod:`p2pfl_tpu_torch.ops._kernels`), or the wrapper raises;
 - a CPU tensor goes to the plain PyTorch versions below, which follow the
   JAX kernels' blocked algorithm (same blocks, same causal split of the k
   stream, same online softmax, same NEG_INF sentinel, same rounding

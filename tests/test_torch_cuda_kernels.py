@@ -119,6 +119,101 @@ def test_offset_forward_half_tile_matches_plain(cuda, case):
     torch.cuda.synchronize()
 
 
+# ---- the fused backward (kernels 2 and 6, csrc/flash_bwd_sm90.cu) at the
+# forward's edges: blocks of 128 k rows whose second warpgroup lies past T,
+# a long full sweep, one head and an odd number of heads ----
+
+
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
+def test_fused_backward_edges_match_plain(cuda, shape):
+    b, h, t, causal = FWD_SHAPES[shape]
+    q, k, v, do = _inputs(cuda, b=b, h=h, t=t)
+    o, lse = _kernels.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    want = fa.flash_bwd_fused_plain(q, k, v, do, lse, delta, causal, 64, 64)
+    for got, ref in zip(_kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal), want):
+        _close(got, ref)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", list(FWD_OFFSETS))
+def test_offset_fused_backward_half_tile_matches_plain(cuda, case):
+    """Kernel 6 at T 192 with a nonzero lse cotangent: dQ rows that no k
+    tile reaches and dK/dV rows of keys that no q row sees are exact
+    zeros (all three of a fully masked hop)."""
+    q_off, k_off = FWD_OFFSETS[case]
+    t = 192
+    q, k, v, do = _inputs(cuda, b=1, h=3, t=t)
+    o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+    delta = (do.float() * o.float()).sum(-1)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    glse = torch.randn(lse.shape, generator=gen, device=cuda)
+    glse = torch.where(lse <= -0.5e30, torch.zeros_like(glse), glse)
+    args = (q, k, v, do, lse, delta, glse, q_off, k_off)
+    dq, dk, dv = _kernels.flash_bwd_fused_offs(*args)
+    for got, ref in zip((dq, dk, dv), fa.flash_bwd_fused_offs_plain(*args, 64, 64)):
+        _close(got, ref)
+    dead = min(max(k_off - q_off, 0), t)  # leading q rows that see nothing
+    seen = min(max(q_off + t - k_off, 0), t)  # keys some q row sees
+    assert torch.count_nonzero(dq[..., :dead, :]) == 0
+    assert torch.count_nonzero(dk[..., seen:, :]) == 0 and torch.count_nonzero(dv[..., seen:, :]) == 0
+    if case == "masked":
+        assert seen == 0 and dead == t
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["masked", "diagonal", "split"])
+def test_fused_backward_back_to_back_calls_agree(cuda, case):
+    """Many launches queued without a synchronisation (as in a drive or a
+    timing loop) hand out their work items and buffers without a lost
+    barrier phase: every call's outputs equal the first call's bit for bit
+    where dQ has one summation order (dK, dV), and within the limit (dQ)."""
+    q_off, k_off = FWD_OFFSETS[case]
+    q, k, v, do = _inputs(cuda, b=2, h=32, t=1024)
+    o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+    delta = (do.float() * o.float()).sum(-1)
+    glse = torch.zeros_like(lse)
+    args = (q, k, v, do, lse, delta, glse, q_off, k_off)
+    outs = [_kernels.flash_bwd_fused_offs(*args) for _ in range(40)]
+    torch.cuda.synchronize()
+    for dq, dk, dv in outs[1:]:
+        assert torch.equal(dk, outs[0][1]) and torch.equal(dv, outs[0][2])
+        _close(dq, outs[0][0])
+
+
+def _drive_launches(cuda, attn: str, seq: int, nodes: int) -> dict:
+    """Launch counts of one chip_smoke drive (run_round + run_fused(1) +
+    evaluate) of a 22-layer model at a narrow width (head dim 64)."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    cfg = TransformerConfig(vocab_size=256, dim=128, n_heads=2, n_kv_heads=1, n_layers=22,
+                            ffn_hidden=256, lora_rank=4, lora_mlp=True, scan_layers=True)
+    data = FederatedDataset.synthetic_lm(vocab_size=256, seq_len=seq, n_train=nodes * 2,
+                                         n_test=nodes * 2, shift_frac=0.15)
+    mesh = federation_mesh(model_parallel=4, devices=[cuda] * 4) if attn == "ring_flash" else None
+    model = tiny_transformer(seq_len=seq, seed=0, cfg=cfg, attn=attn, mesh=mesh, device=cuda)
+    _kernels.reset_launches()
+    fed = SpmdLoraFederation.from_dataset(model, data, n_nodes=nodes, batch_size=1, vote=False,
+                                          seed=3, device=cuda)
+    fed.run_round()
+    fed.run_fused(rounds=1)
+    fed.evaluate()
+    torch.cuda.synchronize()
+    return dict(_kernels.LAUNCHES)
+
+
+def test_drives_launch_the_fused_backward(cuda):
+    """The main drive's 22 layers x 4 steps make 88 kernel-2 launches; the
+    ring drive's 22 layers x 16 hops x 4 steps 1408 kernel-6 launches."""
+    main = _drive_launches(cuda, "flash", 1024, 4)
+    assert main["flash_bwd_dkvq"] == 88 and main["flash_bwd_dkvq_offs"] == 0
+    ring = _drive_launches(cuda, "ring_flash", 4096, 2)
+    assert ring["flash_bwd_dkvq_offs"] == 1408 and ring["flash_bwd_dkvq"] == 0
+
+
 def test_launch_counts_and_refusals(cuda):
     q, k, v, _ = _inputs(cuda)
     _kernels.reset_launches()

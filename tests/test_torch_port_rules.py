@@ -37,7 +37,7 @@ def test_import_purity_in_a_fresh_process():
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "import chip_smoke, fwd_ablation\n"
+        "import chip_smoke, fwd_ablation, bwd_ablation\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'p2pfl_tpu' or m.startswith('p2pfl_tpu.') or m == 'flax' or m == 'optax')\n"
         "print('BAD', bad)\n"
@@ -52,7 +52,8 @@ def test_import_purity_in_a_fresh_process():
 
 
 @pytest.mark.parametrize(
-    "path", sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "fwd_ablation.py"]
+    "path", sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py"))
+    + ["chip_smoke.py", "fwd_ablation.py", "bwd_ablation.py"]
 )
 def test_no_jax_imports_in_source(path):
     """Statically, too: no import of jax, flax, optax or p2pfl_tpu anywhere
@@ -123,8 +124,11 @@ def test_kernel_sources_and_bindings_agree():
     sources = {p.name: p.read_text() for p in sorted((PKG / "csrc").glob("*.cu"))}
     argcs = {
         "flash_attention.cu": {
-            "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dq": 12,
-            "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_dkv_offs": 15, "p2p_flash_bwd_dq_offs": 14,
+            "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dq": 12, "p2p_flash_bwd_dkv_offs": 15,
+            "p2p_flash_bwd_dq_offs": 14,
+        },
+        "flash_bwd_sm90.cu": {
+            "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_smem_bytes": 0,
         },
         "flash_fwd_sm90.cu": {"p2p_flash_fwd": 10, "p2p_flash_fwd_offs": 11, "p2p_flash_fwd_smem_bytes": 0},
         "ici_exchange.cu": {"p2p_ici_exchange": 3, "p2p_ici_max_entries": 0, "p2p_enable_peer_access": 2},
@@ -168,6 +172,19 @@ def test_forward_ablations_apply_to_the_source():
         for old, _ in edits:
             assert src.count(old) == 1, (name, old)
         assert (fwd_ablation.ablated_source(edits) != src) == bool(edits), name
+
+
+def test_backward_ablations_apply_to_the_source():
+    """The same for ``bwd_ablation.py`` and the fused backward's source."""
+    import bwd_ablation
+    import fwd_ablation
+
+    src = bwd_ablation.SRC.read_text()
+    for name, edits in bwd_ablation.ABLATIONS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+        assert (fwd_ablation.ablated_source(edits, bwd_ablation.SRC) != src) == bool(edits), name
+    assert set(bwd_ablation.PROBES) < set(bwd_ablation.ABLATIONS)
 
 
 def test_launch_counter_reset():
