@@ -11,23 +11,30 @@ Phases, each of which makes the script exit non-zero if it fails (the
 1. require CUDA; print the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``p2pfl_tpu_torch/csrc`` with ``nvcc`` (one
    per source, in parallel) and print what ``-Xptxas -v`` says of each,
-   with the registers, spills and dynamic shared memory of the forward
-   (``flash_fwd_sm90<OFFS>``) and of the fused backward
-   (``flash_bwd_sm90<OFFS>``);
+   with the registers, spills and dynamic shared memory of every
+   instantiation of the forward (``flash_fwd_sm90``), the fused and
+   dK/dV backward (``flash_bwd_sm90``) and the dQ pass
+   (``flash_bwd_dq_sm90``);
 3. [kernels] hold kernels 1-4 against their plain PyTorch versions on the
    card at the flash path's attention shape (4 nodes x batch 1, T 1024,
-   32 heads, head dim 64, bf16), causal and full, and time kernel, plain
-   version, the analytic bound and one PyTorch library call as a yardstick
-   (SDPA's forward for the forward; for the backward SDPA's backward
-   alone, after one forward with grad), each kernel also by its device
-   time alone and its host time a call, and the library call by its
-   device time alone;
+   32 heads, head dim 64, bf16), causal and full, on the inputs of seeds
+   0-4, each element within a limit that includes the sum of the
+   magnitudes of its terms (``check``); time kernel, plain version, the
+   analytic bound and one PyTorch library call as a yardstick (SDPA's
+   forward for the forward; for the backward SDPA's backward alone, after
+   one forward with grad, against the split pair too), each kernel also
+   by its device time alone and its host time a call, and the library
+   call by its device time alone; then the backward at [1·32, 32768, 64]
+   causal, where JAX's dispatch picks the split pass: kernels 3 + 4,
+   kernel 2 and SDPA's backward, device time beside the bound (checked
+   against the plain versions at T 4096);
 4. [offs] the same for the offset-aware kernels 5-8 at a ring hop's shape
    (2 nodes x 32 heads, T_local 1024, bf16) in five visibility cases
    (diagonal, fully visible, fully masked, and two off-tile pairs, one
    with rows that see nothing inside a visited tile), both backward
-   structures with a nonzero lse cotangent; then ``ring_attention(impl=
-   "flash")`` at [2, 4096, 32, 64] with R = 4 against unsharded flash;
+   structures with a nonzero lse cotangent, seeds 0-4, exact zeros where
+   no pair reaches; then ``ring_attention(impl="flash")`` at [2, 4096,
+   32, 64] with R = 4 against unsharded flash;
 5. [main] the flash path at full width and depth: federated LoRA on the
    TinyLlama-architecture causal LM (22L/2048d/32h/kv4/ffn5632, vocab 4096,
    seq 1024, LoRA rank 8 with lora_mlp) through ``tiny_transformer(attn=
@@ -86,11 +93,13 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
-SRC = "p2pfl_tpu_torch/csrc/flash_attention.cu"
 FWD_SRC = "p2pfl_tpu_torch/csrc/flash_fwd_sm90.cu"
 BWD_SRC = "p2pfl_tpu_torch/csrc/flash_bwd_sm90.cu"
+DQ_SRC = "p2pfl_tpu_torch/csrc/flash_bwd_dq_sm90.cu"
 SOURCES = {"flash_fwd": FWD_SRC, "flash_fwd_offs": FWD_SRC, "flash_bwd_dkvq": BWD_SRC,
-           "flash_bwd_dkvq_offs": BWD_SRC, "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
+           "flash_bwd_dkvq_offs": BWD_SRC, "flash_bwd_dkv": BWD_SRC, "flash_bwd_dkv_offs": BWD_SRC,
+           "flash_bwd_dq": DQ_SRC, "flash_bwd_dq_offs": DQ_SRC,
+           "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
 REPLACES = {
     "flash_fwd": "p2pfl_tpu/ops/flash_attention.py:189",
     "flash_bwd_dkvq": "p2pfl_tpu/ops/flash_attention.py:327",
@@ -106,13 +115,20 @@ NEG_INF = -1e30
 # tolerances against the plain versions on the same inputs. Both sides
 # round at the same points (bf16 operands, fp32 sums, P and dS cast to
 # bf16); they differ in fp32 summation order, and dQ of the fused kernel
-# sums through atomics in no fixed order. That moves a bf16 output by an
-# ulp or two (an ulp is at most 2^-7 of the value). Each element is held
-# to RTOL·|ref| + ATOL with ATOL = RTOL·rms(ref): the limit follows the
+# sums through bulk reductions in no fixed order. That moves a bf16 output
+# by an ulp or two (an ulp is at most 2^-7 of the value). Each element is
+# held to RTOL·|ref| + ATOL with ATOL = RTOL·rms(ref): the limit follows the
 # typical value, not the few largest rows (under the causal mask the first
-# query rows and the first keys' dV are many times the bulk). The fp32 lse
-# is held to LSE_TOL absolute.
+# query rows and the first keys' dV are many times the bulk). That limit
+# does not bound a sum whose terms cancel: where the fp32 values of a P or
+# dS on the two sides fall on either side of a bf16 rounding point, that
+# term moves by an ulp however small the sum is. Each side rounds a term
+# within half an ulp, 2^-8 of its size, so the two sides differ by at most
+# 2 · 2^-8 = TERMS_TOL of the sum of the magnitudes of the terms (the plain
+# versions' ``*_magnitude`` helpers), which the limit adds where the
+# caller gives it. The fp32 lse is held to LSE_TOL absolute.
 RTOL = 2.0 ** -6
+TERMS_TOL = 2.0 * 2.0 ** -8
 LSE_TOL = 1e-4
 
 
@@ -169,22 +185,27 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(got, want) -> tuple[float, float, float]:
+def check(got, want, terms=None) -> tuple[float, float, float]:
     """(max abs error, ATOL, worst share of the per-element limit used):
-    the check passes when the share is at most 1. An all-zero reference
-    (a fully masked hop) has a zero limit: only exact zeros pass."""
+    the check passes when the share is at most 1. ``terms`` is each
+    element's sum of the magnitudes of the terms that form it; without it
+    the limit has no cancellation term. An all-zero reference with no
+    terms (a fully masked hop) has a zero limit: only exact zeros pass."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
     atol = RTOL * want.pow(2).mean().sqrt().item()
     limit = RTOL * want.abs() + atol
+    if terms is not None:
+        limit = limit + TERMS_TOL * terms.float()
     share = torch.where(limit > 0, err / limit.clamp_min(1e-38),
                         torch.where(err > 0, torch.full_like(err, math.inf), torch.zeros_like(err)))
     return err.max().item(), atol, share.max().item()
 
 
-def fmt(name: str, res: tuple[float, float, float]) -> str:
+def fmt(name: str, res: tuple[float, float, float], terms: bool = True) -> str:
     e, atol, used = res
-    return f"{name} max err {e:.3e} (limit {RTOL:g}·|ref| + {atol:.3e}, worst element at {used:.2f} of it)"
+    limit = f"{RTOL:g}·|ref| + {atol:.3e}" + (f" + {TERMS_TOL:g}·Σ|terms|" if terms else "")
+    return f"{name} max err {e:.3e} (limit {limit}, worst element at {used:.2f} of it)"
 
 
 def host_ms(fn, iters: int = 50) -> float:
@@ -218,27 +239,93 @@ def sdpa_backward(q, k, v, do, **kw):
 
 def build_report(log_text: str) -> list:
     """Lines of the ``-Xptxas -v`` report worth printing, then one summary
-    line per instantiation of the forward and of the fused backward
-    (registers, spills) with its dynamic shared memory, which ptxas does
-    not report."""
+    line per instantiation of the sm90 flash kernels (registers, spills)
+    with its dynamic shared memory, which ptxas does not report."""
     from p2pfl_tpu_torch.ops import _kernels
 
     words = ("registers", "spill", "error", "Compiling", "warning", "Potential")
     lines = [line.strip() for line in log_text.splitlines() if any(w in line for w in words)]
-    for kernel, smem in (("flash_fwd_sm90", _kernels.flash_fwd_smem_bytes),
-                         ("flash_bwd_sm90", _kernels.flash_bwd_smem_bytes)):
-        section = log_text.split(f"== {kernel}.cu", 1)[-1].split("\n== ", 1)[0]
+    # kernel, its source, the shared memory of each instantiation (by the
+    # mangled template arguments: OFFS, then WITH_DQ for the backward)
+    kernels = (
+        ("flash_fwd_sm90", "flash_fwd_sm90", {"ILb0E": _kernels.flash_fwd_smem_bytes,
+                                              "ILb1E": _kernels.flash_fwd_smem_bytes}),
+        ("flash_bwd_sm90", "flash_bwd_sm90", {"ILb0ELb1E": _kernels.flash_bwd_smem_bytes,
+                                              "ILb1ELb1E": _kernels.flash_bwd_smem_bytes,
+                                              "ILb0ELb0E": _kernels.flash_bwd_dkv_smem_bytes,
+                                              "ILb1ELb0E": _kernels.flash_bwd_dkv_smem_bytes}),
+        ("flash_bwd_dq_sm90", "flash_bwd_dq_sm90", {"ILb0E": _kernels.flash_bwd_dq_smem_bytes,
+                                                    "ILb1E": _kernels.flash_bwd_dq_smem_bytes}),
+    )
+    for kernel, source, smem_of in kernels:
+        section = log_text.split(f"== {source}.cu", 1)[-1].split("\n== ", 1)[0]
         for entry in section.split("Compiling entry function")[1:]:
             name = entry.split("'")[1]
-            inst = "OFFS=true" if "ILb1E" in name else "OFFS=false"
+            args = next(a for a in sorted(smem_of, key=len, reverse=True) if f"{kernel}{a}" in name)
+            inst = ", ".join(f"{flag}={'true' if bit == '1' else 'false'}"
+                             for flag, bit in zip(("OFFS", "WITH_DQ"), args[3::4]))
             regs = next((w.split("Used ")[1].split(" ")[0] for w in entry.splitlines() if "Used " in w), "?")
             spill = [w.strip() for w in entry.splitlines() if "spill" in w]
             lines.append(f"{kernel}<{inst}>: {regs} registers; {'; '.join(spill) or 'no spill line'}; "
-                         f"{smem()} bytes of dynamic shared memory a block")
+                         f"{smem_of[args]()} bytes of dynamic shared memory a block")
     return lines
 
 
 # ---- phase 3: kernels against their plain versions ----
+
+#: seeds of the inputs every flash kernel is checked on (timings use the first)
+SEEDS = (0, 1, 2, 3, 4)
+
+
+def randn_inputs(shape, seed: int, n: int = 4) -> list:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
+            for _ in range(n)]
+
+
+class Worst:
+    """The largest error and the largest share of the limit used, per
+    kernel, over the seeds and outputs checked."""
+
+    def __init__(self):
+        self.err: dict = {}
+        self.share: dict = {}
+
+    def add(self, name: str, results) -> bool:
+        for e, _, used in results:
+            self.err[name] = max(self.err.get(name, 0.0), e)
+            self.share[name] = max(self.share.get(name, 0.0), used)
+        return all(used <= 1 for _, _, used in results)
+
+
+def check_flash(q, k, v, do, causal: bool, bq: int, bk: int, worst: Worst, tag: str):
+    """Kernels 1-4 against their plain versions on one input: → (ok, O,
+    lse, Δ). Every element within its limit, the terms' magnitudes from
+    the plain helpers."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+
+    o, lse = _kernels.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, bq, bk)
+    r_o = check(o, o_ref, fa.flash_fwd_magnitude(q, k, v, causal, bq, bk))
+    e_l = (lse - lse_ref).abs().max().item()
+    ok = worst.add("flash_fwd", [r_o, (e_l, 0.0, e_l / LSE_TOL)])
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal)
+    mags = fa.flash_bwd_magnitude(*args, bq, bk)
+    ref = fa.flash_bwd_fused_plain(*args, bq, bk)
+    res = [check(x, y, m) for x, y, m in zip(_kernels.flash_bwd_fused(*args), ref, mags)]
+    ok &= worst.add("flash_bwd_dkvq", res)
+    r_dq = check(_kernels.flash_bwd_dq(*args), fa.flash_bwd_dq_plain(*args, bq, bk), mags[0])
+    ok &= worst.add("flash_bwd_dq", [r_dq])
+    res_kv = [check(x, y, m) for x, y, m in zip(_kernels.flash_bwd_dkv(*args), fa.flash_bwd_dkv_plain(*args, bq, bk),
+                                                mags[1:])]
+    ok &= worst.add("flash_bwd_dkv", res_kv)
+    torch.cuda.synchronize()
+    log(f"[kernels] {tag}: {fmt('O', r_o)}; lse max err {e_l:.3e} (limit {LSE_TOL}); fused "
+        f"{'; '.join(fmt(n, r) for n, r in zip(('dQ', 'dK', 'dV'), res))}; split {fmt('dQ', r_dq)}; "
+        f"{'; '.join(fmt(n, r) for n, r in zip(('dK', 'dV'), res_kv))} {'OK' if ok else 'FAIL'}")
+    return ok, o, lse, delta
 
 
 def check_kernels(results: dict) -> bool:
@@ -247,11 +334,6 @@ def check_kernels(results: dict) -> bool:
     from p2pfl_tpu_torch.ops.autotune import default_flash_config
 
     b, h, t, d = 4, 32, 1024, 64  # 4 nodes x batch 1 at the slice's shape
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (
-        torch.randn((b, h, t, d), generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
-        for _ in range(4)
-    )
     cfg = default_flash_config(t, d)
     bq, bk = cfg.block_q, cfg.block_k
     ok = True
@@ -261,40 +343,16 @@ def check_kernels(results: dict) -> bool:
     for causal in (True, False):
         tag = "causal" if causal else "full"
         pairs = b * h * (t * (t + 1) // 2 if causal else t * t)  # (q, k) pairs computed
-
-        o, lse = _kernels.flash_fwd(q, k, v, causal)
-        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, bq, bk)
-        r_o = check(o, o_ref)
-        e_l = (lse - lse_ref).abs().max().item()
-        good = r_o[2] <= 1 and e_l <= LSE_TOL
-        ok &= good
-        limits = {"flash_fwd": f"{fmt('O', r_o)}; lse max err {e_l:.3e} (limit {LSE_TOL})"}
-        log(f"[kernels] flash_fwd {tag}: {limits['flash_fwd']} {'OK' if good else 'FAIL'}")
-        delta = (do.float() * o.float()).sum(-1)
-
-        dq, dk, dv = _kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal)
-        ref = fa.flash_bwd_fused_plain(q, k, v, do, lse, delta, causal, bq, bk)
-        res = [check(x, y) for x, y in zip((dq, dk, dv), ref)]
-        good = all(used <= 1 for _, _, used in res)
-        ok &= good
-        e_fused = max(e for e, _, _ in res)
-        limits["flash_bwd_dkvq"] = "; ".join(fmt(n, r) for n, r in zip(("dQ", "dK", "dV"), res))
-        log(f"[kernels] flash_bwd_dkvq {tag}: {limits['flash_bwd_dkvq']} {'OK' if good else 'FAIL'}")
-
-        r_dq = check(_kernels.flash_bwd_dq(q, k, v, do, lse, delta, causal),
-                     fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, bq, bk))
-        dk_s, dv_s = _kernels.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, bq, bk)
-        res_kv = [check(dk_s, dk_ref), check(dv_s, dv_ref)]
-        good = r_dq[2] <= 1 and all(used <= 1 for _, _, used in res_kv)
-        ok &= good
-        e_dq = r_dq[0]
-        e_kv = max(e for e, _, _ in res_kv)
-        limits["flash_bwd_dq"] = fmt("dQ", r_dq)
-        limits["flash_bwd_dkv"] = "; ".join(fmt(n, r) for n, r in zip(("dK", "dV"), res_kv))
-        log(f"[kernels] flash_bwd_dq/dkv {tag}: {limits['flash_bwd_dq']}; "
-            f"{limits['flash_bwd_dkv']} {'OK' if good else 'FAIL'}")
-        torch.cuda.synchronize()
+        worst = Worst()
+        for seed in SEEDS:
+            q, k, v, do = randn_inputs((b, h, t, d), seed)
+            good, o, lse, delta = check_flash(q, k, v, do, causal, bq, bk, worst, f"{tag} seed {seed}")
+            ok &= good
+            if seed == SEEDS[0]:
+                timed_on = (q, k, v, do, o, lse, delta)
+        q, k, v, do, o, lse, delta = timed_on
+        limits = {name: f"worst element at {worst.share[name]:.2f} of its limit over seeds {list(SEEDS)}"
+                  for name in worst.share}
 
         # ---- timing: kernel, plain version, library yardstick, bound ----
         rows = {}
@@ -303,7 +361,7 @@ def check_kernels(results: dict) -> bool:
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal))
         bms, by = bound(qkv_bytes + b * h * t * d * bf16 + row_bytes, 4 * d * pairs)
-        rows["flash_fwd"] = dict(max_abs_err=max(r_o[0], e_l), ms=ms, plain_ms=plain,
+        rows["flash_fwd"] = dict(max_abs_err=worst.err["flash_fwd"], ms=ms, plain_ms=plain,
                                  bound_ms=bms, bound_by=by, library_ms=lib)
         rows["flash_fwd"].update(device_times(
             lambda: _kernels.flash_fwd(q, k, v, causal),
@@ -314,21 +372,66 @@ def check_kernels(results: dict) -> bool:
         bwd_in = qkv_bytes + b * h * t * d * bf16 + 2 * row_bytes  # q, k, v, dO, lse, delta
         out1 = b * h * t * d * bf16
         args = (q, k, v, do, lse, delta, causal)
-        for name, kernel, plain_fn, n_out, flops, err in (
-            ("flash_bwd_dkvq", _kernels.flash_bwd_fused, fa.flash_bwd_fused_plain, 3, 10, e_fused),
-            ("flash_bwd_dq", _kernels.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6, e_dq),
-            ("flash_bwd_dkv", _kernels.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8, e_kv),
+        for name, kernel, plain_fn, n_out, flops in (
+            ("flash_bwd_dkvq", _kernels.flash_bwd_fused, fa.flash_bwd_fused_plain, 3, 10),
+            ("flash_bwd_dq", _kernels.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
+            ("flash_bwd_dkv", _kernels.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
         ):
             bms, by = bound(bwd_in + n_out * out1, flops * d * pairs)
             rows[name] = dict(
-                max_abs_err=err, ms=time_ms(lambda: kernel(*args)),
+                max_abs_err=worst.err[name], ms=time_ms(lambda: kernel(*args)),
                 plain_ms=time_ms(lambda: plain_fn(*args, bq, bk), iters=3, warmup=1),
                 bound_ms=bms, bound_by=by, library_ms=lib_bwd_ms)
             rows[name].update(device_times(lambda: kernel(*args), lib_bwd))
+        # the split pair against SDPA's backward alone, device time
+        rows["flash_bwd_dq"]["pair_device_ms"] = time_device_ms(lambda: _kernels.flash_bwd_split(*args))
         for name, row in rows.items():
             log(f"[kernels] {name} {tag} [{b}x{h}, {t}, {d}] bf16: {json.dumps(row)} "
                 f"limit: {limits[name]}")
         results[tag] = rows
+    ok &= long_sequence(results)
+    return ok
+
+
+def long_sequence(results: dict) -> bool:
+    """The backward where JAX's dispatch picks the split pass (T·D·4 >
+    4 MiB): kernels 3 + 4, kernel 2 (with its zeroed fp32 dQ sum and the
+    cast, the wrapper's device work) and SDPA's backward alone, device
+    time, causal at [1·32, 32768, 64] bf16, each beside its bound. The
+    plain versions are too slow there: kernels 2, 3 and 4 are checked
+    against them at T 4096 on the same heads."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+
+    b, h, d = 1, 32, 64
+    worst = Worst()
+    t = 4096
+    cfg = default_flash_config(t, d)
+    q, k, v, do = randn_inputs((b, h, t, d), SEEDS[0])
+    ok, *_ = check_flash(q, k, v, do, True, cfg.block_q, cfg.block_k, worst, f"causal [{b}x{h}, {t}, {d}]")
+    t = 32768
+    q, k, v, do = randn_inputs((b, h, t, d), SEEDS[0])
+    o, lse = _kernels.flash_fwd(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True)
+    dq, dk, dv = _kernels.flash_bwd_split(*args)
+    torch.cuda.synchronize()
+    ok &= all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+    del o, dq, dk, dv
+    pairs = b * h * t * (t + 1) // 2
+    tensor, rows = b * h * t * d * 2, b * h * t * 4
+    row = {"shape": [b * h, t, d], "causal": True, "use_fused_by_jax_dispatch": fa._bwd_use_fused(t, d, "auto")}
+    for name, fn, n_out, flops in (
+        ("split_3_4", lambda: _kernels.flash_bwd_split(*args), 3, 14),
+        ("fused_2", lambda: _kernels.flash_bwd_fused(*args), 3, 10),
+        ("sdpa_backward", sdpa_backward(q, k, v, do, is_causal=True), 3, 10),
+    ):
+        bms, by = bound(4 * tensor + 2 * rows + n_out * tensor, flops * d * pairs)
+        row[name] = {"device_ms": time_device_ms(fn, iters=10), "bound_ms": bms, "bound_by": by}
+    log(f"[kernels] long sequence, split vs fused vs SDPA's backward (worst element at T 4096 "
+        f"{max(worst.share.values()):.2f} of its limit): {json.dumps(row)} {'OK' if ok else 'FAIL'}")
+    results["long_sequence"] = row
     return ok
 
 
@@ -365,22 +468,60 @@ def offset_mask(t: int, q_off: int, k_off: int, device) -> torch.Tensor:
     return rows >= k_off + torch.arange(t, device=device)[None, :]
 
 
+def check_offs(q, k, v, do, q_off: int, k_off: int, bq: int, bk: int, gen, worst: Worst, tag: str):
+    """Kernels 5-8 against their plain versions on one hop with a nonzero
+    lse cotangent: → (ok, the kernels' arguments). Rows that see nothing
+    give O exactly 0 and lse the sentinel; a fully masked hop's terms are
+    all 0, so only exact zeros pass there."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+
+    t = q.shape[2]
+    o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+    o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk)
+    r_o = check(o, o_ref, fa.flash_fwd_offs_magnitude(q, k, v, q_off, k_off, bq, bk))
+    e_l = (lse - lse_ref).abs().max().item()
+    ok = worst.add("flash_fwd_offs", [r_o, (e_l, 0.0, e_l / LSE_TOL)])
+    dead = min(max(k_off - q_off, 0), t)  # leading rows that see nothing
+    if dead:  # there O is exactly 0 and lse at the sentinel
+        ok &= torch.count_nonzero(o[..., :dead, :]).item() == 0 and bool((lse[..., :dead] == NEG_INF).all())
+    delta = (do.float() * o.float()).sum(-1)
+    glse = torch.randn(lse.shape, generator=gen, device="cuda")
+    glse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(glse), glse)
+    args = (q, k, v, do, lse, delta, glse, q_off, k_off)
+    mags = fa.flash_bwd_offs_magnitude(*args, bq, bk)
+    ref = fa.flash_bwd_fused_offs_plain(*args, bq, bk)
+    res = [check(x, y, m) for x, y, m in zip(_kernels.flash_bwd_fused_offs(*args), ref, mags)]
+    ok &= worst.add("flash_bwd_dkvq_offs", res)
+    dq, dk, dv = _kernels.flash_bwd_split_offs(*args)
+    r_dq = check(dq, ref[0], mags[0])
+    ok &= worst.add("flash_bwd_dq_offs", [r_dq])
+    res_kv = [check(x, y, m) for x, y, m in zip((dk, dv), ref[1:], mags[1:])]
+    ok &= worst.add("flash_bwd_dkv_offs", res_kv)
+    # exact zeros where no pair reaches: dQ of the rows that see nothing,
+    # dK and dV of the keys no row sees
+    seen = seen_rows(t, q_off, k_off)
+    ok &= torch.count_nonzero(dq[..., :dead, :]).item() == 0
+    ok &= torch.count_nonzero(dk[..., seen:, :]).item() == 0 and torch.count_nonzero(dv[..., seen:, :]).item() == 0
+    torch.cuda.synchronize()
+    log(f"[offs] {tag}: {fmt('O', r_o)}; lse max err {e_l:.3e} (limit {LSE_TOL}); fused "
+        f"{'; '.join(fmt(n, r) for n, r in zip(('dQ', 'dK', 'dV'), res))}; split {fmt('dQ', r_dq)}; "
+        f"{'; '.join(fmt(n, r) for n, r in zip(('dK', 'dV'), res_kv))} {'OK' if ok else 'FAIL'}")
+    return ok, args
+
+
 def check_offs_kernels(results: dict) -> bool:
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.ops import flash_attention as fa
     from p2pfl_tpu_torch.ops.autotune import default_flash_config
 
     b, h, t, d = 2, 32, 1024, 64  # 2 nodes x batch 1, one shard of a 4096 ring
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, do = (
-        torch.randn((b, h, t, d), generator=gen, device="cuda", dtype=torch.float32).to(torch.bfloat16)
-        for _ in range(4)
-    )
     cfg = default_flash_config(t, d)
     bq, bk = cfg.block_q, cfg.block_k
     bf16, f32 = 2, 4
     tensor_bytes, row_bytes = b * h * t * d * bf16, b * h * t * f32
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    inputs = {seed: randn_inputs((b, h, t, d), seed) for seed in SEEDS}
     ok = True
     for case, (q_off, k_off) in OFFSET_CASES.items():
         pairs = visible_pairs(b, h, t, q_off, k_off)
@@ -388,33 +529,17 @@ def check_offs_kernels(results: dict) -> bool:
         # lse, Δ, g_lse of seen rows only), every output written once
         n_seen = seen_rows(t, q_off, k_off) * b * h
         seen_tensor, seen_row = n_seen * d * bf16, n_seen * f32
-        o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
-        o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk)
-        r_o = check(o, o_ref)
-        e_l = (lse - lse_ref).abs().max().item()
-        good = r_o[2] <= 1 and e_l <= LSE_TOL
-        dead = min(max(k_off - q_off, 0), t)  # leading rows that see nothing
-        if dead:  # there O is exactly 0 and lse at the sentinel
-            good &= torch.count_nonzero(o[..., :dead, :]).item() == 0 and bool((lse[..., :dead] == NEG_INF).all())
-        ok &= good
-        limits = {"flash_fwd_offs": f"{fmt('O', r_o)}; lse max err {e_l:.3e} (limit {LSE_TOL})"}
-        log(f"[offs] flash_fwd_offs {case}: {limits['flash_fwd_offs']} {'OK' if good else 'FAIL'}")
-        delta = (do.float() * o.float()).sum(-1)
-        glse = torch.randn(lse.shape, generator=gen, device="cuda")
-        glse = torch.where(lse <= NEG_INF / 2, torch.zeros_like(glse), glse)
-        args = (q, k, v, do, lse, delta, glse, q_off, k_off)
-
-        ref = fa.flash_bwd_fused_offs_plain(*args, bq, bk)
-        res = [check(x, y) for x, y in zip(_kernels.flash_bwd_fused_offs(*args), ref)]
-        res_split = [check(x, y) for x, y in zip(_kernels.flash_bwd_split_offs(*args), ref)]
-        good = all(used <= 1 for _, _, used in res + res_split)
-        ok &= good
-        limits["flash_bwd_dkvq_offs"] = "; ".join(fmt(n, r) for n, r in zip(("dQ", "dK", "dV"), res))
-        limits["flash_bwd_dq_offs"] = fmt("dQ", res_split[0])
-        limits["flash_bwd_dkv_offs"] = "; ".join(fmt(n, r) for n, r in zip(("dK", "dV"), res_split[1:]))
-        log(f"[offs] flash_bwd_dkvq_offs {case}: {limits['flash_bwd_dkvq_offs']}; split "
-            f"{limits['flash_bwd_dq_offs']}; {limits['flash_bwd_dkv_offs']} {'OK' if good else 'FAIL'}")
-        torch.cuda.synchronize()
+        worst = Worst()
+        for seed in SEEDS:
+            gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+            good, case_args = check_offs(*inputs[seed], q_off, k_off, bq, bk, gen, worst,
+                                         f"{case} seed {seed}")
+            ok &= good
+            if seed == SEEDS[0]:
+                args = case_args
+        q, k, v, do = args[:4]
+        limits = {name: f"worst element at {worst.share[name]:.2f} of its limit over seeds {list(SEEDS)}"
+                  for name in worst.share}
 
         # ---- timing: kernel, plain version, library yardstick, bound ----
         if case == "diagonal":
@@ -432,25 +557,25 @@ def check_offs_kernels(results: dict) -> bool:
         rows = {}
         bms, by = bound(3 * seen_tensor + tensor_bytes + row_bytes, 4 * d * pairs)
         rows["flash_fwd_offs"] = dict(
-            max_abs_err=max(r_o[0], e_l), ms=time_ms(lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off)),
+            max_abs_err=worst.err["flash_fwd_offs"],
+            ms=time_ms(lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off)),
             plain_ms=time_ms(lambda: fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, bq, bk), iters=3, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=time_ms(lib_fwd) if lib_fwd is not None else None)
         rows["flash_fwd_offs"].update(device_times(
             lambda: _kernels.flash_fwd_offs(q, k, v, q_off, k_off), lib_fwd))
         bwd_in = 4 * seen_tensor + 3 * seen_row  # q, k, v, dO, lse, delta, g_lse
-        for name, kernel, plain, n_out, flops, err in (
-            ("flash_bwd_dkvq_offs", _kernels.flash_bwd_fused_offs, fa.flash_bwd_fused_offs_plain, 3, 10,
-             max(e for e, _, _ in res)),
-            ("flash_bwd_dq_offs", _kernels.flash_bwd_dq_offs, fa.flash_bwd_dq_offs_plain, 1, 6, res_split[0][0]),
-            ("flash_bwd_dkv_offs", _kernels.flash_bwd_dkv_offs, fa.flash_bwd_dkv_offs_plain, 2, 8,
-             max(e for e, _, _ in res_split[1:])),
+        for name, kernel, plain, n_out, flops in (
+            ("flash_bwd_dkvq_offs", _kernels.flash_bwd_fused_offs, fa.flash_bwd_fused_offs_plain, 3, 10),
+            ("flash_bwd_dq_offs", _kernels.flash_bwd_dq_offs, fa.flash_bwd_dq_offs_plain, 1, 6),
+            ("flash_bwd_dkv_offs", _kernels.flash_bwd_dkv_offs, fa.flash_bwd_dkv_offs_plain, 2, 8),
         ):
             bms, by = bound(bwd_in + n_out * tensor_bytes, flops * d * pairs)
             rows[name] = dict(
-                max_abs_err=err, ms=time_ms(lambda: kernel(*args)),
+                max_abs_err=worst.err[name], ms=time_ms(lambda: kernel(*args)),
                 plain_ms=time_ms(lambda: plain(*args, bq, bk), iters=3, warmup=1),
                 bound_ms=bms, bound_by=by, library_ms=lib_b)
             rows[name].update(device_times(lambda: kernel(*args), lib_bwd))
+        rows["flash_bwd_dq_offs"]["pair_device_ms"] = time_device_ms(lambda: _kernels.flash_bwd_split_offs(*args))
         for name, row in rows.items():
             log(f"[offs] {name} {case} (q_off {q_off}, k_off {k_off}) [{b}x{h}, {t}, {d}] bf16: "
                 f"{json.dumps(row)} limit: {limits[name]}")
@@ -480,7 +605,7 @@ def time_ring(results: dict) -> bool:
     with torch.no_grad():
         res = check(ring_fn(q, k, v), flash_attention(q, k, v))
     good = res[2] <= 1
-    log(f"[offs] ring vs unsharded output: {fmt('O', res)} {'OK' if good else 'FAIL'}")
+    log(f"[offs] ring vs unsharded output: {fmt('O', res, terms=False)} {'OK' if good else 'FAIL'}")
     xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
 
     def fwd_bwd(fn):
@@ -1030,7 +1155,7 @@ def main(argv=None) -> int:
         rows["ici_exchange"] = exchange_timings["mlp_fp32"]
     if rows:
         kernels = [
-            {"name": name, "route": "cuda", "source": SOURCES.get(name, SRC), "replaces": REPLACES[name],
+            {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
              "launches": launches.get(name, 0), **rows[name]}
             for name in REPLACES if name in rows
         ]

@@ -1,23 +1,28 @@
-// Fused flash attention backward for Hopper (sm_90a): TMA loads, wgmma
-// products with P and dS in registers, dQ added by bulk tensor
-// reductions.
+// Flash attention backward for Hopper (sm_90a), fused and the split dK/dV
+// pass: TMA loads, wgmma products with P and dS in registers, dQ (fused
+// only) added by bulk tensor reductions.
 //
 // Port of the Pallas kernels in p2pfl_tpu/ops/flash_attention.py:
 //   p2p_flash_bwd_dkvq      <- _dkvq_kernel      (+ _dkv_step with dq_acc)       kernel 2
 //   p2p_flash_bwd_dkvq_offs <- _dkvq_kernel_offs (+ _dkv_step_offs,
 //                                                  _offs_kv_bounds)             kernel 6
-// Both are flash_bwd_sm90<OFFS>. They compute dQ, dK and dV in one sweep,
-// five block products per (q, k) tile pair. With OFFS the causal mask is
-// in global coordinates (q row i sees k row j where q_off + i >= k_off +
-// j, the two offsets being plain int arguments), loop bounds divide with
-// C's '/' (truncating like lax.div), a q row at the lse sentinel (it sees
-// nothing in the call) gets P = 0, and the lse cotangent enters as
-// dS = P (dP - delta + g_lse).
+//   p2p_flash_bwd_dkv       <- _dkv_kernel       (+ _dkv_step)                   kernel 4
+//   p2p_flash_bwd_dkv_offs  <- _dkv_kernel_offs  (+ _dkv_step_offs)              kernel 8
+// All four are flash_bwd_sm90<OFFS, WITH_DQ>. With WITH_DQ they compute dQ,
+// dK and dV in one sweep, five block products per (q, k) tile pair; without
+// it (the split pass, whose dQ is flash_bwd_dq_sm90.cu's) dK and dV alone,
+// four products a pair, and every dQ step below is compiled out. With
+// OFFS the causal mask is in global coordinates (q row i sees k row j
+// where q_off + i >= k_off + j, the two offsets being plain int
+// arguments), loop bounds divide with C's '/' (truncating like lax.div), a
+// q row at the lse sentinel (it sees nothing in the call) gets P = 0, and
+// the lse cotangent enters as dS = P (dP - delta + g_lse).
 //
 // Layout: q, k, v, dO, dk, dv are [BH, T, 64] bf16, contiguous; lse,
 // delta and g_lse are [BH, T] fp32 (natural log); dq_acc is [BH, T, 64]
 // fp32 followed by 16 bytes (the blocks' work counter), all zeroed by the
-// caller, which casts dQ afterwards. T must be a multiple of 64. Rounding
+// caller, which casts dQ afterwards. Without dQ, dv is followed by the 16
+// zeroed bytes of the counter. T must be a multiple of 64. Rounding
 // points follow the JAX kernel: bf16 operands and fp32 sums, P cast to
 // bf16 before P^T dO, dS cast to bf16 before dS^T Q and dS K, dK scaled
 // once at the end, dQ's share scaled by `scale` before it is added.
@@ -74,7 +79,13 @@
 //     producer warpgroup, was no faster on the card;
 //   - the epilogue stages dK and dV as bf16 in the warpgroup's halves of
 //     the item's K and V tiles (swizzled) and writes them with 16-byte
-//     stores.
+//     stores;
+//   - without dQ (kernels 4 and 8) the K^T tiles, the dS^T tiles, the dQ
+//     staging, the named barrier of the two warpgroups and the bulk
+//     reductions all go: each warpgroup runs S^T, dP^T, the softmax
+//     gradient and the dV and dK products on its own, and meets only its
+//     own warps at a named barrier before it releases a stage. The work
+//     counter follows dv.
 // The tensor maps hold the tensors' base addresses, so the C entry points
 // encode them per call (cuTensorMapEncodeTiled, reached through the
 // runtime's driver entry point: the library links the runtime alone) and
@@ -99,6 +110,7 @@ constexpr int BK = 128;        // k rows per block: two warpgroups of 64
 constexpr int WG_ROWS = 64;    // k rows per consumer warpgroup (wgmma M)
 constexpr int BQ = 64;         // q rows per streamed tile
 constexpr int STAGES = 3;      // Q/dO ring depth
+constexpr int SPLIT_STAGES = 3;  // the same without dQ
 constexpr int N_CONSUMERS = 2; // consumer warpgroups
 constexpr int NTHREADS = N_CONSUMERS * 128 + 32;  // + one producer warp
 constexpr float NEG_INF = -1e30f;
@@ -114,17 +126,22 @@ constexpr uint32_t DQ_HALF_BYTES = BQ * 32 * sizeof(float);  // 8 KB: [64, 32] f
 // 8 rows of 128 bytes):
 // [K0 V0 K1 V1 (two items' K and V) | K^T (two [64 d, 64 k] tiles) |
 //  Q0 dO0 Q1 dO1 ... | dS^T x 2 | dQ staging: warpgroup 0 x 2, warpgroup 1 x 2 |
-//  rows: lse, delta, g_lse a stage | barriers]
-constexpr uint32_t OFF_KV = 0;
-constexpr uint32_t OFF_KT = OFF_KV + 4 * KV_BYTES;
-constexpr uint32_t OFF_QDO = OFF_KT + KV_BYTES;
-constexpr uint32_t OFF_DS = OFF_QDO + STAGES * 2 * TILE_BYTES;
-constexpr uint32_t OFF_DQ = OFF_DS + 2 * KV_BYTES;
-constexpr uint32_t OFF_ROWS = OFF_DQ + N_CONSUMERS * 2 * DQ_HALF_BYTES;
-constexpr uint32_t OFF_BAR = OFF_ROWS + STAGES * 3 * ROWS_BYTES;
-// full and empty per K/V buffer, then full and empty per stage
-constexpr uint32_t N_BARS = 4 + 2 * STAGES;
-constexpr uint32_t SMEM_BYTES = 1024 + OFF_BAR + N_BARS * 8 + 2 * 4;  // + item ids, alignment slack
+//  rows: lse, delta, g_lse a stage | barriers: full and empty per K/V
+//  buffer, then full and empty per stage | item ids]; without dQ the K^T,
+// dS^T and staging tiles take no room
+template <bool WITH_DQ>
+struct Smem {
+  static constexpr int NS = WITH_DQ ? STAGES : SPLIT_STAGES;  // ring depth
+  static constexpr uint32_t N_BARS = 4 + 2 * NS;
+  static constexpr uint32_t KV = 0;
+  static constexpr uint32_t KT = KV + 4 * KV_BYTES;
+  static constexpr uint32_t QDO = KT + (WITH_DQ ? KV_BYTES : 0);
+  static constexpr uint32_t DS = QDO + NS * 2 * TILE_BYTES;
+  static constexpr uint32_t DQ = DS + (WITH_DQ ? 2 * KV_BYTES : 0);
+  static constexpr uint32_t ROWS = DQ + (WITH_DQ ? N_CONSUMERS * 2 * DQ_HALF_BYTES : 0);
+  static constexpr uint32_t BAR = ROWS + NS * 3 * ROWS_BYTES;
+  static constexpr uint32_t BYTES = 1024 + BAR + N_BARS * 8 + 2 * 4;  // + item ids, alignment slack
+};
 
 // ---- PTX wrappers: mbarrier, TMA, bulk reduction, wgmma ----
 
@@ -347,6 +364,17 @@ __device__ __forceinline__ void softmax_grad(const float (&sc)[32], const float 
   }
 }
 
+// dV += P^T dO and dK += dS^T Q for one warpgroup and tile: A from
+// registers, dO and Q MN-major B operands from the stage, each k16 step 16
+// q rows of 128 bytes further. Issued, not waited on.
+__device__ __forceinline__ void dkv_products(float (&dv_acc)[32], float (&dk_acc)[32], const uint32_t (&pa)[16],
+                                             const uint32_t (&da)[16], uint64_t do_desc, uint64_t q_desc) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dv_acc, pa + 4 * kk, do_desc + (16 * ROW_BYTES >> 4) * kk);
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dk_acc, da + 4 * kk, q_desc + (16 * ROW_BYTES >> 4) * kk);
+}
+
 // One work item: the k block k0 of head bh and the q tiles it streams.
 struct Item {
   int bh, k0, start, n_tiles;
@@ -385,9 +413,10 @@ __device__ __forceinline__ Item item(int w, int n_bh, int T, int causal, int q_o
 // V alternate between two buffers, so the producer loads the next item's
 // K and V and first tiles while this item runs, and an item's dK and dV
 // leave through its own K/V buffer. Named barriers: 1 and 2 each warpgroup's own, 3 both
-// consumer warpgroups (0 is __syncthreads').
+// consumer warpgroups (0 is __syncthreads'). WITH_DQ = false drops every
+// step of dQ (K^T, dS^T, barrier 3, the staging and the reductions).
 // ---------------------------------------------------------------------------
-template <bool OFFS>
+template <bool OFFS, bool WITH_DQ>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -395,21 +424,23 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                const float* __restrict__ delta, const float* __restrict__ glse,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int* __restrict__ next, int n_bh,
                int T, int causal, int q_off, int k_off, float scale, float scale_log2) {
+  typedef Smem<WITH_DQ> L;
+  constexpr int STAGES = L::NS;  // this pass's ring depth
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t bar0 = base + OFF_BAR;
-  auto k_buf = [&](int b) { return OFF_KV + (2 * b) * KV_BYTES; };  // V follows K
+  const uint32_t bar0 = base + L::BAR;
+  auto k_buf = [&](int b) { return L::KV + (2 * b) * KV_BYTES; };  // V follows K
   auto kv_full = [&](int b) { return bar0 + 8 * b; };
   auto kv_empty = [&](int b) { return bar0 + 8 * (2 + b); };
-  auto q_tile = [&](int s) { return base + OFF_QDO + (2 * s) * TILE_BYTES; };
-  auto do_tile = [&](int s) { return base + OFF_QDO + (2 * s + 1) * TILE_BYTES; };
-  auto rows = [&](int s, int which) { return OFF_ROWS + (3 * s + which) * ROWS_BYTES; };
+  auto q_tile = [&](int s) { return base + L::QDO + (2 * s) * TILE_BYTES; };
+  auto do_tile = [&](int s) { return base + L::QDO + (2 * s + 1) * TILE_BYTES; };
+  auto rows = [&](int s, int which) { return L::ROWS + (3 * s + which) * ROWS_BYTES; };
   auto full = [&](int s) { return bar0 + 8 * (4 + s); };
   auto empty = [&](int s) { return bar0 + 8 * (4 + STAGES + s); };
   // the item each K/V buffer holds, -1 when the launch's items are done
-  volatile int* item_of = reinterpret_cast<volatile int*>(smem + OFF_BAR + N_BARS * 8);
+  volatile int* item_of = reinterpret_cast<volatile int*>(smem + L::BAR + L::N_BARS * 8);
 
   const int n_items = n_bh * ((T + BK - 1) / BK);
   const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
@@ -510,27 +541,29 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const uint32_t off_k = k_buf(b), off_v = off_k + KV_BYTES;
     const uint64_t dk_desc = smem_desc(base + off_k + wg * WG_BYTES);
     const uint64_t dv_desc = smem_desc(base + off_v + wg * WG_BYTES);
-    // both warpgroups are done with the last item's K^T
-    named_bar(3, N_CONSUMERS * 128);
-    // K^T for the dQ product: two K-major [64 d, 64 k] tiles, swizzled;
-    // each thread moves two 8-column chunks of two neighbouring k rows
-    for (int n = threadIdx.x; n < (BK / 2) * (D / 8); n += N_CONSUMERS * 128) {
-      const int kr = 2 * (n % (BK / 2)), ch = n / (BK / 2);  // k rows kr, kr + 1; d columns 8ch ..
-      const uint4 lo = *reinterpret_cast<const uint4*>(smem + off_k + kr * ROW_BYTES + ((ch ^ (kr & 7)) << 4));
-      const uint4 hi = *reinterpret_cast<const uint4*>(smem + off_k + (kr + 1) * ROW_BYTES +
-                                                       ((ch ^ ((kr + 1) & 7)) << 4));
-      const uint16_t* ea = reinterpret_cast<const uint16_t*>(&lo);
-      const uint16_t* eb = reinterpret_cast<const uint16_t*>(&hi);
-      unsigned char* kt = smem + OFF_KT + (kr / 64) * WG_BYTES;
-      const int kc = kr % 64;
+    if constexpr (WITH_DQ) {
+      // both warpgroups are done with the last item's K^T
+      named_bar(3, N_CONSUMERS * 128);
+      // K^T for the dQ product: two K-major [64 d, 64 k] tiles, swizzled;
+      // each thread moves two 8-column chunks of two neighbouring k rows
+      for (int n = threadIdx.x; n < (BK / 2) * (D / 8); n += N_CONSUMERS * 128) {
+        const int kr = 2 * (n % (BK / 2)), ch = n / (BK / 2);  // k rows kr, kr + 1; d columns 8ch ..
+        const uint4 lo = *reinterpret_cast<const uint4*>(smem + off_k + kr * ROW_BYTES + ((ch ^ (kr & 7)) << 4));
+        const uint4 hi = *reinterpret_cast<const uint4*>(smem + off_k + (kr + 1) * ROW_BYTES +
+                                                         ((ch ^ ((kr + 1) & 7)) << 4));
+        const uint16_t* ea = reinterpret_cast<const uint16_t*>(&lo);
+        const uint16_t* eb = reinterpret_cast<const uint16_t*>(&hi);
+        unsigned char* kt = smem + L::KT + (kr / 64) * WG_BYTES;
+        const int kc = kr % 64;
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int d = 8 * ch + u;
-        *reinterpret_cast<uint32_t*>(kt + d * ROW_BYTES + (((kc / 8) ^ (d & 7)) << 4) + (kc % 8) * 2) =
-            (uint32_t)ea[u] | ((uint32_t)eb[u] << 16);
+        for (int u = 0; u < 8; ++u) {
+          const int d = 8 * ch + u;
+          *reinterpret_cast<uint32_t*>(kt + d * ROW_BYTES + (((kc / 8) ^ (d & 7)) << 4) + (kc % 8) * 2) =
+              (uint32_t)ea[u] | ((uint32_t)eb[u] << 16);
+        }
       }
+      fence_async_smem();  // K^T is read by wgmma after the first named barrier 3
     }
-    fence_async_smem();  // K^T is read by wgmma after the first named barrier 3
 
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
@@ -565,60 +598,74 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
           softmax_grad<true, OFFS>(sc, dp, pa, da, lse_s, delta_s, glse_s, lim0, t, scale_log2);
         else
           softmax_grad<false, OFFS>(sc, dp, pa, da, lse_s, delta_s, glse_s, lim0, t, scale_log2);
-      } else {
+      } else if (WITH_DQ) {
 #pragma unroll
         for (int i = 0; i < 16; ++i) pa[i] = da[i] = 0u;
       }
-      // this thread's bulk reduction of two tiles ago has read its staging
-      if (tid == 0) bulk_wait_read<1>();
-      // dS^T rows of this warpgroup into the tile's dS^T buffer
-      unsigned char* ds_t = smem + OFF_DS + (c & 1) * KV_BYTES + wg * WG_BYTES;
+      if constexpr (WITH_DQ) {
+        // this thread's bulk reduction of two tiles ago has read its staging
+        if (tid == 0) bulk_wait_read<1>();
+        // dS^T rows of this warpgroup into the tile's dS^T buffer
+        unsigned char* ds_t = smem + L::DS + (c & 1) * KV_BYTES + wg * WG_BYTES;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * wi + g + 8 * h;
-          *reinterpret_cast<uint32_t*>(ds_t + r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t) = da[2 * i + h];
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wi + g + 8 * h;
+            *reinterpret_cast<uint32_t*>(ds_t + r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t) = da[2 * i + h];
+          }
+        fence_async_smem();
+        // dV += P^T dO and dK += dS^T Q
+        wgmma_fence();
+        dkv_products(dv_acc, dk_acc, pa, da, do_desc, q_desc);
+        wgmma_commit();
+        named_bar(3, N_CONSUMERS * 128);  // both halves of dS^T are written
+        // dQ[:, 32 wg .. 32 wg + 31] = dS K over the item's 128 k rows: dS^T
+        // an MN-major A (16 k rows a step), K^T a K-major B (32 bytes a step)
+        wgmma_fence();
+        const uint32_t ds_all = base + L::DS + (c & 1) * KV_BYTES;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss_n32_ta(dq, smem_desc(ds_all + kk * 16 * ROW_BYTES),
+                          smem_desc(base + L::KT + (kk / 4) * WG_BYTES + wg * 32 * ROW_BYTES) + 2 * (kk % 4),
+                          kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dv_acc);
+        reg_fence(dk_acc);
+        reg_fence(dq);
+        if (tid == 0) mbar_arrive(empty(s));  // Q, dO and the rows of the stage are consumed
+        // scale dQ's share into this warpgroup's staging half (fp32, 128-byte
+        // swizzle) and add it into dq_acc with one bulk reduction
+        const uint32_t stage_off = L::DQ + (2 * wg + (c & 1)) * DQ_HALF_BYTES;
+        unsigned char* st = smem + stage_off;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * wi + g + 8 * h;
+            *reinterpret_cast<float2*>(st + r * 128 + (((2 * i + (t >> 1)) ^ (r & 7)) << 4) + 8 * (t & 1)) =
+                make_float2(dq[4 * i + 2 * h] * scale, dq[4 * i + 2 * h + 1] * scale);
+          }
+        fence_async_smem();
+        named_bar(1 + wg, 128);
+        if (tid == 0) tma_reduce_add(&tdq, base + stage_off, 32 * wg, q0, it.bh);
+      } else {
+        if (!skip) {
+          // dV += P^T dO and dK += dS^T Q
+          wgmma_fence();
+          dkv_products(dv_acc, dk_acc, pa, da, do_desc, q_desc);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(dv_acc);
+          reg_fence(dk_acc);
         }
-      fence_async_smem();
-      // dV += P^T dO and dK += dS^T Q, A from registers, B MN-major
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dv_acc, pa + 4 * kk, do_desc + (16 * ROW_BYTES >> 4) * kk);
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dk_acc, da + 4 * kk, q_desc + (16 * ROW_BYTES >> 4) * kk);
-      wgmma_commit();
-      named_bar(3, N_CONSUMERS * 128);  // both halves of dS^T are written
-      // dQ[:, 32 wg .. 32 wg + 31] = dS K over the item's 128 k rows: dS^T
-      // an MN-major A (16 k rows a step), K^T a K-major B (32 bytes a step)
-      wgmma_fence();
-      const uint32_t ds_all = base + OFF_DS + (c & 1) * KV_BYTES;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_ss_n32_ta(dq, smem_desc(ds_all + kk * 16 * ROW_BYTES),
-                        smem_desc(base + OFF_KT + (kk / 4) * WG_BYTES + wg * 32 * ROW_BYTES) + 2 * (kk % 4),
-                        kk > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      reg_fence(dv_acc);
-      reg_fence(dk_acc);
-      reg_fence(dq);
-      if (tid == 0) mbar_arrive(empty(s));  // Q, dO and the rows of the stage are consumed
-      // scale dQ's share into this warpgroup's staging half (fp32, 128-byte
-      // swizzle) and add it into dq_acc with one bulk reduction
-      const uint32_t stage_off = OFF_DQ + (2 * wg + (c & 1)) * DQ_HALF_BYTES;
-      unsigned char* st = smem + stage_off;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * wi + g + 8 * h;
-          *reinterpret_cast<float2*>(st + r * 128 + (((2 * i + (t >> 1)) ^ (r & 7)) << 4) + 8 * (t & 1)) =
-              make_float2(dq[4 * i + 2 * h] * scale, dq[4 * i + 2 * h + 1] * scale);
-        }
-      fence_async_smem();
-      named_bar(1 + wg, 128);
-      if (tid == 0) tma_reduce_add(&tdq, base + stage_off, 32 * wg, q0, it.bh);
+        // every warp is done with the stage (its rows, read outside any
+        // wgmma, included), and none can fall a barrier phase behind
+        // while its warpgroup skips tiles
+        named_bar(1 + wg, 128);
+        if (tid == 0) mbar_arrive(empty(s));
+      }
     }
     // ---- dK scale and dV as bf16 through this warpgroup's halves of the
     // item's K and V tiles (only this warpgroup read them) ----
@@ -651,7 +698,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     named_bar(1 + wg, 128);  // the buffer is read: an item two on may load into it
     if (tid == 0) mbar_arrive(kv_empty(b));
   }
-  if (tid == 0) bulk_wait_read<0>();  // the staging stays valid until read
+  if (WITH_DQ && tid == 0) bulk_wait_read<0>();  // the staging stays valid until read
 }
 
 // ---- host side ----
@@ -706,31 +753,34 @@ int sm_count(int dev) {
   return n[dev];
 }
 
-template <bool OFFS>
+template <bool OFFS, bool WITH_DQ>
 int launch(const void* q, const void* k, const void* v, const void* dO, const void* lse,
            const void* delta, const void* glse, void* dk, void* dv, void* dq_acc, int bh, int T,
            int causal, int q_off, int k_off, cudaStream_t stream) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-  CUtensorMap mq, mk, mv, mdo, mdq;
+  CUtensorMap mq, mk, mv, mdo, mdq = {};  // no dQ map without dQ
   if (!encode(fn, &mq, q, bh, T, BQ, D, false) || !encode(fn, &mk, k, bh, T, BK, D, false) ||
       !encode(fn, &mv, v, bh, T, BK, D, false) || !encode(fn, &mdo, dO, bh, T, BQ, D, false) ||
-      !encode(fn, &mdq, dq_acc, bh, T, BQ, 32, true))
+      (WITH_DQ && !encode(fn, &mdq, dq_acc, bh, T, BQ, 32, true)))
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  constexpr uint32_t smem_bytes = Smem<WITH_DQ>::BYTES;
   static bool smem_set[MAX_DEVICES] = {};  // the attribute, once a device
   if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_bwd_sm90<OFFS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_BYTES);
+    err = cudaFuncSetAttribute(flash_bwd_sm90<OFFS, WITH_DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   const float scale = 1.0f / sqrtf((float)D);
   const int n_items = bh * ((T + BK - 1) / BK);
-  int* next = reinterpret_cast<int*>(static_cast<float*>(dq_acc) + (size_t)bh * T * D);
-  flash_bwd_sm90<OFFS><<<min(n_items, sm_count(dev)), NTHREADS, SMEM_BYTES, stream>>>(
+  const size_t n = (size_t)bh * T * D;
+  int* next = WITH_DQ ? reinterpret_cast<int*>(static_cast<float*>(dq_acc) + n)
+                      : reinterpret_cast<int*>(static_cast<bf16*>(dv) + n);
+  flash_bwd_sm90<OFFS, WITH_DQ><<<min(n_items, sm_count(dev)), NTHREADS, smem_bytes, stream>>>(
       mq, mk, mv, mdo, mdq, (const float*)lse, (const float*)delta, (const float*)glse, (bf16*)dk,
       (bf16*)dv, next, bh, T, causal, q_off, k_off, scale, scale * LOG2E);
   return (int)cudaGetLastError();
@@ -761,8 +811,8 @@ extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, c
                                   void* dq_acc, int bh, int T, int D, int causal,
                                   void* stream) {
   if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, D)) return BAD_SHAPE;
-  return launch<false>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, causal, 0, 0,
-                       (cudaStream_t)stream);
+  return launch<false, true>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, causal, 0, 0,
+                             (cudaStream_t)stream);
 }
 
 // offset-aware (ring attention hops); causal by construction
@@ -772,9 +822,30 @@ extern "C" int p2p_flash_bwd_dkvq_offs(const void* q, const void* k, const void*
                                        int bh, int T, int D, int q_off, int k_off,
                                        void* stream) {
   if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, D)) return BAD_SHAPE;
-  return launch<true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, 1, q_off, k_off,
-                      (cudaStream_t)stream);
+  return launch<true, true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, 1, q_off, k_off,
+                            (cudaStream_t)stream);
+}
+
+// the split pass's dK and dV; dv is followed by 16 zeroed bytes
+extern "C" int p2p_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
+                                 const void* lse, const void* delta, void* dk, void* dv,
+                                 int bh, int T, int D, int causal, void* stream) {
+  if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr, bh, T, D)) return BAD_SHAPE;
+  return launch<false, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr, bh, T, causal, 0, 0,
+                              (cudaStream_t)stream);
+}
+
+extern "C" int p2p_flash_bwd_dkv_offs(const void* q, const void* k, const void* v,
+                                      const void* dO, const void* lse, const void* delta,
+                                      const void* glse, void* dk, void* dv, int bh, int T,
+                                      int D, int q_off, int k_off, void* stream) {
+  if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh, T, D)) return BAD_SHAPE;
+  return launch<true, false>(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh, T, 1, q_off, k_off,
+                             (cudaStream_t)stream);
 }
 
 // dynamic shared memory of one block of the fused backward, in bytes
-extern "C" int p2p_flash_bwd_smem_bytes() { return (int)SMEM_BYTES; }
+extern "C" int p2p_flash_bwd_smem_bytes() { return (int)Smem<true>::BYTES; }
+
+// the same of the split dK/dV pass
+extern "C" int p2p_flash_bwd_dkv_smem_bytes() { return (int)Smem<false>::BYTES; }

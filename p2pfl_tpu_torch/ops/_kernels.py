@@ -2,9 +2,11 @@
 
 ``csrc/flash_fwd_sm90.cu`` (kernels 1 and 5, the forward: TMA, ``wgmma``),
 ``csrc/flash_bwd_sm90.cu`` (kernels 2 and 6, the fused backward: TMA,
-``wgmma``, dQ by bulk reductions), ``csrc/flash_attention.cu`` (kernels
-3, 4, 7 and 8, the split backward) and ``csrc/ici_exchange.cu`` (kernel
-9) are compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
+``wgmma``, dQ by bulk reductions; and kernels 4 and 8, the split
+backward's dK/dV pass, the same template without dQ),
+``csrc/flash_bwd_dq_sm90.cu`` (kernels 3 and 7, the split backward's dQ
+pass: TMA, ``wgmma``) and ``csrc/ici_exchange.cu`` (kernel 9) are
+compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
 all started together, and linked
 into one shared library under ``build/p2pfl_tpu_torch/`` (beside the
 package, git ignored) at first use, bound through ``ctypes`` with their
@@ -37,7 +39,7 @@ from p2pfl_tpu_torch.exceptions import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = tuple(CSRC / name for name in (
-    "flash_attention.cu", "flash_bwd_sm90.cu", "flash_fwd_sm90.cu", "ici_exchange.cu"))
+    "flash_bwd_dq_sm90.cu", "flash_bwd_sm90.cu", "flash_fwd_sm90.cu", "ici_exchange.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2pfl_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (``-c``); the link adds ``-shared``
@@ -65,7 +67,9 @@ SIGNATURES = {
     "p2p_flash_bwd_dkvq_offs": [_P] * 10 + [_I] * 5 + [_P],
     "p2p_flash_bwd_smem_bytes": [],
     "p2p_flash_bwd_dkv_offs": [_P] * 9 + [_I] * 5 + [_P],
+    "p2p_flash_bwd_dkv_smem_bytes": [],
     "p2p_flash_bwd_dq_offs": [_P] * 8 + [_I] * 5 + [_P],
+    "p2p_flash_bwd_dq_smem_bytes": [],
     "p2p_ici_exchange": [_P, _I, _P],
     "p2p_ici_max_entries": [],
     "p2p_enable_peer_access": [_I, _I],
@@ -96,7 +100,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256()
-    for src in SOURCES:
+    # every source and header the build reads
+    for src in sorted(CSRC.glob("*.cu*")):
+        digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libp2pfl_kernels_{digest.hexdigest()[:16]}.so"
@@ -218,6 +224,16 @@ def flash_bwd_smem_bytes() -> int:
     return _load().p2p_flash_bwd_smem_bytes()
 
 
+def flash_bwd_dkv_smem_bytes() -> int:
+    """The same of the split dK/dV pass (kernels 4 and 8)."""
+    return _load().p2p_flash_bwd_dkv_smem_bytes()
+
+
+def flash_bwd_dq_smem_bytes() -> int:
+    """The same of the split dQ pass (kernels 3 and 7)."""
+    return _load().p2p_flash_bwd_dq_smem_bytes()
+
+
 def _dq_accumulator(q: torch.Tensor) -> torch.Tensor:
     """The fused backward's zeroed fp32 dQ sum, shaped like ``q``, with 16
     zeroed bytes after it: the kernel's work counter (one allocation, one
@@ -243,6 +259,15 @@ def flash_bwd_fused(q, k, v, do, lse, delta, causal: bool):
     return dq_acc.to(q.dtype), dk, dv
 
 
+def _dkv_outputs(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """dK and dV of the split pass, views of one allocation with 16 zeroed
+    bytes after dV: the persistent kernel's work counter."""
+    n = k.numel()
+    flat = torch.empty(2 * n + 8, dtype=k.dtype, device=k.device)
+    flat[2 * n:].zero_()
+    return flat[:n].view(k.shape), flat[n:2 * n].view(k.shape)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     """Split pass 1: dQ per q tile (no cross-block state)."""
     b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
@@ -257,10 +282,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Split pass 2: dK/dV per k tile."""
+    """Split pass 2: dK/dV per k block."""
     b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta)
     lib = _load()
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = _dkv_outputs(k)
     rc = lib.p2p_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, d, int(causal),
@@ -335,11 +360,11 @@ def flash_bwd_dq_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int) -> 
 
 
 def flash_bwd_dkv_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
-    """Split pass 2 of the offset backward: dK/dV per k tile."""
+    """Split pass 2 of the offset backward: dK/dV per k block."""
     b, h, t, d = _check_inputs(q=q, k=k, v=v, do=do, lse=lse, delta=delta, glse=glse)
     q_off, k_off = _check_offsets(q_off, k_off)
     lib = _load()
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dk, dv = _dkv_outputs(k)
     rc = lib.p2p_flash_bwd_dkv_offs(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, d,

@@ -5,11 +5,13 @@ versions on the CPU walk the same blocks as the JAX kernels in interpret
 mode. There is no GPU row: nothing has been measured on a card yet.
 
 On CUDA the kernels use their own fixed tiles: the forward of
-``csrc/flash_fwd_sm90.cu`` 128 q rows a block (two warpgroups of 64)
-against 64-row K/V tiles, the fused backward of ``csrc/flash_bwd_sm90.cu``
-128 k rows a block (two warpgroups of 64) against 64-row Q/dO tiles, the
-split backward of ``csrc/flash_attention.cu`` 64 x 64. From a :class:`FlashConfig` they read only ``bwd_mode`` (fused
-or split backward, through ``_bwd_use_fused``) and the ``causal`` flag
+``csrc/flash_fwd_sm90.cu`` and the split dQ pass of
+``csrc/flash_bwd_dq_sm90.cu`` 128 q rows a block (two warpgroups of 64)
+against 64-row K/V tiles, the fused backward and the split dK/dV pass of
+``csrc/flash_bwd_sm90.cu`` 128 k rows a block (two warpgroups of 64)
+against 64-row Q/dO tiles. From a :class:`FlashConfig` they read only
+``bwd_mode`` (fused or split backward, through ``_bwd_use_fused``) and
+the ``causal`` flag
 passed beside it; block sizes and ``q_span`` shape only the plain
 versions. Tuning caches and sweeps are not ported.
 """

@@ -181,16 +181,21 @@ def _causal_mask(s, row0: int, col0: int):
     return torch.where(rows >= cols, s, torch.full_like(s, NEG_INF))
 
 
-def _fwd_sweep(q, k, v, block_q: int, block_k: int, bounds: Callable, q_off=0, k_off=0):
+def _fwd_sweep(q, k, v, block_q: int, block_k: int, bounds: Callable, q_off=0, k_off=0,
+               magnitude: bool = False):
     """Every q block streams its k blocks ``bounds(qi) = (n_full, n_all)``
     with an online softmax; only the blocks from ``n_full`` on take the
     mask. → (O [B,H,T,D], lse [B,H,T] fp32). A row that sees nothing keeps
-    O = 0 and lse = NEG_INF."""
+    O = 0 and lse = NEG_INF. With ``magnitude`` O is Σ_k |P||V| / l
+    instead, in the accumulation dtype: the sum of the magnitudes of the
+    terms that form each element."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     dt, acc_t = q.dtype, acc_dtype(q.dtype)
     qf, kf, vf = q.to(acc_t), k.to(acc_t), v.to(acc_t)
-    out = torch.empty_like(q)
+    if magnitude:
+        vf = vf.abs()
+    out = torch.empty(q.shape, dtype=acc_t if magnitude else dt, device=q.device)
     lse = torch.empty((b, h, t), dtype=acc_t, device=q.device)
     for qi in range(t // block_q):
         rows = slice(qi * block_q, (qi + 1) * block_q)
@@ -215,7 +220,7 @@ def _fwd_sweep(q, k, v, block_q: int, block_k: int, bounds: Callable, q_off=0, k
             acc = acc * alpha + p.to(dt).to(acc_t) @ vf[:, :, cols]
             l = l * alpha + p.sum(-1, keepdim=True)
             m = m_new
-        out[:, :, rows] = (acc / l.clamp_min(1e-30)).to(dt)
+        out[:, :, rows] = (acc / l.clamp_min(1e-30)).to(out.dtype)
         blk = torch.where(m <= NEG_INF / 2, torch.full_like(m, NEG_INF), m + torch.log(l.clamp_min(1e-30)))
         lse[:, :, rows] = blk[..., 0]
     return out, lse
@@ -279,16 +284,24 @@ def _dq_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, bounds, q_off=0, 
     return dq
 
 
-def _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, bounds, with_dq, q_off=0, k_off=0):
+def _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, bounds, with_dq, q_off=0, k_off=0,
+               magnitude: bool = False):
     """Plain version of the dK/dV kernels (``with_dq=False``) and of the
     fused ones (``with_dq=True``): per k block, stream the q blocks from
     ``start`` on, where ``bounds(kj) = (start, full)``; ``[start, full)``
-    takes the mask. q rows no k block reaches keep a zero dQ."""
+    takes the mask. q rows no k block reaches keep a zero dQ. With
+    ``magnitude`` every product takes the magnitudes of its factors (dQ =
+    scale·Σ_k |dS||K|, dK = scale·Σ_q |dS||Q|, dV = Σ_q |P||dO|) and dK, dV
+    stay in the accumulation dtype: the sum of the magnitudes of the terms
+    that form each element."""
     b, h, t, d = q.shape
     scale = d ** -0.5
     dt, acc_t = q.dtype, acc_dtype(q.dtype)
     qf, kf, vf, dof = (x.to(acc_t) for x in (q, k, v, do))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    mag = torch.abs if magnitude else (lambda x: x)
+    out_t = acc_t if magnitude else dt
+    dk = torch.empty(k.shape, dtype=out_t, device=k.device)
+    dv = torch.empty(v.shape, dtype=out_t, device=v.device)
     dq_acc = torch.zeros(q.shape, dtype=acc_t, device=q.device) if with_dq else None
     nq = t // block_q
     for kj in range(t // block_k):
@@ -305,13 +318,13 @@ def _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, bounds, with_dq,
                 i < full, q_off + i * block_q, k_off + kj * block_k,
                 None if glse is None else glse[:, :, rows],
             )
-            ds = ds.to(dt).to(acc_t)
-            dv_acc = dv_acc + p.to(dt).to(acc_t).transpose(-1, -2) @ dob
-            dk_acc = dk_acc + scale * (ds.transpose(-1, -2) @ qb)
+            ds = mag(ds.to(dt).to(acc_t))
+            dv_acc = dv_acc + p.to(dt).to(acc_t).transpose(-1, -2) @ mag(dob)
+            dk_acc = dk_acc + scale * (ds.transpose(-1, -2) @ mag(qb))
             if with_dq:
-                dq_acc[:, :, rows] += scale * (ds @ kb)
-        dk[:, :, cols] = dk_acc.to(dt)
-        dv[:, :, cols] = dv_acc.to(dt)
+                dq_acc[:, :, rows] += scale * (ds @ mag(kb))
+        dk[:, :, cols] = dk_acc.to(out_t)
+        dv[:, :, cols] = dv_acc.to(out_t)
     return dq_acc, dk, dv
 
 
@@ -367,6 +380,40 @@ def flash_bwd_fused_offs_plain(q, k, v, do, lse, delta, glse, q_off: int, k_off:
     _, kvb = _offs_bounds(q, q_off, k_off, block_q, block_k)
     dq_acc, dk, dv = _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, kvb, True, q_off, k_off)
     return dq_acc.to(q.dtype), dk, dv
+
+
+# ---- magnitudes: for each output element, the sum of the magnitudes of
+# the terms that form it. A check of a kernel against its plain version
+# scales its limit by them: both round each term's P or dS to bf16, and
+# where the two roundings differ the element moves by up to an ulp of that
+# term, however much the terms cancel. ----
+
+
+def flash_fwd_magnitude(q, k, v, causal: bool, block_q: int, block_k: int):
+    """Σ_k |P||V| / l of each element of :func:`flash_fwd_plain`'s O (fp32)."""
+    nk = q.shape[2] // block_k
+    bounds = partial(_causal_q_bounds, block_q=block_q, block_k=block_k, nk=nk, causal=causal)
+    return _fwd_sweep(q, k, v, block_q, block_k, bounds, magnitude=True)[0]
+
+
+def flash_fwd_offs_magnitude(q, k, v, q_off: int, k_off: int, block_q: int, block_k: int):
+    """The same for :func:`flash_fwd_offs_plain`."""
+    nk = q.shape[2] // block_k
+    bounds = partial(_offs_q_bounds, q_off=q_off, k_off=k_off, block_q=block_q, block_k=block_k, nk=nk)
+    return _fwd_sweep(q, k, v, block_q, block_k, bounds, q_off, k_off, magnitude=True)[0]
+
+
+def flash_bwd_magnitude(q, k, v, do, lse, delta, causal: bool, block_q: int, block_k: int):
+    """(scale·Σ_k |dS||K|, scale·Σ_q |dS||Q|, Σ_q |P||dO|) of each element
+    of dQ, dK and dV (fp32): the terms of kernels 2, 3 and 4."""
+    _, kvb = _causal_bounds(q, causal, block_q, block_k)
+    return _dkv_sweep(q, k, v, do, lse, delta, None, block_q, block_k, kvb, True, magnitude=True)
+
+
+def flash_bwd_offs_magnitude(q, k, v, do, lse, delta, glse, q_off: int, k_off: int, block_q: int, block_k: int):
+    """The same with the offsets and the lse cotangent: kernels 6, 7 and 8."""
+    _, kvb = _offs_bounds(q, q_off, k_off, block_q, block_k)
+    return _dkv_sweep(q, k, v, do, lse, delta, glse, block_q, block_k, kvb, True, q_off, k_off, magnitude=True)
 
 
 # ---- dispatch: CUDA kernels or plain versions, by device ----

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: they need an NVIDIA GPU with ``nvcc`` (Hopper, sm_90a)
-and skip elsewhere. Run them on the card with
+and skip elsewhere. Run them on the card under a timeout (a lost barrier
+phase hangs a kernel, and the back-to-back tests are there to provoke it):
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+    timeout 900 python -m pytest -m cuda tests/test_torch_cuda_kernels.py
 
 ``chip_smoke.py`` checks the same kernels at the main path's shape.
 """
@@ -11,16 +12,14 @@ and skip elsewhere. Run them on the card with
 import pytest
 import torch
 
+import chip_smoke
 from p2pfl_tpu_torch.ops import _kernels
 from p2pfl_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
-# same rounding points on both sides, fp32 sums in other orders (and
-# atomics for the fused dQ): a bf16 output may move by an ulp or two, so
-# each element is held to RTOL·|ref| plus RTOL of the reference's RMS (a
-# limit set by the typical value, not by the few largest rows)
-RTOL = 2.0 ** -6
+#: every kernel-against-plain check runs on the inputs of each seed
+SEEDS = chip_smoke.SEEDS
 
 
 @pytest.fixture
@@ -38,28 +37,33 @@ def _inputs(cuda, b=2, h=4, t=128, d=64, n=4, seed=0):
     ]
 
 
-def _close(got, want):
-    got, want = got.float(), want.float()
-    atol = RTOL * want.pow(2).mean().sqrt().item()
-    assert ((got - want).abs() <= RTOL * want.abs() + atol).all()
+def _close(got, want, terms=None):
+    """chip_smoke's limit: same rounding points on both sides, fp32 sums in
+    other orders (and bulk reductions for the fused dQ), so each element is
+    held to RTOL·|ref| plus RTOL of the reference's RMS, plus TERMS_TOL of
+    the sum of the magnitudes of its terms where ``terms`` gives them (one
+    term's bf16 rounding may differ on the two sides, however much the
+    terms cancel)."""
+    assert chip_smoke.check(got, want, terms)[2] <= 1
 
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernels_match_plain(cuda, causal):
-    q, k, v, do = _inputs(cuda)
-    o, lse = _kernels.flash_fwd(q, k, v, causal)
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, 64, 64)
-    _close(o, o_ref)
-    assert (lse - lse_ref).abs().max().item() <= 1e-4
-    delta = (do.float() * o.float()).sum(-1)
-    want = fa.flash_bwd_fused_plain(q, k, v, do, lse, delta, causal, 64, 64)
-    for got_fused, got_split, ref in zip(
-        _kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal),
-        _kernels.flash_bwd_split(q, k, v, do, lse, delta, causal),
-        want,
-    ):
-        _close(got_fused, ref)
-        _close(got_split, ref)
+    for seed in SEEDS:
+        q, k, v, do = _inputs(cuda, seed=seed)
+        o, lse = _kernels.flash_fwd(q, k, v, causal)
+        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, 64, 64)
+        _close(o, o_ref, fa.flash_fwd_magnitude(q, k, v, causal, 64, 64))
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal)
+        want = fa.flash_bwd_fused_plain(*args, 64, 64)
+        for got_fused, got_split, ref, terms in zip(
+            _kernels.flash_bwd_fused(*args), _kernels.flash_bwd_split(*args), want,
+            fa.flash_bwd_magnitude(*args, 64, 64),
+        ):
+            _close(got_fused, ref, terms)
+            _close(got_split, ref, terms)
     torch.cuda.synchronize()
 
 
@@ -86,8 +90,8 @@ FWD_SHAPES = {
 }
 
 
-def _check_fwd(o, lse, o_ref, lse_ref, dead=0):
-    _close(o, o_ref)
+def _check_fwd(o, lse, o_ref, lse_ref, terms, dead=0):
+    _close(o, o_ref, terms)
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     if dead:  # rows that see nothing: O exactly 0, lse exactly the sentinel
         assert torch.count_nonzero(o[..., :dead, :]) == 0 and bool((lse[..., :dead] == -1e30).all())
@@ -96,8 +100,10 @@ def _check_fwd(o, lse, o_ref, lse_ref, dead=0):
 @pytest.mark.parametrize("shape", list(FWD_SHAPES))
 def test_forward_edges_match_plain(cuda, shape):
     b, h, t, causal = FWD_SHAPES[shape]
-    q, k, v = _inputs(cuda, b=b, h=h, t=t, n=3)
-    _check_fwd(*_kernels.flash_fwd(q, k, v, causal), *fa.flash_fwd_plain(q, k, v, causal, 64, 64))
+    for seed in SEEDS:
+        q, k, v = _inputs(cuda, b=b, h=h, t=t, n=3, seed=seed)
+        _check_fwd(*_kernels.flash_fwd(q, k, v, causal), *fa.flash_fwd_plain(q, k, v, causal, 64, 64),
+                   fa.flash_fwd_magnitude(q, k, v, causal, 64, 64))
     torch.cuda.synchronize()
 
 
@@ -113,9 +119,11 @@ FWD_OFFSETS = {
 @pytest.mark.parametrize("case", list(FWD_OFFSETS))
 def test_offset_forward_half_tile_matches_plain(cuda, case):
     q_off, k_off = FWD_OFFSETS[case]
-    q, k, v = _inputs(cuda, b=1, h=3, t=192, n=3)
-    _check_fwd(*_kernels.flash_fwd_offs(q, k, v, q_off, k_off),
-               *fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64), dead=min(max(k_off - q_off, 0), 192))
+    for seed in SEEDS:
+        q, k, v = _inputs(cuda, b=1, h=3, t=192, n=3, seed=seed)
+        _check_fwd(*_kernels.flash_fwd_offs(q, k, v, q_off, k_off),
+                   *fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64),
+                   fa.flash_fwd_offs_magnitude(q, k, v, q_off, k_off, 64, 64), dead=min(max(k_off - q_off, 0), 192))
     torch.cuda.synchronize()
 
 
@@ -124,64 +132,135 @@ def test_offset_forward_half_tile_matches_plain(cuda, case):
 # a long full sweep, one head and an odd number of heads ----
 
 
+def _check_backward_edges(cuda, shape, backward):
+    b, h, t, causal = FWD_SHAPES[shape]
+    for seed in SEEDS:
+        q, k, v, do = _inputs(cuda, b=b, h=h, t=t, seed=seed)
+        o, lse = _kernels.flash_fwd(q, k, v, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal)
+        for got, ref, terms in zip(backward(*args), fa.flash_bwd_fused_plain(*args, 64, 64),
+                                   fa.flash_bwd_magnitude(*args, 64, 64)):
+            _close(got, ref, terms)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape", list(FWD_SHAPES))
 def test_fused_backward_edges_match_plain(cuda, shape):
-    b, h, t, causal = FWD_SHAPES[shape]
-    q, k, v, do = _inputs(cuda, b=b, h=h, t=t)
-    o, lse = _kernels.flash_fwd(q, k, v, causal)
-    delta = (do.float() * o.float()).sum(-1)
-    want = fa.flash_bwd_fused_plain(q, k, v, do, lse, delta, causal, 64, 64)
-    for got, ref in zip(_kernels.flash_bwd_fused(q, k, v, do, lse, delta, causal), want):
-        _close(got, ref)
+    _check_backward_edges(cuda, shape, _kernels.flash_bwd_fused)
+
+
+@pytest.mark.parametrize("shape", list(FWD_SHAPES))
+def test_split_backward_edges_match_plain(cuda, shape):
+    """Kernels 3 and 4 (csrc/flash_bwd_dq_sm90.cu and the dK/dV pass of
+    csrc/flash_bwd_sm90.cu) at the forward's edges: blocks of 128 rows
+    whose second warpgroup lies past T, a long full sweep, one head and an
+    odd number of heads."""
+    _check_backward_edges(cuda, shape, _kernels.flash_bwd_split)
+
+
+def _check_offset_backward_half_tile(cuda, case, backward):
+    """At T 192 with a nonzero lse cotangent: dQ rows that no k tile
+    reaches and dK/dV rows of keys that no q row sees are exact zeros (all
+    three of a fully masked hop)."""
+    q_off, k_off = FWD_OFFSETS[case]
+    t = 192
+    for seed in SEEDS:
+        q, k, v, do = _inputs(cuda, b=1, h=3, t=t, seed=seed)
+        o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
+        delta = (do.float() * o.float()).sum(-1)
+        gen = torch.Generator(device=cuda).manual_seed(100 + seed)
+        glse = torch.randn(lse.shape, generator=gen, device=cuda)
+        glse = torch.where(lse <= -0.5e30, torch.zeros_like(glse), glse)
+        args = (q, k, v, do, lse, delta, glse, q_off, k_off)
+        dq, dk, dv = backward(*args)
+        for got, ref, terms in zip((dq, dk, dv), fa.flash_bwd_fused_offs_plain(*args, 64, 64),
+                                   fa.flash_bwd_offs_magnitude(*args, 64, 64)):
+            _close(got, ref, terms)
+        dead = min(max(k_off - q_off, 0), t)  # leading q rows that see nothing
+        seen = min(max(q_off + t - k_off, 0), t)  # keys some q row sees
+        assert torch.count_nonzero(dq[..., :dead, :]) == 0
+        assert torch.count_nonzero(dk[..., seen:, :]) == 0 and torch.count_nonzero(dv[..., seen:, :]) == 0
+        if case == "masked":
+            assert seen == 0 and dead == t
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("case", list(FWD_OFFSETS))
 def test_offset_fused_backward_half_tile_matches_plain(cuda, case):
-    """Kernel 6 at T 192 with a nonzero lse cotangent: dQ rows that no k
-    tile reaches and dK/dV rows of keys that no q row sees are exact
-    zeros (all three of a fully masked hop)."""
-    q_off, k_off = FWD_OFFSETS[case]
-    t = 192
-    q, k, v, do = _inputs(cuda, b=1, h=3, t=t)
-    o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
-    delta = (do.float() * o.float()).sum(-1)
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    glse = torch.randn(lse.shape, generator=gen, device=cuda)
-    glse = torch.where(lse <= -0.5e30, torch.zeros_like(glse), glse)
-    args = (q, k, v, do, lse, delta, glse, q_off, k_off)
-    dq, dk, dv = _kernels.flash_bwd_fused_offs(*args)
-    for got, ref in zip((dq, dk, dv), fa.flash_bwd_fused_offs_plain(*args, 64, 64)):
-        _close(got, ref)
-    dead = min(max(k_off - q_off, 0), t)  # leading q rows that see nothing
-    seen = min(max(q_off + t - k_off, 0), t)  # keys some q row sees
-    assert torch.count_nonzero(dq[..., :dead, :]) == 0
-    assert torch.count_nonzero(dk[..., seen:, :]) == 0 and torch.count_nonzero(dv[..., seen:, :]) == 0
-    if case == "masked":
-        assert seen == 0 and dead == t
+    """Kernel 6."""
+    _check_offset_backward_half_tile(cuda, case, _kernels.flash_bwd_fused_offs)
+
+
+@pytest.mark.parametrize("case", list(FWD_OFFSETS))
+def test_offset_split_backward_half_tile_matches_plain(cuda, case):
+    """Kernels 7 and 8."""
+    _check_offset_backward_half_tile(cuda, case, _kernels.flash_bwd_split_offs)
+
+
+#: the back-to-back tests' cases at chip_smoke's T 1024: the fully masked
+#: hop (no work item has a tile: every consumer takes the zero-work path),
+#: the diagonal hop, a hop whose first k rows no q row sees, and kernels
+#: 3/4 causal and full at chip_smoke's 4 x 32 heads
+B2B_CASES = {"masked": (0, 1024), "diagonal": (1024, 1024), "split": (0, 128), "causal": None, "full": None}
+B2B_CALLS = 200
+
+
+def _back_to_back(cuda, case, backward, backward_offs, dq_exact: bool):
+    """Launches queued without a host synchronisation, as a drive or a
+    timing loop queues them: B2B_CALLS back to back, then 20 each behind a
+    sleep kernel (the timing loop's pattern). Each call's outputs are
+    compared with the first call's on the card, so nothing waits between
+    launches: → the differing elements per output; with ``dq_exact``
+    false, dQ's elements past chip_smoke's limit (no terms) instead. A lost
+    barrier phase hangs a call; run the card tests under a timeout."""
+    offs = B2B_CASES[case]
+    q, k, v, do = _inputs(cuda, b=2 if offs else 4, h=32, t=1024)
+    if offs is None:
+        causal = case == "causal"
+        o, lse = _kernels.flash_fwd(q, k, v, causal)
+        args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), causal)
+        call = lambda: backward(*args)  # noqa: E731
+    else:
+        o, lse = _kernels.flash_fwd_offs(q, k, v, *offs)
+        args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), torch.zeros_like(lse), *offs)
+        call = lambda: backward_offs(*args)  # noqa: E731
+    first = call()
+    ref_dq = first[0].float()
+    dq_limit = chip_smoke.RTOL * ref_dq.abs() + chip_smoke.RTOL * ref_dq.pow(2).mean().sqrt()
+    bad = torch.zeros(len(first), dtype=torch.int64, device=cuda)
+    for n in range(B2B_CALLS + 20):
+        if n >= B2B_CALLS:
+            torch.cuda._sleep(1_000_000)
+        for i, (x, ref) in enumerate(zip(call(), first)):
+            if i == 0 and not dq_exact:
+                bad[i] += ((x.float() - ref_dq).abs() > dq_limit).sum()
+            else:
+                bad[i] += (x != ref).sum()
     torch.cuda.synchronize()
+    return bad.tolist()
 
 
 @pytest.mark.parametrize("case", ["masked", "diagonal", "split"])
 def test_fused_backward_back_to_back_calls_agree(cuda, case):
-    """Many launches queued without a synchronisation (as in a drive or a
-    timing loop) hand out their work items and buffers without a lost
-    barrier phase: every call's outputs equal the first call's bit for bit
-    where dQ has one summation order (dK, dV), and within the limit (dQ)."""
-    q_off, k_off = FWD_OFFSETS[case]
-    q, k, v, do = _inputs(cuda, b=2, h=32, t=1024)
-    o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
-    delta = (do.float() * o.float()).sum(-1)
-    glse = torch.zeros_like(lse)
-    args = (q, k, v, do, lse, delta, glse, q_off, k_off)
-    outs = [_kernels.flash_bwd_fused_offs(*args) for _ in range(40)]
-    torch.cuda.synchronize()
-    for dq, dk, dv in outs[1:]:
-        assert torch.equal(dk, outs[0][1]) and torch.equal(dv, outs[0][2])
-        _close(dq, outs[0][0])
+    """Kernels 2 and 6 hand out their work items and buffers without a
+    lost barrier phase: every call's dK and dV equal the first call's bit
+    for bit, and its dQ (summed through bulk reductions in no fixed order)
+    is within the limit of the first call's."""
+    bad = _back_to_back(cuda, case, _kernels.flash_bwd_fused, _kernels.flash_bwd_fused_offs, dq_exact=False)
+    assert bad == [0, 0, 0]
 
 
-def _drive_launches(cuda, attn: str, seq: int, nodes: int) -> dict:
+@pytest.mark.parametrize("case", list(B2B_CASES))
+def test_split_backward_back_to_back_calls_agree(cuda, case):
+    """The same for kernels 3/4 ("causal", "full") and 7/8: the dK/dV pass
+    hands out work items from a counter like the fused backward, and every
+    output has one summation order, so all calls agree bit for bit."""
+    bad = _back_to_back(cuda, case, _kernels.flash_bwd_split, _kernels.flash_bwd_split_offs, dq_exact=True)
+    assert bad == [0, 0, 0]
+
+
+def _drive_launches(cuda, attn: str, seq: int, nodes: int, bwd_mode: str = "auto") -> dict:
     """Launch counts of one chip_smoke drive (run_round + run_fused(1) +
     evaluate) of a 22-layer model at a narrow width (head dim 64)."""
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
@@ -190,7 +269,8 @@ def _drive_launches(cuda, attn: str, seq: int, nodes: int) -> dict:
     from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
 
     cfg = TransformerConfig(vocab_size=256, dim=128, n_heads=2, n_kv_heads=1, n_layers=22,
-                            ffn_hidden=256, lora_rank=4, lora_mlp=True, scan_layers=True)
+                            ffn_hidden=256, lora_rank=4, lora_mlp=True, scan_layers=True,
+                            flash_config=None if bwd_mode == "auto" else fa.FlashConfig(bwd_mode=bwd_mode))
     data = FederatedDataset.synthetic_lm(vocab_size=256, seq_len=seq, n_train=nodes * 2,
                                          n_test=nodes * 2, shift_frac=0.15)
     mesh = federation_mesh(model_parallel=4, devices=[cuda] * 4) if attn == "ring_flash" else None
@@ -212,6 +292,17 @@ def test_drives_launch_the_fused_backward(cuda):
     assert main["flash_bwd_dkvq"] == 88 and main["flash_bwd_dkvq_offs"] == 0
     ring = _drive_launches(cuda, "ring_flash", 4096, 2)
     assert ring["flash_bwd_dkvq_offs"] == 1408 and ring["flash_bwd_dkvq"] == 0
+
+
+def test_drives_launch_the_split_backward(cuda):
+    """With ``bwd_mode="split"`` the same drives make 88 launches each of
+    kernels 3 and 4, and 1408 each of kernels 7 and 8, and none of the
+    fused backward."""
+    main = _drive_launches(cuda, "flash", 1024, 4, bwd_mode="split")
+    assert main["flash_bwd_dq"] == main["flash_bwd_dkv"] == 88 and main["flash_bwd_dkvq"] == 0
+    ring = _drive_launches(cuda, "ring_flash", 4096, 2, bwd_mode="split")
+    assert ring["flash_bwd_dq_offs"] == ring["flash_bwd_dkv_offs"] == 1408
+    assert ring["flash_bwd_dkvq_offs"] == 0 and ring["flash_bwd_dq"] == ring["flash_bwd_dkv"] == 0
 
 
 def test_launch_counts_and_refusals(cuda):
@@ -247,7 +338,7 @@ def test_offset_kernels_match_plain(cuda, case):
     q, k, v, do = _inputs(cuda)
     o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
     o_ref, lse_ref = fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64)
-    _close(o, o_ref)
+    _close(o, o_ref, fa.flash_fwd_offs_magnitude(q, k, v, q_off, k_off, 64, 64))
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     dead = min(max(k_off - q_off, 0), q.shape[2])  # leading rows that see nothing
     if dead:
@@ -256,14 +347,13 @@ def test_offset_kernels_match_plain(cuda, case):
     gen = torch.Generator(device=cuda).manual_seed(1)
     glse = torch.randn(lse.shape, generator=gen, device=cuda)
     glse = torch.where(lse <= -0.5e30, torch.zeros_like(glse), glse)
-    want = fa.flash_bwd_fused_offs_plain(q, k, v, do, lse, delta, glse, q_off, k_off, 64, 64)
-    for got_fused, got_split, ref in zip(
-        _kernels.flash_bwd_fused_offs(q, k, v, do, lse, delta, glse, q_off, k_off),
-        _kernels.flash_bwd_split_offs(q, k, v, do, lse, delta, glse, q_off, k_off),
-        want,
+    args = (q, k, v, do, lse, delta, glse, q_off, k_off)
+    for got_fused, got_split, ref, terms in zip(
+        _kernels.flash_bwd_fused_offs(*args), _kernels.flash_bwd_split_offs(*args),
+        fa.flash_bwd_fused_offs_plain(*args, 64, 64), fa.flash_bwd_offs_magnitude(*args, 64, 64),
     ):
-        _close(got_fused, ref)
-        _close(got_split, ref)
+        _close(got_fused, ref, terms)
+        _close(got_split, ref, terms)
     torch.cuda.synchronize()
 
 

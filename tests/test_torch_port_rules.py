@@ -123,12 +123,10 @@ def test_kernel_sources_and_bindings_agree():
     and importing the module built nothing."""
     sources = {p.name: p.read_text() for p in sorted((PKG / "csrc").glob("*.cu"))}
     argcs = {
-        "flash_attention.cu": {
-            "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dq": 12, "p2p_flash_bwd_dkv_offs": 15,
-            "p2p_flash_bwd_dq_offs": 14,
-        },
+        "flash_bwd_dq_sm90.cu": {"p2p_flash_bwd_dq": 12, "p2p_flash_bwd_dq_offs": 14, "p2p_flash_bwd_dq_smem_bytes": 0},
         "flash_bwd_sm90.cu": {
             "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_smem_bytes": 0,
+            "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dkv_offs": 15, "p2p_flash_bwd_dkv_smem_bytes": 0,
         },
         "flash_fwd_sm90.cu": {"p2p_flash_fwd": 10, "p2p_flash_fwd_offs": 11, "p2p_flash_fwd_smem_bytes": 0},
         "ici_exchange.cu": {"p2p_ici_exchange": 3, "p2p_ici_max_entries": 0, "p2p_enable_peer_access": 2},
@@ -149,6 +147,8 @@ def test_kernel_sources_and_bindings_agree():
         assert len(re.findall(r'extern "C" int p2p_', src)) == len(entry_points), file
         for rel in ("torch", "TORCH", "ATen"):
             assert f"#include <{rel}" not in src  # plain C interface: no PyTorch headers
+        # every flash kernel is TMA + wgmma (sm_90a): no warp-level wmma left
+        assert "<mma.h>" not in src and "wmma::" not in src
     assert sum(map(len, argcs.values())) == len(_kernels.SIGNATURES)
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
     assert _kernels._lib is None
@@ -175,16 +175,23 @@ def test_forward_ablations_apply_to_the_source():
 
 
 def test_backward_ablations_apply_to_the_source():
-    """The same for ``bwd_ablation.py`` and the fused backward's source."""
+    """The same for ``bwd_ablation.py``: its ablations of the fused and
+    dK/dV template, of the dQ pass and its hazards each find their text in
+    their source once."""
     import bwd_ablation
     import fwd_ablation
 
-    src = bwd_ablation.SRC.read_text()
-    for name, edits in bwd_ablation.ABLATIONS.items():
-        for old, _ in edits:
-            assert src.count(old) == 1, (name, old)
-        assert (fwd_ablation.ablated_source(edits, bwd_ablation.SRC) != src) == bool(edits), name
-    assert set(bwd_ablation.PROBES) < set(bwd_ablation.ABLATIONS)
+    groups = [(bwd_ablation.SRC, bwd_ablation.ABLATIONS), (bwd_ablation.DQ_SRC, bwd_ablation.DQ_ABLATIONS)]
+    groups += [(path, {name: edits}) for name, (path, edits) in bwd_ablation.HAZARDS.items()]
+    for path, ablations in groups:
+        src = path.read_text()
+        for name, edits in ablations.items():
+            for old, _ in edits:
+                assert src.count(old) == 1, (name, old)
+            assert (fwd_ablation.ablated_source(edits, path) != src) == bool(edits), name
+    assert set(bwd_ablation.PROBES) < set(bwd_ablation.ABLATIONS) | set(bwd_ablation.DQ_ABLATIONS)
+    assert not set(bwd_ablation.ABLATIONS) & set(bwd_ablation.DQ_ABLATIONS)
+    assert {"no_item_barrier", "no_tile_barrier"} <= set(bwd_ablation.HAZARDS)
 
 
 def test_launch_counter_reset():
@@ -201,4 +208,19 @@ def test_package_data_lists_the_cuda_sources():
     text = (REPO / "pyproject.toml").read_text()
     assert '"p2pfl_tpu_torch*"' in text
     assert re.search(r'"p2pfl_tpu_torch" = \[[^\]]*"csrc/\*\.cu"', text)
+    if list((PKG / "csrc").glob("*.cuh")):  # a header ships and keys the build too
+        assert re.search(r'"p2pfl_tpu_torch" = \[[^\]]*"csrc/\*\.cuh"', text)
     assert p2pfl_tpu_torch.__file__.startswith(str(PKG))
+
+
+def test_library_name_follows_every_source_and_header(tmp_path, monkeypatch):
+    """The built library's name hashes every file the build reads, so an
+    edited source or header is never served by a stale build."""
+    for p in (PKG / "csrc").iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    before = _kernels.library_path()
+    (tmp_path / "extra.cuh").write_text("// a header\n")
+    with_header = _kernels.library_path()
+    (tmp_path / "flash_bwd_dq_sm90.cu").write_text((tmp_path / "flash_bwd_dq_sm90.cu").read_text() + "\n")
+    assert len({before, with_header, _kernels.library_path()}) == 3
