@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only kernels offs
     python3 chip_smoke.py --only exchange gossip
+    python3 chip_smoke.py --only mnist
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -65,7 +66,19 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and at 4: kernel 9 must have launched, the plane must have moved bytes
    with no fallback, alignment fix-up or failed transfer, every node must
    end on one model and the two planes' mean gap must stay in its limit;
-10. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
+10. [mnist] ``bench.py``'s drive on the port
+   (``p2pfl_tpu_torch/examples/bench_mnist.py``: 64 MLP nodes at full
+   width, batch 64, fused chunks of 5 rounds to 98% test accuracy on the
+   synthetic-hard task), which runs no hand kernel: it must cross 98%
+   within 30 rounds with finite accuracies and losses; logs its JSON line
+   (s/round, time and rounds to 98%, peak memory, FLOPs a round, MFU),
+   the kernels one eager round launches and their device time
+   (``torch.profiler``), a fused span as the CUDA graph ``run_fused``
+   replays against the same span run eagerly (bit-equal, both timed),
+   and one round of a 4-node federation on the CPU
+   against one on the card from the same init and data (bf16 bounds in
+   ``MNIST_*``);
+11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--only exchange_peer`` (never run by default: it needs two cards) times
@@ -894,12 +907,12 @@ def check_exchange(results: dict) -> bool:
             plain_ms=time_ms(lambda: exchange_plain(srcs, refs)), bound_ms=bms, bound_by=by,
             library_ms=time_ms(lambda: torch._foreach_copy_(refs, srcs)),
         )
-        device_only = dict(
-            kernel=time_device_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
-            library=time_device_ms(lambda: torch._foreach_copy_(refs, srcs)),
-        )
+        # the kernel's device time alone and host time a call, and
+        # _foreach_copy_'s device time alone
+        row.update(device_times(lambda: _kernels.ici_exchange(srcs, dsts),
+                                lambda: torch._foreach_copy_(refs, srcs)))
         log(f"[exchange] {name}: {len(srcs)} leaves, {n_bytes} bytes, bit-equal to the plain "
-            f"version: {good}; {json.dumps(row)}; device time alone (ms): {json.dumps(device_only)} "
+            f"version: {good}; {json.dumps(row)} "
             f"{'OK' if good else 'FAIL'}")
         results[name] = row
         del srcs, dsts, refs
@@ -1071,7 +1084,169 @@ def drive_gossip() -> tuple[bool, dict]:
     return ok, summary
 
 
-PHASES = ("kernels", "offs", "main", "ring", "parity", "exchange", "gossip")
+# ---- phase 10: bench.py's MNIST path (no hand kernel) ----
+
+
+#: the mnist phase's CPU-vs-card round: 4 nodes, the bench's batch 64,
+#: 4 Adam steps at lr 1e-3. Adam moves an element by about lr a step
+#: whatever its gradient's size, so a bf16 rounding difference can flip a
+#: near-zero gradient's sign: each element within 2·lr a step, the mean
+#: difference far below one step, the loss to 1%, the accuracy within
+#: two test examples a node
+MNIST_LR, MNIST_NODES, MNIST_STEPS = 1e-3, 4, 4
+
+
+def mnist_parity() -> tuple[bool, dict]:
+    """One round of a 4-node MLP federation at full width on the CPU (the
+    plain path) and on the card, from the same init and data."""
+    from p2pfl_tpu_torch.examples.bench_mnist import BATCH, HARD_TASK
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.base import TorchModel
+    from p2pfl_tpu_torch.models.vision import MLP, mlp
+    from p2pfl_tpu_torch.ops.tree import tree_leaves, tree_map
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    n = MNIST_NODES
+    params = mlp(seed=1, device="cpu").params
+    data = FederatedDataset.synthetic_mnist(n_train=n * MNIST_STEPS * BATCH, n_test=n * 64, **HARD_TASK)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = TorchModel(MLP(), tree_map(lambda x: x.to(dev), params), (28, 28, 1))
+        fed = SpmdFederation.from_dataset(
+            model, data, n_nodes=n, batch_size=BATCH, vote=False, seed=3, keep_opt_state=True,
+            learning_rate=MNIST_LR, device=dev,
+        )
+        entry = fed.run_round(eval=True)
+        out[dev] = (tree_map(lambda x: x.float().cpu(), fed.params), float(entry["train_loss"]),
+                    float(entry["test_acc"]), fed._nb, fed.y_test.numel())
+    (p_cpu, l_cpu, a_cpu, steps, n_test), (p_gpu, l_gpu, a_gpu, _, _) = out["cpu"], out["cuda"]
+    diffs = [(a - b).abs() for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_gpu))]
+    worst = max(d.max().item() for d in diffs)
+    mean = sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs)
+    checks = {
+        f"max <= 2·lr·steps ({2 * MNIST_LR * steps:g})": worst <= 2 * MNIST_LR * steps,
+        f"mean <= 0.1·lr ({0.1 * MNIST_LR:g})": mean <= 0.1 * MNIST_LR,
+        "loss within 1%": abs(l_cpu - l_gpu) <= 1e-2 * abs(l_cpu),
+        "accuracy within 2 examples a node": abs(a_cpu - a_gpu) <= 2 * n / n_test,
+    }
+    summary = {"nodes": n, "steps": steps, "max_abs_diff": worst, "mean_abs_diff": mean,
+               "loss_cpu": l_cpu, "loss_cuda": l_gpu, "acc_cpu": a_cpu, "acc_cuda": a_gpu, "checks": checks}
+    return all(checks.values()), summary
+
+
+def round_kernels(fed) -> dict:
+    """Kernels one ``run_round`` (no eval) launches on the card and their
+    device time, from ``torch.profiler``'s CUDA activity, after a warm
+    round; ``None`` where the profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fed.run_round()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fed.run_round()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    launch_calls = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    if not device:
+        return {"source": "torch.profiler (no device activity seen)", "kernels": None, "device_ms": None,
+                "launch_calls": launch_calls or None, "profiled_wall_ms": wall * 1e3}
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    top: dict = {}
+    for e in kernels:
+        top[e.name[:60]] = top.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
+    return {"source": "torch.profiler", "kernels": len(kernels), "copies_and_fills": len(device) - len(kernels),
+            "launch_calls": launch_calls, "device_ms": busy, "profiled_wall_ms": wall * 1e3,
+            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def graph_vs_eager(fed, rounds: int) -> tuple[bool, dict]:
+    """One fused span of ``rounds`` rounds with eval from the federation's
+    state, eagerly (``spmd_rounds_fused``) and as the captured CUDA graph
+    that ``run_fused`` replays: the params, losses and accuracies must be
+    bit-equal. Each is timed twice after a warm call (host clock to a
+    synchronize); the federation's own state is not advanced."""
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel.spmd import _CapturedSpan, spmd_rounds_fused
+
+    perms, mask, sel_idx = fed._fused_inputs(rounds, 1)
+
+    def eager():
+        return spmd_rounds_fused(
+            fed.params, fed.opt_state, fed.x_all, fed.y_all, perms, mask, fed._samples, sel_idx,
+            x_test=fed.x_test, y_test=fed.y_test, **fed._round_kwargs(), **fed._algo_kwargs(0),
+        )
+
+    def timed(fn) -> tuple:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    want = eager()
+    eager_s = [timed(eager)[1] for _ in range(2)]
+    span = _CapturedSpan(fed, perms, mask, sel_idx, True)
+    got = span.run(fed, perms, mask, sel_idx)
+    graph_s = [timed(lambda: span.run(fed, perms, mask, sel_idx))[1] for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(want[0]), tree_leaves(got[0])))
+    same &= torch.equal(want[2], got[2]) and torch.equal(want[3], got[3])
+    summary = {"rounds": rounds, "bit_equal": same, "eager_s_per_round": [t / rounds for t in eager_s],
+               "graph_s_per_round": [t / rounds for t in graph_s]}
+    del span
+    return same, summary
+
+
+def drive_mnist() -> tuple[bool, dict]:
+    """``bench.py``'s drive through ``examples/bench_mnist.run()`` on the
+    card: it must cross 98% within ``MAX_ROUNDS`` with every accuracy and
+    loss finite, and run no hand kernel (the path has none). Then, on a
+    federation of the same configuration, the kernels of one eager round
+    (``round_kernels``) and a captured span against the eager one
+    (``graph_vs_eager``); last the CPU-vs-card round (``mnist_parity``)."""
+    from p2pfl_tpu_torch.examples import bench_mnist
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    _kernels.reset_launches()
+    line = bench_mnist.run()
+    hand = sum(_kernels.LAUNCHES.values())
+    log(f"[mnist] bench line: {json.dumps(line)}")
+    fed = SpmdFederation.from_dataset(
+        mlp(), FederatedDataset.mnist(None, **bench_mnist.HARD_TASK), n_nodes=bench_mnist.N_NODES,
+        batch_size=bench_mnist.BATCH, vote=False, seed=3, keep_opt_state=True,
+    )
+    per_round = round_kernels(fed)
+    graph_ok, graph = graph_vs_eager(fed, bench_mnist.CHUNK)
+    del fed
+    par_ok, parity = mnist_parity()
+    busy = per_round["device_ms"]
+    checks = {
+        "crossed 98% within MAX_ROUNDS": line["reached_acc"] >= bench_mnist.TARGET_ACC
+        and line["rounds_to_target"] <= bench_mnist.MAX_ROUNDS,
+        "accuracies and losses finite": all(math.isfinite(x) for x in line["accuracy_curve"] + line["train_losses"]),
+        "no hand kernel launched": hand == 0,
+        "card round agrees with the CPU round": par_ok,
+        "captured span bit-equal to the eager span": graph_ok,
+    }
+    summary = {
+        "s_per_round": line["sec_per_round"], "time_to_98_s": line["value"],
+        "rounds_to_98": line["rounds_to_target"], "peak_memory_bytes": line["peak_memory_bytes"],
+        "flops_per_round": line["flops_per_round"], "mfu": line["mfu"], "device": line["device"],
+        "round_kernels": per_round,
+        "busy_share_of_steady_round": busy / (line["sec_per_round"] * 1e3) if busy is not None else None,
+        "graph_vs_eager": graph, "parity": parity, "checks": checks,
+    }
+    ok = all(checks.values())
+    log(f"[mnist] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+PHASES = ("kernels", "offs", "main", "ring", "parity", "exchange", "gossip", "mnist")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 
@@ -1144,6 +1319,9 @@ def main(argv=None) -> int:
         good, gossip = timed("gossip", drive_gossip)
         ok &= good
         launches["ici_exchange"] = gossip["ici"]["launches_ici_exchange"]
+    if "mnist" in args.only:
+        good, _ = timed("mnist", drive_mnist)
+        ok &= good
     if "exchange_peer" in args.only:
         ok &= timed("exchange_peer", check_exchange_peer, {})
     log(f"[time] seconds per phase: {json.dumps(phase_s)}")

@@ -1,14 +1,19 @@
-"""Federated dataset: synthetic tasks, per-node partitioning, batching.
+"""Federated dataset: MNIST (IDX files or synthetic), per-node
+partitioning, batching.
 
 A copy of the numpy-only parts of ``p2pfl_tpu/learning/dataset.py`` that
-the ported slices use: the same seed gives bit-identical arrays and the
-same rng gives bit-identical epoch batches in both packages (held by
-``tests/test_torch_spmd_lora.py`` and ``tests/test_torch_node.py``). Data
+the ported slices use: the same seed gives bit-identical arrays, the same
+IDX bytes the same arrays, and the same rng bit-identical epoch batches
+in both packages (held by ``tests/test_torch_spmd_lora.py``,
+``tests/test_torch_node.py`` and ``tests/test_torch_spmd.py``). Data
 stays numpy; learners move it to the device.
 """
 
 from __future__ import annotations
 
+import gzip
+import os
+import struct
 from dataclasses import dataclass
 from typing import Optional
 
@@ -102,6 +107,36 @@ class FederatedDataset:
         x_te, y_te = make(n_test, 2)
         return cls(x_tr, y_tr, x_te, y_te, vocab_size)
 
+    @classmethod
+    def mnist(cls, data_dir: Optional[str] = None, **kwargs) -> "FederatedDataset":
+        """Real MNIST if IDX files are present in ``data_dir``, else
+        :meth:`synthetic_mnist` with ``kwargs``. Downloads nothing."""
+        if data_dir and os.path.isdir(data_dir):
+            try:
+                return cls.from_idx(data_dir)
+            except FileNotFoundError:
+                pass
+        return cls.synthetic_mnist(**kwargs)
+
+    @classmethod
+    def from_idx(cls, data_dir: str) -> "FederatedDataset":
+        """Load MNIST-format IDX files (optionally gzipped)."""
+
+        def read(name: str) -> np.ndarray:
+            for candidate in (name, name + ".gz"):
+                path = os.path.join(data_dir, candidate)
+                if os.path.exists(path):
+                    opener = gzip.open if candidate.endswith(".gz") else open
+                    with opener(path, "rb") as f:
+                        return _parse_idx(f.read())
+            raise FileNotFoundError(name)
+
+        x_tr = read("train-images-idx3-ubyte").astype(np.float32)[..., None] / 255.0
+        y_tr = read("train-labels-idx1-ubyte").astype(np.int32)
+        x_te = read("t10k-images-idx3-ubyte").astype(np.float32)[..., None] / 255.0
+        y_te = read("t10k-labels-idx1-ubyte").astype(np.int32)
+        return cls(x_tr, y_tr, x_te, y_te, 10, source="idx")
+
     def partition(
         self,
         sub_id: int,
@@ -138,6 +173,16 @@ class FederatedDataset:
 
     def test_arrays(self) -> tuple[np.ndarray, np.ndarray]:
         return self.x_test, self.y_test
+
+
+def _parse_idx(data: bytes) -> np.ndarray:
+    """One IDX file's bytes → its array (big-endian, dims from the header)."""
+    zeros, dtype_code, ndim = struct.unpack(">HBB", data[:4])
+    if zeros != 0:
+        raise ValueError("not an IDX file")
+    dims = struct.unpack(f">{ndim}I", data[4 : 4 + 4 * ndim])
+    dtype = {8: np.uint8, 9: np.int8, 11: np.int16, 12: np.int32, 13: np.float32, 14: np.float64}[dtype_code]
+    return np.frombuffer(data, dtype=np.dtype(dtype).newbyteorder(">"), offset=4 + 4 * ndim).reshape(dims)
 
 
 def _partition_indices(

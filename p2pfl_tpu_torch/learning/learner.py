@@ -1,9 +1,10 @@
 """Learners and their step math (counterpart of ``p2pfl_tpu/learning/learner.py``).
 
-``adam`` follows optax's semantics exactly (moment updates written as
-optax writes them, bias correction in fp32, ``eps`` outside the square
-root, updates scaled by ``-lr`` and added to the params) and works
-elementwise, so a node-stacked ``[N, ...]`` tree steps every node at once.
+``adam`` and ``sgd`` follow optax's semantics (moment updates written as
+optax writes them, bias correction in fp32 from a step count kept on the
+device, ``eps`` outside the square root, updates scaled by ``-lr`` and
+added to the params) and work elementwise, so a node-stacked ``[N, ...]``
+tree steps every node at once.
 
 :class:`TorchLearner` is the gossip Node's learner, the counterpart of
 ``JaxLearner``: one Adam step per batch of an epoch drawn by
@@ -32,7 +33,9 @@ from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_str
 
 
 class AdamState(NamedTuple):
-    count: int
+    #: int32 step count, a 0-d tensor on the params' device: the bias
+    #: correction is computed there, so a step copies nothing from the host
+    count: torch.Tensor
     mu: dict
     nu: dict
 
@@ -45,32 +48,64 @@ class GradientTransformation(NamedTuple):
     update: Callable
 
 
+def _paths_leaves(tree: dict) -> tuple[list, list]:
+    items = list(tree_items(tree))
+    return [p for p, _ in items], [x for _, x in items]
+
+
 def adam(
     lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
 ) -> GradientTransformation:
+    """optax's ``adam``: each arithmetic step is one ``torch._foreach_*`` op
+    over every leaf (one launch for the tree on the card), in optax's
+    order and rounding, so the tree steps as the per-leaf form would.
+    The bias correction ``1 - b**count`` is computed on the device in
+    fp32; it agrees with XLA's to an ulp (neither ``pow`` is correctly
+    rounded)."""
+
     def init(params: dict) -> AdamState:
         zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-        return AdamState(0, zeros, tree_map(torch.clone, zeros))
+        device = tree_leaves(params)[0].device
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        return AdamState(count, zeros, tree_map(torch.clone, zeros))
 
     def update(grads: dict, state: AdamState, params=None):
         del params
-        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-        nu = tree_map(lambda g, v: (1 - b2) * (g * g) + b2 * v, grads, state.nu)
+        paths, g = _paths_leaves(grads)
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(tree_leaves(state.mu), b1))
+        g2 = torch._foreach_mul(g, g)
+        nu = torch._foreach_add(torch._foreach_mul(g2, 1 - b2), torch._foreach_mul(tree_leaves(state.nu), b2))
         count = state.count + 1
-        f32 = torch.float32
-        bc1 = 1 - torch.tensor(b1, dtype=f32) ** count
-        bc2 = 1 - torch.tensor(b2, dtype=f32) ** count
-        updates = tree_map(
-            lambda m, v: (m / bc1.to(m.device)) / (torch.sqrt(v / bc2.to(v.device)) + eps) * (-lr),
-            mu, nu,
-        )
-        return updates, AdamState(count, mu, nu)
+        bc1, bc2 = 1 - b1 ** count.float(), 1 - b2 ** count.float()
+        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
+        updates = torch._foreach_mul(torch._foreach_div(torch._foreach_div(mu, bc1), den), -lr)
+
+        def tree(leaves):
+            return tree_unflatten(dict(zip(paths, leaves)))
+
+        return tree(updates), AdamState(count, tree(mu), tree(nu))
 
     return GradientTransformation(init, update)
 
 
+def sgd(lr: float = 1e-3) -> GradientTransformation:
+    """optax's ``sgd`` without momentum: updates ``-lr · g`` in the
+    gradient's dtype, an empty state. SCAFFOLD's variate update assumes it."""
+
+    def update(grads: dict, state: tuple, params=None):
+        del params
+        paths, g = _paths_leaves(grads)
+        return tree_unflatten(dict(zip(paths, torch._foreach_mul(g, -lr)))), state
+
+    return GradientTransformation(lambda params: (), update)
+
+
 def apply_updates(params: dict, updates: dict) -> dict:
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    """``p + u`` for every leaf in one foreach op, cast back to the
+    param's dtype (optax's ``apply_updates``)."""
+    paths, p = _paths_leaves(params)
+    out = torch._foreach_add(p, tree_leaves(updates))
+    return tree_unflatten({k: o.to(x.dtype) for k, o, x in zip(paths, out, p)})
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -79,6 +114,24 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
     logits = logits - logits.amax(-1, keepdim=True).detach()
     label_logits = logits.gather(-1, labels.long()[..., None])[..., 0]
     return torch.log(torch.exp(logits).sum(-1)) - label_logits
+
+
+def _loss(params: dict, module, x: torch.Tensor, y: torch.Tensor):
+    """Training loss and logits: mean CE plus the model's auxiliary
+    losses. The JAX package adds the MoE layers' sown router losses; the
+    port has no MoE layer, so the auxiliary term is 0 and the loss is the
+    mean CE."""
+    logits = module(params, x)
+    return softmax_cross_entropy(logits, y).mean(), logits
+
+
+def _prox_term(params: dict, anchor: dict, mu: float) -> torch.Tensor:
+    """FedProx penalty μ/2·‖w − anchor‖², summed over leaves in fp32."""
+    sq = sum(
+        ((a.float() - b.float()) ** 2).sum()
+        for a, b in zip(tree_leaves(params), tree_leaves(anchor))
+    )
+    return 0.5 * mu * sq
 
 
 def ce_eval(params: dict, module, x, y):

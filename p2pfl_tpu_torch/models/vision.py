@@ -18,18 +18,20 @@ from torch import nn
 from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.models.transformer import _lecun_normal
+from p2pfl_tpu_torch.settings import Settings
 
 
 class MLP(nn.Module):
     """Parameter-free module: ``forward(params, x)`` → fp32 logits."""
 
     def __init__(
-        self, hidden: Sequence[int] = (256, 128), num_classes: int = 10, dtype=torch.bfloat16
+        self, hidden: Sequence[int] = (256, 128), num_classes: int = 10, dtype=None
     ) -> None:
         super().__init__()
         self.hidden = tuple(hidden)
         self.num_classes = num_classes
-        self.dtype = dtype
+        # None: ``Settings.COMPUTE_DTYPE`` (bfloat16 unless changed)
+        self.dtype = getattr(torch, Settings.COMPUTE_DTYPE) if dtype is None else dtype
 
     def forward(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype

@@ -1,49 +1,417 @@
-"""One-program federation state machine (subset of ``p2pfl_tpu/parallel/spmd.py``).
+"""One-program federation: N federated nodes on one device
+(counterpart of ``p2pfl_tpu/parallel/spmd.py``).
 
-The JAX package runs N federated nodes as one SPMD program over a device
-mesh. The port runs them on one device with the node axis written out as
-the leading tensor dimension: node-stacked state ``[N, ...]``, one batched
-forward/backward per local step, FedAvg as a weighted reduction over that
-axis. The host-side control plane (shard staging, the per-round shuffle
-streams, the reference vote) is the JAX package's, copied so the same
-seed consumes the numpy and Python rng streams identically.
+The JAX package runs N nodes as one SPMD program over a device mesh. The
+port runs them on one device with the node axis written out as the
+leading tensor dimension:
 
-Ported here: what :class:`~p2pfl_tpu_torch.parallel.spmd_lora.SpmdLoraFederation`
-uses. The full-model rounds (``_local_epoch``, ``spmd_rounds_fused``, the
-MNIST main path), the robust aggregators, FedProx, SCAFFOLD, FedOpt and
-DP-SGD are the next slices (ROADMAP Queue A 2 and 6).
+- node-stacked params, optimizer state and data ``[N, ...]``;
+- local training is one batched forward/backward a step for all N nodes:
+  the model's single-node forward is ``torch.func.vmap``-ed over the node
+  axis (its GEMMs become batched GEMMs) and autograd takes the gradient
+  of the sum of the nodes' losses, which gives every node the gradient of
+  its own loss;
+- aggregation (FedAvg or a robust rule) is a reduction over that axis and
+  the diffusion a broadcast back;
+- election, shuffles and masks are host-side (the JAX package's code,
+  copied, so one seed consumes the numpy and Python rng streams
+  identically) and enter as index and mask tensors.
+
+Nothing reads a value back to the host inside a round or a fused span:
+losses and accuracies stay device tensors until the caller converts them.
+The algorithm knobs of the JAX round program are all here: FedProx,
+SCAFFOLD (fused-ci and option II), the FedOpt server step, DP-SGD, remat
+(``torch.utils.checkpoint``) and the robust aggregators. Not ported: the
+device mesh (ROADMAP Queue A 5), ``profile_round`` and checkpoints
+(Queue A 4).
 """
 
 from __future__ import annotations
 
 import math
 import random
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
-from p2pfl_tpu_torch.learning.learner import adam
+from p2pfl_tpu_torch.learning.learner import (
+    GradientTransformation, _loss, _prox_term, adam, apply_updates, sgd, softmax_cross_entropy,
+)
+from p2pfl_tpu_torch.learning.privacy import PrivacyAccountant, dp_grads
 from p2pfl_tpu_torch.models.base import TorchModel
-from p2pfl_tpu_torch.ops.aggregation import fedavg
-from p2pfl_tpu_torch.ops.tree import tree_map
+from p2pfl_tpu_torch.ops import aggregation as ops
+from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 from p2pfl_tpu_torch.settings import Settings
 
 _AGGREGATORS = ("fedavg", "median", "trimmed_mean", "krum", "bulyan", "clip")
 
 
-def _aggregate(p_used: dict, mask, weights, agg: str) -> dict:
+# ---- the round program ----
+
+
+def _node_loss(module, prox_mu: float):
+    """One node's training loss ``(params, x, y, anchor) -> scalar``: CE
+    (+ the FedProx pull toward ``anchor``)."""
+
+    def loss(p, x, y, anchor):
+        out = _loss(p, module, x, y)[0]
+        if prox_mu > 0.0:
+            out = out + _prox_term(p, anchor, prox_mu)
+        return out
+
+    return loss
+
+
+def _value_and_grad(node_loss, params: dict, x, y, anchor=None, remat: bool = False):
+    """Every node's loss ``[N]`` and gradient tree ``[N, ...]`` from one
+    batched forward (``node_loss`` vmapped over the node axis) and one
+    backward of the losses' sum. ``remat`` recomputes the forward in the
+    backward instead of keeping its activations."""
+    paths = [p for p, _ in tree_items(params)]
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    fn = torch.func.vmap(node_loss, in_dims=(0, 0, 0, 0 if anchor is not None else None))
+
+    def losses(*lv):
+        return fn(tree_unflatten(dict(zip(paths, lv))), x, y, anchor)
+
+    with torch.enable_grad():
+        per = checkpoint(losses, *leaves, use_reentrant=False) if remat else losses(*leaves)
+        grads = torch.autograd.grad(per.sum(), leaves)
+    return per.detach(), tree_unflatten(dict(zip(paths, grads)))
+
+
+def _local_epoch(
+    params, opt_state, xs, ys, module, tx, remat: bool = False,
+    prox_mu: float = 0.0, anchor=None, corr=None,
+    dp_clip: float = 0.0, dp_noise: float = 0.0, dp_gen=None,
+    accumulate_grads: bool = False,
+):
+    """Every node's epoch: node-stacked params, ``xs`` ``[N, nb, bs, ...]``
+    and ``ys`` ``[N, nb, bs]``; one optimizer step a batch (the JAX
+    package's per-node scan, the nodes batched).
+
+    ``prox_mu``/``anchor``: FedProx's pull toward the round's global
+    model. ``corr``: SCAFFOLD's ``c − c_i`` added to every step's
+    gradient. ``dp_clip > 0``: DP-SGD, per-example clipped gradients plus
+    Gaussian noise (multiplier ``dp_noise``) from ``dp_gen``.
+    ``accumulate_grads``: also return the fp32 sum of the raw step
+    gradients (SCAFFOLD's fused-ci variate). Returns ``(params, opt_state,
+    mean loss [N][, gsum])``.
+    """
+    node_loss = _node_loss(module, prox_mu)
+
+    def loss_one(p, xi, yi, anchor_):
+        return node_loss(p, xi[None], yi[None], anchor_)
+
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params) \
+        if accumulate_grads else None
+    losses = []
+    for s in range(xs.shape[1]):
+        x, y = xs[:, s], ys[:, s]
+        if dp_clip > 0.0:
+            grads, loss = dp_grads(
+                loss_one, params, x, y, dp_clip, dp_noise, dp_gen, remat=remat, anchor=anchor,
+                node_axis=True,
+            )
+        else:
+            loss, grads = _value_and_grad(node_loss, params, x, y, anchor, remat)
+        if accumulate_grads:
+            gsum = tree_map(lambda s_, g: s_ + g.float(), gsum, grads)
+        if corr is not None:
+            grads = tree_map(lambda g, c: g + c.to(g.dtype), grads, corr)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        losses.append(loss)
+    mean = torch.stack(losses).mean(dim=0)
+    if accumulate_grads:
+        return params, opt_state, mean, gsum
+    return params, opt_state, mean
+
+
+def _aggregate(p_used, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
     """Combine node-stacked params [N, ...] into one model (fp32 accumulate).
 
-    FedAvg weights are the sample counts under the train-set mask. The
-    robust aggregators (and the selected-row index and trim count they
-    read) are not ported yet."""
-    if agg != "fedavg":
-        raise NotImplementedError(
-            f"aggregator {agg!r} is not ported yet (ROADMAP Queue A 6: SPMD breadth)"
+    ``sel_idx`` is the [K] tensor of train-set ∩ active node indices. The
+    robust aggregators see only those K rows: the other slots hold stale
+    copies of the previous aggregate, which would dominate the median and
+    win Krum's score (host Node mode likewise aggregates train-set models
+    only). ``center`` is the clip aggregator's starting point.
+    """
+    if agg == "fedavg":
+        return ops.fedavg(p_used, mask * weights)
+    k = sel_idx.shape[0]
+    p_sel = tree_map(lambda x: x.index_select(0, sel_idx), p_used)
+    if agg == "median":
+        return ops.fedmedian(p_sel)
+    if agg == "trimmed_mean":
+        # clamp like the host-side TrimmedMean class: 2*trim must leave >=1 row
+        return ops.trimmed_mean(p_sel, min(trim, (k - 1) // 2))
+    if agg == "krum":
+        return ops.krum(p_sel, n_byzantine=trim, multi=1)
+    if agg == "bulyan":
+        return ops.bulyan(p_sel, n_byzantine=trim)
+    if agg == "clip":
+        if center is None:
+            raise ValueError("the clip aggregator needs the round's center")
+        return ops.centered_clip(p_sel, center, clip_tau)
+    raise ValueError(f"unknown aggregator {agg}")
+
+
+def _round_core(
+    stacked_params, opt_states, x_all, y_all,
+    perm,  # [N, epochs, nb, bs] shuffle indices (host-generated)
+    mask,  # [N] 1.0 = in train set
+    weights,  # [N] sample counts
+    sel_idx,  # [K] indices of mask == 1 rows (robust aggregation)
+    *,
+    module,
+    tx: GradientTransformation,
+    agg: str = "fedavg",
+    trim: int = 0,
+    clip_tau: float = 1.0,
+    keep_opt_state: bool = False,
+    remat: bool = False,
+    prox_mu: float = 0.0,
+    scaffold: bool = False,
+    scaffold_fused_ci: bool = True,
+    local_lr: float = 1e-3,
+    c_global=None,  # SCAFFOLD server control variate
+    c_local=None,  # SCAFFOLD per-node control variates [N, ...]
+    server_opt: str = "",  # FedOpt: "adam" | "yogi" | "adagrad" ("" = plain)
+    server_lr: float = 0.1,
+    opt_m=None,  # FedOpt server moments and 1-based step (fp32 tensor)
+    opt_v=None,
+    opt_t=None,
+    dp_clip: float = 0.0,
+    dp_noise: float = 0.0,
+    dp_gen: Optional[torch.Generator] = None,
+):
+    """One federated round (train → aggregate → diffuse). Returns
+    ``(out_params, out_opt, mean_loss, scaffold_state, fedopt_state,
+    agg_params)``; the state tuples are ``()`` when the feature is off."""
+    n = mask.shape[0]
+    fused_ci = scaffold and scaffold_fused_ci
+    # SCAFFOLD correction c − c_i, once for every node and step
+    corr = tree_map(
+        lambda c, cl, p: (c[None] - cl).to(p.dtype), c_global, c_local, stacked_params
+    ) if scaffold else None
+    # the round-start params, kept only where something reads them later
+    anchor = stacked_params if (prox_mu > 0.0 or (scaffold and not fused_ci)) else None
+    nodes = torch.arange(n, device=perm.device)[:, None, None]
+    p, o = stacked_params, opt_states
+    gsum = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), p) \
+        if fused_ci else None
+    epoch_losses = []
+    for e in range(perm.shape[1]):
+        idx = perm[:, e].long()  # [N, nb, bs]
+        out = _local_epoch(
+            p, o, x_all[nodes, idx], y_all[nodes, idx], module, tx, remat,
+            prox_mu=prox_mu, anchor=anchor, corr=corr,
+            dp_clip=dp_clip, dp_noise=dp_noise, dp_gen=dp_gen, accumulate_grads=fused_ci,
         )
-    return fedavg(p_used, mask * weights)
+        if fused_ci:
+            p, o, loss, g_ep = out
+            gsum = tree_map(torch.add, gsum, g_ep)
+        else:
+            p, o, loss = out
+        epoch_losses.append(loss)
+    losses = torch.stack(epoch_losses).mean(dim=0)  # [N]
+    k_steps = perm.shape[1] * perm.shape[2]
+    if fused_ci:
+        # under plain SGD option II's c_i⁺ reduces exactly to the mean
+        # step gradient: no round-start params, no cancellation
+        ci_new = tree_map(lambda g: g / k_steps, gsum)
+    elif scaffold:
+        # c_i⁺ = c_i − c + (x_global − y_i)/(K·η)  (SCAFFOLD option II)
+        ci_new = tree_map(
+            lambda cl, c, a, y_: cl - c + (a.float() - y_.float()) / (k_steps * local_lr),
+            c_local, c_global, anchor, p,
+        )
+
+    def sel(new, old):
+        # non-train-set nodes contribute their previous params
+        m = mask.reshape((n,) + (1,) * (new.dim() - 1)).to(new.dtype)
+        return new * m + old * (1 - m)
+
+    p_used = tree_map(sel, p, stacked_params)
+    # clip center: the coordinate-wise median of the elected rows of the
+    # round's incoming params (every slot holds the shared model after a
+    # diffusion; a tampered slot cannot choose the center)
+    center = tree_map(lambda x: ops.median0(x.index_select(0, sel_idx)), stacked_params) \
+        if agg == "clip" else None
+    agg_params = _aggregate(p_used, mask, weights, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
+
+    fedopt_state = ()
+    if server_opt:
+        # pseudo-gradient prev_global − aggregate; slot 0's incoming params
+        # are the previous global (diffusion left every slot identical)
+        prev_global = tree_map(lambda x: x[0], stacked_params)
+        agg_params, opt_m, opt_v = ops.fedopt_update(
+            prev_global, agg_params, opt_m, opt_v, opt_t, opt=server_opt, lr=server_lr
+        )
+        fedopt_state = (opt_m, opt_v)
+
+    # diffusion: every node receives the aggregate
+    out_params = tree_map(lambda a: a[None].expand(n, *a.shape).clone(), agg_params)
+    # keep_opt_state carries every node's own trained moments across rounds
+    out_opt = o if keep_opt_state else tx.init(out_params)
+    train = mask.bool()
+    mean_loss = torch.where(train, losses, torch.zeros_like(losses)).sum() / train.sum()
+
+    scaffold_state = ()
+    if scaffold:
+        # only train-set nodes commit their new variates; the server
+        # variate moves by |S|/N times the mean train-set delta
+        c_local_out = tree_map(sel, ci_new, c_local)
+        n_train = torch.clamp(mask.sum(), min=1.0)
+
+        def upd(c, cn, co):
+            m = mask.reshape((n,) + (1,) * (cn.dim() - 1))
+            return c + (n_train / n) * (((cn - co) * m).sum(dim=0) / n_train)
+
+        scaffold_state = (tree_map(upd, c_global, ci_new, c_local), c_local_out)
+    return out_params, out_opt, mean_loss, scaffold_state, fedopt_state, agg_params
+
+
+def _agg_acc(module, agg_params, x_test, y_test) -> torch.Tensor:
+    """Mean over nodes of the aggregated model's accuracy on each node's
+    test shard (``argmax`` takes the first of tied logits, as JAX's)."""
+    n, t = x_test.shape[:2]
+    logits = module(agg_params, x_test.reshape(n * t, *x_test.shape[2:]))
+    return (logits.argmax(dim=-1).reshape(n, t) == y_test.long()).float().mean(dim=1).mean()
+
+
+@torch.no_grad()
+def spmd_round(
+    stacked_params, opt_states, x_all, y_all, perm, mask, weights, sel_idx,
+    *, c_global=None, c_local=None, opt_m=None, opt_v=None,
+    x_test=None, y_test=None, **kw,
+):
+    """One federated round for all N nodes. Returns (params', opt', mean
+    loss[, c_global', c_local'][, opt_m', opt_v'][, test acc]): with test
+    data, the aggregated model's accuracy, computed before returning."""
+    out_params, out_opt, mean_loss, scaffold_state, fedopt_state, agg_params = _round_core(
+        stacked_params, opt_states, x_all, y_all, perm, mask, weights, sel_idx,
+        c_global=c_global, c_local=c_local, opt_m=opt_m, opt_v=opt_v, **kw,
+    )
+    if x_test is None:
+        return (out_params, out_opt, mean_loss, *scaffold_state, *fedopt_state)
+    acc = _agg_acc(kw["module"], agg_params, x_test, y_test)
+    return (out_params, out_opt, mean_loss, *scaffold_state, *fedopt_state, acc)
+
+
+@torch.no_grad()
+def spmd_rounds_fused(
+    stacked_params, opt_states, x_all, y_all, perms, mask, weights, sel_idx,
+    *, c_global=None, c_local=None, opt_m=None, opt_v=None, opt_t=None,
+    x_test=None, y_test=None, **kw,
+):
+    """R rounds in one call (``perms`` [R, N, epochs, nb, bs]) with one
+    fixed train set (the reference votes in round 0 only). Nothing is read
+    back between rounds: with test data each round's aggregated model is
+    evaluated on the device, an accuracy curve [R]. ``opt_t`` is the
+    FedOpt step the span starts from (each round adds one). Returns
+    (params', opt', losses [R][, c_global', c_local'][, opt_m',
+    opt_v'][, accs [R]])."""
+    scaffold = kw.get("scaffold", False)
+    server_opt = kw.get("server_opt", "")
+    t = torch.zeros((), dtype=torch.float32, device=mask.device) if opt_t is None else opt_t
+    p, o, cg, cl, m_, v_ = stacked_params, opt_states, c_global, c_local, opt_m, opt_v
+    losses, accs = [], []
+    for perm in perms:
+        t = t + 1.0
+        p, o, loss, sstate, fstate, agg_params = _round_core(
+            p, o, x_all, y_all, perm, mask, weights, sel_idx,
+            c_global=cg, c_local=cl, opt_m=m_, opt_v=v_, opt_t=t, **kw,
+        )
+        cg, cl = sstate if scaffold else (cg, cl)
+        m_, v_ = fstate if server_opt else (m_, v_)
+        losses.append(loss)
+        if x_test is not None:
+            accs.append(_agg_acc(kw["module"], agg_params, x_test, y_test))
+    scaffold_state = (cg, cl) if scaffold else ()
+    fedopt_state = (m_, v_) if server_opt else ()
+    if x_test is None:
+        return (p, o, torch.stack(losses), *scaffold_state, *fedopt_state)
+    return (p, o, torch.stack(losses), *scaffold_state, *fedopt_state, torch.stack(accs))
+
+
+@torch.no_grad()
+def spmd_eval(stacked_params, x_test, y_test, *, module):
+    """Per-node eval over node-stacked test shards: ([N] loss, [N] acc)."""
+    logits = torch.func.vmap(module)(stacked_params, x_test)
+    loss = softmax_cross_entropy(logits, y_test).mean(dim=-1)
+    acc = (logits.argmax(dim=-1) == y_test.long()).float().mean(dim=-1)
+    return loss, acc
+
+
+class _CapturedSpan:
+    """One fused span of the round program captured as a CUDA graph: the
+    torch counterpart of XLA's one program a chunk.
+
+    Eager, a span of the bench's configuration launches about 1,100
+    kernels a round from Python, and the card waits on the host. Captured
+    once, a replay launches them all from one call. The graph runs the
+    same code on the same kernels, so a replay computes what the eager
+    span computes. It reads fixed buffers: before a replay the federation's
+    carried state (params, optimizer state) and the span's shuffles, mask
+    and selected rows are copied in; the graph writes the new state back
+    into the same buffers, which then are the federation's state. The
+    losses and accuracies are cloned out, so they outlive the next replay.
+    """
+
+    def __init__(self, fed: "SpmdFederation", perms, mask, sel_idx, eval_: bool) -> None:
+        self.state = torch.utils._pytree.tree_map(torch.clone, (fed.params, fed.opt_state))
+        self.perms, self.mask, self.sel_idx = perms.clone(), mask.clone(), sel_idx.clone()
+        kw = fed._round_kwargs()
+        test = (fed.x_test, fed.y_test) if eval_ else (None, None)
+
+        def body():
+            p, o, *outs = spmd_rounds_fused(
+                *self.state, fed.x_all, fed.y_all, self.perms, self.mask, fed._samples, self.sel_idx,
+                x_test=test[0], y_test=test[1], **kw, **fed._algo_kwargs(0),
+            )
+            _copy_tree((p, o), self.state)
+            return outs
+
+        # warm the kernels up on a side stream, as capture requires
+        side = torch.cuda.Stream(fed.device)
+        side.wait_stream(torch.cuda.current_stream(fed.device))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(fed.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outs = body()
+
+    def run(self, fed: "SpmdFederation", perms, mask, sel_idx) -> tuple:
+        """Replay on ``fed``'s state and inputs; returns (params, opt,
+        *outputs) as ``spmd_rounds_fused`` does."""
+        _copy_tree((fed.params, fed.opt_state), self.state)
+        self.perms.copy_(perms)
+        self.mask.copy_(mask)
+        self.sel_idx.copy_(sel_idx)
+        self.graph.replay()
+        return (*self.state, *(t.clone() for t in self.outs))
+
+
+def _copy_tree(src, dst) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst`` (same structure);
+    a leaf that already is its destination is skipped."""
+    flat_src, spec_src = torch.utils._pytree.tree_flatten(src)
+    flat_dst, spec_dst = torch.utils._pytree.tree_flatten(dst)
+    if spec_src != spec_dst:
+        raise ValueError("carried state changed structure")
+    for a, b in zip(flat_src, flat_dst):
+        if a is not b:
+            b.copy_(a)
+
+
+# ---- the host side: the federation ----
 
 
 def stage_node_shards(datasets, batch_size: int) -> dict:
@@ -109,28 +477,46 @@ def elect_train_set_mask(n: int, py_rng) -> np.ndarray:
     return mask
 
 
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
+
+
 class SpmdFederation:
     """N federated nodes stacked on one device's leading tensor axis.
 
-    The state machine of the JAX class (election, masks, shuffles, node
-    failure, fused spans). Subclasses stage the node-stacked state
-    (``_stage_state``) and run the rounds.
+    The drop-in high-throughput alternative to running N ``Node`` objects:
+    same round semantics, same aggregators and algorithms as the JAX
+    class, none of the per-message overhead. ``device=None`` is the card.
     """
 
     def __init__(
         self,
         model: TorchModel,
         datasets: list[FederatedDataset],
+        mesh=None,
         batch_size: int = 128,
         learning_rate: float = 1e-3,
         aggregator: str = "fedavg",
+        trim: int = 0,
+        clip_tau: float = 1.0,
         vote: bool = True,
         keep_opt_state: bool = False,
+        remat: bool = False,
         participation: float = 1.0,
         seed: int = 0,
+        prox_mu: float = 0.0,
+        scaffold: bool = False,
+        optimizer: str = "adam",
+        server_opt: str = "",
+        server_lr: float = 0.1,
+        dp_clip: float = 0.0,
+        dp_noise: float = 0.0,
+        tx: Optional[GradientTransformation] = None,
         device=None,
     ) -> None:
         self.device = resolve_device(device)
+        if mesh is not None:
+            raise _not_ported("a device mesh for SpmdFederation", "5")
         self.model = model
         self.module = model.module
         self.n = len(datasets)
@@ -145,24 +531,52 @@ class SpmdFederation:
                 "space). Use gossip Node mode for secure aggregation, or set "
                 "Settings.SECURE_AGGREGATION=False for mesh runs."
             )
-        if aggregator not in _AGGREGATORS:
-            raise ValueError(f"unknown aggregator {aggregator!r}")
-        if aggregator != "fedavg":
-            raise NotImplementedError(
-                f"aggregator {aggregator!r} is not ported yet (ROADMAP Queue A 6)"
-            )
-        if not 0.0 < participation <= 1.0:
-            raise ValueError("participation must be in (0, 1]")
         self.datasets = datasets
         self.batch_size = batch_size
-        self.tx = adam(learning_rate)
+        if scaffold and (optimizer != "sgd" or tx is not None):
+            # the (x − y_i)/(K·η) variate update assumes η-scaled SGD steps
+            raise ValueError("scaffold=True requires optimizer='sgd'")
+        self.optimizer = optimizer
+        self._own_tx = tx is None
+        if tx is not None:
+            self.tx = tx
+        else:
+            self.tx = sgd(learning_rate) if optimizer == "sgd" else adam(learning_rate)
+        self.learning_rate = learning_rate
+        self.prox_mu = float(prox_mu)
+        self.scaffold = scaffold
+        if server_opt and server_opt not in ops.FEDOPT:
+            raise ValueError(f"unknown server_opt {server_opt!r}")
+        self.server_opt = server_opt
+        self.server_lr = server_lr
+        self.dp_clip = float(dp_clip)
+        self.dp_noise = float(dp_noise)
+        if self.dp_noise > 0.0 and self.dp_clip <= 0.0:
+            raise ValueError("dp_noise > 0 requires dp_clip > 0")
+        if aggregator not in _AGGREGATORS:
+            raise ValueError(f"unknown aggregator {aggregator!r}")
         self.aggregator = aggregator
+        self.trim = trim
+        if aggregator == "clip" and clip_tau <= 0:
+            # tau <= 0 zeroes every clip factor: training would freeze
+            raise ValueError(f"clip_tau must be > 0 (got {clip_tau})")
+        self.clip_tau = float(clip_tau)
         self.keep_opt_state = keep_opt_state
+        self.remat = remat
+        if not 0.0 < participation <= 1.0:
+            raise ValueError("participation must be in (0, 1]")
         self.participation = participation
         self._rng = np.random.default_rng(seed)
         self._py_rng = random.Random(seed)
 
         self._stage_data()
+        # captured fused spans by (perms shape, eval, selected rows)
+        self._spans: dict = {}
+        # per-node (ε, δ): every node runs the same mechanism on its shard
+        self.accountant = None
+        if self.dp_clip > 0.0 and self.dp_noise > 0.0:
+            q = min(1.0, self.batch_size / min(self._sizes))
+            self.accountant = PrivacyAccountant(self.dp_noise, q)
         # node-stacked state: every node starts from the same params
         self._stage_state()
 
@@ -185,10 +599,21 @@ class SpmdFederation:
         self._stage_state()
 
     def _stage_state(self) -> None:
-        raise NotImplementedError(
-            "full-model SpmdFederation rounds are the next slice (ROADMAP Queue A 2); "
-            "use SpmdLoraFederation"
-        )
+        n, dev = self.n, self.device
+
+        def zeros(x):
+            return torch.zeros(x.shape, dtype=torch.float32, device=dev)
+
+        self.params = tree_map(lambda x: x.to(dev)[None].expand(n, *x.shape).clone(), self.model.params)
+        self.opt_state = self.tx.init(self.params)
+        self._server_t = 0  # FedOpt server step count (stays 0 without server_opt)
+        if self.scaffold:
+            # control variates start at zero (Karimireddy et al. 2020 §3)
+            self.c_global = tree_map(zeros, self.model.params)
+            self.c_local = tree_map(zeros, self.params)
+        if self.server_opt:
+            self.opt_m = tree_map(zeros, self.model.params)
+            self.opt_v = tree_map(zeros, self.model.params)
 
     def _stage_data(self) -> None:
         # shards padded to a common length stack into [N, S, ...]; each
@@ -234,6 +659,11 @@ class SpmdFederation:
             raise RuntimeError("no active train-set nodes left")
         return effective
 
+    def _mask_inputs(self, effective: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """The mask [N] and the selected rows' indices [K] on the device."""
+        mask = torch.from_numpy(effective).to(self.device)
+        return mask, torch.from_numpy(np.flatnonzero(effective)).to(self.device)
+
     def drop_node(self, i: int) -> None:
         """Mark a logical node failed: it stops training and contributing
         (the reference's heartbeat-eviction outcome)."""
@@ -242,9 +672,47 @@ class SpmdFederation:
     def restore_node(self, i: int) -> None:
         self.active_mask[i] = 1.0
 
+    def _round_kwargs(self) -> dict:
+        return dict(
+            module=self.module, tx=self.tx, agg=self.aggregator, trim=self.trim,
+            clip_tau=self.clip_tau, keep_opt_state=self.keep_opt_state, remat=self.remat,
+        )
+
+    def _algo_kwargs(self, opt_t: float) -> dict:
+        """The ``_round_core`` algorithm knobs, one source for run_round
+        and run_fused. ``opt_t`` is the FedOpt server step: 1-based for a
+        single round, the 0-based starting count for a fused span (each
+        round adds one first)."""
+        return dict(
+            prox_mu=self.prox_mu,
+            scaffold=self.scaffold,
+            # read per call, so flipping the Setting reaches the next round
+            scaffold_fused_ci=bool(Settings.SCAFFOLD_FUSED_CI),
+            local_lr=self.learning_rate,
+            server_opt=self.server_opt,
+            server_lr=self.server_lr,
+            c_global=self.c_global if self.scaffold else None,
+            c_local=self.c_local if self.scaffold else None,
+            opt_m=self.opt_m if self.server_opt else None,
+            opt_v=self.opt_v if self.server_opt else None,
+            opt_t=torch.tensor(float(opt_t), device=self.device) if self.server_opt else None,
+            dp_clip=self.dp_clip,
+            dp_noise=self.dp_noise,
+        )
+
+    def _dp_round_keys(self) -> Optional[torch.Generator]:
+        """The DP noise generator of a round or fused span, or None
+        without DP. It takes the one draw of the numpy stream that JAX's
+        root key takes, so the shuffles after it stay in step with JAX's;
+        the noise itself cannot match JAX's threefry bits."""
+        if self.dp_clip <= 0.0:
+            return None
+        seed = int(self._rng.integers(2**31))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
     def _fused_inputs(self, rounds: int, epochs: int):
         """Guards + device inputs of a fused span: ``(perms [R, N, epochs,
-        nb, bs], mask)``. A span needs one fixed mask."""
+        nb, bs], mask, sel_idx)``. A span needs one fixed mask."""
         if self._vote and self.round == 0:
             self.train_mask = self.elect_train_set()
         if (self._vote and Settings.VOTE_EVERY_ROUND) or self.participation < 1.0:
@@ -255,7 +723,162 @@ class SpmdFederation:
         perms = torch.from_numpy(
             np.stack([self._make_perm_np(epochs) for _ in range(rounds)])
         ).to(self.device)
-        return perms, torch.from_numpy(self._effective_mask()).to(self.device)
+        return (perms, *self._mask_inputs(self._effective_mask()))
+
+    def _capturable(self) -> bool:
+        """A fused span may run as a captured CUDA graph: on the card, with
+        this package's optimizer (its state is all tensors) and none of the
+        knobs that carry more state or draw random numbers in the span."""
+        return (
+            self.device.type == "cuda" and self._own_tx and not self.remat
+            and not (self.scaffold or self.server_opt or self.dp_clip > 0.0)
+        )
+
+    def _take_state(self, result: tuple) -> int:
+        """Store the carried state a round program returned after (params,
+        opt, loss); the index of the next output."""
+        self.params, self.opt_state = result[:2]
+        i = 3
+        if self.scaffold:
+            self.c_global, self.c_local = result[i:i + 2]
+            i += 2
+        if self.server_opt:
+            self.opt_m, self.opt_v = result[i:i + 2]
+            i += 2
+        return i
+
+    # ---- rounds ----
+
+    def run_round(self, epochs: int = 1, eval: bool = False, profile: bool = False) -> dict:  # noqa: A002
+        if profile:
+            raise _not_ported("profile_round", "5")
+        if self._vote and (self.round == 0 or Settings.VOTE_EVERY_ROUND):
+            self.train_mask = self.elect_train_set()
+        perm = self._make_perm(epochs)
+        mask, sel_idx = self._mask_inputs(self._effective_mask())
+        result = spmd_round(
+            self.params, self.opt_state, self.x_all, self.y_all, perm, mask, self._samples, sel_idx,
+            x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
+            dp_gen=self._dp_round_keys(), **self._round_kwargs(),
+            **self._algo_kwargs(self._server_t + 1 if self.server_opt else 0),
+        )
+        self._take_state(result)
+        if self.server_opt:
+            self._server_t += 1
+        if self.accountant is not None:
+            self.accountant.step(epochs * self._nb)
+        self.round += 1
+        # the loss stays a device scalar: no host sync between rounds
+        entry = {"round": self.round, "train_loss": result[2]}
+        if eval:
+            entry["test_acc"] = result[-1]
+        self.history.append(entry)
+        return entry
+
+    def profile_round(self, epochs: int = 1, iters: int = 3) -> dict:
+        raise _not_ported("profile_round", "5")
+
+    def run(self, rounds: int, epochs: int = 1, eval_every: int = 0) -> list[dict]:
+        for r in range(rounds):
+            entry = self.run_round(epochs)
+            if eval_every and (r + 1) % eval_every == 0:
+                entry.update(self.evaluate())
+        return self.history
+
+    def run_fused(self, rounds: int, epochs: int = 1, eval: bool = False) -> list[dict]:  # noqa: A002
+        """``rounds`` rounds in one call with no host sync between them
+        (the train set fixed for the span, as the reference votes in round 0
+        only). With ``eval=True`` each round's accuracy is computed on the
+        device; the entries hold device scalars.
+
+        On the card a span of the plain path (this package's Adam or SGD;
+        no SCAFFOLD, FedOpt, DP-SGD or remat) is captured as a CUDA graph the
+        first time its shape is seen and replayed after that
+        (:class:`_CapturedSpan`); the other spans, and every span on the
+        CPU, run eagerly."""
+        perms, mask, sel_idx = self._fused_inputs(rounds, epochs)
+        dp_gen = self._dp_round_keys()
+        if self._capturable():
+            key = (tuple(perms.shape), eval, sel_idx.numel())
+            if key not in self._spans:
+                self._spans[key] = _CapturedSpan(self, perms, mask, sel_idx, eval)
+            result = self._spans[key].run(self, perms, mask, sel_idx)
+        else:
+            result = spmd_rounds_fused(
+                self.params, self.opt_state, self.x_all, self.y_all, perms, mask, self._samples, sel_idx,
+                x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
+                dp_gen=dp_gen, **self._round_kwargs(), **self._algo_kwargs(self._server_t),
+            )
+        i = self._take_state(result)
+        if self.server_opt:
+            self._server_t += rounds
+        if self.accountant is not None:
+            self.accountant.step(rounds * epochs * self._nb)
+        losses, accs = result[2], result[i] if eval else None
+        entries = []
+        for r in range(rounds):
+            self.round += 1
+            entry = {"round": self.round, "train_loss": losses[r]}
+            if eval:
+                entry["test_acc"] = accs[r]
+            self.history.append(entry)
+            entries.append(entry)
+        return entries
+
+    def round_flops(self, epochs: int = 1) -> float:
+        """FLOPs of one no-eval round, counted from the shapes: the Dense
+        GEMMs as autograd runs them (forward, weight gradients, and input
+        gradients for every layer but the first, whose input is data: 6·in·out
+        a sample, less 2·in·out for the first layer; ``remat`` adds one more
+        forward), the optimizer's elementwise operations a parameter a step
+        (Adam 14, SGD 2), the extra per-step operations of FedProx, SCAFFOLD
+        and DP-SGD's per-example clipping, and the aggregation (5 a parameter
+        a node: the mask select and the weighted sum). Activations, biases
+        and the loss are left out (under 0.2% of the MLP's round). The JAX
+        package reads XLA's cost analysis instead.
+
+        Like the JAX method, it draws the round inputs it would run with
+        (shuffle, client sample, DP key), so the rng streams stay in step."""
+        self._make_perm_np(epochs)
+        self._effective_mask()
+        self._dp_round_keys()
+        kernels = sorted(
+            ((path, x) for path, x in tree_items(self.model.params) if path.endswith("/kernel")),
+            key=lambda item: int(item[0].split("/")[0].rsplit("_", 1)[-1]),
+        )
+        if not kernels or any(x.dim() != 2 for _, x in kernels):
+            raise _not_ported("round_flops for models other than the MLP", "4")
+        gemm = sum(2 * x.shape[0] * x.shape[1] for _, x in kernels)  # one forward a sample
+        per_sample = 3 * gemm - 2 * kernels[0][1].shape[0] * kernels[0][1].shape[1]
+        if self.remat:
+            per_sample += gemm
+        n_params = self.model.param_count
+        per_step = (2 if self.optimizer == "sgd" else 14) * n_params  # an explicit tx counts as Adam
+        if self.prox_mu > 0.0:
+            per_step += 6 * n_params  # (w − a)², its sum, its gradient
+        if self.scaffold:
+            per_step += 2 * n_params  # the correction, the gradient sum
+        if self.dp_clip > 0.0:
+            per_step += 5 * n_params * self.batch_size  # norm, scale, mean a sample
+        steps = epochs * self._nb
+        round_ops = 5 * n_params * self.n
+        return float(self.n * steps * (self.batch_size * per_sample + per_step) + round_ops)
+
+    def evaluate(self) -> dict:
+        loss, acc = spmd_eval(self.params, self.x_test, self.y_test, module=self.module)
+        return {
+            "test_loss": float(loss.mean()),
+            "test_acc": float(acc.mean()),
+            "per_node_acc": acc.cpu().numpy().tolist(),
+        }
+
+    # ---- checkpoint / resume ----
+
+    def save(self, directory: str) -> None:
+        raise _not_ported("SpmdFederation.save (learning/checkpoint.py)", "4")
+
+    def restore(self, directory: str, step: Optional[int] = None) -> None:
+        raise _not_ported("SpmdFederation.restore (learning/checkpoint.py)", "4")
 
     # ---- interop ----
 

@@ -23,14 +23,15 @@ from p2pfl_tpu_torch.parallel.spmd import SpmdFederation, _aggregate
 
 
 def _lora_round_core(
-    stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights,
-    *, module, tx, agg: str = "fedavg", keep_opt_state: bool = False,
+    stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, sel_idx,
+    *, module, tx, agg: str = "fedavg", trim: int = 0, keep_opt_state: bool = False,
 ):
     """One round: every node runs its local Adam epochs on its own batches
     (``perm`` [N, epochs, nb, bs]), the train-set nodes' adapters are
-    FedAvg-aggregated and broadcast back, and the optimizer state resets
-    from the aggregate unless ``keep_opt_state``. Returns (adapters',
-    opt', mean train loss over the train-set nodes)."""
+    aggregated (``agg`` over the ``sel_idx`` rows for the robust rules)
+    and broadcast back, and the optimizer state resets from the aggregate
+    unless ``keep_opt_state``. Returns (adapters', opt', mean train loss
+    over the train-set nodes)."""
     n, epochs, nb = perm.shape[0], perm.shape[1], perm.shape[2]
     nodes = torch.arange(n, device=perm.device)[:, None]
     lora, opt = stacked_lora, opt_states
@@ -57,24 +58,26 @@ def _lora_round_core(
         return new * m + old * (1 - m)
 
     used = tree_map(sel, lora, stacked_lora)
-    agg_lora = _aggregate(used, mask, weights, agg)
+    agg_lora = _aggregate(used, mask, weights, sel_idx, agg, trim)
     out = tree_map(lambda a: a[None].expand(n, *a.shape).clone(), agg_lora)
     out_opt = opt if keep_opt_state else tx.init(out)
     return out, out_opt, losses[mask.bool()].mean()
 
 
-def spmd_lora_round(stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, **kw):
-    return _lora_round_core(stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, **kw)
+def spmd_lora_round(stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, sel_idx, **kw):
+    return _lora_round_core(
+        stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, sel_idx, **kw
+    )
 
 
 def spmd_lora_rounds_fused(
-    stacked_lora, opt_states, base, x_all, y_all, perms, mask, weights, **kw
+    stacked_lora, opt_states, base, x_all, y_all, perms, mask, weights, sel_idx, **kw
 ):
     """R rounds in one call (``perms`` [R, N, epochs, nb, bs]); the host
     reads nothing between rounds. Returns (adapters', opt', losses [R])."""
     p, o, losses = stacked_lora, opt_states, []
     for perm in perms:
-        p, o, loss = _lora_round_core(p, o, base, x_all, y_all, perm, mask, weights, **kw)
+        p, o, loss = _lora_round_core(p, o, base, x_all, y_all, perm, mask, weights, sel_idx, **kw)
         losses.append(loss)
     return p, o, torch.stack(losses)
 
@@ -122,7 +125,7 @@ class SpmdLoraFederation(SpmdFederation):
 
     def _round_kwargs(self) -> dict:
         return dict(
-            module=self.module, tx=self.tx, agg=self.aggregator,
+            module=self.module, tx=self.tx, agg=self.aggregator, trim=self.trim,
             keep_opt_state=self.keep_opt_state,
         )
 
@@ -132,10 +135,10 @@ class SpmdLoraFederation(SpmdFederation):
         if self._vote and (self.round == 0 or Settings.VOTE_EVERY_ROUND):
             self.train_mask = self.elect_train_set()
         perm = self._make_perm(epochs)
-        mask = torch.from_numpy(self._effective_mask()).to(self.device)
+        mask, sel_idx = self._mask_inputs(self._effective_mask())
         self.params, self.opt_state, loss = spmd_lora_round(
             self.params, self.opt_state, self.base, self.x_all, self.y_all, perm, mask,
-            self._samples, **self._round_kwargs(),
+            self._samples, sel_idx, **self._round_kwargs(),
         )
         self.round += 1
         entry = {"round": self.round, "train_loss": loss}
@@ -148,10 +151,10 @@ class SpmdLoraFederation(SpmdFederation):
         :meth:`evaluate`."""
         if eval:
             raise ValueError("SpmdLoraFederation.run_fused has no fused eval; call evaluate()")
-        perms, mask = self._fused_inputs(rounds, epochs)
+        perms, mask, sel_idx = self._fused_inputs(rounds, epochs)
         self.params, self.opt_state, losses = spmd_lora_rounds_fused(
             self.params, self.opt_state, self.base, self.x_all, self.y_all, perms, mask,
-            self._samples, **self._round_kwargs(),
+            self._samples, sel_idx, **self._round_kwargs(),
         )
         entries = []
         for r in range(rounds):

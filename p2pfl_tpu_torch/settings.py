@@ -60,6 +60,13 @@ class Settings:
     SECURE_AGGREGATION: bool = False
     # aggregation accumulates in this dtype
     AGG_DTYPE: str = "float32"
+    # models compute in this dtype (parameters and logits stay float32);
+    # ``models/vision.py::MLP`` reads it when built
+    COMPUTE_DTYPE: str = "bfloat16"
+    # SCAFFOLD's new control variate from the epoch's fp32 gradient mean
+    # (exact under plain SGD, keeps no round-start params); False takes
+    # option II's (x - y_i)/(K·lr) from the round-start anchor
+    SCAFFOLD_FUSED_CI: bool = True
 
     # --- monitoring (management/telemetry.py) ---
     TELEMETRY_ENABLED: bool = True
@@ -113,6 +120,7 @@ def set_test_settings() -> None:
     Settings.TELEMETRY_BEAT_SPANS = False
     Settings.WIRE_COMPRESSION = "none"
     Settings.WEIGHTS_PLANE = "bytes"
+    Settings.SCAFFOLD_FUSED_CI = True
     Settings.TRAIN_SET_SIZE = 4
     Settings.VOTE_TIMEOUT = 10.0
     Settings.AGGREGATION_TIMEOUT = 10.0

@@ -120,10 +120,13 @@ def test_fedavg_matches_jax_aggregate():
     weights = np.array([10, 12, 9, 10], np.float32)
     sel = np.flatnonzero(mask).astype(np.int32)
     want = jspmd._aggregate(jax.tree.map(jnp.asarray, stack), jnp.asarray(mask), jnp.asarray(weights), sel, "fedavg", 0)
-    got = tspmd._aggregate(tree_map(torch.tensor, stack), torch.tensor(mask), torch.tensor(weights), "fedavg")
+    tsel = torch.tensor(sel, dtype=torch.long)
+    got = tspmd._aggregate(tree_map(torch.tensor, stack), torch.tensor(mask), torch.tensor(weights), tsel, "fedavg", 0)
     np.testing.assert_allclose(got["w"]["lora_a"].numpy(), np.asarray(want["w"]["lora_a"]), atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspmd._aggregate(tree_map(torch.tensor, stack), torch.tensor(mask), torch.tensor(weights), "median")
+    # the robust rules aggregate the selected rows only: the median of 3
+    want = jspmd._aggregate(jax.tree.map(jnp.asarray, stack), jnp.asarray(mask), jnp.asarray(weights), sel, "median", 0)
+    got = tspmd._aggregate(tree_map(torch.tensor, stack), torch.tensor(mask), torch.tensor(weights), tsel, "median", 0)
+    np.testing.assert_array_equal(got["w"]["lora_a"].numpy(), np.asarray(want["w"]["lora_a"]))
 
 
 def _jax_model(flash: bool, dtype, seed: int = 0):
@@ -272,8 +275,11 @@ def test_federation_refusals():
             SpmdLoraFederation.from_dataset(model, data, n_nodes=4, batch_size=2, device="cpu")
     finally:
         Settings.SECURE_AGGREGATION = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpmdLoraFederation.from_dataset(model, data, n_nodes=4, batch_size=2, aggregator="krum", device="cpu")
+    # the robust aggregators are ported: krum builds and runs a round
+    fed = SpmdLoraFederation.from_dataset(
+        model, data, n_nodes=4, batch_size=2, aggregator="krum", trim=1, device="cpu"
+    )
+    assert fed.aggregator == "krum" and np.isfinite(float(fed.run_round()["train_loss"]))
     with pytest.raises(ValueError, match="unknown aggregator"):
         SpmdLoraFederation.from_dataset(model, data, n_nodes=4, batch_size=2, aggregator="mode", device="cpu")
     fed = SpmdLoraFederation.from_dataset(model, data, n_nodes=4, batch_size=2, device="cpu")
