@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only kernels offs
     python3 chip_smoke.py --only exchange gossip
+    python3 chip_smoke.py --only wire
     python3 chip_smoke.py --only mnist
 
 Phases, each of which makes the script exit non-zero if it fails (the
@@ -66,7 +67,21 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and at 4: kernel 9 must have launched, the plane must have moved bytes
    with no fallback, alignment fix-up or failed transfer, every node must
    end on one model and the two planes' mean gap must stay in its limit;
-10. [mnist] ``bench.py``'s drive on the port
+10. [wire] the byte codec, gRPC and the streaming plane (``drive_wire``):
+   (a) the native codec library loaded and equal to its numpy twins on
+   64 MB, and ``encode_params`` of the MLP and of the config-5 bf16 tree
+   (1.97 GB) on the card byte-identical to encoding their CPU copies,
+   decoded onto the card bit-equal, both timed; (b) the gossip phase's
+   federation over loopback gRPC (``examples/mnist.run(protocol="grpc")``)
+   on ``bytes`` (weights as P2TW frames, no kernel 9) and ``ici`` (kernel
+   9, no weight byte over gRPC, no fallback), and a 2-node gRPC pair
+   bit-equal to the memory pair; (c) the 1.97 GB tree streamed card to
+   card over gRPC in 2 MB chunks, bit-equal, timed; (d) ``examples/node1``
+   and ``node2`` as two processes on the card; (e) the pair on the memory
+   transport's byte path, streamed, bit-equal to the gRPC pair. Parts
+   (b)-(d) need ``grpc`` and are gated off, with a line saying so, where
+   it is not installed;
+11. [mnist] ``bench.py``'s drive on the port
    (``p2pfl_tpu_torch/examples/bench_mnist.py``: 64 MLP nodes at full
    width, batch 64, fused chunks of 5 rounds to 98% test accuracy on the
    synthetic-hard task), which runs no hand kernel: it must cross 98%
@@ -78,14 +93,16 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and one round of a 4-node federation on the CPU
    against one on the card from the same init and data (bf16 bounds in
    ``MNIST_*``);
-11. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line again, and last
-   ``{"ok": true, "device": {...}}``.
+12. a ``{"kernels": [...]}`` line (kernel 9's launches count the gossip
+   phase's ICI drive and the wire phase's gRPC ICI drive), the
+   ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.
 
 ``--only exchange_peer`` (never run by default: it needs two cards) times
 kernel 9 storing from cuda:0 into cuda:1's memory over NVLink.
 
-Imports only torch, numpy and ``p2pfl_tpu_torch``. Weights are random,
-drawn from seeded ``torch.Generator``s.
+Imports only torch, numpy and ``p2pfl_tpu_torch`` (and ``grpc``, where
+installed, to print its version). Weights are random, drawn from seeded
+``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -96,6 +113,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -980,6 +998,24 @@ def _gaps(a: list, b: list) -> tuple[float, float]:
     return max(d.max().item() for d in diffs), sum(d.sum().item() for d in diffs) / sum(d.numel() for d in diffs)
 
 
+#: the gossip and wire phases' federation: BASELINE config 1's MLP at full
+#: width on one card's slots, full topology
+GOSSIP_KW = dict(rounds=2, epochs=1, samples=8192, batch_size=128, device="cuda", topology="full")
+
+
+def span_breakdown(nodes: int) -> dict:
+    """Seconds per node in each stage and dispatch site of a drive, from
+    the in-process spans (host clock)."""
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+
+    per: dict = {}
+    for s in telemetry.spans():
+        if s.kind in ("stage", "dispatch"):
+            key = f"{s.kind}:{s.name}"
+            per[key] = per.get(key, 0.0) + s.duration_ns / 1e9 / nodes
+    return {k: round(v, 4) for k, v in sorted(per.items())}
+
+
 def drive_gossip() -> tuple[bool, dict]:
     """``examples/mnist.py``'s path at full MLP width.
 
@@ -1010,17 +1046,7 @@ def drive_gossip() -> tuple[bool, dict]:
             if "ICI shard transfer" in record.getMessage():
                 failures.append(record.getMessage())
 
-    kw = dict(rounds=2, epochs=1, samples=8192, batch_size=128, device="cuda", topology="full")
-
-    def breakdown(nodes: int) -> dict:
-        """Seconds per node in each stage and dispatch site of the drive,
-        from the in-process spans (host clock)."""
-        per: dict = {}
-        for s in telemetry.spans():
-            if s.kind in ("stage", "dispatch"):
-                key = f"{s.kind}:{s.name}"
-                per[key] = per.get(key, 0.0) + s.duration_ns / 1e9 / nodes
-        return {k: round(v, 4) for k, v in sorted(per.items())}
+    kw = GOSSIP_KW
 
     def drive(plane: str, nodes: int) -> dict:
         ici_mod.reset_ici_stats()
@@ -1036,7 +1062,7 @@ def drive_gossip() -> tuple[bool, dict]:
             test_loss=[m["test_loss"] for m in out["metrics"]],
             ici_stats=ici_mod.ici_stats(), launches_ici_exchange=launches["ici_exchange"],
             within_run_max_diff=_gaps(leaves[:1] * (nodes - 1), leaves[1:])[0],
-            seconds_per_node=breakdown(nodes), leaves=leaves,
+            seconds_per_node=span_breakdown(nodes), leaves=leaves,
         )
 
     handler = _Failed()
@@ -1084,7 +1110,325 @@ def drive_gossip() -> tuple[bool, dict]:
     return ok, summary
 
 
-# ---- phase 10: bench.py's MNIST path (no hand kernel) ----
+# ---- phase 10: the byte codec, gRPC and the streamed full model ----
+
+
+def _timed_s(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def wire_codec(results: dict) -> bool:
+    """Part (a): the native library is loaded and equals its numpy twins
+    bit for bit on 64 MB of random bytes (CRC32C) and 16 M fp32 values
+    (int8 quantize and dequantize); ``encode_params`` of the MLP and of
+    the 0.98B model's bf16 weights (``exchange_trees``' config-5 tree,
+    1.97 GB) on the card gives the bytes of encoding their CPU copies, and
+    decoding onto the card gives bit-equal leaves; encode and decode timed
+    (host clock to a synchronize) with their GB/s."""
+    from p2pfl_tpu_torch import native
+    from p2pfl_tpu_torch.learning import weights as tw
+    from p2pfl_tpu_torch.models.vision import mlp
+
+    t0 = time.perf_counter()
+    loaded = native.NATIVE  # builds the library on first use: not in the timings below
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, 64 << 20, dtype=np.uint8).tobytes()
+    vals = (rng.standard_normal(16 << 20) * 3.0).astype(np.float32)
+    (crc, crc_s), (crc_np, crc_np_s) = _timed_s(lambda: native.crc32c(data)), _timed_s(lambda: native.crc32c_np(data))
+    (q, scale), (q_np, scale_np) = native.quantize(vals), native.quantize_np(vals)
+    deq_equal = native.dequantize(q, scale).tobytes() == native.dequantize_np(q, scale).tobytes()
+    checks = {
+        "native library loaded (NATIVE)": loaded,
+        "crc32c == numpy twin on 64 MB": crc == crc_np,
+        "quantize == numpy twin on 16 M fp32": scale == scale_np and np.array_equal(q, q_np),
+        "dequantize == numpy twin": deq_equal,
+    }
+    out = {"native_library": native.library_path().name, "native_load_s": build_s, "crc32c_64MB_ms": crc_s * 1e3,
+           "crc32c_np_64MB_ms": crc_np_s * 1e3}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    big = exchange_trees(gen)["config5_bf16"][0]
+    trees = {"mlp_fp32": mlp(seed=0, device="cuda").params,
+             "config5_bf16": {f"leaf_{i:04d}": t for i, t in enumerate(big)}}
+    for name, tree in trees.items():
+        n_bytes = sum(t.numel() * t.element_size() for _, t in tw.named_leaves(tree)[1])
+        # the median of 5 encodes of the MLP (the first pays start-up),
+        # one of the 1.97 GB tree
+        timings = [_timed_s(lambda: tw.encode_params(tree)) for _ in range(5 if n_bytes < 1 << 30 else 1)]
+        payload, enc_s = timings[0][0], statistics.median(t for _, t in timings)
+        cpu_copy = {k: v.cpu() for k, v in tw.named_leaves(tree)[1]}
+        same_bytes = tw.encode_params(cpu_copy) == payload
+        del cpu_copy
+        timings = [_timed_s(lambda: tw.decode_params(payload, device="cuda")) for _ in range(len(timings))]
+        flat, dec_s = timings[0][0], statistics.median(t for _, t in timings)
+        equal = all(bits_equal(flat[k], v) and flat[k].device.type == "cuda" for k, v in tw.named_leaves(tree)[1])
+        checks[f"{name}: card encode == CPU-copy encode"] = same_bytes
+        checks[f"{name}: decode onto the card bit-equal"] = equal
+        out[name] = {"leaves": len(flat), "bytes": n_bytes, "payload_bytes": len(payload),
+                     "encode_ms": enc_s * 1e3, "encode_GBps": n_bytes / enc_s / 1e9,
+                     "decode_ms": dec_s * 1e3, "decode_GBps": n_bytes / dec_s / 1e9}
+        del payload, flat
+    del trees, big
+    torch.cuda.empty_cache()
+    results["codec"] = {**out, "checks": checks}
+    ok = all(checks.values())
+    log(f"[wire] codec: {json.dumps(results['codec'])} {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def wire_stream(results: dict) -> bool:
+    """Part (c): the 0.98B model's bf16 weights (1.97 GB), card to card,
+    once over loopback gRPC: larger than ``GRPC_MAX_MESSAGE_MB`` (512),
+    so only the stream plane carries it, in 2 MB chunks, with the gRPC
+    deadline raised for this send alone. One stream, no unary fallback,
+    every leaf bit-equal at the receiver (decoded onto the card as its
+    chunks arrive); wall time, MB/s, chunks, the receiver's scratch peak
+    and the growth of host peak RSS."""
+    import resource
+
+    from p2pfl_tpu_torch.commands import HeartbeatCommand
+    from p2pfl_tpu_torch.communication.grpc_transport import GrpcProtocol
+    from p2pfl_tpu_torch.communication.message import WeightsEnvelope
+    from p2pfl_tpu_torch.learning import weights as tw
+    from p2pfl_tpu_torch.settings import Settings
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    big = exchange_trees(gen)["config5_bf16"][0]
+    tree = {f"leaf_{i:04d}": t for i, t in enumerate(big)}
+    n_bytes = sum(t.numel() * t.element_size() for t in big)
+    got: dict = {}
+
+    class Capture:
+        @staticmethod
+        def get_name() -> str:
+            return "add_model"
+
+        def execute(self, source, round, *args, update=None, **kwargs):  # noqa: A002
+            got["update"] = update
+
+    sender, receiver = GrpcProtocol(), GrpcProtocol()
+    for proto in (sender, receiver):
+        # heartbeats keep the edge alive through the send (a Node adds this)
+        proto.add_command(HeartbeatCommand(proto.heartbeater))
+    receiver.add_command(Capture())
+    receiver.receive_device = lambda: torch.device("cuda")
+    prev = (Settings.GRPC_TIMEOUT, Settings.WIRE_CHUNK_MB)
+    Settings.GRPC_TIMEOUT, Settings.WIRE_CHUNK_MB = 600.0, 2.0
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * resource.getpagesize()
+
+    # host RSS sampled every 10 ms through the send: the peak over the
+    # resident size before it (the process's own high-water mark was set
+    # by the codec part)
+    peak = {"rss": 0}
+    sampling = threading.Event()
+
+    def sample() -> None:
+        while not sampling.is_set():
+            peak["rss"] = max(peak["rss"], rss())
+            time.sleep(0.01)
+
+    sent, wall, rss0 = False, float("nan"), rss()
+    sampler = threading.Thread(target=sample, daemon=True)
+    try:
+        sender.start()
+        receiver.start()
+        connected = sender.connect(receiver.get_address())
+        tw.reset_wire_stats()
+        env = WeightsEnvelope(sender.get_address(), 0, "add_model", tw.ModelUpdate(tree, ["sender"], 1))
+        if connected:
+            rss0 = rss()
+            sampler.start()
+            sent, wall = _timed_s(lambda: sender.send(receiver.get_address(), env))
+    finally:
+        sampling.set()
+        if sampler.is_alive():
+            sampler.join()
+        Settings.GRPC_TIMEOUT, Settings.WIRE_CHUNK_MB = prev
+        sender.stop()
+        receiver.stop()
+    stats = sender.wire_stats
+    flat = getattr(got.get("update"), "decoded_flat", None) or {}
+    equal = sorted(flat) == sorted(tree) and all(
+        flat[k].device.type == "cuda" and bits_equal(flat[k], v) for k, v in tree.items())
+    checks = {
+        "connected": connected,
+        "send acknowledged": bool(sent),
+        "payload above GRPC_MAX_MESSAGE_MB": n_bytes > Settings.GRPC_MAX_MESSAGE_MB * 1024 * 1024,
+        "stream_sends == 1": stats["stream_sends"] == 1,
+        "stream_fallback_unary == 0": stats["stream_fallback_unary"] == 0,
+        "every leaf bit-equal on the receiver's card": equal,
+    }
+    out = {"leaves": len(tree), "bytes": n_bytes, "wall_s": wall, "MBps": n_bytes / wall / 1e6,
+           "chunks": stats["stream_chunks"], "wire_bytes": stats["weights_bytes"],
+           "receiver_scratch_peak_bytes": tw.wire_stats()["stream_peak_scratch_bytes"],
+           "host_peak_rss_growth_bytes": peak["rss"] - rss0, "checks": checks}
+    del tree, big, flat, got, env
+    torch.cuda.empty_cache()
+    results["stream"] = out
+    ok = all(checks.values())
+    log(f"[wire] stream: {json.dumps(out)} {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def wire_demo(results: dict) -> bool:
+    """Part (d): ``python -m p2pfl_tpu_torch.examples.node1`` and ``node2``
+    as two processes on the card over a real socket, each under a timeout
+    of its own: both exit 0 and node2 prints its accuracy."""
+    import tempfile
+    from pathlib import Path
+
+    from p2pfl_tpu_torch.communication.address import free_port
+
+    root = Path(__file__).resolve().parent
+    port = str(free_port())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log1:
+        # node1's output goes to a file: a pipe nobody drains could fill
+        # and block it while node2 runs
+        n1 = subprocess.Popen([sys.executable, "-m", "p2pfl_tpu_torch.examples.node1", port, "--timeout", "150"],
+                              cwd=root, stdout=log1, stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.monotonic() + 90
+            while n1.poll() is None and time.monotonic() < deadline:
+                log1.seek(0)
+                if "listening" in log1.read():
+                    break
+                time.sleep(0.2)
+            n2 = subprocess.run([sys.executable, "-m", "p2pfl_tpu_torch.examples.node2", port, "--rounds", "2"],
+                                cwd=root, capture_output=True, text=True, timeout=150)
+            n1.wait(timeout=60)
+        finally:
+            if n1.poll() is None:
+                n1.kill()
+                n1.wait()
+        log1.seek(0)
+        out1 = log1.read()
+    done = [ln for ln in n2.stdout.splitlines() if ln.startswith("done: ")]
+    checks = {
+        "node1 started": "listening" in out1,
+        "node2 exit 0": n2.returncode == 0,
+        "node1 exit 0": n1.returncode == 0,
+        "node2 printed its accuracy": bool(done) and "test_acc" in done[-1],
+    }
+    results["demo"] = {"node2": done[-1] if done else n2.stdout[-500:] + n2.stderr[-1500:],
+                       "node1_tail": out1.strip().splitlines()[-1:] if out1 else [],
+                       "wall_s": time.perf_counter() - t0, "checks": checks}
+    ok = all(checks.values())
+    log(f"[wire] demo: {json.dumps(results['demo'])} {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def drive_wire() -> tuple[bool, dict]:
+    """The byte codec, gRPC and the streaming plane on the card, parts
+    (a)-(e). gRPC's parts (b)-(d) run only where ``grpc`` is installed,
+    and say so on one line otherwise.
+
+    (b) ``examples/mnist.run(protocol="grpc")`` with the gossip phase's
+    federation (4 nodes on one card's slots, full topology, 8192 samples,
+    batch 128, 2 rounds of 1 epoch), once on ``bytes`` (weights cross gRPC
+    as P2TW, no kernel 9) and once on ``ici`` (kernel 9 carries them, no
+    weight byte crosses gRPC, no fallback), each with its spread, losses
+    and seconds per node in each stage; and a 2-node pair over gRPC held
+    against the same pair on the memory transport to ``PAIR_MAX_GAP``.
+    (e) that pair on the memory transport's byte path
+    (``MEMORY_WIRE_CODEC=True``, ``WIRE_STREAM_THRESHOLD`` 0.5 MB so the
+    0.94 MB MLP streams): bit-equal to the gRPC pair, streams counted."""
+    import importlib.util
+
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.examples import mnist as example
+    from p2pfl_tpu_torch.learning import weights as tw
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+
+    set_test_settings()
+    logger.set_level("WARNING")
+    have_grpc = importlib.util.find_spec("grpc") is not None
+    results: dict = {"grpc_installed": have_grpc}
+    ok = wire_codec(results)
+
+    def drive(protocol: str, plane: str, nodes: int) -> dict:
+        ici_mod.reset_ici_stats()
+        telemetry.reset_spans()
+        logger.reset_comm_metrics()
+        tw.reset_wire_stats()
+        _kernels.reset_launches()
+        out = example.run(nodes=nodes, weights_plane=plane, protocol=protocol, **GOSSIP_KW)
+        torch.cuda.synchronize()
+        leaves = [[x.float().cpu() for x in tree_leaves(p)] for p in out["params"]]
+        comm = logger.get_comm_metrics()
+        return dict(
+            s_per_round=out["round_s"], elapsed_s=out["elapsed_s"],
+            test_loss=[m["test_loss"] for m in out["metrics"]], test_acc=[m["test_acc"] for m in out["metrics"]],
+            weights_bytes=sum(w["weights_bytes"] for w in out.get("wire_stats", [])),
+            stream_sends=sum(w["stream_sends"] for w in out.get("wire_stats", [])),
+            control_msgs=sum(w["control_msgs"] for w in out.get("wire_stats", [])),
+            stream_recv=sum(m.get("stream_recv", 0) for m in comm.values()),
+            codec=tw.wire_stats(), ici_stats=ici_mod.ici_stats(),
+            launches_ici_exchange=_kernels.LAUNCHES["ici_exchange"],
+            within_run_max_diff=_gaps(leaves[:1] * (nodes - 1), leaves[1:])[0],
+            seconds_per_node=span_breakdown(nodes), leaves=leaves,
+        )
+
+    checks: dict = {}
+    runs: dict = {}
+    # the pairs first: when the phase runs alone, the first drive pays
+    # cuBLAS and allocator start-up, which would land in a 4-node fleet
+    runs["memory_pair"] = drive("memory", "bytes", 2)
+    if have_grpc:
+        import grpc
+        from google import protobuf
+
+        log(f"[wire] grpc: installed (grpc {grpc.__version__}, protobuf {protobuf.__version__})")
+        runs["grpc_pair"] = drive("grpc", "bytes", 2)
+        runs["grpc_bytes"] = drive("grpc", "bytes", 4)
+        runs["grpc_ici"] = drive("grpc", "ici", 4)
+    else:
+        log("[wire] grpc: not installed on this machine")
+    prev = (Settings.MEMORY_WIRE_CODEC, Settings.WIRE_STREAM_THRESHOLD)
+    Settings.MEMORY_WIRE_CODEC, Settings.WIRE_STREAM_THRESHOLD = True, 0.5
+    try:
+        runs["memory_codec_pair"] = drive("memory", "bytes", 2)
+    finally:
+        Settings.MEMORY_WIRE_CODEC, Settings.WIRE_STREAM_THRESHOLD = prev
+    codec_pair = runs["memory_codec_pair"]
+    byte_ref = runs.get("grpc_pair", runs["memory_pair"])
+    codec_gap = _gaps(byte_ref["leaves"], codec_pair["leaves"])
+    checks["(e) byte path bit-equal to the " + ("gRPC" if have_grpc else "memory") + " pair"] = codec_gap[0] == 0.0
+    checks["(e) streams counted"] = codec_pair["stream_recv"] > 0 and codec_pair["codec"]["stream_peak_scratch_bytes"] > 0
+    if have_grpc:
+        byt, ici = runs["grpc_bytes"], runs["grpc_ici"]
+        pair_gap = _gaps(runs["grpc_pair"]["leaves"], runs["memory_pair"]["leaves"])
+        results["pair_grpc_vs_memory_max_mean"] = pair_gap
+        checks["(b) bytes: weight bytes over gRPC"] = byt["weights_bytes"] > 0
+        checks["(b) bytes: no kernel 9 launch"] = byt["launches_ici_exchange"] == 0
+        checks["(b) ici: kernel 9 launched"] = ici["launches_ici_exchange"] > 0
+        checks["(b) ici: no weight byte over gRPC"] = ici["weights_bytes"] == 0 and ici["control_msgs"] > 0
+        checks["(b) ici: no fallback"] = ici["ici_stats"]["fallback_bytes"] == 0 and ici["ici_stats"]["shard_sends"] > 0
+        checks[f"(b) pair gRPC vs memory max gap <= {PAIR_MAX_GAP}"] = pair_gap[0] <= PAIR_MAX_GAP
+        ok &= wire_stream(results)
+        ok &= wire_demo(results)
+    checks["within-run spread <= 1e-5"] = max(r["within_run_max_diff"] for r in runs.values()) <= 1e-5
+    checks["losses finite"] = all(math.isfinite(x) for r in runs.values() for x in r["test_loss"])
+    for r in runs.values():
+        r.pop("leaves")
+    results.update(runs=runs, codec_pair_vs_byte_ref_max_mean=codec_gap, checks=checks)
+    ok &= all(checks.values())
+    log(f"[wire] {json.dumps({k: v for k, v in results.items() if k not in ('codec', 'stream', 'demo')})} "
+        f"{'OK' if ok else 'FAIL'}")
+    return ok, results
+
+
+# ---- phase 11: bench.py's MNIST path (no hand kernel) ----
 
 
 #: the mnist phase's CPU-vs-card round: 4 nodes, the bench's batch 64,
@@ -1246,7 +1590,7 @@ def drive_mnist() -> tuple[bool, dict]:
     return ok, summary
 
 
-PHASES = ("kernels", "offs", "main", "ring", "parity", "exchange", "gossip", "mnist")
+PHASES = ("kernels", "offs", "main", "ring", "parity", "exchange", "gossip", "wire", "mnist")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 
@@ -1319,6 +1663,12 @@ def main(argv=None) -> int:
         good, gossip = timed("gossip", drive_gossip)
         ok &= good
         launches["ici_exchange"] = gossip["ici"]["launches_ici_exchange"]
+    if "wire" in args.only:
+        good, wire = timed("wire", drive_wire)
+        ok &= good
+        if "grpc_ici" in wire["runs"]:
+            # kernel 9 also carries the gRPC fleet's weights on the ici plane
+            launches["ici_exchange"] = launches.get("ici_exchange", 0) + wire["runs"]["grpc_ici"]["launches_ici_exchange"]
     if "mnist" in args.only:
         good, _ = timed("mnist", drive_mnist)
         ok &= good

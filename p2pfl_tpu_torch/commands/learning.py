@@ -1,8 +1,10 @@
 """Learning-lifecycle commands: start/stop, init weights, model ingestion.
 
 Counterpart of ``p2pfl_tpu/commands/learning.py``. Weights arrive as live
-tensors (the in-memory transport or the ICI plane), so there is no
-decode step and no secure-aggregation marker to strip.
+tensors (the in-memory transport, the ICI plane) or as wire bytes (gRPC,
+``MEMORY_WIRE_CODEC``) that the learner decodes on receipt; a payload
+that does not decode or does not match the model stops the node, as in
+the reference. There is no secure-aggregation marker to strip.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING
 
 from p2pfl_tpu_torch.commands.command import Command
+from p2pfl_tpu_torch.exceptions import DecodingParamsError, ModelNotMatchingError
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
 
@@ -76,6 +79,12 @@ class InitModelCommand(Command):
         if state.model_initialized_event.is_set():
             logger.debug(state.addr, f"init_model from {source} ignored — already initialized")
             return
+        try:
+            update = node.learner.decode_update(update)
+        except (DecodingParamsError, ModelNotMatchingError) as exc:
+            logger.error(state.addr, f"init_model decode failed: {exc} — stopping node")
+            node.stop_async()
+            return
         node.pending_init_update = update
         state.model_initialized_event.set()
         node.protocol.broadcast(node.protocol.build_msg(ModelInitializedName))
@@ -96,6 +105,15 @@ class AddModelCommand(Command):
         state = node.state
         if not state.model_initialized_event.is_set():
             logger.debug(state.addr, f"add_model from {source} before init — ignored")
+            return
+        # decode BEFORE the round gates: a decode takes time, and a payload
+        # gated against the round it arrived in must not land in the window
+        # of the round the node moved to meanwhile
+        try:
+            update = node.learner.decode_update(update)
+        except (DecodingParamsError, ModelNotMatchingError) as exc:
+            logger.error(state.addr, f"add_model decode failed: {exc} — stopping node")
+            node.stop_async()
             return
         if state.round is not None and round < state.round:
             # stale payload from a peer still finishing an older round: the

@@ -1,9 +1,11 @@
 """Transport-agnostic message model (a copy of ``p2pfl_tpu/communication/message.py``).
 
 A small control ``Message`` that TTL-floods the overlay and a
-``WeightsEnvelope`` that moves point to point; the in-memory transport
+``WeightsEnvelope`` that moves point to point. The in-memory transport
 and the ICI plane pass them by reference, weights as a live
-:class:`~p2pfl_tpu_torch.learning.weights.ModelUpdate`.
+:class:`~p2pfl_tpu_torch.learning.weights.ModelUpdate`; the gRPC
+transport maps them to and from its frames (``grpc_transport.py``,
+``proto_wire.py``).
 """
 
 from __future__ import annotations
@@ -61,8 +63,10 @@ class Message:
 class WeightsEnvelope:
     """A model payload moving between nodes (data plane).
 
-    ``update`` holds live tensors (the in-memory transport and the ICI
-    plane are the port's only weights paths). ``trace_ctx`` carries the sender's trace context exactly like
+    ``update`` holds live tensors (in-process transports, the ICI plane)
+    or only ``update.encoded`` bytes / ``update.decoded_flat`` leaves
+    (byte transports, until the receiving learner decodes them).
+    ``trace_ctx`` carries the sender's trace context exactly like
     :class:`Message` (stamped by ``protocol.build_weights``); ``xp`` the
     experiment identity (same optional-key contract — it also rides
     ``update.xp`` so stash filters see it after decode).

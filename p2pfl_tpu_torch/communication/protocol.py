@@ -16,7 +16,7 @@ import contextlib
 import random
 import threading
 from abc import ABC, abstractmethod
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 from p2pfl_tpu_torch.communication.gossiper import Gossiper
 from p2pfl_tpu_torch.communication.heartbeater import Heartbeater
@@ -26,6 +26,9 @@ from p2pfl_tpu_torch.communication.reliability import CircuitBreaker
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.management.telemetry import telemetry
+
+if TYPE_CHECKING:
+    import torch
 
 
 class CommunicationProtocol(ABC):
@@ -38,9 +41,9 @@ class CommunicationProtocol(ABC):
         #: per-neighbor consecutive-failure detector; every plane's send
         #: outcome feeds it, suspects are evicted early by the heartbeater
         self.breaker = CircuitBreaker(address)
-        #: optional chaos seam (the JAX package's FaultInjector, not yet
-        #: ported): when set, every outgoing send routes through it with
-        #: the real transport send as the continuation
+        #: optional chaos seam (communication/faults.py FaultInjector):
+        #: when set, every outgoing send routes through it with the real
+        #: transport send as the continuation
         self.fault_injector: Optional[Callable] = None
         #: callbacks fired with the address of every heartbeat-evicted
         #: neighbor (Node hooks mid-round train-set repair here)
@@ -52,6 +55,10 @@ class CommunicationProtocol(ABC):
         #: at experiment end — a tail frame between experiments carrying
         #: the OLD id is precisely what the filter exists to reject.
         self.experiment_xid: Optional[str] = None
+        #: the device a streamed weights transfer decodes onto: the Node
+        #: points it at its learner's device (several nodes of one process
+        #: may sit on different slots); None decodes onto the CPU
+        self.receive_device: Callable[[], Optional["torch.device"]] = lambda: None
         self.neighbors: Neighbors = self._make_neighbors()
         self.neighbors.on_evict = self._neighbor_evicted
         self.gossiper = Gossiper(
@@ -130,6 +137,10 @@ class CommunicationProtocol(ABC):
         # be shared across a broadcast — identical stamp, benign
         if update.xp is None and self.experiment_xid is not None:
             update.xp = self.experiment_xid
+        # the round completes the payload-cache key (learning/weights.py):
+        # byte transports then reuse the encode across candidates and ticks
+        # for as long as the learner's model version is unchanged
+        update.cache_round = round
         # shard-plane handshake: when the ICI weights plane is on, every
         # weights frame advertises this node's slice topology ("sp",
         # communication/ici.py)
@@ -300,6 +311,42 @@ class CommunicationProtocol(ABC):
             env.cmd, env.source, env.round, [], env.update,
             trace_ctx=env.trace_ctx, xp=env.xp or env.update.xp,
         )
+
+    def handle_weights_stream(self, env: WeightsEnvelope, chunks) -> CommandResult:
+        """Streaming data-plane receive: feed ``P2TC`` chunks into a
+        :class:`~p2pfl_tpu_torch.learning.weights.StreamDecoder`, then
+        dispatch exactly like :meth:`handle_weights`.
+
+        ``env`` is the stream's payload-free header envelope; ``chunks``
+        iterates framed chunks as they arrive (off the wire or out of the
+        memory transport's bounded queue). Leaves are decoded onto
+        :attr:`receive_device` as their bytes complete, so the unary frame
+        never exists on this side. Any violation mid-stream (a chunk's CRC,
+        order, truncation, the total CRC) drops the WHOLE transfer as one
+        failed receive, so the sender's breakers, retries and fault
+        verdicts see one failed send, as for a unary transfer.
+        """
+        from p2pfl_tpu_torch.learning.weights import StreamDecoder
+        from p2pfl_tpu_torch.settings import Settings
+
+        if not Settings.WIRE_STREAM_ENABLED:
+            # the sender matches this exact error and retries as unary
+            return CommandResult(ok=False, error="stream-unsupported")
+        dec = StreamDecoder(device=self.receive_device())
+        try:
+            for frame in chunks:
+                dec.feed(frame)
+            if not dec.complete:
+                raise ValueError("stream ended before its end chunk")
+            env.update.decoded_flat = dec.result_flat()
+            env.update.encoded = None
+        except Exception as exc:  # noqa: BLE001 — one bad chunk = one failed transfer
+            logger.log_comm_metric(self._address, "stream_recv_drop")
+            logger.error(self._address, f"Dropping weights stream from {env.source}: {exc}")
+            return CommandResult(ok=False, error=f"stream aborted: {exc}")
+        logger.log_comm_metric(self._address, "stream_recv")
+        logger.log_comm_metric(self._address, "stream_recv_chunks", dec.chunks)
+        return self.handle_weights(env)
 
     def _dispatch(
         self,

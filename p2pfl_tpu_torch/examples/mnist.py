@@ -1,17 +1,20 @@
 """MNIST-shaped federated learning with gossip Nodes, on the PyTorch port.
 
-The memory-protocol path of ``p2pfl_tpu/examples/mnist.py``: N Nodes in
-one process over the in-memory transport, each with a
-``TorchLearner`` on the 784-256-128-10 MLP and its own slot of
+``p2pfl_tpu/examples/mnist.py`` on the port: N Nodes in one process, each
+with a ``TorchLearner`` on the 784-256-128-10 MLP and its own slot of
 ``submesh_federation_mesh(n, devices=[device] * n)``, connected (line or
 full), then ``set_start_learning(rounds, epochs)``, ``wait_to_finish``
-and ``evaluate()``. ``--weights-plane ici`` moves model payloads slot to
-slot (kernel 9 on a card, its plain version on the CPU); ``bytes`` hands
-the sender's tensors over by reference. Data is
+and ``evaluate()``. ``--protocol memory`` (the in-memory transport) or
+``grpc`` (real loopback sockets, ``communication/grpc_transport.py``).
+``--weights-plane ici`` moves model payloads slot to slot (kernel 9 on a
+card, its plain version on the CPU) while control rides the transport;
+``bytes`` hands the sender's tensors over by reference on the memory
+transport and ships the P2TW codec over gRPC. Data is
 ``FederatedDataset.synthetic_mnist``: nothing is downloaded.
 
     python -m p2pfl_tpu_torch.examples.mnist --weights-plane ici
     python -m p2pfl_tpu_torch.examples.mnist --device cpu --nodes 2 --rounds 1 --weights-plane ici
+    python -m p2pfl_tpu_torch.examples.mnist --device cpu --protocol grpc
 """
 
 from __future__ import annotations
@@ -32,13 +35,15 @@ def run(
     topology: str = "line",
     timeout: float = 600.0,
     devices: Optional[list] = None,
+    protocol: str = "memory",
 ) -> dict:
     """Build, connect and run the federation; stop every node; return
     ``{"addrs", "params", "metrics", "round_s", "elapsed_s"}``: each
     node's final params (on its device) and test metrics, the seconds of
     each round as the initiator's round counter advanced (the first
     includes the initial-model sync and the vote), and the seconds from
-    ``set_start_learning`` until every node finished. ``devices`` (one
+    ``set_start_learning`` until every node finished; on ``"grpc"`` also
+    ``"wire_stats"``, each node's transport counters. ``devices`` (one
     per node) places the nodes' slots on several cards instead of all on
     ``device``."""
     from p2pfl_tpu_torch import resolve_device
@@ -61,7 +66,12 @@ def run(
                 mlp(seed=i, device=devs[i]), data.partition(i, nodes), batch_size=batch_size,
                 seed=i, mesh=slices[i],
             )
-            fleet.append(Node(learner=learner))
+            if protocol == "grpc":
+                from p2pfl_tpu_torch.communication.grpc_transport import GrpcProtocol
+
+                fleet.append(Node(learner=learner, protocol=GrpcProtocol("127.0.0.1:0")))
+            else:
+                fleet.append(Node(learner=learner))
             fleet[-1].start()
         if topology == "full":
             for node in fleet:
@@ -87,13 +97,16 @@ def run(
         elapsed = time.monotonic() - t0
         if len(marks) <= rounds:  # a round end the polling did not see
             marks.append(t0 + elapsed)
-        return {
+        out = {
             "addrs": [n.addr for n in fleet],
             "params": [n.learner.get_parameters() for n in fleet],
             "metrics": [n.learner.evaluate() for n in fleet],
             "round_s": [b - a for a, b in zip(marks, marks[1:])],
             "elapsed_s": elapsed,
         }
+        if protocol == "grpc":
+            out["wire_stats"] = [dict(n.protocol.wire_stats) for n in fleet]
+        return out
     finally:
         for node in fleet:
             node.stop()
@@ -108,6 +121,7 @@ def main(argv=None) -> None:
     parser.add_argument("--batch-size", type=int, default=128)
     parser.add_argument("--samples", type=int, default=8192, help="total training samples")
     parser.add_argument("--topology", choices=("line", "full"), default="line")
+    parser.add_argument("--protocol", choices=("memory", "grpc"), default="memory")
     parser.add_argument("--weights-plane", choices=("bytes", "ici"), default="bytes")
     parser.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain versions)")
     parser.add_argument("--measure_time", action="store_true")
@@ -116,7 +130,7 @@ def main(argv=None) -> None:
     out = run(
         nodes=args.nodes, rounds=args.rounds, epochs=args.epochs, samples=args.samples,
         batch_size=args.batch_size, device=args.device, weights_plane=args.weights_plane,
-        topology=args.topology,
+        topology=args.topology, protocol=args.protocol,
     )
     for addr, metrics in zip(out["addrs"], out["metrics"]):
         print(f"{addr}: {metrics}")
@@ -124,6 +138,8 @@ def main(argv=None) -> None:
         from p2pfl_tpu_torch.communication.ici import ici_stats
 
         print(f"ici: {ici_stats()}")
+    if args.protocol == "grpc":
+        print(f"wire: {out['wire_stats']}")
     if args.measure_time:
         print(f"elapsed: {out['elapsed_s']:.2f}s")
 

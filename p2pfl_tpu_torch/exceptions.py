@@ -28,11 +28,23 @@ class ModelNotMatchingError(Exception):
     """Incoming parameters do not match the learner's model structure."""
 
 
+class DecodingParamsError(Exception):
+    """A serialized weights payload cannot be decoded (bad magic, CRC,
+    header, truncation, a dtype torch cannot hold)."""
+
+
+class AnchorMismatchError(Exception):
+    """A delta-coded (topk8) payload names another round-start anchor than
+    the receiver holds. Not fatal, unlike :class:`DecodingParamsError`: the
+    receiver skips the update and waits for one it can reconstruct."""
+
+
 class NeighborNotConnectedError(Exception):
     """The transport cannot reach the requested peer."""
 
 
 class UnsupportedByPortError(ValueError):
     """A configuration the JAX package supports but the port does not yet
-    (the byte codec, secure aggregation, lossy compression, ...): raised
-    at ``Node.start``, never in the middle of a round."""
+    (secure aggregation, lossy compression, the DCN plane, churn, ...):
+    raised at ``Node.start`` or where it is configured, never in the
+    middle of a round."""

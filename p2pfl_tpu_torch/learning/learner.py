@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from p2pfl_tpu_torch import resolve_device
-from p2pfl_tpu_torch.learning.weights import ModelUpdate
+from p2pfl_tpu_torch.learning.weights import ModelUpdate, PayloadCache, decode_params, restore_like
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_structure, tree_unflatten
 
@@ -174,8 +174,8 @@ def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor, module):
 
 
 class NodeLearner(ABC):
-    """Template for node learners (JAX ``NodeLearner``, without the codec
-    parts: wire anchors, error feedback, payload cache, materialize)."""
+    """Template for node learners (JAX ``NodeLearner``, without the wire
+    anchors and error feedback of the int8/topk8 codecs, ROADMAP item 4)."""
 
     @abstractmethod
     def set_parameters(self, params: Any) -> None: ...
@@ -215,8 +215,40 @@ class NodeLearner(ABC):
     def bump_model_version(self) -> None:
         self._model_version = self.model_version + 1
 
+    def payload_cache(self) -> PayloadCache:
+        """The learner's shared encode-once cache (made on first use)."""
+        cache = getattr(self, "_payload_cache", None)
+        if cache is None:
+            cache = PayloadCache(owner=self.addr)
+            self._payload_cache = cache
+        cache.owner = self.addr  # addr may be set after first use
+        return cache
+
     def get_model_update(self) -> ModelUpdate:
-        return ModelUpdate(self.get_parameters(), [self.addr], self.get_num_samples())
+        """The current params as an update that carries the learner's
+        payload cache and model version: byte transports then encode each
+        model version once, however many peers and ticks it is sent to."""
+        update = ModelUpdate(self.get_parameters(), [self.addr], self.get_num_samples())
+        update.payload_cache = self.payload_cache()
+        update.cache_version = self.model_version
+        return update
+
+    def decode_update(self, update: ModelUpdate) -> ModelUpdate:
+        """A wire update decoded against this learner's tree, its leaves on
+        the learner's devices (a streamed transfer's leaves were decoded on
+        arrival). Raises ``ModelNotMatchingError`` on a structural mismatch
+        and ``DecodingParamsError`` on a malformed payload."""
+        if update.params is not None:
+            return update
+        template = self.get_parameters()
+        if update.decoded_flat is not None:
+            flat = update.decoded_flat
+        else:
+            flat = decode_params(update.encoded, tree_leaves(template)[0].device)
+        return ModelUpdate(
+            restore_like(template, flat), list(update.contributors), update.num_samples,
+            xp=update.xp, version=update.version,
+        )
 
 
 def _check_structure(params, current) -> None:

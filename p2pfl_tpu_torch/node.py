@@ -8,10 +8,12 @@ plane (``communication/ici.py``), and model payloads between registered
 nodes move slot to slot. ``Node(None, None)`` is valid for
 pure-communication use.
 
-Not ported: the async control plane, the journal and resume, the DCN
-plane, secure aggregation, the byte codec and the fault injector (its
-``_do_send`` seam is in place). A setting that asks for one of them
-raises at :meth:`Node.start`, never in the middle of a round.
+The transport is the in-memory one by default or the gRPC one
+(``communication/grpc_transport.py``); byte transports ship the P2TW
+codec, decoded onto the learner's device. Not ported: the async control
+plane, the journal and resume, the DCN plane, secure aggregation and the
+int8/topk8 wire codecs. A setting that asks for one of them raises at
+:meth:`Node.start`, never in the middle of a round.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from p2pfl_tpu_torch.learning.aggregators.fedavg import FedAvg
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.node_state import NodeState
+from p2pfl_tpu_torch.ops.tree import tree_items
 from p2pfl_tpu_torch.settings import Settings
 
 #: weak registry of every constructed Node: harnesses find and stop leaked
@@ -63,18 +66,19 @@ def stop_leaked_nodes() -> list[str]:
 
 def _check_supported() -> None:
     """Refuse, before anything runs, what the port does not do yet."""
-    if Settings.MEMORY_WIRE_CODEC:
-        raise UnsupportedByPortError(
-            "MEMORY_WIRE_CODEC=True: the byte codec is not ported (ROADMAP A3/A4)"
-        )
     if Settings.SECURE_AGGREGATION:
-        raise UnsupportedByPortError("SECURE_AGGREGATION=True: secure aggregation is not ported (ROADMAP A5)")
-    if Settings.WEIGHTS_PLANE not in ("bytes", "ici"):
-        raise UnsupportedByPortError(f"WEIGHTS_PLANE={Settings.WEIGHTS_PLANE!r}: only bytes and ici are ported")
-    if Settings.WEIGHTS_PLANE == "ici" and Settings.WIRE_COMPRESSION != "none":
         raise UnsupportedByPortError(
-            f"WIRE_COMPRESSION={Settings.WIRE_COMPRESSION!r} on the ICI plane: the int8/topk8 "
-            "codecs are not ported (ROADMAP A5)"
+            "SECURE_AGGREGATION=True: secure aggregation is not ported (ROADMAP Queue A item 4)"
+        )
+    if Settings.WEIGHTS_PLANE not in ("bytes", "ici"):
+        raise UnsupportedByPortError(
+            f"WEIGHTS_PLANE={Settings.WEIGHTS_PLANE!r}: only bytes and ici are ported "
+            "(the DCN plane is ROADMAP Queue A item 9)"
+        )
+    if Settings.WIRE_COMPRESSION != "none":
+        raise UnsupportedByPortError(
+            f"WIRE_COMPRESSION={Settings.WIRE_COMPRESSION!r} on the {Settings.WEIGHTS_PLANE} plane: "
+            "the int8/topk8 codecs are not ported (ROADMAP Queue A item 4)"
         )
 
 
@@ -106,6 +110,11 @@ class Node:
             learner = learner(model, data)
         self.learner = learner
         self.state.learner = learner
+        if learner is not None:
+            # streamed weights decode straight onto the learner's device
+            self.protocol.receive_device = lambda: next(
+                leaf.device for _, leaf in tree_items(learner.get_parameters())
+            )
 
         self.experiment_name = "experiment"
         self.total_rounds = 0

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 class Settings:
     # --- general ---
+    # seconds; the gRPC transport's per-call deadline
+    GRPC_TIMEOUT: float = 10.0
     LOG_LEVEL: str = "INFO"
     EXCLUDE_BEAT_LOGS: bool = True
 
@@ -30,8 +32,9 @@ class Settings:
     # strictly sequential) and the per-send wall-clock budget
     GOSSIP_SEND_WORKERS: int = 4
     GOSSIP_SEND_TIMEOUT: float = 5.0
-    # the byte codec of the in-memory transport is not ported (ROADMAP
-    # A3/A4): True raises at Node.start
+    # the in-memory transport round-trips weights through the byte codec
+    # (encode on send, decode against the receiving learner) instead of
+    # handing the sender's tensors over by reference
     MEMORY_WIRE_CODEC: bool = False
 
     # --- control-plane reliability (communication/reliability.py) ---
@@ -81,11 +84,30 @@ class Settings:
     MESH_MODEL_AXIS: str = "model"
     MESH_DATA_AXIS: str = "data"
 
-    # --- weights planes ---
+    # --- wire (learning/weights.py, communication/grpc_transport.py) ---
+    # outgoing gRPC frame format: "envelope" (JSON-header frames) or
+    # "protobuf" (the reference's node.proto schema, proto_wire.py);
+    # receivers sniff every frame, so mixed fleets interoperate
+    WIRE_FORMAT: str = "envelope"
     # wire compression of model payloads: only "none" is ported (the
-    # int8/topk8 codecs are ROADMAP A5); with the ICI plane on, anything
-    # else raises at Node.start
+    # int8/topk8 codecs are ROADMAP Queue A item 4); anything else raises
+    # at Node.start and in the encoder
     WIRE_COMPRESSION: str = "none"
+    # streaming byte plane: a payload estimated at or above
+    # WIRE_STREAM_THRESHOLD MB ships as P2TC chunk frames of about
+    # WIRE_CHUNK_MB over send_weights_stream (the memory transport's byte
+    # path through a queue of WIRE_STREAM_WINDOW frames); False neither
+    # sends nor accepts streams (peers fall back to unary, counted)
+    WIRE_STREAM_ENABLED: bool = True
+    WIRE_STREAM_THRESHOLD: float = 8.0
+    WIRE_CHUNK_MB: float = 2.0
+    WIRE_STREAM_WINDOW: int = 4
+    # gRPC max send/receive message size (MB) of every channel and server,
+    # and the server's handler threads
+    GRPC_MAX_MESSAGE_MB: int = 512
+    GRPC_SERVER_WORKERS: int = 4
+
+    # --- weights planes ---
     # "bytes": model payloads ride the transport (the in-memory transport
     # hands the sender's tensors over by reference); "ici": between nodes
     # registered on the shard plane they move slot to slot through
@@ -108,6 +130,16 @@ def set_test_settings() -> None:
     Settings.GOSSIP_SEND_WORKERS = 4
     Settings.GOSSIP_SEND_TIMEOUT = 2.0
     Settings.MEMORY_WIRE_CODEC = False
+    Settings.GRPC_TIMEOUT = 0.5
+    Settings.WIRE_FORMAT = "envelope"
+    # streaming on but the threshold far above any test model: streams
+    # engage only where a test lowers the threshold
+    Settings.WIRE_STREAM_ENABLED = True
+    Settings.WIRE_STREAM_THRESHOLD = 8.0
+    Settings.WIRE_CHUNK_MB = 2.0
+    Settings.WIRE_STREAM_WINDOW = 4
+    Settings.GRPC_MAX_MESSAGE_MB = 512
+    Settings.GRPC_SERVER_WORKERS = 4
     Settings.MESSAGE_RETRY_MAX = 4
     Settings.MESSAGE_RETRY_BASE = 0.05
     Settings.MESSAGE_RETRY_CAP = 0.4

@@ -1,8 +1,8 @@
 """The six stages of a federated round.
 
 Counterpart of ``p2pfl_tpu/stages/learning_stages.py`` without the
-secure-aggregation branches and the wire-codec anchors (neither is
-ported). Semantics follow the reference, quirks included: voting happens
+secure-aggregation branches and the wire-codec anchors of topk8 (neither
+is ported). Semantics follow the reference, quirks included: voting happens
 only in round 0 and the elected train set is reused for every round.
 Device work (fit / evaluate / aggregate) happens inside the learner and
 the aggregator; every ``wait`` here is a host-side event.
@@ -52,9 +52,12 @@ def sync_initial_model(node: "Node") -> bool:
     state = node.state
     early = node.take_early_init()
     if early is not None and not state.model_initialized_event.is_set():
-        node.pending_init_update = early
-        state.model_initialized_event.set()
-        node.protocol.broadcast(node.protocol.build_msg("model_initialized"))
+        try:
+            node.pending_init_update = node.learner.decode_update(early)
+            state.model_initialized_event.set()
+            node.protocol.broadcast(node.protocol.build_msg("model_initialized"))
+        except Exception as exc:  # noqa: BLE001 — a bad stash falls back to the normal wait
+            logger.info(node.addr, f"Stashed early init_model unusable ({exc!r}) — waiting for redelivery")
 
     if not state.model_initialized_event.wait(timeout=Settings.AGGREGATION_TIMEOUT):
         logger.error(
@@ -79,6 +82,9 @@ def sync_initial_model(node: "Node") -> bool:
         return [n for n in neis if state.nei_status.get(n, 0) != -1]
 
     def model_fn(nei: str):
+        # encode-once: the update carries the learner's payload cache, so
+        # byte transports serialize once per model version, not once per
+        # candidate per tick
         return node.protocol.build_weights("init_model", 0, node.learner.get_model_update())
 
     node.protocol.gossip_weights(
@@ -284,6 +290,8 @@ class GossipModelStage(Stage):
             return [n for n in neis if state.nei_status.get(n, -1) < (state.round or 0)]
 
         def model_fn(nei: str):
+            # encode-once here too: contributors ride the envelope header,
+            # not the encoded bytes, so rewriting them keeps the cache valid
             update = node.learner.get_model_update()
             # claim the survivors: after repair the aggregate lacks the evicted
             update.contributors = [n for n in state.train_set if n not in state.train_set_evicted]

@@ -480,21 +480,31 @@ def test_stale_and_future_round_add_model_gates():
 
 def test_unported_settings_raise_at_start():
     node = Node(learner=DummyLearner(device="cpu"))
-    for knob, value in (("MEMORY_WIRE_CODEC", True), ("SECURE_AGGREGATION", True), ("WEIGHTS_PLANE", "dcn")):
+    for knob, value, item in (("SECURE_AGGREGATION", True, "item 4"), ("WEIGHTS_PLANE", "dcn", "item 9")):
         prev = getattr(Settings, knob)
         setattr(Settings, knob, value)
         try:
-            with pytest.raises(ValueError, match="not ported|only bytes"):
+            with pytest.raises(ValueError, match=f"not ported.*{item}|only bytes.*{item}"):
                 node.start()
         finally:
             setattr(Settings, knob, prev)
-    Settings.WEIGHTS_PLANE, Settings.WIRE_COMPRESSION = "ici", "topk8"
-    try:
-        with pytest.raises(ValueError, match="WIRE_COMPRESSION"):
-            node.start()
-    finally:
-        Settings.WEIGHTS_PLANE, Settings.WIRE_COMPRESSION = "bytes", "none"
+    # lossy compression is refused on either plane, the byte path included
+    for plane, mode in (("ici", "topk8"), ("bytes", "int8"), ("bytes", "topk8")):
+        Settings.WEIGHTS_PLANE, Settings.WIRE_COMPRESSION = plane, mode
+        try:
+            with pytest.raises(ValueError, match="WIRE_COMPRESSION.*item 4"):
+                node.start()
+        finally:
+            Settings.WEIGHTS_PLANE, Settings.WIRE_COMPRESSION = "bytes", "none"
     assert not node.is_running()
+    # the byte codec of the memory transport is ported: it starts
+    Settings.MEMORY_WIRE_CODEC = True
+    try:
+        node.start()
+        assert node.is_running()
+    finally:
+        node.stop()
+        Settings.MEMORY_WIRE_CODEC = False
 
 
 def test_example_runs_on_the_cpu_and_refuses_without_a_card(monkeypatch):

@@ -194,6 +194,71 @@ def test_backward_ablations_apply_to_the_source():
     assert {"no_item_barrier", "no_tile_barrier"} <= set(bwd_ablation.HAZARDS)
 
 
+#: the only modules that may import grpc or google.protobuf (the generated
+#: stub is imported by proto_wire alone)
+GRPC_MODULES = {
+    "p2pfl_tpu_torch.communication.grpc_transport",
+    "p2pfl_tpu_torch.communication.proto_wire",
+    "p2pfl_tpu_torch.communication.proto.interop_pb2",
+}
+
+
+def test_the_package_imports_without_grpc_and_protobuf():
+    """In a process where ``grpc`` and ``google.protobuf`` cannot be
+    imported, the package and every module but the gRPC transport import
+    (proto_wire falls back to ``HAVE_PROTOBUF = False``); statically, no
+    other module imports either of them."""
+    mods = [m for m in ["p2pfl_tpu_torch", *_modules()]
+            if m not in GRPC_MODULES - {"p2pfl_tpu_torch.communication.proto_wire"}]
+    code = (
+        "import importlib, importlib.abc, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] == 'grpc' or name.startswith('google.protobuf'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from p2pfl_tpu_torch.communication import proto_wire\n"
+        "assert not proto_wire.HAVE_PROTOBUF\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'grpc' or m.startswith('google.protobuf'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=str(REPO)
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
+    for path in sorted(PKG.rglob("*.py")):
+        mod = ".".join(path.relative_to(REPO).with_suffix("").parts)
+        if mod in GRPC_MODULES:
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            for name in names:
+                assert name.split(".")[0] != "grpc" and not name.startswith("google.protobuf"), (mod, name)
+
+
+@pytest.mark.parametrize("example", ["node1", "node2"])
+def test_two_process_examples_raise_without_a_card(example):
+    _no_cuda()
+    import importlib
+
+    main = importlib.import_module(f"p2pfl_tpu_torch.examples.{example}").main
+    with pytest.raises(DeviceUnavailableError):
+        main(["0", "--n_train", "64"])
+
+
+def test_package_data_lists_the_codec_source_and_the_wire_schemas():
+    text = (REPO / "pyproject.toml").read_text()
+    assert re.search(r'"p2pfl_tpu_torch" = \[[^\]]*"native/codec\.cpp"', text)
+    assert re.search(r'"p2pfl_tpu_torch" = \[[^\]]*"communication/proto/\*\.proto"', text)
+    assert (PKG / "native" / "codec.cpp").exists()
+    assert sorted(p.name for p in (PKG / "communication" / "proto").glob("*.proto")) == ["interop.proto", "node.proto"]
+
+
 def test_launch_counter_reset():
     saved = dict(_kernels.LAUNCHES)
     try:
