@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only kernels offs
     python3 chip_smoke.py --only exchange gossip
+    python3 chip_smoke.py --only node_lora
     python3 chip_smoke.py --only wire
     python3 chip_smoke.py --only mnist
 
@@ -44,6 +45,20 @@ Phases, each of which makes the script exit non-zero if it fails (the
    ``run_fused(1)`` → ``evaluate``, once with the default (fused) backward
    and once with ``bwd_mode="split"``; launch counts are zeroed before and
    read after each drive, and every kernel of that drive must have run;
+5b. [node_lora] the same model on the gossip Node: 4 Nodes with
+   ``LoRALearner`` through ``Simulation`` (full topology, memory
+   transport), 8 training sequences a node in batches of 2, 2 rounds of 1
+   epoch with the default backward (kernels 1 and 2), then one round with
+   ``bwd_mode="split"`` (kernels 1, 3 and 4), counts zeroed before and
+   read after each and held to the exact counts of the drive (every other
+   kernel at 0); kernels 1-4 against their plain versions on one layer's
+   backward inputs kept from each experiment (``[2·32, 1024, 64]``);
+   every node must end on equal adapters, each frozen base
+   bit-unchanged; then a 2-node pair at 2 layers (seq 256, 4 steps a
+   node) on the CPU's plain versions against the card's kernels: one
+   batch's adapter gradients within ``GRAD_REL_L2`` and the adapters
+   after the round within the parity phase's limit; logs s/round,
+   TrainStage seconds a node, peak memory and each kernel's launches;
 6. [ring] the long-context path at the same widths and depth: seq 4096
    sharded over a ring of R = 4 (``federation_mesh(model_parallel=4,
    devices=["cuda:0"] * 4)``), 2 nodes x batch 1, through
@@ -66,7 +81,12 @@ Phases, each of which makes the script exit non-zero if it fails (the
    planes must end bit-equal; a control with a wrong delivery must not)
    and at 4: kernel 9 must have launched, the plane must have moved bytes
    with no fallback, alignment fix-up or failed transfer, every node must
-   end on one model and the two planes' mean gap must stay in its limit;
+   end on one model and the two planes' mean gap must stay in its limit.
+   Every node round runs fused (each node's train step captured as a
+   CUDA graph in round 0 and replayed for every batch) but in two staged
+   bytes drives (2 and 4 nodes): the
+   staged pair must end bit-equal to the fused pair, with no fused round
+   degraded; logs TrainStage and ``fused_round`` seconds a node;
 10. [wire] the byte codec, gRPC and the streaming plane (``drive_wire``):
    (a) the native codec library loaded and equal to its numpy twins on
    64 MB, and ``encode_params`` of the MLP and of the config-5 bf16 tree
@@ -93,8 +113,11 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and one round of a 4-node federation on the CPU
    against one on the card from the same init and data (bf16 bounds in
    ``MNIST_*``);
-12. a ``{"kernels": [...]}`` line (kernel 9's launches count the gossip
-   phase's ICI drive and the wire phase's gRPC ICI drive), the
+12. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
+   drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
+   phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
+   also each node_lora experiment, for 9 the wire phase's gRPC ICI
+   drive); then the
    ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.
 
 ``--only exchange_peer`` (never run by default: it needs two cards) times
@@ -724,6 +747,269 @@ def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
     return ok, summary
 
 
+# ---- phase 5b: LoRA on the gossip Node (flash kernels 1-4 on the Node path) ----
+
+
+#: the node_lora phase's federation: BASELINE config 5 at full width and
+#: depth, 4 Nodes, 8 training sequences a node in batches of 2
+NODE_LORA = dict(nodes=4, seq=1024, batch=2, n_train=32, n_test=8, lr=1e-3)
+
+
+def _config5(depth: int, bwd_mode: str = "auto", vocab: int = 4096):
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig
+    from p2pfl_tpu_torch.ops.flash_attention import FlashConfig
+
+    return TransformerConfig(
+        vocab_size=vocab, dim=2048, n_heads=32, n_kv_heads=4, n_layers=depth, ffn_hidden=5632,
+        lora_rank=8, lora_mlp=True, flash_config=None if bwd_mode == "auto" else FlashConfig(bwd_mode=bwd_mode),
+    )
+
+
+def _node_lora_settings() -> None:
+    """The test presets with the waits of a full-width model: a round
+    holds four threads' forward and backward passes, seconds of host work
+    under one interpreter lock."""
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+
+    set_test_settings()
+    logger.set_level("WARNING")
+    Settings.HEARTBEAT_TIMEOUT = 10.0
+    Settings.VOTE_TIMEOUT = 60.0
+    Settings.AGGREGATION_TIMEOUT = 300.0
+
+
+def _adapters(sim) -> list:
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    return [[x.float().cpu() for x in tree_leaves(n.learner.get_parameters())] for n in sim.nodes]
+
+
+def _adapter_grads(learner, x, y) -> list:
+    """One batch's loss gradient for every adapter leaf of ``learner``
+    (the base frozen), as fp32 on the CPU."""
+    from p2pfl_tpu_torch.learning.lora import _lm_loss
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_unflatten
+
+    paths = [p for p, _ in tree_items(learner.lora)]
+    leaves = [v.detach().requires_grad_(True) for v in tree_leaves(learner.lora)]
+    loss, _ = _lm_loss(tree_unflatten(dict(zip(paths, leaves))), learner.base, learner.module, x, y)
+    return [g.float().cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+#: one batch's adapter gradients, card against CPU, relative L2 per leaf:
+#: the kernels' ulp-level differences (and the GEMMs' summation order)
+#: pass through two layers of bf16 GEMMs, so the per-element kernel limit
+#: does not apply (the same limit as tests/test_torch_cuda_node.py)
+GRAD_REL_L2 = 2.0 ** -4
+
+
+def node_lora_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
+    """Two Nodes, 2 layers at config 5's width, seq 256, one round of 4
+    steps a node: the same init and data on the CPU (plain versions) and
+    on the card (kernels). One batch's adapter gradients are held to
+    ``GRAD_REL_L2``; the adapters after the round to the parity phase's
+    limits (2·lr a step on an element, 0.1·lr on the mean)."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.lora import LoRALearner
+    from p2pfl_tpu_torch.models.base import TorchModel
+    from p2pfl_tpu_torch.models.transformer import CausalLM, init_params, resolve_attention
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+    from p2pfl_tpu_torch.ops.tree import tree_map
+    from p2pfl_tpu_torch.simulation import Simulation
+
+    lr, seq, batch = 1e-3, 256, 2
+    cfg = _config5(2)
+    data = FederatedDataset.synthetic_lm(vocab_size=4096, seq_len=seq, n_train=16, n_test=2)
+    attn_fn = resolve_attention("flash", config=default_flash_config(seq, cfg.head_dim))
+    params = init_params(cfg, seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    for blk in (params[f"layer_{i}"] for i in range(cfg.n_layers)):
+        for sub in (blk["attn"], blk["mlp"]):
+            for dense in sub.values():
+                dense["lora_b"] = torch.randn(dense["lora_b"].shape, generator=gen) * 0.02
+    out = {}
+    for dev in devices:
+        model = TorchModel(CausalLM(cfg, attn_fn), tree_map(lambda x: x.to(dev), params), (seq,),
+                           cfg.vocab_size, {"config": cfg})
+        x, y = (torch.from_numpy(a[:batch]).to(dev) for a in (data.x_train, data.y_train))
+        grads = _adapter_grads(LoRALearner(model, data, batch_size=batch), x, y)
+        sim = Simulation(2, lambda i, shard: LoRALearner(model, shard, batch_size=batch, learning_rate=lr, seed=i),
+                         data, topology="full")
+        t0 = time.perf_counter()
+        try:
+            sim.start().learn(rounds=1, epochs=1, timeout=600)
+            out[dev] = (_adapters(sim), time.perf_counter() - t0, grads)
+        finally:
+            sim.stop()
+    (a_cpu, s_cpu, g_cpu), (a_gpu, s_gpu, g_gpu) = out[devices[0]], out[devices[-1]]
+    grad_err = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item() for a, b in zip(g_gpu, g_cpu))
+    gap = _gaps(a_cpu[:1], a_gpu[:1])
+    within = max(_gaps(a[:1], a[1:])[0] for a in (a_cpu, a_gpu))
+    steps = len(data.x_train) // 2 // batch  # each node's half in batches
+    ok = (grad_err <= GRAD_REL_L2 and gap[0] <= 2 * lr * steps and gap[1] <= 0.1 * lr
+          and within <= 1e-4)
+    summary = {"layers": 2, "seq": seq, "steps": steps, "grad_rel_l2_max": grad_err,
+               "tol_grad_rel_l2": GRAD_REL_L2, "max_abs_diff": gap[0], "mean_abs_diff": gap[1],
+               "tol_max": 2 * lr * steps, "tol_mean": 0.1 * lr, "within_run_max": within,
+               "cpu_s": s_cpu, "cuda_s": s_gpu}
+    log(f"[node_lora] pair card vs CPU {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def _lora_node_alone(learner) -> dict:
+    """One Node's epoch and eval with the other Nodes idle: host seconds
+    each, and the epoch's device busy time from ``torch.profiler`` (the
+    kernels' summed device time; "not measured" where the profiler sees
+    no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    out = {"fit_s": timed(learner.fit), "evaluate_s": timed(learner.evaluate),
+           "steps": learner.data.num_samples // learner.batch_size}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = timed(learner.fit)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    kernels = sum(e.count for e in prof.key_averages() if e.self_device_time_total > 0)
+    out.update(profiled_fit_s=wall, device_busy_s=busy if busy > 0 else "not measured",
+               device_idle_share=1 - busy / wall if busy > 0 else "not measured",
+               kernels_a_step=kernels / out["steps"])
+    return out
+
+
+def drive_node_lora(depth: int = 22) -> tuple[bool, dict]:
+    """``LoRALearner`` on gossip Nodes at full width and depth, the flash
+    path: 4 Nodes through ``Simulation`` (full topology, memory
+    transport), 2 rounds of 1 epoch with the default backward, then a
+    second experiment of 1 round with the split backward (the Nodes'
+    module swapped for one whose flash config says ``split``). Launch
+    counts are zeroed before and read after each experiment. Every node
+    must end on equal adapters (1e-4, the reference test's), each base
+    bit-unchanged, and the pair must agree across CPU and card. One
+    layer's backward inputs are kept from each experiment, and kernels
+    1-4 are held against their plain versions on them: the Node path's
+    own activations at its own shape (``[2·32, 1024, 64]``, half the
+    main path's rows, so the persistent kernels run another schedule)."""
+    from dataclasses import replace
+
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.lora import LoRALearner
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+    from p2pfl_tpu_torch.models.transformer import CausalLM, tiny_transformer
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.simulation import Simulation
+
+    _node_lora_settings()
+    k = NODE_LORA
+    n = k["nodes"]
+    cfg = _config5(depth)
+    data = FederatedDataset.synthetic_lm(
+        vocab_size=4096, seq_len=k["seq"], n_train=k["n_train"], n_test=k["n_test"], shift_frac=0.15
+    )
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = tiny_transformer(seq_len=k["seq"], seed=0, cfg=cfg, attn="flash")
+    n_params = model.param_count
+    sim = Simulation(
+        n, lambda i, shard: LoRALearner(model, shard, batch_size=k["batch"], learning_rate=k["lr"], seed=i),
+        data, topology="full",
+    )
+    bases = [[x.cpu() for x in tree_leaves(node.learner.base)] for node in sim.nodes]
+    steps = k["n_train"] // n // k["batch"]
+    runs = {}
+    recorded: dict = {}
+    real_bwd = fa.flash_bwd_bhtd
+
+    def recording_bwd(*a):
+        # the first layer backward of each experiment, copied (nothing of
+        # the path reads the copies)
+        if mode not in recorded:
+            recorded[mode] = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a)
+        return real_bwd(*a)
+
+    fa.flash_bwd_bhtd = recording_bwd
+    try:
+        sim.start()
+        for mode, rounds in (("auto", 2), ("split", 1)):
+            if mode == "split":
+                split = CausalLM(replace(cfg, flash_config=_config5(depth, "split").flash_config))
+                for node in sim.nodes:
+                    node.learner.module = split
+            telemetry.reset_spans()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            sim.learn(rounds=rounds, epochs=1, timeout=900)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            # per node: (steps + the eval before training) forwards a round
+            # and the final eval, one backward a step; every layer
+            fwd = n * depth * (rounds * (steps + 1) + 1)
+            bwd = n * depth * rounds * steps
+            expected = {"flash_fwd": fwd, **({"flash_bwd_dkvq": bwd} if mode == "auto" else
+                                             {"flash_bwd_dq": bwd, "flash_bwd_dkv": bwd})}
+            runs[mode] = {"rounds": rounds, "s_per_round": seconds / rounds, "seconds": seconds,
+                          "launches": dict(_kernels.LAUNCHES), "launches_expected": expected,
+                          "seconds_per_node": span_breakdown(n)}
+        adapters = _adapters(sim)
+        metrics = sim.evaluate()
+        alone = _lora_node_alone(sim.nodes[0].learner)
+        base_ok = all(
+            all(torch.equal(a, b.cpu()) for a, b in zip(before, tree_leaves(node.learner.base)))
+            for before, node in zip(bases, sim.nodes)
+        )
+    finally:
+        fa.flash_bwd_bhtd = real_bwd
+        sim.stop()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del sim, model, bases
+    torch.cuda.empty_cache()
+    spread = _gaps(adapters[:1] * (n - 1), adapters[1:])[0]
+    flash_cfg = default_flash_config(k["seq"], cfg.head_dim)
+    worst = Worst()
+    kernels_ok = {}
+    for mode, (q, kk, v, _o, _lse, do, causal, _cfg) in recorded.items():
+        kernels_ok[mode] = check_flash(q, kk, v, do, causal, flash_cfg.block_q, flash_cfg.block_k, worst,
+                                       f"node_lora {mode} layer backward inputs {list(q.shape)}")[0]
+    del recorded
+    checks = {
+        # every kernel of LAUNCHES at its expected count, the others at 0
+        f"launches exactly as expected ({mode})": all(
+            count == r["launches_expected"].get(name, 0) for name, count in r["launches"].items())
+        for mode, r in runs.items()
+    }
+    checks.update({
+        "kernels 1-4 within their limits on each experiment's layer inputs":
+            sorted(kernels_ok) == ["auto", "split"] and all(kernels_ok.values()),
+        "adapters equal across nodes (1e-4)": spread <= 1e-4,
+        "base bit-unchanged": base_ok,
+        "metrics finite": all(math.isfinite(m["test_loss"]) for m in metrics.values()),
+    })
+    good, pair = node_lora_pair()
+    checks["pair card vs CPU within the parity limit"] = good
+    ok = all(checks.values())
+    summary = {"layers": depth, "params": n_params, "nodes": n, "seq": k["seq"], "batch": k["batch"],
+               "steps_per_round": steps, "runs": runs, "adapter_spread": spread, "peak_mem_gb": peak,
+               "test_loss": [m["test_loss"] for m in metrics.values()], "pair": pair, "checks": checks,
+               "kernel_checks_worst_share": worst.share, "kernel_checks_max_err": worst.err,
+               "node_alone": alone}
+    log(f"[node_lora] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    log(f"[node_lora] one node alone (split backward): {json.dumps(alone)}")
+    for mode, r in runs.items():
+        log(f"[node_lora] {mode}: s/round {r['s_per_round']:.3f}, TrainStage s/node "
+            f"{r['seconds_per_node'].get('stage:TrainStage')}, peak {peak:.1f} GB")
+        log(f"[node_lora] {mode} launches: " + json.dumps({x: v for x, v in r["launches"].items() if v}))
+    return ok, summary
+
+
 # ---- phase 6: the long-context ring path ----
 
 
@@ -1003,17 +1289,26 @@ def _gaps(a: list, b: list) -> tuple[float, float]:
 GOSSIP_KW = dict(rounds=2, epochs=1, samples=8192, batch_size=128, device="cuda", topology="full")
 
 
-def span_breakdown(nodes: int) -> dict:
+#: the spans the gossip phase logs round by round
+ROUND_KEYS = ("stage:TrainStage", "dispatch:fused_round", "dispatch:fused_graph_capture", "dispatch:train_epoch")
+
+
+def span_breakdown(nodes: int, by_round: bool = False) -> dict:
     """Seconds per node in each stage and dispatch site of a drive, from
-    the in-process spans (host clock)."""
+    the in-process spans (host clock); ``by_round`` splits each by round
+    (a span's round is the last field of its trace id)."""
     from p2pfl_tpu_torch.management.telemetry import telemetry
 
     per: dict = {}
     for s in telemetry.spans():
         if s.kind in ("stage", "dispatch"):
             key = f"{s.kind}:{s.name}"
-            per[key] = per.get(key, 0.0) + s.duration_ns / 1e9 / nodes
-    return {k: round(v, 4) for k, v in sorted(per.items())}
+            rnd = s.trace_id.rsplit(":", 1)[-1] if by_round else None
+            per.setdefault(key, {})
+            per[key][rnd] = per[key].get(rnd, 0.0) + s.duration_ns / 1e9 / nodes
+    if not by_round:
+        return {k: round(d[None], 4) for k, d in sorted(per.items())}
+    return {k: {r: round(v, 4) for r, v in sorted(d.items())} for k, d in sorted(per.items())}
 
 
 def drive_gossip() -> tuple[bool, dict]:
@@ -1026,7 +1321,13 @@ def drive_gossip() -> tuple[bool, dict]:
     must read far above both limits, or the checks could not see a wrong
     delivery. Then 4 nodes, bytes then ici, each with the launch counts
     zeroed before and read after, and seconds per node in every stage and
-    dispatch site from its spans; their gap is held on its mean."""
+    dispatch site from its spans; their gap is held on its mean. Every
+    drive runs the fused round (``Settings.ROUND_FUSED``: each node's
+    train step captured as a CUDA graph in round 0 and replayed for every
+    batch) but a 2-node and
+    a 4-node bytes drive on the staged path: the staged pair must end
+    bit-equal to the fused one, no fused round may degrade, and every
+    fused node round must take the graph path."""
     import logging
 
     from p2pfl_tpu_torch.communication import ici as ici_mod
@@ -1035,7 +1336,7 @@ def drive_gossip() -> tuple[bool, dict]:
     from p2pfl_tpu_torch.management.telemetry import telemetry
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.ops.tree import tree_leaves, tree_map
-    from p2pfl_tpu_torch.settings import set_test_settings
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
 
     set_test_settings()
     logger.set_level("WARNING")
@@ -1048,27 +1349,39 @@ def drive_gossip() -> tuple[bool, dict]:
 
     kw = GOSSIP_KW
 
-    def drive(plane: str, nodes: int) -> dict:
+    def drive(plane: str, nodes: int, fused: bool = True) -> dict:
         ici_mod.reset_ici_stats()
         telemetry.reset_spans()
         _kernels.reset_launches()
-        out = example.run(nodes=nodes, weights_plane=plane, **kw)
+        logger.reset_comm_metrics()
+        Settings.ROUND_FUSED = fused
+        try:
+            out = example.run(nodes=nodes, weights_plane=plane, **kw)
+        finally:
+            Settings.ROUND_FUSED = True
         torch.cuda.synchronize()
         launches = dict(_kernels.LAUNCHES)
+        comm = logger.get_comm_metrics()
+        fused_counts = {name: sum(c.get(name, 0) for c in comm.values())
+                        for name in ("fused_graph_capture", "fused_graph_replay", "fused_round_degraded")}
         leaves = [[x.float().cpu() for x in tree_leaves(p)] for p in out["params"]]
         return dict(
-            s_per_round=out["round_s"], elapsed_s=out["elapsed_s"],
+            fused=fused, s_per_round=out["round_s"], elapsed_s=out["elapsed_s"],
             test_acc=[m["test_acc"] for m in out["metrics"]],
             test_loss=[m["test_loss"] for m in out["metrics"]],
             ici_stats=ici_mod.ici_stats(), launches_ici_exchange=launches["ici_exchange"],
             within_run_max_diff=_gaps(leaves[:1] * (nodes - 1), leaves[1:])[0],
-            seconds_per_node=span_breakdown(nodes), leaves=leaves,
+            fused_counts=fused_counts,
+            graph_rounds_per_node_round=(fused_counts["fused_graph_capture"] + fused_counts["fused_graph_replay"])
+            / (nodes * kw["rounds"]),
+            seconds_per_node=span_breakdown(nodes), by_round=span_breakdown(nodes, by_round=True), leaves=leaves,
         )
 
     handler = _Failed()
     logger._logger.addHandler(handler)
     try:
         pair = {plane: drive(plane, 2) for plane in ("bytes", "ici")}
+        staged_pair = drive("bytes", 2, fused=False)
         real = ici_mod.shard_transfer
         ici_mod.shard_transfer = lambda tree, filler, src, dst: tree_map(torch.clone, filler)
         try:
@@ -1076,9 +1389,13 @@ def drive_gossip() -> tuple[bool, dict]:
         finally:
             ici_mod.shard_transfer = real
         runs = {plane: drive(plane, 4) for plane in ("bytes", "ici")}
+        staged = drive("bytes", 4, fused=False)
     finally:
         logger._logger.removeHandler(handler)
     pair_gap = _gaps(pair["bytes"]["leaves"], pair["ici"]["leaves"])
+    fused_gap = _gaps(pair["bytes"]["leaves"], staged_pair["leaves"])
+    fused_runs = (*runs.values(), *pair.values())
+    degraded = sum(r["fused_counts"]["fused_round_degraded"] for r in (*fused_runs, control))
     control_gap = _gaps(pair["bytes"]["leaves"], control["leaves"])
     fold_gap = _gaps(runs["bytes"]["leaves"], runs["ici"]["leaves"])
     ici, byt = runs["ici"], runs["bytes"]
@@ -1097,16 +1414,33 @@ def drive_gossip() -> tuple[bool, dict]:
         "control (wrong delivery) reads above both limits":
             control_gap[0] > PAIR_MAX_GAP and control_gap[1] > 100 * FOLD_MEAN_GAP,
         "accuracy finite": all(math.isfinite(x) for r in (*runs.values(), *pair.values()) for x in r["test_loss"]),
+        "2 nodes: fused vs staged bit-equal": fused_gap[0] == 0.0,
+        "no fused round degraded": degraded == 0,
+        "fused drives ran the graph path every round": all(r["graph_rounds_per_node_round"] == 1 for r in fused_runs),
+        "staged drives took no fused round": all(
+            sum(r["fused_counts"].values()) == 0 for r in (staged, staged_pair)),
     }
     ok = all(checks.values())
-    for r in (*runs.values(), *pair.values(), control):
+    for r in (*runs.values(), *pair.values(), control, staged, staged_pair):
         r.pop("leaves")
     summary = {"nodes": 4, "rounds": 2, "samples": 8192, "batch": 128, "bytes": byt, "ici": ici,
                "bytes_vs_ici_max_mean": fold_gap, "pair_bytes_vs_ici_max_mean": pair_gap,
                "pair_ici": {k: pair["ici"][k] for k in ("ici_stats", "launches_ici_exchange", "within_run_max_diff")},
                "control_vs_bytes_max_mean": control_gap, "control_within_run": control["within_run_max_diff"],
-               "failed_transfer_logs": failures[:3], "checks": checks}
+               "failed_transfer_logs": failures[:3], "checks": checks,
+               "staged_bytes": staged, "pair_fused_vs_staged_max_mean": fused_gap, "fused_degraded": degraded}
     log(f"[gossip] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    log(f"[gossip] fused degradations {degraded}; rounds through the step graph a node a round (one "
+        f"replay a batch) {[r['graph_rounds_per_node_round'] for r in fused_runs]}; of them, rounds "
+        f"without a capture a node over 2 rounds "
+        f"{[r['fused_counts']['fused_graph_replay'] / len(r['test_loss']) for r in fused_runs]}")
+    for name, r in (("bytes fused", byt), ("ici fused", ici), ("bytes staged", staged)):
+        sp = r["seconds_per_node"]
+        log(f"[gossip] 4 nodes, {name}: TrainStage {sp.get('stage:TrainStage')} s/node, fused_round "
+            f"{sp.get('dispatch:fused_round')}, train_epoch {sp.get('dispatch:train_epoch')}, rounds "
+            f"{r['s_per_round']} s (earlier staged runs, PERF.md §5: TrainStage 0.76-1.75 s/node, train_epoch "
+            f"0.50-1.32); "
+            f"by round {json.dumps({k: v for k, v in r['by_round'].items() if k in ROUND_KEYS})}")
     return ok, summary
 
 
@@ -1590,7 +1924,7 @@ def drive_mnist() -> tuple[bool, dict]:
     return ok, summary
 
 
-PHASES = ("kernels", "offs", "main", "ring", "parity", "exchange", "gossip", "wire", "mnist")
+PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "mnist")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 
@@ -1621,8 +1955,16 @@ def main(argv=None) -> int:
     ok = True
     timings: dict = {}
     offs_timings: dict = {}
+    #: kernel → {path: its launches in that path's drive}, counts zeroed
+    #: before each drive and read after it; the first path is the kernel's
+    #: main path
     launches: dict = {}
     phase_s: dict = {}
+
+    def count(path: str, counts: dict, names) -> None:
+        for name in names:
+            if counts[name]:
+                launches.setdefault(name, {})[path] = counts[name]
 
     def timed(name, fn, *a):
         t = time.perf_counter()
@@ -1638,19 +1980,23 @@ def main(argv=None) -> int:
     if "main" in args.only:
         good, fused = timed("main_fused", drive_main_path, "auto")
         ok &= good
-        launches.update({k: v for k, v in fused["launches"].items() if k in ("flash_fwd", "flash_bwd_dkvq")})
+        count("main", fused["launches"], ("flash_fwd", "flash_bwd_dkvq"))
         good, split = timed("main_split", drive_main_path, "split")
         ok &= good
-        launches.update({k: v for k, v in split["launches"].items() if k in ("flash_bwd_dq", "flash_bwd_dkv")})
+        count("main", split["launches"], ("flash_bwd_dq", "flash_bwd_dkv"))
+    if "node_lora" in args.only:
+        good, node_lora = timed("node_lora", drive_node_lora)
+        ok &= good
+        # kernels 1-4 on the gossip Node's path, each experiment apart
+        for mode, run in node_lora["runs"].items():
+            count(f"node_lora_{mode}", run["launches"], ("flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv"))
     if "ring" in args.only:
         good, fused = timed("ring_fused", drive_ring_path, "auto", 22)
         ok &= good
-        launches.update({k: v for k, v in fused["launches"].items()
-                         if k in ("flash_fwd_offs", "flash_bwd_dkvq_offs")})
+        count("ring", fused["launches"], ("flash_fwd_offs", "flash_bwd_dkvq_offs"))
         good, split = timed("ring_split", drive_ring_path, "split", 22)
         ok &= good
-        launches.update({k: v for k, v in split["launches"].items()
-                         if k in ("flash_bwd_dq_offs", "flash_bwd_dkv_offs")})
+        count("ring", split["launches"], ("flash_bwd_dq_offs", "flash_bwd_dkv_offs"))
     if "parity" in args.only:
         good, _ = timed("parity_flash", round_parity)
         ok &= good
@@ -1662,13 +2008,14 @@ def main(argv=None) -> int:
     if "gossip" in args.only:
         good, gossip = timed("gossip", drive_gossip)
         ok &= good
-        launches["ici_exchange"] = gossip["ici"]["launches_ici_exchange"]
+        count("gossip", {"ici_exchange": gossip["ici"]["launches_ici_exchange"]}, ("ici_exchange",))
     if "wire" in args.only:
         good, wire = timed("wire", drive_wire)
         ok &= good
         if "grpc_ici" in wire["runs"]:
             # kernel 9 also carries the gRPC fleet's weights on the ici plane
-            launches["ici_exchange"] = launches.get("ici_exchange", 0) + wire["runs"]["grpc_ici"]["launches_ici_exchange"]
+            count("wire_grpc_ici", {"ici_exchange": wire["runs"]["grpc_ici"]["launches_ici_exchange"]},
+                  ("ici_exchange",))
     if "mnist" in args.only:
         good, _ = timed("mnist", drive_mnist)
         ok &= good
@@ -1684,7 +2031,8 @@ def main(argv=None) -> int:
     if rows:
         kernels = [
             {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-             "launches": launches.get(name, 0), **rows[name]}
+             "launches": next(iter(launches.get(name, {}).values()), 0),
+             "launches_by_path": launches.get(name, {}), **rows[name]}
             for name in REPLACES if name in rows
         ]
         print(json.dumps({"kernels": kernels}), flush=True)

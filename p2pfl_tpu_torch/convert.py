@@ -5,10 +5,13 @@ The port keeps flax's leaf names (``wq/kernel``, ``lora_a``, ``lora_b``,
 so conversion is a 1:1 copy of leaves. Two JAX layouts exist for the
 transformer: unrolled (``layer_{i}/...``) and scanned
 (``layers/block/...`` with a leading ``[L]`` axis, ``scan_layers=True``).
-The port always holds the unrolled one. The vision MLP's tree
-(``Dense_{i}/kernel`` as ``[in, out]``, ``Dense_{i}/bias``) has a single
-layout and converts leaf for leaf, dtypes kept, so a JAX ``mlp(seed)``
-init loads into ``p2pfl_tpu_torch.models.vision.MLP`` unchanged.
+The port always holds the unrolled one. The vision trees have a single
+layout and convert leaf for leaf, dtypes kept: the MLP's
+(``Dense_{i}/kernel`` as ``[in, out]``, ``Dense_{i}/bias``) and the
+CNN's, whose conv leaves keep flax's HWIO kernels
+(``Conv_{i}/kernel`` as ``[kh, kw, in, out]``, ``Conv_{i}/bias``; the
+module permutes them at use). So a JAX ``mlp(seed)`` or ``cnn(seed)``
+init loads into ``p2pfl_tpu_torch.models.vision`` unchanged.
 
 The JAX side is plain nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``); nothing here imports JAX.

@@ -1,13 +1,16 @@
 """Federated LoRA fine-tuning of a causal LM (BASELINE config 5 shape), on
-the PyTorch port.
+the PyTorch port (counterpart of ``p2pfl_tpu/examples/lora_ft.py``).
 
-The ``--spmd`` path of ``p2pfl_tpu/examples/lora_ft.py``: nodes train and
-exchange only low-rank adapters, the whole federation runs as one
-node-stacked program on one device. Synthetic Markov-chain text stands in
-for a real corpus. The gossip path waits for ``LoRALearner`` on the Node
-(ROADMAP).
+Nodes train and exchange only low-rank adapters. Without ``--spmd``:
+gossip Nodes over the in-memory transport, each with a ``LoRALearner``,
+built by ``Simulation`` on a full topology. With ``--spmd``: the whole
+federation as one node-stacked program on one device
+(``SpmdLoraFederation``). Synthetic Markov-chain text stands in for a
+real corpus. ``--attn flash`` runs the flash kernels on a card and their
+plain versions on the CPU.
 
-    python -m p2pfl_tpu_torch.examples.lora_ft --spmd --attn flash
+    python -m p2pfl_tpu_torch.examples.lora_ft --attn flash
+    python -m p2pfl_tpu_torch.examples.lora_ft --device cpu --layers 1 --dim 128 --seq-len 64 --attn flash
     python -m p2pfl_tpu_torch.examples.lora_ft --spmd --device cpu --layers 2 --dim 128
 """
 
@@ -33,13 +36,12 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain versions)")
     parser.add_argument("--measure_time", action="store_true")
     args = parser.parse_args(argv)
-    if not args.spmd:
-        parser.error("only --spmd is ported yet (LoRALearner on the gossip Node is ROADMAP Queue A)")
 
+    from p2pfl_tpu_torch import resolve_device
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
-    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
 
+    resolve_device(args.device)  # no card and no --device cpu: raise before any work
     cfg = TransformerConfig(
         dim=args.dim,
         n_layers=args.layers,
@@ -51,18 +53,44 @@ def main(argv=None) -> None:
     )
     data = FederatedDataset.synthetic_lm(vocab_size=cfg.vocab_size, seq_len=args.seq_len)
     t0 = time.monotonic()
-    model = tiny_transformer(seq_len=args.seq_len, cfg=cfg, attn=args.attn, device=args.device)
-    fed = SpmdLoraFederation.from_dataset(
-        model, data, n_nodes=args.nodes, batch_size=args.batch_size,
-        learning_rate=args.lr, vote=False, device=args.device,
-    )
-    for _ in range(args.rounds):
-        entry = fed.run_round(epochs=args.epochs)
-        metrics = fed.evaluate()
-        print(
-            f"round {entry['round']}: loss={float(entry['train_loss']):.4f} "
-            f"next-token acc={metrics['test_acc']:.4f}"
+
+    if args.spmd:
+        from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+        model = tiny_transformer(seq_len=args.seq_len, cfg=cfg, attn=args.attn, device=args.device)
+        fed = SpmdLoraFederation.from_dataset(
+            model, data, n_nodes=args.nodes, batch_size=args.batch_size,
+            learning_rate=args.lr, vote=False, device=args.device,
         )
+        for _ in range(args.rounds):
+            entry = fed.run_round(epochs=args.epochs)
+            metrics = fed.evaluate()
+            print(
+                f"round {entry['round']}: loss={float(entry['train_loss']):.4f} "
+                f"next-token acc={metrics['test_acc']:.4f}"
+            )
+    else:
+        from p2pfl_tpu_torch.learning.lora import LoRALearner
+        from p2pfl_tpu_torch.simulation import Simulation
+
+        sim = Simulation(
+            args.nodes,
+            lambda i, shard: LoRALearner(
+                tiny_transformer(seq_len=args.seq_len, cfg=cfg, attn=args.attn, device=args.device),
+                shard,
+                batch_size=args.batch_size,
+                learning_rate=args.lr,
+            ),
+            data,
+            topology="full",
+        )
+        try:
+            sim.start().learn(rounds=args.rounds, epochs=args.epochs)
+            for addr, metrics in sim.evaluate().items():
+                print(f"{addr}: {metrics}")
+        finally:
+            sim.stop()
+
     if args.measure_time:
         print(f"elapsed: {time.monotonic() - t0:.2f}s")
 

@@ -1,7 +1,8 @@
 """Aggregator base: partial-aggregation bookkeeping around a pure kernel.
 
 Counterpart of ``p2pfl_tpu/learning/aggregators/aggregator.py`` without
-the Byzantine screen and the secure-aggregation hooks (neither is ported):
+the Byzantine screen (ROADMAP item 7) and the secure-aggregation hooks
+(item 4):
 
 - ``set_nodes_to_aggregate(train_set)`` opens the round's collection window.
 - ``add_model(update)`` accepts a model or partial aggregation:
@@ -18,7 +19,8 @@ the Byzantine screen and the secure-aggregation hooks (neither is ported):
   that never contributed is dropped from the round's coverage target.
 
 Subclasses implement one pure function, :meth:`aggregate`, over a list of
-:class:`ModelUpdate`.
+:class:`ModelUpdate`; stateful ones resync in :meth:`on_result` and
+drop their state in :meth:`reset_experiment`.
 """
 
 from __future__ import annotations
@@ -28,7 +30,14 @@ from typing import Optional
 
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
+from p2pfl_tpu_torch.ops.tree import tree_align_devices, tree_stack
 from p2pfl_tpu_torch.settings import Settings
+
+
+def stack_models(models: list[ModelUpdate]) -> dict:
+    """The contributions' params stacked on a leading node axis, each
+    moved to the first one's devices where a zero-copy peer's differ."""
+    return tree_stack([tree_align_devices(m.params, models[0].params) for m in models])
 
 
 class Aggregator:
@@ -91,8 +100,9 @@ class Aggregator:
         self._memo_gen += 1
 
     def reset_experiment(self) -> None:
-        """Experiment boundary: drop cross-round strategy state (none in
-        FedAvg)."""
+        """Experiment boundary: drop cross-round strategy state (FedOpt's
+        moments, CenteredClip's center; none in FedAvg), which the
+        per-round :meth:`clear` keeps."""
 
     # ---- collection ----
 
@@ -104,11 +114,22 @@ class Aggregator:
     def add_model(self, update: ModelUpdate, source: Optional[str] = None) -> list[str]:
         """Add a model/partial. Returns the updated contributor coverage list;
         empty when rejected (duplicate, overlapping, foreign contributor, or
-        no collection window open). ``source`` is the delivering peer."""
+        no collection window open). ``source`` is the delivering peer. A
+        strategy without partials raises on an update that carries the
+        fused round's ``partial_acc``."""
         contributors = frozenset(update.contributors)
         if not contributors:
             logger.debug(self.node_name, "Rejecting model with no contributors")
             return []
+        if not self.SUPPORTS_PARTIALS and update.partial_acc is not None:
+            # the fused round's (psum, wsum) is pre-averaged state: a
+            # robust rule needs the individual model. The stages strip it
+            # before this point, so reaching here is a caller's bug
+            raise ValueError(
+                f"({self.node_name}) {type(self).__name__} declares SUPPORTS_PARTIALS=False "
+                "but was handed a partial_acc-folded contribution: strip partial_acc or use "
+                "the staged path"
+            )
         with self._lock:
             if self._waiting:
                 # only a full aggregate is acceptable while waiting; after
@@ -226,14 +247,24 @@ class Aggregator:
                 self.node_name,
                 f"Aggregation timeout — proceeding with partial coverage {sorted(covered)} of {sorted(train)}",
             )
+        # one model is the result as it is when this node waits, when the
+        # strategy is stateless, or when it is a peer's finished aggregate
+        # (re-aggregating would step a stateful strategy twice); on_result
+        # lets a stateful strategy resync to it
         if len(models) == 1 and (
             waiting or not self.ALWAYS_AGGREGATE or len(models[0].contributors) > 1
         ):
-            return models[0]
+            return self.on_result(models[0])
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
         with dispatch_span("aggregate", self.node_name, n_models=len(models)):
             return self.aggregate(models)
+
+    def on_result(self, update: ModelUpdate) -> ModelUpdate:
+        """Hook: the round resolved to ``update`` without this node running
+        :meth:`aggregate` (waiting mode, or a peer's finished aggregate
+        arrived first). Stateful strategies resync their state here."""
+        return update
 
     def get_partial_aggregation(self, except_nodes: list[str]) -> Optional[ModelUpdate]:
         """Aggregate collected models not already covered by ``except_nodes``."""
@@ -280,3 +311,10 @@ class Aggregator:
 
     def aggregate(self, models: list[ModelUpdate]) -> ModelUpdate:
         raise NotImplementedError
+
+    @staticmethod
+    def result(params: dict, models: list[ModelUpdate]) -> ModelUpdate:
+        """``params`` as the aggregate of ``models``: every contributor,
+        the summed sample count."""
+        contributors = sorted({c for m in models for c in m.contributors})
+        return ModelUpdate(params, contributors, sum(m.num_samples for m in models))

@@ -13,8 +13,10 @@ same draws as JAX from the same seed), and an eval step. Every step is
 functional: parameters and optimizer state are replaced by new tensors,
 never updated in place, because the zero-copy weights paths hand the
 same tensors to other nodes (JAX's ``train_epoch`` does not donate params
-for the same reason). No DP-SGD, FedProx or fused round: ``TrainStage``
-takes the staged ``evaluate`` + ``fit``.
+for the same reason). The staged path (``evaluate`` + ``fit``) and the
+fused round (``fused_round``, ``parallel/spmd.py::fused_node_round``) run
+one step function, :func:`train_step` (on the card the fused round
+replays it as a captured CUDA graph), so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -143,25 +145,44 @@ def ce_eval(params: dict, module, x, y):
 # ---- the gossip Node's step math ----
 
 
-def loss_and_grads(params: dict, module, x: torch.Tensor, y: torch.Tensor):
-    """Training loss (mean CE) and its gradient tree, by autograd through
-    fresh leaves that share the params' storage (nothing is written)."""
+def loss_and_grads(params: dict, module, x: torch.Tensor, y: torch.Tensor,
+                   prox_mu: float = 0.0, anchor: Optional[dict] = None):
+    """Training loss (mean CE, plus FedProx's pull toward ``anchor`` when
+    ``prox_mu > 0``) and its gradient tree, by autograd through fresh
+    leaves that share the params' storage (nothing is written)."""
     items = list(tree_items(params))
     leaves = [p.detach().requires_grad_(True) for _, p in items]
-    logits = module(tree_unflatten({k: v for (k, _), v in zip(items, leaves)}), x)
-    loss = softmax_cross_entropy(logits, y).mean()
-    grads = torch.autograd.grad(loss, leaves)
+    tree = tree_unflatten({k: v for (k, _), v in zip(items, leaves)})
+    with torch.enable_grad():
+        loss = softmax_cross_entropy(module(tree, x), y).mean()
+        if prox_mu > 0.0:
+            loss = loss + _prox_term(tree, anchor, prox_mu)
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_unflatten({k: g for (k, _), g in zip(items, grads)})
 
 
-def train_epoch(params: dict, opt_state, xs: torch.Tensor, ys: torch.Tensor, module, tx):
+def train_step(params: dict, opt_state, x: torch.Tensor, y: torch.Tensor, module, tx,
+               prox_mu: float = 0.0, anchor: Optional[dict] = None):
+    """One optimizer step on one batch → ``(params, opt_state, loss)`` as
+    new tensors: the step of :func:`train_epoch` and of the fused round's
+    captured graph (``parallel/spmd.py::CapturedTrainStep``)."""
+    loss, grads = loss_and_grads(params, module, x, y, prox_mu, anchor)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    return apply_updates(params, updates), opt_state, loss
+
+
+def train_epoch(params: dict, opt_state, xs: torch.Tensor, ys: torch.Tensor, module, tx,
+                prox_mu: float = 0.0, anchor: Optional[dict] = None):
     """One epoch of optimizer steps over ``[nb, bs, ...]`` batches;
-    returns ``(params, opt_state, mean loss)`` as new tensors."""
+    returns ``(params, opt_state, mean loss)`` as new tensors. The one
+    step loop of the Node's learner: the staged ``fit`` and the fused
+    round both run it. ``prox_mu > 0`` adds FedProx's
+    ``μ/2·‖w − anchor‖²`` (``anchor`` defaults to the epoch's start)."""
+    if prox_mu > 0.0 and anchor is None:
+        anchor = params
     losses = []
     for b in range(xs.shape[0]):
-        loss, grads = loss_and_grads(params, module, xs[b], ys[b])
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        params, opt_state, loss = train_step(params, opt_state, xs[b], ys[b], module, tx, prox_mu, anchor)
         losses.append(loss)
     return params, opt_state, torch.stack(losses).mean()
 
@@ -199,6 +220,37 @@ class NodeLearner(ABC):
     def get_num_samples(self) -> int: ...
 
     addr: str = ""
+
+    def fused_round(self) -> Optional[ModelUpdate]:
+        """The train stage's compute as one call, or None.
+
+        Under ``Settings.ROUND_FUSED``: evaluate the incoming model, run
+        every local epoch and fold the node's own weighted partial
+        aggregate in one call, returning the own :class:`ModelUpdate`
+        with ``partial_acc`` set; the metrics stay device tensors, stashed
+        for :meth:`pop_round_metrics`. None (the default) means this
+        learner cannot fuse, and ``TrainStage`` takes the staged
+        ``evaluate()`` + ``fit()`` path.
+        """
+        return None
+
+    def pop_round_metrics(self) -> dict:
+        """Take and clear what :meth:`fused_round` stashed:
+        ``{"train_loss_series": ([E] tensor, [E] step numbers)[,
+        "test_loss", "test_acc"]}``, values as device tensors; the stage's
+        flush converts them once a round."""
+        out = getattr(self, "_round_metrics", None) or {}
+        self._round_metrics = {}
+        return out
+
+    def _test_tensors(self) -> tuple:
+        """The test split on the learner's device (``self.device``), moved
+        once and kept in ``self._test``."""
+        if getattr(self, "_test", None) is None:
+            x, y = self.data.test_arrays()
+            self._test = (torch.from_numpy(x).to(self.device), torch.from_numpy(y).to(self.device))
+        return self._test
+
     #: the node's slice of a mesh (``parallel/mesh.py::node_slices``), or
     #: None for a learner on one device; the ICI weights plane reads it
     mesh: Any = None
@@ -264,8 +316,14 @@ class TorchLearner(NodeLearner):
     The learner runs on one device: that of ``mesh``, a node's slice from
     :func:`~p2pfl_tpu_torch.parallel.mesh.node_slices` with one slot, or
     else that of the model's parameters. A slice of more than one slot
-    raises (sharded learners are ROADMAP A6). As in the reference, every
-    round starts a fresh optimizer (``set_parameters``).
+    raises (sharded learners are ROADMAP A5). As in the reference, every
+    round starts a fresh optimizer (``set_parameters``) unless
+    ``keep_opt_state``. ``prox_mu > 0`` adds FedProx's pull toward the
+    round's incoming model; ``dp_clip > 0`` trains by DP-SGD
+    (per-example clipping, Gaussian noise of multiplier ``dp_noise``,
+    an RDP accountant when there is noise). Under
+    ``Settings.ROUND_FUSED`` the Node runs :meth:`fused_round`; DP-SGD
+    and ``epochs == 0`` take the staged path.
     """
 
     def __init__(
@@ -277,6 +335,10 @@ class TorchLearner(NodeLearner):
         batch_size: int = 128,
         learning_rate: float = 1e-3,
         seed: int = 0,
+        keep_opt_state: bool = False,
+        prox_mu: float = 0.0,
+        dp_clip: float = 0.0,
+        dp_noise: float = 0.0,
         mesh=None,
     ) -> None:
         self.model = model
@@ -286,13 +348,26 @@ class TorchLearner(NodeLearner):
         self.epochs = epochs
         self.batch_size = batch_size
         self.tx = adam(learning_rate)
+        self.keep_opt_state = keep_opt_state
+        self.prox_mu = float(prox_mu)
+        self.dp_clip = float(dp_clip)
+        self.dp_noise = float(dp_noise)
+        if self.dp_noise > 0.0 and self.dp_clip <= 0.0:
+            # noise without a clip bound has no privacy meaning, and the
+            # DP path is gated on the clip: it would be ignored
+            raise ValueError("dp_noise > 0 requires dp_clip > 0")
+        self.accountant = None
+        if self.dp_clip > 0.0 and self.dp_noise > 0.0:
+            from p2pfl_tpu_torch.learning.privacy import PrivacyAccountant
+
+            self.accountant = PrivacyAccountant(self.dp_noise, min(1.0, batch_size / max(1, data.num_samples)))
         self.mesh = mesh
         if mesh is not None:
             slots = list(mesh.devices.flat)
             if len(slots) != 1:
                 raise NotImplementedError(
                     f"a learner slice of {len(slots)} slots: sharded learners are not "
-                    "ported yet (ROADMAP A6); use one slot per node"
+                    "ported yet (ROADMAP A5, with parallel/sharding.py); use one slot per node"
                 )
             self.device = resolve_device(slots[0])
         else:
@@ -303,6 +378,8 @@ class TorchLearner(NodeLearner):
         self._interrupt = threading.Event()
         self._steps_done = 0
         self._test: Optional[tuple] = None
+        #: the fused round's captured step graphs, by batch shape
+        self._graphs: dict = {}
 
     # ---- params ----
 
@@ -310,7 +387,10 @@ class TorchLearner(NodeLearner):
         _check_structure(params, self.params)
         self.params = params
         self.bump_model_version()
-        self.opt_state = self.tx.init(self.params)
+        if not self.keep_opt_state:
+            # the reference's fresh optimizer a round; keep_opt_state
+            # carries the Adam moments across rounds instead
+            self.opt_state = self.tx.init(self.params)
 
     def get_parameters(self):
         return self.params
@@ -327,28 +407,141 @@ class TorchLearner(NodeLearner):
         self.bump_model_version()
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
+        # the round's incoming model: FedProx's anchor on both paths
+        anchor = self.params if self.prox_mu > 0.0 else None
         for _ in range(self.epochs):
             if self._interrupt.is_set():
                 logger.info(self.addr, "Training interrupted")
                 return
             xs, ys = self.data.epoch_batches(self.batch_size, self._rng)
-            with dispatch_span("train_epoch", self.addr):
-                self.params, self.opt_state, loss = train_epoch(
-                    self.params, self.opt_state,
-                    torch.from_numpy(xs).to(self.device), torch.from_numpy(ys).to(self.device),
-                    self.module, self.tx,
-                )
+            xs_t, ys_t = torch.from_numpy(xs).to(self.device), torch.from_numpy(ys).to(self.device)
+            if self.dp_clip > 0.0:
+                from p2pfl_tpu_torch.learning.privacy import dp_train_epoch
+
+                # one draw of the learner's rng seeds the epoch's noise, as
+                # JAX draws its PRNG key (the noise matches in distribution)
+                gen = torch.Generator(device=self.device).manual_seed(int(self._rng.integers(2**31)))
+                with dispatch_span("train_epoch", self.addr, dp=True):
+                    self.params, self.opt_state, loss = dp_train_epoch(
+                        self.params, self.opt_state, xs_t, ys_t, gen, self.module, self.tx,
+                        self.dp_clip, self.dp_noise, prox_mu=self.prox_mu, anchor=anchor,
+                    )
+                if self.accountant is not None:
+                    self.accountant.step(xs.shape[0])
+            else:
+                with dispatch_span("train_epoch", self.addr):
+                    self.params, self.opt_state, loss = train_epoch(
+                        self.params, self.opt_state, xs_t, ys_t, self.module, self.tx,
+                        prox_mu=self.prox_mu, anchor=anchor,
+                    )
             self._steps_done += xs.shape[0]
             logger.log_metric(self.addr, "train_loss", float(loss), step=self._steps_done)
+
+    def fused_round(self) -> Optional[ModelUpdate]:
+        """Eval of the incoming model, every local epoch and the own
+        partial fold as one call (``parallel/spmd.py::fused_node_round``):
+        on a card every step one replay of a CUDA graph captured for this
+        node and its batch shape, on the CPU the eager program. The returned own
+        update carries ``partial_acc``; the metrics stay device tensors
+        for :meth:`pop_round_metrics`.
+
+        None for DP-SGD (its noise draws are ``fit``'s) and ``epochs ==
+        0``, and after an interrupt during the batch draw (the rng
+        rewound). A failed call also returns None, after rewinding the rng
+        and rebuilding a freed opt state: the round takes the staged path,
+        and the degradation is logged and counted (``fused_round_degraded``
+        comm metric)."""
+        if self.epochs == 0 or self.dp_clip > 0.0:
+            return None
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+        from p2pfl_tpu_torch.parallel.spmd import tree_has_deleted
+        from p2pfl_tpu_torch.settings import Settings
+
+        self._interrupt.clear()
+        rng_state = self._rng.bit_generator.state
+        xs_eps, ys_eps = [], []
+        for _ in range(self.epochs):
+            xs, ys = self.data.epoch_batches(self.batch_size, self._rng)
+            xs_eps.append(xs)
+            ys_eps.append(ys)
+        if self._interrupt.is_set():
+            # interrupt_fit() landed during the draw: abort before the
+            # uninterruptible call, side-effect free
+            self._rng.bit_generator.state = rng_state
+            logger.info(self.addr, "Training interrupted")
+            return None
+        x_test, y_test = self._test_tensors()
+        test = (x_test, y_test) if len(y_test) > 0 else (None, None)
+        # under secure aggregation the own contribution is masked before
+        # it enters the aggregator: an unmasked fold would bypass the mask
+        with_acc = not Settings.SECURE_AGGREGATION
+        inputs = (np.stack(xs_eps), np.stack(ys_eps), float(self.get_num_samples()), *test)
+        try:
+            with dispatch_span("fused_round", self.addr, epochs=self.epochs):
+                out = self._fused_call(inputs, with_acc, Settings.AGG_DTYPE)
+        except Exception as exc:  # noqa: BLE001 — degrade to staged, counted and logged
+            self._rng.bit_generator.state = rng_state
+            if tree_has_deleted(self.opt_state):
+                self.opt_state = self.tx.init(self.params)
+            logger.log_comm_metric(self.addr, "fused_round_degraded")
+            logger.error(
+                self.addr, f"Fused round failed ({exc!r}): rng rewound, the round takes the staged path"
+            )
+            return None
+        self.params = out["params"]
+        self.opt_state = out["opt_state"]
+        self.bump_model_version()
+        nb = xs_eps[0].shape[0]
+        base = self._steps_done
+        self._steps_done += self.epochs * nb
+        # the step numbers fit() logs its per-epoch losses at
+        metrics = {
+            "train_loss_series": (out["train_losses"], [base + (e + 1) * nb for e in range(self.epochs)])
+        }
+        if test[0] is not None:
+            metrics["test_loss"] = out["eval_loss"]
+            metrics["test_acc"] = out["eval_acc"]
+        self._round_metrics = metrics
+        update = self.get_model_update()
+        if with_acc:
+            update.partial_acc = (out["psum"], out["wsum"])
+        return update
+
+    def _fused_call(self, inputs: tuple, with_acc: bool, agg_dtype: str) -> dict:
+        """Run the fused round on ``inputs`` = (xs, ys as numpy, weight,
+        x_test, y_test): eagerly on the CPU; on a card with every step a
+        replay of this node's captured step graph for the batch shape,
+        which the first round with that shape captures."""
+        from p2pfl_tpu_torch.parallel.spmd import CapturedTrainStep, fused_node_round
+
+        kw = dict(module=self.module, tx=self.tx, prox_mu=self.prox_mu, with_acc=with_acc, agg_dtype=agg_dtype)
+        xs, ys, weight, x_test, y_test = inputs
+        dev = self.device
+        args = (self.params, self.opt_state, torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
+                torch.tensor(weight, dtype=torch.float32, device=dev), x_test, y_test)
+        if dev.type != "cuda":
+            return fused_node_round(*args, **kw)
+        # everything the capture bakes in: the batch's shapes, the step's
+        # branches, the module
+        key = (xs.shape[2:], xs.dtype.str, ys.shape[2:], self.prox_mu, id(self.module))
+        step = self._graphs.get(key)
+        if step is None:
+            from p2pfl_tpu_torch.management.telemetry import telemetry
+
+            with telemetry.span(self.addr, "fused_graph_capture", kind="dispatch"):
+                step = CapturedTrainStep(self.params, self.opt_state, args[2][0, 0], args[3][0, 0],
+                                         module=self.module, tx=self.tx, prox_mu=self.prox_mu)
+            self._graphs[key] = step
+            logger.log_comm_metric(self.addr, "fused_graph_capture")
+        else:
+            logger.log_comm_metric(self.addr, "fused_graph_replay")
+        return fused_node_round(*args, **kw, epoch=step.epoch)
 
     def interrupt_fit(self) -> None:
         self._interrupt.set()
 
     def evaluate(self) -> dict[str, float]:
-        if self._test is None:
-            x, y = self.data.test_arrays()
-            self._test = (torch.from_numpy(x).to(self.device), torch.from_numpy(y).to(self.device))
-        x, y = self._test
+        x, y = self._test_tensors()
         if len(y) == 0:
             return {}
         from p2pfl_tpu_torch.management.profiling import dispatch_span

@@ -10,6 +10,9 @@
 - Gaussian noise ``N(0, (noise · clip / B)²)`` is added to the mean, drawn
   from a ``torch.Generator``: JAX's threefry streams have no torch
   counterpart, so the noise matches JAX's in distribution only.
+- :func:`dp_train_epoch` is the gossip Node's DP epoch
+  (``TorchLearner(dp_clip=...)``); the SPMD federation calls
+  :func:`dp_grads` with its node axis.
 
 :class:`PrivacyAccountant` is plain Python math, the JAX package's
 accountant line for line, so its ε is bit-equal to JAX's.
@@ -90,6 +93,33 @@ def dp_grads(
         return mean.to(p.dtype)
 
     return tree_map(finish, clipped, params), per.detach().mean(dim=-1)
+
+
+@torch.no_grad()
+def dp_train_epoch(
+    params: dict, opt_state, xs: torch.Tensor, ys: torch.Tensor, generator: torch.Generator,
+    module, tx, clip: float, noise: float, prox_mu: float = 0.0, anchor: Optional[dict] = None,
+):
+    """One DP-SGD epoch of the gossip Node's learner over ``[nb, bs, ...]``
+    batches: :func:`dp_grads` without a node axis, the noise drawn from
+    ``generator``, one optimizer step a batch. ``prox_mu > 0`` keeps
+    FedProx's pull toward ``anchor`` inside each example's loss. Returns
+    ``(params, opt_state, mean loss)``."""
+    from p2pfl_tpu_torch.learning.learner import _loss, _prox_term, apply_updates
+
+    def loss_one(p, xi, yi, anchor_):
+        loss = _loss(p, module, xi[None], yi[None])[0]
+        if prox_mu > 0.0:
+            loss = loss + _prox_term(p, anchor_, prox_mu)
+        return loss
+
+    losses = []
+    for b in range(xs.shape[0]):
+        grads, loss = dp_grads(loss_one, params, xs[b], ys[b], clip, noise, generator, anchor=anchor)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        losses.append(loss)
+    return params, opt_state, torch.stack(losses).mean()
 
 
 class PrivacyAccountant:

@@ -738,6 +738,12 @@ class ModelUpdate:
     #: round identity of a delta-coded payload (item 4); None on the
     #: port's dense path
     anchor_tag: Optional[str] = None
+    #: the node's own fused-round accumulator ``(psum, wsum)``:
+    #: ``num_samples × params`` in ``Settings.AGG_DTYPE``, folded inside
+    #: the fused round (``parallel/spmd.py::fused_node_round``), and the
+    #: matching weight. Set only on a node's own train-stage contribution;
+    #: FedAvg continues its fold from it. Never serialized.
+    partial_acc: Optional[tuple] = None
     #: encode-once plumbing: the learner's cache and model version when
     #: this update was handed out; ``cache_round`` is stamped by
     #: ``protocol.build_weights``. Never serialized.

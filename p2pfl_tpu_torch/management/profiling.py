@@ -83,6 +83,12 @@ def reset_dispatch_counts() -> None:
     telemetry.reset_counters("dispatch")
 
 
+def snapshot_and_reset_dispatch_counts() -> dict:
+    """Read and clear the counts under one lock: a get-then-reset pair
+    loses dispatches that land between the two calls."""
+    return {k: int(v) for k, v in telemetry.snapshot_and_reset("dispatch", "").items()}
+
+
 @contextlib.contextmanager
 def dispatch_span(site: str, node: str = "", **attrs) -> Iterator[None]:
     """Wrap one model-plane call site: a ``"dispatch"``-plane span around

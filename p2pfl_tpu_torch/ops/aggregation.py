@@ -31,6 +31,41 @@ def fedavg(stacked: dict, weights: torch.Tensor, agg_dtype: str = "float32") -> 
     )
 
 
+def fedavg_fold_acc(
+    psum: dict, wsum: torch.Tensor, others: tuple, weights: torch.Tensor, ref: dict,
+    agg_dtype: str = "float32",
+) -> dict:
+    """Finish a FedAvg whose first term is a folded accumulator.
+
+    ``(psum, wsum)`` is a node's own ``weight × params`` in ``agg_dtype``
+    (folded inside the fused round, ``parallel/spmd.py::fused_node_round``);
+    ``others`` the remaining contributions' trees with ``weights`` their
+    ``[k]`` sample counts (k may be 0); ``ref`` gives the output dtypes.
+    The peers stack into one weighted contraction a leaf, added to the
+    running sum, then one divide: accumulate-then-divide, where
+    :func:`fedavg` normalizes first, so the two agree to summation-order
+    ulps in ``agg_dtype``, and bit for bit where every weight is the same
+    power of two."""
+    acc = getattr(torch, agg_dtype)
+    if others:
+        w = weights.to(device=wsum.device, dtype=acc)
+        stacked = tree_map(lambda *xs: torch.stack(xs), *others)
+        psum = tree_map(
+            lambda s, x: s + torch.tensordot(w, x.to(acc), dims=([0], [0])), psum, stacked
+        )
+        wsum = wsum + w.sum()
+    return tree_map(lambda s, r: (s / wsum).to(r.dtype), psum, ref)
+
+
+def fedavg_fold_stacked(stacked_psum: dict, stacked_wsum: torch.Tensor, ref: dict) -> dict:
+    """Finish a FedAvg from node-stacked accumulators: ``[N, ...]`` leaves
+    of per-node ``weight × params`` and their ``[N]`` weights. Reduce the
+    node axis, then divide (the :func:`fedavg_fold_acc` algebra as one
+    axis reduction); ``ref`` gives the output dtypes."""
+    wtot = stacked_wsum.sum()
+    return tree_map(lambda s, r: (s.sum(dim=0) / wtot).to(r.dtype), stacked_psum, ref)
+
+
 def median0(x: torch.Tensor) -> torch.Tensor:
     """``jnp.median(x.float(), axis=0)``: sort, ``(low + high) · 0.5`` of
     the middle pair (one value for an odd count), NaN where a column

@@ -21,7 +21,9 @@ Nothing reads a value back to the host inside a round or a fused span:
 losses and accuracies stay device tensors until the caller converts them.
 The algorithm knobs of the JAX round program are all here: FedProx,
 SCAFFOLD (fused-ci and option II), the FedOpt server step, DP-SGD, remat
-(``torch.utils.checkpoint``) and the robust aggregators. Not ported: the
+(``torch.utils.checkpoint``) and the robust aggregators. The gossip
+Node's fused round lives here too, as in JAX (:func:`fused_node_round`,
+one replayed CUDA graph a node on the card). Not ported: the
 device mesh (ROADMAP Queue A 5), ``profile_round`` and checkpoints
 (Queue A 4).
 """
@@ -30,6 +32,8 @@ from __future__ import annotations
 
 import math
 import random
+import threading
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -39,7 +43,8 @@ from torch.utils.checkpoint import checkpoint
 from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import (
-    GradientTransformation, _loss, _prox_term, adam, apply_updates, sgd, softmax_cross_entropy,
+    GradientTransformation, _loss, _prox_term, adam, apply_updates, eval_step, sgd,
+    softmax_cross_entropy, train_epoch, train_step,
 )
 from p2pfl_tpu_torch.learning.privacy import PrivacyAccountant, dp_grads
 from p2pfl_tpu_torch.models.base import TorchModel
@@ -397,6 +402,123 @@ class _CapturedSpan:
         self.sel_idx.copy_(sel_idx)
         self.graph.replay()
         return (*self.state, *(t.clone() for t in self.outs))
+
+
+# ---- the gossip Node's fused round ----
+
+
+@torch.no_grad()
+def fused_node_round(
+    params, opt_state, xs, ys, weight, x_test=None, y_test=None, *,
+    module, tx, prox_mu: float = 0.0, with_acc: bool = True, agg_dtype: str = "float32",
+    epoch=train_epoch,
+) -> dict:
+    """One overlay Node's whole round compute in one call: eval of the
+    incoming ``params`` (when test data is given), every epoch of ``xs``
+    ``[E, nb, bs, ...]`` / ``ys`` through the staged path's own step loop
+    (``learning/learner.py::train_epoch``, so fused and staged agree bit
+    for bit), and with ``with_acc`` the own fold ``psum = weight ·
+    params`` and ``wsum = weight`` in ``agg_dtype``. ``params`` is read,
+    never written: the zero-copy weights paths may hand the same tensors
+    to other nodes. ``opt_state`` is the round-carried state; ``weight``
+    a 0-d fp32 tensor of the node's sample count. Returns a dict of
+    device tensors: ``params``, ``opt_state``, ``train_losses`` [E] (each
+    epoch's mean loss), ``eval_loss``/``eval_acc``, ``psum``/``wsum``.
+    ``epoch`` runs an epoch with :func:`train_epoch`'s contract: on the
+    card a :meth:`CapturedTrainStep.epoch`."""
+    out = {}
+    if x_test is not None:
+        out["eval_loss"], out["eval_acc"] = eval_step(params, x_test, y_test, module)
+    anchor = params if prox_mu > 0.0 else None
+    losses = []
+    for e in range(xs.shape[0]):
+        params, opt_state, loss = epoch(
+            params, opt_state, xs[e], ys[e], module, tx, prox_mu=prox_mu, anchor=anchor
+        )
+        losses.append(loss)
+    out["params"], out["opt_state"] = params, opt_state
+    out["train_losses"] = torch.stack(losses)
+    if with_acc:
+        acc = getattr(torch, agg_dtype)
+        w = weight.to(acc)
+        out["psum"] = tree_map(lambda p: p.to(acc) * w, params)
+        out["wsum"] = w
+    return out
+
+
+def tree_has_deleted(tree) -> bool:
+    """True if a tensor leaf of ``tree`` lost its storage (resized to
+    zero bytes while it holds elements): the port's form of a buffer
+    consumed by a failed call."""
+    for leaf in torch.utils._pytree.tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.numel() > 0 and leaf.untyped_storage().nbytes() == 0:
+            return True
+    return False
+
+
+#: one capture at a time in the process: the Nodes' threads share a card
+_CAPTURE_LOCK = threading.Lock()
+
+
+class CapturedTrainStep:
+    """One optimizer step of a Node's fused round (``train_step``)
+    captured as a CUDA graph for one batch shape, replayed for every
+    batch of every round with that shape.
+
+    A step, not the round: capturing costs host time for every launch it
+    records, several times an eager launch's, so a round's capture would
+    cost more than a short experiment's replays save, while one step's
+    pays back inside its own round. Construction warms the step up on this thread and a
+    side stream (a cuBLAS handle and workspace, the allocator), then
+    captures it there with ``capture_error_mode="thread_local"``: the
+    other Nodes' threads keep launching on the card during a capture,
+    which the default global mode would fail. The graph reads its
+    params, opt state, batch and FedProx anchor from its own buffers and
+    writes the stepped params and opt state back into them. Replays run
+    the captured kernels, so an epoch of replays computes what
+    :func:`train_epoch` computes. A failed capture raises.
+    """
+
+    def __init__(self, params, opt_state, x, y, *, module, tx, prox_mu: float = 0.0) -> None:
+        device = x.device
+        clone = partial(torch.utils._pytree.tree_map, torch.clone)
+        self.state = clone((params, opt_state))
+        self.batch = (x.clone(), y.clone())
+        self.anchor = clone(params) if prox_mu > 0.0 else None
+
+        def body():
+            p, o, loss = train_step(*self.state, *self.batch, module, tx, prox_mu, self.anchor)
+            _copy_tree((p, o), self.state)
+            return loss
+
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            body()
+        with _CAPTURE_LOCK, torch.cuda.stream(side):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.loss = body()
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(device).wait_stream(side)
+
+    def epoch(self, params, opt_state, xs, ys, module=None, tx=None, prox_mu: float = 0.0, anchor=None):
+        """:func:`train_epoch` over ``xs``/``ys`` ``[nb, bs, ...]``, one
+        replay a batch (the module, optimizer and ``prox_mu`` are the
+        captured ones). Returns new tensors."""
+        _copy_tree((params, opt_state), self.state)
+        if self.anchor is not None:
+            _copy_tree(params if anchor is None else anchor, self.anchor)
+        losses = torch.empty(xs.shape[0], dtype=self.loss.dtype, device=self.loss.device)
+        for b in range(xs.shape[0]):
+            self.batch[0].copy_(xs[b])
+            self.batch[1].copy_(ys[b])
+            self.graph.replay()
+            losses[b].copy_(self.loss)
+        params, opt_state = torch.utils._pytree.tree_map(torch.clone, self.state)
+        return params, opt_state, losses.mean()
 
 
 def _copy_tree(src, dst) -> None:

@@ -16,7 +16,7 @@ import torch
 
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import apply_updates, softmax_cross_entropy
-from p2pfl_tpu_torch.learning.lora import _lm_loss, merge_params, split_lora
+from p2pfl_tpu_torch.learning.lora import _lm_loss, frozen_base, merge_params, split_lora
 from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 from p2pfl_tpu_torch.parallel.spmd import SpmdFederation, _aggregate
@@ -92,16 +92,6 @@ def spmd_lora_eval(stacked_lora, base, x_test, y_test, *, module):
     return ce.reshape(n, -1).mean(1), acc.reshape(n, -1).mean(1)
 
 
-def _frozen_base(base: dict, dtype: torch.dtype, device: torch.device) -> dict:
-    """Kernels and the embedding in the compute dtype, everything else as is."""
-    items = {
-        path: leaf.to(device=device, dtype=dtype)
-        if path.rsplit("/", 1)[-1] in ("kernel", "embed") else leaf.to(device)
-        for path, leaf in tree_items(base)
-    }
-    return tree_unflatten(items)
-
-
 class SpmdLoraFederation(SpmdFederation):
     """Federation over adapter subtrees; frozen base stored once."""
 
@@ -121,7 +111,7 @@ class SpmdLoraFederation(SpmdFederation):
         self.opt_state = self.tx.init(self.params)
         cfg = self.model.extra.get("config")
         dtype = cfg.dtype if cfg is not None else torch.bfloat16
-        self.base = _frozen_base(self._base_template, dtype, dev)
+        self.base = frozen_base(self._base_template, dtype, dev)
 
     def _round_kwargs(self) -> dict:
         return dict(

@@ -70,6 +70,14 @@ class Settings:
     # (exact under plain SGD, keeps no round-start params); False takes
     # option II's (x - y_i)/(K·lr) from the round-start anchor
     SCAFFOLD_FUSED_CI: bool = True
+    # the gossip Node's round compute (eval of the incoming model, every
+    # local epoch, the node's own weighted partial-aggregation fold) as
+    # one call (parallel/spmd.py::fused_node_round, driven by
+    # TorchLearner.fused_round; on a card one replayed CUDA graph a node).
+    # False keeps the staged evaluate() + fit() path, the parity baseline;
+    # learners that cannot fuse (DummyLearner, LoRALearner, DP-SGD) take
+    # it either way
+    ROUND_FUSED: bool = True
 
     # --- monitoring (management/telemetry.py) ---
     TELEMETRY_ENABLED: bool = True
@@ -153,6 +161,7 @@ def set_test_settings() -> None:
     Settings.WIRE_COMPRESSION = "none"
     Settings.WEIGHTS_PLANE = "bytes"
     Settings.SCAFFOLD_FUSED_CI = True
+    Settings.ROUND_FUSED = True
     Settings.TRAIN_SET_SIZE = 4
     Settings.VOTE_TIMEOUT = 10.0
     Settings.AGGREGATION_TIMEOUT = 10.0

@@ -1,9 +1,10 @@
 """The six stages of a federated round.
 
 Counterpart of ``p2pfl_tpu/stages/learning_stages.py`` without the
-secure-aggregation branches and the wire-codec anchors of topk8 (neither
-is ported). Semantics follow the reference, quirks included: voting happens
-only in round 0 and the elected train set is reused for every round.
+secure-aggregation branches, the wire-codec anchors of topk8 (ROADMAP
+item 4) and the Byzantine admission screen (item 7). Semantics follow
+the reference, quirks included: voting happens only in round 0 and the
+elected train set is reused for every round.
 Device work (fit / evaluate / aggregate) happens inside the learner and
 the aggregator; every ``wait`` here is a host-side event.
 """
@@ -110,6 +111,9 @@ class StartLearningStage(Stage):
         node.aggregator.reset_experiment()
         node.learner.set_epochs(node.epochs)
         node.learner.set_addr(node.addr)
+        # a metric stash left by an aborted round must not flush into this
+        # experiment's round 0
+        node.learner.pop_round_metrics()
         if not sync_initial_model(node):
             return None
         # let heartbeats flood so the full membership is known before voting
@@ -194,15 +198,30 @@ class TrainStage(Stage):
         for gone in list(state.train_set_evicted):
             node.aggregator.discard_member(gone)
 
-        # the staged path (the port has no fused round): evaluate and share
-        # metrics, train, contribute
-        broadcast_metrics(node, node.learner.evaluate())
+        # local compute. Fused (Settings.ROUND_FUSED): the eval of the
+        # incoming model, every local epoch and the own weighted partial
+        # fold in one call (one replayed CUDA graph on a card); its metrics
+        # stay device tensors until RoundFinishedStage's flush. Learners
+        # that cannot fuse return None and take the staged path, the
+        # parity baseline
+        own = None
+        if Settings.ROUND_FUSED and not node.learning_interrupted():
+            own = node.learner.fused_round()
+        if own is None:
+            broadcast_metrics(node, node.learner.evaluate())
+            if node.learning_interrupted():
+                return None
+            node.learner.fit()
+            if node.learning_interrupted():
+                return None
+            own = node.learner.get_model_update()
         if node.learning_interrupted():
             return None
-        node.learner.fit()
-        if node.learning_interrupted():
-            return None
-        own = node.learner.get_model_update()
+        if not node.aggregator.SUPPORTS_PARTIALS:
+            # robust strategies fold individual models: the fused round's
+            # pre-averaged accumulator must never reach them (add_model
+            # raises on it); own.params is the individual model either way
+            own.partial_acc = None
         covered = node.aggregator.add_model(own)
         node.protocol.broadcast(
             node.protocol.build_msg("models_aggregated", covered, round=state.round or 0)
@@ -316,11 +335,30 @@ class RoundFinishedStage(Stage):
     name = "RoundFinishedStage"
 
     @staticmethod
+    def _flush_round_metrics(node: "Node") -> None:
+        """The fused round's one metric flush a round: convert what
+        ``fused_round`` stashed (after aggregation forced the round, so
+        the conversions wait for nothing) and publish it as the staged
+        path would have: the per-epoch ``train_loss`` series into the
+        local store at ``fit``'s step numbers, the eval metrics as the
+        ``metrics`` message."""
+        metrics = node.learner.pop_round_metrics()
+        if not metrics:
+            return
+        series = metrics.pop("train_loss_series", None)
+        if series is not None:
+            losses, steps = series
+            for step, loss in zip(steps, losses.tolist()):
+                logger.log_metric(node.addr, "train_loss", float(loss), step=step)
+        broadcast_metrics(node, metrics)
+
+    @staticmethod
     def execute(node: "Node") -> Optional[Type[Stage]]:
         state = node.state
         if node.learning_interrupted():
             logger.info(node.addr, "Early stopping.")
             return None
+        RoundFinishedStage._flush_round_metrics(node)
         node.aggregator.clear()
         state.increase_round()
         logger.round_finished(node.addr)

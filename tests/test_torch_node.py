@@ -222,7 +222,7 @@ def test_learner_refuses_a_slice_of_several_slots():
     from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
 
     slices = node_slices(submesh_federation_mesh(2, model_parallel=2, devices=["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(NotImplementedError, match="A5"):
         TorchLearner(mlp(seed=0, device="cpu"), FederatedDataset.synthetic_mnist(n_train=64, n_test=16),
                      mesh=slices[0])
 
@@ -374,8 +374,10 @@ def test_federation_records_stages_spans_dispatches_and_metrics():
     nodes[0].set_start_learning(rounds=1, epochs=1)
     wait_to_finish(nodes, timeout=60)
     counts = get_dispatch_counts()
-    # each node: one epoch, an eval before training and a final eval
-    assert counts["train_epoch"] == 2 and counts["eval_step"] == 4 and counts.get("aggregate", 0) >= 1
+    # each node: one fused round (the eval before training and the epoch
+    # in one call, Settings.ROUND_FUSED) and a final eval
+    assert counts["fused_round"] == 2 and counts["eval_step"] == 2 and counts.get("aggregate", 0) >= 1
+    assert "train_epoch" not in counts
     spans = telemetry.spans()
     for node in nodes:
         stages = {s.name for s in spans if s.node == node.addr and s.kind == "stage"}

@@ -108,10 +108,10 @@ def test_entry_points_raise_without_cuda():
     # the gossip Node path: model, learner, slices, example
     from p2pfl_tpu_torch.examples.mnist import run
     from p2pfl_tpu_torch.learning.learner import DummyLearner
-    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.models.vision import cnn, mlp
     from p2pfl_tpu_torch.parallel.mesh import submesh_federation_mesh
 
-    for call in (mlp, DummyLearner, lambda: submesh_federation_mesh(2), lambda: run(nodes=2, rounds=1)):
+    for call in (mlp, cnn, DummyLearner, lambda: submesh_federation_mesh(2), lambda: run(nodes=2, rounds=1)):
         with pytest.raises(DeviceUnavailableError):
             call()
 
