@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only node_lora
     python3 chip_smoke.py --only wire
     python3 chip_smoke.py --only mnist
+    python3 chip_smoke.py --only cifar
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -113,7 +114,28 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and one round of a 4-node federation on the CPU
    against one on the card from the same init and data (bf16 bounds in
    ``MNIST_*``);
-12. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
+12. [cifar] the CIFAR vision federation (``drive_cifar``), which runs no
+   hand kernel (every count of ``_kernels.LAUNCHES`` must read 0): a
+   2-node reduced-depth ResNet round on the CPU against the card (fp32 and
+   bf16; one step's gradients and the round's SGD change by relative L2,
+   ``PAIR_REL_L2``); BASELINE config 2 (``resnet18()``, 8 nodes of the
+   synthetic-hard CIFAR-10-shaped task, batch 64, seed 3, Adam over the
+   warmup-cosine schedule with kept moments) to 70 % within 25 rounds,
+   each a captured ``run_fused(1, eval=True)``; config 2's throughput
+   point (2048 samples a node, batch 256: s/round, MFU from
+   ``round_flops``); the vmapped round (grouped convolutions) against a
+   loop over the nodes, eager and captured; a ``torch.profiler`` split of
+   an eager round (convolutions, GroupNorm, Adam's foreach passes, the
+   aggregation, the card's idle share); config 2's recipe captured against
+   eager, and a checkpoint saved after round 1 and restored into a fresh
+   federation, each bit-equal; config 4 (10 nodes, remat, 2 Byzantine
+   slots overwritten with N(0, 1)·10 each round; Krum, TrimmedMean,
+   CenteredClip and FedAvg, 10 rounds each: FedAvg must end below every
+   robust rule); ResNet-50 through ``examples/spmd_cifar.py --large``'s
+   federation (8 nodes, 2 rounds: s/round, MFU, peak memory); ``vit()``
+   (8 nodes, 2 rounds); config 6 through ``examples/heterogeneous.py``
+   (FedAvg, FedProx, SCAFFOLD, FedAdam; 8 nodes, Dirichlet(0.3), 5 rounds);
+13. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
    also each node_lora experiment, for 9 the wire phase's gRPC ICI
@@ -131,6 +153,7 @@ installed, to print its version). Weights are random, drawn from seeded
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -1924,7 +1947,423 @@ def drive_mnist() -> tuple[bool, dict]:
     return ok, summary
 
 
-PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "mnist")
+# ---- [cifar] the vision federation: BASELINE configs 2, 4 and 6, ResNet-50, the ViT ----
+
+#: config 2's synthetic-hard CIFAR-10-shaped task (``bench_suite.py:359-409``)
+CIFAR_HARD = dict(dim=(32, 32, 3), modes=8, noise=0.7, proto_scale=0.5)
+#: config 2: 8 nodes, 1024 samples a node, batch 64, seed 3; Adam over a
+#: warmup-cosine schedule (peak 3e-3, 32 warmup steps, decay over 400 to
+#: 1e-4) with kept moments; up to 25 rounds to 70 %
+C2 = dict(nodes=8, per_node=1024, batch=64, seed=3, peak=3e-3, warmup=32, decay=400, end=1e-4,
+          target=0.70, max_rounds=25)
+#: config 2's throughput point: 2048 samples a node at batch 256
+C2_THROUGHPUT = dict(per_node=2048, batch=256, rounds=3)
+#: config 4 (``bench_suite.py:601-649``): 10 nodes, 2 Byzantine, remat
+C4 = dict(nodes=10, byz=2, per_node=512, batch=64, rounds=10, trim=2, clip_tau=3.0, seed=3)
+C4_TASK = dict(dim=(32, 32, 3), modes=2, noise=0.5, proto_scale=0.7)
+#: ResNet-50 through ``examples/spmd_cifar.py --large``; the ViT at its defaults
+R50_ARGS = ["--large", "--nodes", "8", "--samples", str(8 * 2048), "--batch-size", "64"]
+R50_ROUNDS = VIT_ROUNDS = 2
+#: config 6 through ``examples/heterogeneous.py``: 4 algorithms, 8 nodes,
+#: Dirichlet(0.3), 5 rounds
+C6_ARGS = ["--nodes", "8", "--rounds", "5", "--alpha", "0.3"]
+#: the CPU-vs-card pair: a reduced-depth ResNet (stages (1, 1), full width)
+#: on 2 nodes, 4 SGD steps of 16 images; one step's gradients and the 4
+#: steps' parameter change held by relative L2 (SGD: the change is the
+#: gradients' sum, so it carries no sign flips of a first Adam step). fp32
+#: with TF32 off still reads 1.3e-4 / 1.7e-4 (cuDNN's fp32 algorithms, as
+#: Winograd's, round otherwise than the CPU's direct convolution); bf16
+#: 3.5e-3 / 5.5e-3
+CIFAR_PAIR = dict(nodes=2, steps=4, batch=16, lr=0.05)
+PAIR_REL_L2 = {"float32": 2.0 ** -10, "bfloat16": 2.0 ** -6}
+
+
+def _rel_l2(a: list, b: list) -> float:
+    num = math.sqrt(sum(float((x.double() - y.double()).square().sum()) for x, y in zip(a, b)))
+    return num / math.sqrt(sum(float(x.double().square().sum()) for x in a))
+
+
+def _sync_s(fn):
+    """(result, seconds) of ``fn()`` on the host clock, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def cifar_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
+    """A 2-node reduced-depth ResNet round on the CPU (the plain path)
+    against the same round on the card, from one init and one data, in
+    fp32 (TF32 off) and bf16: one step's gradients (``_value_and_grad`` on
+    one batch) and the parameter change of the round's 4 SGD steps, each
+    by relative L2 within ``PAIR_REL_L2``."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.base import TorchModel
+    from p2pfl_tpu_torch.models.vision import ResNet, init_resnet_params
+    from p2pfl_tpu_torch.ops.tree import tree_leaves, tree_map
+    from p2pfl_tpu_torch.parallel import spmd
+
+    n, steps, bs = CIFAR_PAIR["nodes"], CIFAR_PAIR["steps"], CIFAR_PAIR["batch"]
+    data = FederatedDataset.synthetic_mnist(n_train=n * steps * bs, n_test=n * 16, **CIFAR_HARD)
+    out: dict = {}
+    ok = True
+    for dtype in PAIR_REL_L2:
+        module = ResNet((1, 1), dtype=getattr(torch, dtype))
+        params = init_resnet_params(module, (32, 32, 3), 1, torch.device("cpu"))
+        res: dict = {}
+        for dev in devices:
+            model = TorchModel(module, tree_map(lambda x: x.to(dev), params), (32, 32, 3))
+            fed = spmd.SpmdFederation.from_dataset(
+                model, data, n_nodes=n, batch_size=bs, vote=False, seed=3, optimizer="sgd",
+                learning_rate=CIFAR_PAIR["lr"], device=dev,
+            )
+            x, y = fed.x_all[:, :bs], fed.y_all[:, :bs]
+            _, grads = spmd._value_and_grad(spmd._node_loss(module, 0.0), fed.params, x, y)
+            before = [t.clone() for t in tree_leaves(fed.params)]
+            fed.run_round()
+            res[dev] = ([g.float().cpu() for g in tree_leaves(grads)],
+                        [(a - b).float().cpu() for a, b in zip(tree_leaves(fed.params), before)], fed._nb)
+        (g_cpu, d_cpu, _), (g_card, d_card, nb) = res[devices[0]], res[devices[1]]
+        grad_err, step_err = _rel_l2(g_cpu, g_card), _rel_l2(d_cpu, d_card)
+        good = grad_err <= PAIR_REL_L2[dtype] and step_err <= PAIR_REL_L2[dtype] and nb == steps
+        ok &= good
+        out[dtype] = {"grad_rel_l2": grad_err, "change_rel_l2": step_err, "limit": PAIR_REL_L2[dtype],
+                      "steps": nb, "ok": good}
+    return ok, out
+
+
+def looped_value_and_grad(node_loss, params: dict, x, y, anchor=None, remat: bool = False):
+    """``spmd._value_and_grad`` with the nodes as a loop inside the same
+    program: each node's forward is a plain call on its own params (a view
+    of the stacked leaves, ``unbind``) and its channels-last bf16 batch, one
+    backward of the summed losses. The conv comparison swaps it in."""
+    from torch.utils.checkpoint import checkpoint
+
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_unflatten
+
+    paths = [p for p, _ in tree_items(params)]
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+
+    def losses(*lv):
+        out = []
+        for i, row in enumerate(zip(*(v.unbind(0) for v in lv))):
+            a = None if anchor is None else tree_map(lambda t: t[i], anchor)
+            out.append(node_loss(tree_unflatten(dict(zip(paths, row))), x[i], y[i], a))
+        return torch.stack(out)
+
+    with torch.enable_grad():
+        per = checkpoint(losses, *leaves, use_reentrant=False) if remat else losses(*leaves)
+        grads = torch.autograd.grad(per.sum(), leaves)
+    return per.detach(), tree_unflatten(dict(zip(paths, grads)))
+
+
+def conv_ways(fed, rounds: int = 2) -> dict:
+    """Seconds of one ResNet-18 round (no eval) two ways, in turns
+    (vmapped, looped, looped, vmapped): the round program as it is (the
+    nodes vmapped: grouped convolutions, ``groups`` = nodes) and with
+    :func:`looped_value_and_grad` in place of ``_value_and_grad``; each
+    eagerly (``run_round``, one untimed round, then ``rounds`` timed) and as
+    a captured CUDA graph (``run_fused(1)``: the capture, then ``rounds``
+    timed replays)."""
+    from p2pfl_tpu_torch.parallel import spmd
+
+    vmapped = spmd._value_and_grad
+    times: dict = {f"{w}_{m}": [] for w in ("vmapped", "looped") for m in ("eager", "captured")}
+    try:
+        for way in ("vmapped", "looped", "looped", "vmapped"):
+            spmd._value_and_grad = vmapped if way == "vmapped" else looped_value_and_grad
+            fed.run_round()
+            for _ in range(rounds):
+                times[f"{way}_eager"].append(_sync_s(fed.run_round)[1])
+            fed._spans.clear()
+            fed.run_fused(1)
+            for _ in range(rounds):
+                times[f"{way}_captured"].append(_sync_s(lambda: fed.run_fused(1))[1])
+            fed._spans.clear()
+    finally:
+        spmd._value_and_grad = vmapped
+    return {k: {"s_per_round": t, "median": statistics.median(t)} for k, t in times.items()}
+
+
+#: kernel-name keys of the profiler split (first match wins)
+SPLIT = (
+    ("conv", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad", "fprop", "nchwToNhwc", "nhwcToNchw")),
+    ("group_norm", ("group_norm", "GroupNorm", "RowwiseMoments", "ComputeFusedParams", "Compute1dBackward",
+                    "ComputeInternalGradients", "ComputeBackwardFusedParams", "GammaBeta")),
+    ("optimizer_foreach", ("multi_tensor", "foreach")),
+    ("gemm", ("gemm", "gemv", "cutlass", "sm90_")),
+)
+
+
+def round_split(fed) -> dict:
+    """``torch.profiler``'s split of one eager ResNet-18 round (no eval)
+    after a warm one: device milliseconds by kind of kernel (convolutions,
+    GroupNorm, the optimizer's foreach passes, other GEMMs, the rest) and
+    of the six costliest kernels, the aggregation's own device time
+    (``_aggregate`` and the diffusion profiled apart on the round's
+    output), and the card's idle share of the round's wall time (the
+    union of the kernels' intervals: they may overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from p2pfl_tpu_torch.ops.tree import tree_map
+    from p2pfl_tpu_torch.parallel import spmd
+
+    def device_ms(prof) -> tuple[dict, float, float, int, dict]:
+        """(ms by kind, the sum of the kernels' times, the time the card
+        was busy (the union of their intervals: kernels may overlap), the
+        count, the six costliest kernels' ms)."""
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by: dict = {}
+        top: dict = {}
+        for e in events:
+            kind = next((k for k, keys in SPLIT if any(s in e.name for s in keys)), None)
+            if kind is None:
+                kind = "copies_fills" if e.name.startswith(("Memcpy", "Memset")) else "other"
+            ms = e.time_range.elapsed_us() / 1e3
+            by[kind] = by.get(kind, 0.0) + ms
+            top[e.name[:70]] = top.get(e.name[:70], 0.0) + ms
+        busy, end = 0.0, -math.inf
+        for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+            if stop > end:
+                busy += stop - max(start, end)
+                end = stop
+        top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+        return by, sum(by.values()), busy / 1e3, len(events), top
+
+    fed.run_round()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _sync_s(fed.run_round)
+    by, total, busy, n_events, top = device_ms(prof)
+    if not n_events:
+        return {"source": "torch.profiler (no device activity seen)", "wall_ms": wall * 1e3}
+    mask, sel = fed._mask_inputs(fed._effective_mask())
+    with profile(activities=[ProfilerActivity.CUDA]) as agg_prof:
+        agg = spmd._aggregate(fed.params, mask, fed._samples, sel, fed.aggregator, fed.trim)
+        tree_map(lambda a: a[None].expand(fed.n, *a.shape).clone(), agg)
+        torch.cuda.synchronize()
+    agg_ms = device_ms(agg_prof)[1]
+    return {"source": "torch.profiler", "wall_ms": wall * 1e3, "kernel_ms_sum": total, "busy_ms": busy,
+            "kernels": n_events, "by_kind_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": top,
+            "aggregation_ms (profiled apart)": agg_ms, "idle_share": 1 - busy / (wall * 1e3)}
+
+
+def _config2_fed(seed: int = 0, per_node: int = C2["per_node"], batch: int = C2["batch"], recipe: bool = True):
+    """Config 2's federation: ``resnet18(seed)`` on 8 nodes of the
+    synthetic-hard CIFAR-10-shaped task; the recipe (``recipe``) is Adam
+    over the warmup-cosine schedule with kept moments, else the default
+    Adam at 1e-3 (the throughput point, as ``bench_suite.py`` builds it)."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.optimizers import adam, warmup_cosine_decay_schedule
+    from p2pfl_tpu_torch.models.vision import resnet18
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    data = FederatedDataset.synthetic_mnist(n_train=C2["nodes"] * per_node, n_test=1024, **CIFAR_HARD)
+    kw = dict(n_nodes=C2["nodes"], batch_size=batch, vote=False, seed=C2["seed"])
+    if recipe:
+        sched = warmup_cosine_decay_schedule(0.0, C2["peak"], C2["warmup"], C2["decay"], C2["end"])
+        kw.update(tx=adam(sched), keep_opt_state=True)
+    return SpmdFederation.from_dataset(resnet18(seed=seed), data, **kw)
+
+
+def config2_target() -> tuple[bool, dict]:
+    """Config 2 to 70 %: each round one ``run_fused(1, eval=True)`` (the
+    recipe is capturable: the first round captures the round program as a
+    CUDA graph, the others replay it), the accuracy read each round, up
+    to 25 rounds; the seconds include the capture."""
+    fed = _config2_fed()
+    torch.cuda.reset_peak_memory_stats()
+    curve, losses = [], []
+    rounds_to = seconds_to = None
+    t0 = time.perf_counter()
+    for r in range(C2["max_rounds"]):
+        entry = fed.run_fused(1, eval=True)[0]
+        acc = float(entry["test_acc"])
+        curve.append(acc)
+        losses.append(float(entry["train_loss"]))
+        if acc >= C2["target"]:
+            rounds_to, seconds_to = r + 1, time.perf_counter() - t0
+            break
+    out = {"rounds_to_70": rounds_to, "seconds_to_70": seconds_to, "accuracy_curve": curve,
+           "train_losses": losses, "steps_a_round": fed._nb, "captured": fed._capturable(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    return rounds_to is not None and all(map(math.isfinite, curve + losses)), out
+
+
+def config2_throughput() -> dict:
+    """Config 2's throughput point: 2048 samples a node at batch 256, the
+    default Adam; s/round of eager rounds after a warm one, and MFU from
+    ``round_flops`` over the bf16 peak."""
+    fed = _config2_fed(per_node=C2_THROUGHPUT["per_node"], batch=C2_THROUGHPUT["batch"], recipe=False)
+    fed.run_round()
+    torch.cuda.reset_peak_memory_stats()
+    secs = [_sync_s(fed.run_round)[1] for _ in range(C2_THROUGHPUT["rounds"])]
+    s = statistics.median(secs)
+    flops = fed.round_flops()
+    return {"s_per_round": secs, "median_s": s, "flops_per_round": flops, "mfu": flops / s / PEAK_BF16_FLOPS,
+            "steps_a_round": fed._nb, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def config2_graph_and_resume() -> tuple[bool, dict]:
+    """On config 2's recipe: a one-round span captured as a CUDA graph
+    against the same span run eagerly (``graph_vs_eager``, bit-equal), and
+    a checkpoint: save after round 1, restore into a fresh federation (other
+    init), and round 2 must be bit-equal to the run that never stopped
+    (params, Adam state, loss), the restored state on the card."""
+    import tempfile
+
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    graph_ok, graph = graph_vs_eager(_config2_fed(), 1)
+    a = _config2_fed()
+    a.run_round()
+    with tempfile.TemporaryDirectory() as tmp:
+        a.save(tmp)
+        want = a.run_round()["train_loss"]
+        b = _config2_fed(seed=1)
+        b.restore(tmp)
+    on_card = all(x.is_cuda for x in tree_leaves(b.params))
+    got = b.run_round()["train_loss"]
+    state = lambda f: torch.utils._pytree.tree_leaves((f.params, f.opt_state))  # noqa: E731
+    same = torch.equal(want, got) and all(torch.equal(x, y) for x, y in zip(state(a), state(b)))
+    resume = {"bit_equal": same, "round": b.round, "restored_on_card": on_card}
+    return graph_ok and same and on_card and b.round == 2, {"graph_vs_eager": graph, "resume": resume}
+
+
+def config4() -> tuple[bool, dict]:
+    """Config 4: 10 nodes with ``remat``, the first 2 slots overwritten
+    with N(0, 1)·10 before every round (one seeded draw per leaf, the same
+    every round, as JAX's fixed key); 10 rounds each of Krum, TrimmedMean
+    (trim 2), CenteredClip (τ 3) and FedAvg, the accuracy after the last
+    and s/round of rounds 2-10. FedAvg, the undefended control, must end
+    below every robust rule."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.vision import resnet18
+    from p2pfl_tpu_torch.ops.tree import tree_map
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    n, byz = C4["nodes"], C4["byz"]
+    data = FederatedDataset.synthetic_mnist(n_train=n * C4["per_node"], n_test=1024, **C4_TASK)
+    results = {}
+    for agg in ("krum", "trimmed_mean", "clip", "fedavg"):
+        fed = SpmdFederation.from_dataset(
+            resnet18(), data, n_nodes=n, batch_size=C4["batch"], vote=False, aggregator=agg,
+            trim=C4["trim"], clip_tau=C4["clip_tau"], seed=C4["seed"], remat=True,
+        )
+        secs = []
+        for _ in range(C4["rounds"]):
+            gen = torch.Generator(fed.device).manual_seed(0)
+
+            def attack(x, gen=gen):
+                x = x.clone()
+                x[:byz] = torch.randn(x.shape[1:], generator=gen, device=x.device, dtype=x.dtype) * 10.0
+                return x
+
+            fed.params = tree_map(attack, fed.params)
+            secs.append(_sync_s(fed.run_round)[1])
+        results[agg] = {"acc": fed.evaluate()["test_acc"], "s_per_round": statistics.mean(secs[1:])}
+        del fed
+    fedavg = results["fedavg"]["acc"]
+    ok = all(fedavg < results[a]["acc"] for a in ("krum", "trimmed_mean", "clip"))
+    return ok, results
+
+
+def resnet50_rounds() -> tuple[bool, dict]:
+    """ResNet-50 at 100 classes through ``examples/spmd_cifar.py --large``'s
+    federation (8 nodes resident, 2048 samples a node, batch 64, Dirichlet
+    0.5): 2 rounds, each ``run_round`` + ``evaluate`` as the example runs
+    them; s/round, MFU of the round and peak memory."""
+    from p2pfl_tpu_torch.examples import spmd_cifar
+
+    fed = spmd_cifar.make_federation(spmd_cifar.parse_args(R50_ARGS))
+    torch.cuda.reset_peak_memory_stats()
+    secs, accs = [], []
+    for _ in range(R50_ROUNDS):
+        _, s = _sync_s(fed.run_round)
+        secs.append(s)
+        accs.append(fed.evaluate()["test_acc"])
+    flops = fed.round_flops()
+    out = {"s_per_round": secs, "flops_per_round": flops, "mfu_round_2": flops / secs[-1] / PEAK_BF16_FLOPS,
+           "steps_a_round": fed._nb, "accs": accs, "params": fed.model.param_count,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    return all(map(math.isfinite, accs)), out
+
+
+def vit_rounds() -> tuple[bool, dict]:
+    """``vit()`` at its defaults (patch 4, dim 64, depth 4, 4 heads) on
+    config 2's data: 8 nodes, batch 64, 2 rounds with eval."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.vision import vit
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    data = FederatedDataset.synthetic_mnist(n_train=C2["nodes"] * C2["per_node"], n_test=1024, **CIFAR_HARD)
+    fed = SpmdFederation.from_dataset(vit(), data, n_nodes=C2["nodes"], batch_size=C2["batch"], vote=False, seed=3)
+    secs, accs = [], []
+    for _ in range(VIT_ROUNDS):
+        entry, s = _sync_s(lambda: fed.run_round(eval=True))
+        secs.append(s)
+        accs.append(float(entry["test_acc"]))
+    flops = fed.round_flops()
+    return all(map(math.isfinite, accs)), {"s_per_round": secs, "accs": accs, "flops_per_round": flops,
+                                            "mfu_round_2": flops / secs[-1] / PEAK_BF16_FLOPS}
+
+
+def config6() -> tuple[bool, dict]:
+    """Config 6 through ``examples/heterogeneous.py``: FedAvg, FedProx,
+    SCAFFOLD and FedAdam on 8 MLP nodes over Dirichlet(0.3) shards, 5
+    rounds each; the curves and the seconds of the whole drive."""
+    from p2pfl_tpu_torch.examples import heterogeneous
+
+    with contextlib.redirect_stdout(sys.stderr):  # stdout ends with the result lines
+        curves, s = _sync_s(lambda: heterogeneous.main(C6_ARGS))
+    ok = all(len(c) == 5 and all(map(math.isfinite, c)) for c in curves.values())
+    return ok, {"curves": curves, "seconds": s}
+
+
+def drive_cifar() -> tuple[bool, dict]:
+    """The vision federation on the card (``cifar``): the CPU-vs-card pair;
+    config 2 to 70 % (captured rounds), its throughput point, the vmapped
+    against the looped conv round and the profiler split of an eager
+    round; the captured span and a resumed checkpoint bit-equal; config 4's
+    four rules under attack; ResNet-50 and the ViT; config 6. The path
+    launches no hand kernel: every count of ``_kernels.LAUNCHES`` must read 0."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    parts: dict = {}
+    checks: dict = {}
+    t = time.perf_counter()
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        good, parts[name] = fn()
+        checks[name] = good
+        parts[name]["part_s"] = time.perf_counter() - t0
+        log(f"[cifar] {name}: {json.dumps(parts[name])} {'OK' if good else 'FAIL'}")
+
+    part("pair", cifar_pair)
+    part("config2", config2_target)
+    part("config2_throughput", lambda: (True, config2_throughput()))
+    fed = _config2_fed()
+    part("conv_vmapped_vs_looped", lambda: (True, conv_ways(fed)))
+    part("split", lambda: (True, round_split(fed)))
+    del fed
+    part("graph_and_resume", config2_graph_and_resume)
+    part("config4", config4)
+    part("resnet50", resnet50_rounds)
+    part("vit", vit_rounds)
+    part("config6", config6)
+    hand = dict(_kernels.LAUNCHES)
+    checks["no hand kernel launched"] = sum(hand.values()) == 0
+    summary = {"checks": checks, "hand_kernel_launches": hand, "seconds": time.perf_counter() - t}
+    ok = all(checks.values())
+    log(f"[cifar] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, {"parts": parts, **summary}
+
+
+PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "mnist", "cifar")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 
@@ -2018,6 +2457,9 @@ def main(argv=None) -> int:
                   ("ici_exchange",))
     if "mnist" in args.only:
         good, _ = timed("mnist", drive_mnist)
+        ok &= good
+    if "cifar" in args.only:
+        good, _ = timed("cifar", drive_cifar)
         ok &= good
     if "exchange_peer" in args.only:
         ok &= timed("exchange_peer", check_exchange_peer, {})

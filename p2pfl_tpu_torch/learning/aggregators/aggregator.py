@@ -2,7 +2,7 @@
 
 Counterpart of ``p2pfl_tpu/learning/aggregators/aggregator.py`` without
 the Byzantine screen (ROADMAP item 7) and the secure-aggregation hooks
-(item 4):
+(item 4b):
 
 - ``set_nodes_to_aggregate(train_set)`` opens the round's collection window.
 - ``add_model(update)`` accepts a model or partial aggregation:

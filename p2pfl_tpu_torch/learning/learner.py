@@ -4,7 +4,9 @@
 optax writes them, bias correction in fp32 from a step count kept on the
 device, ``eps`` outside the square root, updates scaled by ``-lr`` and
 added to the params) and work elementwise, so a node-stacked ``[N, ...]``
-tree steps every node at once.
+tree steps every node at once. ``lr`` is a float or a schedule of the
+device-side step count; ``learning/optimizers.py`` builds the optimizer
+zoo and the schedules on these two.
 
 :class:`TorchLearner` is the gossip Node's learner, the counterpart of
 ``JaxLearner``: one Adam step per batch of an epoch drawn by
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import threading
 from abc import ABC, abstractmethod
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -36,18 +38,41 @@ from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_str
 
 class AdamState(NamedTuple):
     #: int32 step count, a 0-d tensor on the params' device: the bias
-    #: correction is computed there, so a step copies nothing from the host
+    #: correction and a schedule are computed there, so a step copies
+    #: nothing from the host
     count: torch.Tensor
     mu: dict
     nu: dict
 
 
+class SgdState(NamedTuple):
+    """SGD's state where it has one: the step count a schedule reads and
+    the momentum trace (``{}`` without momentum)."""
+
+    count: torch.Tensor
+    trace: dict
+
+
 class GradientTransformation(NamedTuple):
     """optax's ``(init, update)`` pair; ``update(grads, state, params)``
-    returns ``(updates, new_state)``."""
+    returns ``(updates, new_state)``.
+
+    ``capturable``: every update is device work on tensor state, reading
+    nothing back to the host, so a span of steps may be captured as a CUDA
+    graph. The port's constructors set it; a caller's pair defaults to
+    False. ``node_stacked``: the same transform over node-stacked trees
+    ``[N, ...]`` where it differs (a global norm is taken per node), None
+    for an elementwise transform, which steps a stacked tree as it is."""
 
     init: Callable
     update: Callable
+    capturable: bool = False
+    node_stacked: Optional["GradientTransformation"] = None
+
+
+#: a learning rate: a float, or a schedule, a function of the int32 step
+#: count (a 0-d tensor on the device) that returns a 0-d fp32 tensor there
+LearningRate = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 
 def _paths_leaves(tree: dict) -> tuple[list, list]:
@@ -55,24 +80,35 @@ def _paths_leaves(tree: dict) -> tuple[list, list]:
     return [p for p, _ in items], [x for _, x in items]
 
 
+def _step_size(lr: LearningRate, count: torch.Tensor):
+    """optax's ``scale_by_learning_rate``: ``-lr``, or ``-lr(count)`` from
+    the count before this step (a schedule's first step reads count 0)."""
+    return -lr(count) if callable(lr) else -lr
+
+
+def _zero_count(params: dict) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+
+
 def adam(
-    lr: float = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+    lr: LearningRate = 1e-3, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+    weight_decay: float = 0.0,
 ) -> GradientTransformation:
-    """optax's ``adam``: each arithmetic step is one ``torch._foreach_*`` op
-    over every leaf (one launch for the tree on the card), in optax's
-    order and rounding, so the tree steps as the per-leaf form would.
-    The bias correction ``1 - b**count`` is computed on the device in
-    fp32; it agrees with XLA's to an ulp (neither ``pow`` is correctly
-    rounded)."""
+    """optax's ``adam`` (``adamw`` with ``weight_decay > 0``): each
+    arithmetic step is one ``torch._foreach_*`` op over every leaf (one
+    launch for the tree on the card), in optax's order and rounding, so
+    the tree steps as the per-leaf form would. The bias correction
+    ``1 - b**count`` is computed on the device in fp32; it agrees with
+    XLA's to an ulp (neither ``pow`` is correctly rounded). ``lr`` is a
+    float or a schedule (:data:`LearningRate`); ``weight_decay`` adds
+    ``wd · params`` to the scaled moments before the learning rate, as
+    optax's ``add_decayed_weights``."""
 
     def init(params: dict) -> AdamState:
         zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-        device = tree_leaves(params)[0].device
-        count = torch.zeros((), dtype=torch.int32, device=device)
-        return AdamState(count, zeros, tree_map(torch.clone, zeros))
+        return AdamState(_zero_count(params), zeros, tree_map(torch.clone, zeros))
 
     def update(grads: dict, state: AdamState, params=None):
-        del params
         paths, g = _paths_leaves(grads)
         mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1), torch._foreach_mul(tree_leaves(state.mu), b1))
         g2 = torch._foreach_mul(g, g)
@@ -80,26 +116,47 @@ def adam(
         count = state.count + 1
         bc1, bc2 = 1 - b1 ** count.float(), 1 - b2 ** count.float()
         den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
-        updates = torch._foreach_mul(torch._foreach_div(torch._foreach_div(mu, bc1), den), -lr)
+        updates = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        if weight_decay:
+            updates = torch._foreach_add(updates, torch._foreach_mul(tree_leaves(params), weight_decay))
+        updates = torch._foreach_mul(updates, _step_size(lr, state.count))
 
         def tree(leaves):
             return tree_unflatten(dict(zip(paths, leaves)))
 
         return tree(updates), AdamState(count, tree(mu), tree(nu))
 
-    return GradientTransformation(init, update)
+    return GradientTransformation(init, update, capturable=True)
 
 
-def sgd(lr: float = 1e-3) -> GradientTransformation:
-    """optax's ``sgd`` without momentum: updates ``-lr · g`` in the
-    gradient's dtype, an empty state. SCAFFOLD's variate update assumes it."""
+def sgd(lr: LearningRate = 1e-3, momentum: Optional[float] = None, nesterov: bool = False) -> GradientTransformation:
+    """optax's ``sgd``: updates ``-lr · g`` in the gradient's dtype; with
+    ``momentum`` optax's ``trace`` first (``t = g + m·t``, the update ``t``,
+    or ``g + m·t`` under Nesterov). Plain SGD at a constant rate keeps an
+    empty state (SCAFFOLD's variate update assumes it); a schedule or
+    momentum keeps :class:`SgdState`."""
+    stateful = momentum is not None or callable(lr)
 
-    def update(grads: dict, state: tuple, params=None):
+    def init(params: dict):
+        if not stateful:
+            return ()
+        trace = tree_map(torch.zeros_like, params) if momentum is not None else {}
+        return SgdState(_zero_count(params), trace)
+
+    def update(grads: dict, state, params=None):
         del params
         paths, g = _paths_leaves(grads)
-        return tree_unflatten(dict(zip(paths, torch._foreach_mul(g, -lr)))), state
+        if not stateful:
+            return tree_unflatten(dict(zip(paths, torch._foreach_mul(g, -lr)))), state
+        trace = state.trace
+        if momentum is not None:
+            t = torch._foreach_add(g, torch._foreach_mul(tree_leaves(state.trace), momentum))
+            g = torch._foreach_add(g, torch._foreach_mul(t, momentum)) if nesterov else t
+            trace = tree_unflatten(dict(zip(paths, t)))
+        updates = torch._foreach_mul(g, _step_size(lr, state.count))
+        return tree_unflatten(dict(zip(paths, updates))), SgdState(state.count + 1, trace)
 
-    return GradientTransformation(lambda params: (), update)
+    return GradientTransformation(init, update, capturable=True)
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
@@ -196,7 +253,7 @@ def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor, module):
 
 class NodeLearner(ABC):
     """Template for node learners (JAX ``NodeLearner``, without the wire
-    anchors and error feedback of the int8/topk8 codecs, ROADMAP item 4)."""
+    anchors and error feedback of the int8/topk8 codecs, ROADMAP item 4b)."""
 
     @abstractmethod
     def set_parameters(self, params: Any) -> None: ...

@@ -27,7 +27,7 @@ Devices: encoding pulls each leaf to the host with a synchronous
 ``.cpu()`` (it waits for the stream that wrote the params); decoding
 lands every leaf on the device the caller names (the receiving learner's).
 Only ``Settings.WIRE_COMPRESSION="none"`` is ported: the int8/topk8
-producers, their anchors and error feedback are ROADMAP Queue A item 4,
+producers, their anchors and error feedback are ROADMAP Queue A item 4b,
 and a peer's int8 or topk8 frame raises
 :class:`~p2pfl_tpu_torch.exceptions.UnsupportedByPortError` naming it.
 
@@ -141,7 +141,7 @@ class PayloadCache:
     def ef_fold_once(self, key: tuple) -> bool:
         """True exactly once per content key: the caller that gets True
         owns the error-feedback fold of that content (the topk8 producers
-        of ROADMAP item 4 claim it through :meth:`ModelUpdate.ef_fold_key`)."""
+        of ROADMAP item 4b claim it through :meth:`ModelUpdate.ef_fold_key`)."""
         with self._lock:
             if key in self._ef_marks:
                 return False
@@ -405,7 +405,7 @@ def _check_compression(compression: Optional[str]) -> None:
     if mode != "none":
         raise UnsupportedByPortError(
             f"WIRE_COMPRESSION={mode!r} on a byte path: the int8/topk8 codecs are not "
-            "ported (ROADMAP Queue A item 4)"
+            "ported (ROADMAP Queue A item 4b)"
         )
 
 
@@ -483,7 +483,7 @@ def _leaf_meta(e: dict) -> tuple[torch.dtype, int]:
     if "enc" in e:
         raise UnsupportedByPortError(
             f"{e['k']}: a {e['enc']!r} (int8/topk8) leaf: decoding lossy payloads is "
-            "ROADMAP Queue A item 4"
+            "ROADMAP Queue A item 4b"
         )
     dtype = _TORCH_DTYPES.get(e["dtype"])
     if dtype is None:
@@ -735,7 +735,7 @@ class ModelUpdate:
     xp: Optional[str] = None
     version: Optional[tuple] = None
     sp: Optional[tuple] = None
-    #: round identity of a delta-coded payload (item 4); None on the
+    #: round identity of a delta-coded payload (item 4b); None on the
     #: port's dense path
     anchor_tag: Optional[str] = None
     #: the node's own fused-round accumulator ``(psum, wsum)``:

@@ -1,1 +1,14 @@
-"""models of the PyTorch port (see the JAX package's module of the same path)."""
+"""Model zoo of the PyTorch port (counterpart of ``p2pfl_tpu/models``):
+parameter-free modules bound to parameter trees in flax's layout.
+
+The reference's MLP and CNN (MNIST), ResNet-18/50 and the ViT (CIFAR
+shapes); the transformer is ``models/transformer.py``.
+"""
+
+from p2pfl_tpu_torch.models.base import TorchModel
+from p2pfl_tpu_torch.models.vision import CNN, MLP, ResNet, ViT, cnn, mlp, resnet18, resnet50, vit
+
+__all__ = [
+    "TorchModel", "MLP", "CNN", "ResNet", "ViT",
+    "mlp", "cnn", "resnet18", "resnet50", "vit",
+]

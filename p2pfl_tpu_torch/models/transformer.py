@@ -183,11 +183,11 @@ class CausalLM(nn.Module):
         super().__init__()
         if cfg.n_experts > 0:
             raise NotImplementedError(
-                "MoE FFN is not ported yet (ROADMAP Queue A 7: transformer breadth)"
+                "MoE FFN is not ported yet (ROADMAP Queue A item 6: transformer breadth)"
             )
         if cfg.remat:
             raise NotImplementedError(
-                "remat is not ported yet (ROADMAP Queue A 7: torch.utils.checkpoint)"
+                "remat is not ported yet (ROADMAP Queue A item 6: torch.utils.checkpoint)"
             )
         self.cfg = cfg
         self.layers = nn.ModuleList(Block(cfg, attn_fn) for _ in range(cfg.n_layers))
@@ -231,7 +231,7 @@ def resolve_attention(
     if attn == "auto":
         raise NotImplementedError(
             "attn='auto' is not ported yet: it waits for a crossover measured "
-            "on the card (ROADMAP Queue A7, pick_attention)"
+            "on the card (ROADMAP Queue A item 6, pick_attention)"
         )
     raise ValueError(f"unknown attention backend {attn!r} (dense|flash|ring|ring_flash)")
 

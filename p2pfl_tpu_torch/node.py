@@ -68,7 +68,7 @@ def _check_supported() -> None:
     """Refuse, before anything runs, what the port does not do yet."""
     if Settings.SECURE_AGGREGATION:
         raise UnsupportedByPortError(
-            "SECURE_AGGREGATION=True: secure aggregation is not ported (ROADMAP Queue A item 4)"
+            "SECURE_AGGREGATION=True: secure aggregation is not ported (ROADMAP Queue A item 4b)"
         )
     if Settings.WEIGHTS_PLANE not in ("bytes", "ici"):
         raise UnsupportedByPortError(
@@ -78,7 +78,7 @@ def _check_supported() -> None:
     if Settings.WIRE_COMPRESSION != "none":
         raise UnsupportedByPortError(
             f"WIRE_COMPRESSION={Settings.WIRE_COMPRESSION!r} on the {Settings.WEIGHTS_PLANE} plane: "
-            "the int8/topk8 codecs are not ported (ROADMAP Queue A item 4)"
+            "the int8/topk8 codecs are not ported (ROADMAP Queue A item 4b)"
         )
 
 

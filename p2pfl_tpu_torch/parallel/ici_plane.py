@@ -9,7 +9,7 @@ without the data visiting the host.
   sharding, so the slice comes from the learner (its ``mesh``), not from
   the leaves; the leaves are only checked against it. Every leaf is
   whole on the slice's one slot (replicated, spec ``()``): the port's
-  learners hold one slot (ROADMAP A6).
+  learners hold one slot (ROADMAP Queue A item 5).
 - Identity is by slot (``Mesh.slot_keys``), never by ``tensor.device``:
   on one card every tensor is on ``cuda:0``, and keying on the device
   would make every send a co-resident handoff. Two slices are the SAME

@@ -78,6 +78,9 @@ class Settings:
     # learners that cannot fuse (DummyLearner, LoRALearner, DP-SGD) take
     # it either way
     ROUND_FUSED: bool = True
+    # retention of learning/checkpoint.py's save_state: keep the newest N
+    # step directories; 0 = unbounded
+    CHECKPOINT_KEEP_N: int = 0
 
     # --- monitoring (management/telemetry.py) ---
     TELEMETRY_ENABLED: bool = True
@@ -98,7 +101,7 @@ class Settings:
     # receivers sniff every frame, so mixed fleets interoperate
     WIRE_FORMAT: str = "envelope"
     # wire compression of model payloads: only "none" is ported (the
-    # int8/topk8 codecs are ROADMAP Queue A item 4); anything else raises
+    # int8/topk8 codecs are ROADMAP Queue A item 4b); anything else raises
     # at Node.start and in the encoder
     WIRE_COMPRESSION: str = "none"
     # streaming byte plane: a payload estimated at or above
@@ -162,6 +165,7 @@ def set_test_settings() -> None:
     Settings.WEIGHTS_PLANE = "bytes"
     Settings.SCAFFOLD_FUSED_CI = True
     Settings.ROUND_FUSED = True
+    Settings.CHECKPOINT_KEEP_N = 0
     Settings.TRAIN_SET_SIZE = 4
     Settings.VOTE_TIMEOUT = 10.0
     Settings.AGGREGATION_TIMEOUT = 10.0

@@ -2,7 +2,7 @@
 
 Counterpart of ``p2pfl_tpu/stages/learning_stages.py`` without the
 secure-aggregation branches, the wire-codec anchors of topk8 (ROADMAP
-item 4) and the Byzantine admission screen (item 7). Semantics follow
+item 4b) and the Byzantine admission screen (item 7). Semantics follow
 the reference, quirks included: voting happens only in round 0 and the
 elected train set is reused for every round.
 Device work (fit / evaluate / aggregate) happens inside the learner and

@@ -49,6 +49,9 @@ def test_import_purity_in_a_fresh_process():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BAD []" in proc.stdout
     assert len(mods) >= 15
+    # the vision slice's modules are among those imported
+    assert {"p2pfl_tpu_torch.learning.optimizers", "p2pfl_tpu_torch.learning.checkpoint",
+            "p2pfl_tpu_torch.examples.spmd_cifar", "p2pfl_tpu_torch.examples.heterogeneous"} <= set(mods)
 
 
 @pytest.mark.parametrize(
