@@ -8,6 +8,9 @@
     python3 chip_smoke.py --only wire
     python3 chip_smoke.py --only mnist
     python3 chip_smoke.py --only cifar
+    python3 chip_smoke.py --only chunked nameplate
+    python3 chip_smoke.py --only chunked_target      # config 3 to 50 %
+    python3 chip_smoke.py --only nameplate_target    # config 5's recipe to 0.65
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -135,12 +138,33 @@ Phases, each of which makes the script exit non-zero if it fails (the
    federation (8 nodes, 2 rounds: s/round, MFU, peak memory); ``vit()``
    (8 nodes, 2 rounds); config 6 through ``examples/heterogeneous.py``
    (FedAvg, FedProx, SCAFFOLD, FedAdam; 8 nodes, Dirichlet(0.3), 5 rounds);
-13. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
+13. [chunked] BASELINE config 3 through ``ChunkedFederation``
+   (``drive_chunked``), no hand kernel: a reduced chunked federation on
+   the CPU against the card (fp32, SGD, ``PAIR_REL_L2``); the serial,
+   fused-eager and captured fused paths bit-equal on the card; then 64
+   ``resnet50()`` nodes (100 classes) in chunks of 16 on Dirichlet(0.5)
+   shards, batch 32, remat, Adam over the warmup-cosine schedule with
+   averaged moments: a warm-up round (the chunk graph's capture), 3 timed
+   rounds, MFU of model and executed FLOPs, peak memory, the serial path
+   against the overlapped one, ``torch.profiler``'s split of one chunk;
+14. [nameplate] BASELINE config 5 at its 32 nodes (``drive_nameplate``):
+   the 0.98B LM with ``remat_policy="mlp_qkv"``, ``node_chunk=4``, batch
+   1, 8 steps a round, a random base: a warm-up round and 2 timed rounds,
+   then ``evaluate``; kernels 1 and 2 launched exactly as the code counts
+   (every other kernel at 0) and held against their plain versions on one
+   layer's backward inputs; ``mlp_qkv`` against no remat at 2 layers;
+   s/round, peak memory, MFU of model and executed FLOPs;
+15. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
-   also each node_lora experiment, for 9 the wire phase's gRPC ICI
-   drive); then the
+   also each node_lora experiment and the nameplate drive, for 9 the
+   wire phase's gRPC ICI drive); then the
    ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.
+
+``--only chunked_target`` runs config 3 to 50 % (at most 60 rounds) and
+``--only nameplate_target`` config 5's full recipe (400 Adafactor steps
+pretraining the base, then at most 16 rounds to 0.65): minutes each, so
+never by default.
 
 ``--only exchange_peer`` (never run by default: it needs two cards) times
 kernel 9 storing from cuda:0 into cuda:1's memory over NVLink.
@@ -1244,6 +1268,12 @@ def check_exchange(results: dict) -> bool:
         results[name] = row
         del srcs, dsts, refs
     torch.cuda.empty_cache()
+    # the floor of any one launch: an empty kernel's device time (a sleep
+    # of 0 cycles), beside the MLP tree's bound
+    empty = time_device_ms(lambda: torch.cuda._sleep(0))
+    results["mlp_fp32"]["empty_launch_device_ms"] = empty
+    log(f"[exchange] an empty kernel's launch: {empty:.5f} ms of device time "
+        f"(the MLP tree's bound {results['mlp_fp32']['bound_ms']:.6f} ms)")
     return ok
 
 
@@ -1970,12 +2000,19 @@ C6_ARGS = ["--nodes", "8", "--rounds", "5", "--alpha", "0.3"]
 #: the CPU-vs-card pair: a reduced-depth ResNet (stages (1, 1), full width)
 #: on 2 nodes, 4 SGD steps of 16 images; one step's gradients and the 4
 #: steps' parameter change held by relative L2 (SGD: the change is the
-#: gradients' sum, so it carries no sign flips of a first Adam step). fp32
-#: with TF32 off still reads 1.3e-4 / 1.7e-4 (cuDNN's fp32 algorithms, as
-#: Winograd's, round otherwise than the CPU's direct convolution); bf16
-#: 3.5e-3 / 5.5e-3
+#: gradients' sum, so it carries no sign flips of a first Adam step). The
+#: fp32 limit is set from the per-convolution check (``_conv_gaps``, H100):
+#: each convolution's forward, dgrad and wgrad alone agree with the CPU's
+#: to 3e-6 with TF32 off (2.5e-4 to 7.8e-4 with it on), while the whole
+#: pair reads 1.3e-4 / 1.7e-4 (the chunked pair 4.4e-4) off and 3.0e-3 /
+#: 5.0e-3 on: the gap grows along the backward, not in one convolution.
+#: 2^-10 lies between: the TF32 mutation fails it (``cifar_pair``). bf16
+#: reads 3.5e-3 / 5.5e-3
 CIFAR_PAIR = dict(nodes=2, steps=4, batch=16, lr=0.05)
 PAIR_REL_L2 = {"float32": 2.0 ** -10, "bfloat16": 2.0 ** -6}
+#: one fp32 convolution's pass alone, card against CPU: TF32 off reads at
+#: most 2.9e-6 and TF32 on at least 2.5e-4 in its worst pass (H100)
+CONV_REL_L2 = 2.0 ** -14
 
 
 def _rel_l2(a: list, b: list) -> float:
@@ -1992,12 +2029,10 @@ def _sync_s(fn):
     return out, time.perf_counter() - t
 
 
-def cifar_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
-    """A 2-node reduced-depth ResNet round on the CPU (the plain path)
-    against the same round on the card, from one init and one data, in
-    fp32 (TF32 off) and bf16: one step's gradients (``_value_and_grad`` on
-    one batch) and the parameter change of the round's 4 SGD steps, each
-    by relative L2 within ``PAIR_REL_L2``."""
+def _pair_errors(dtype: str, devices=("cpu", "cuda")) -> tuple[float, float, int]:
+    """(gradient rel L2, change rel L2, steps a round) of the 2-node
+    reduced-depth ResNet round in ``dtype`` on ``devices[1]`` against
+    ``devices[0]``, from one init and one data."""
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.base import TorchModel
     from p2pfl_tpu_torch.models.vision import ResNet, init_resnet_params
@@ -2006,30 +2041,115 @@ def cifar_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
 
     n, steps, bs = CIFAR_PAIR["nodes"], CIFAR_PAIR["steps"], CIFAR_PAIR["batch"]
     data = FederatedDataset.synthetic_mnist(n_train=n * steps * bs, n_test=n * 16, **CIFAR_HARD)
-    out: dict = {}
-    ok = True
+    module = ResNet((1, 1), dtype=getattr(torch, dtype))
+    params = init_resnet_params(module, (32, 32, 3), 1, torch.device("cpu"))
+    res: dict = {}
+    for dev in devices:
+        model = TorchModel(module, tree_map(lambda x: x.to(dev), params), (32, 32, 3))
+        fed = spmd.SpmdFederation.from_dataset(
+            model, data, n_nodes=n, batch_size=bs, vote=False, seed=3, optimizer="sgd",
+            learning_rate=CIFAR_PAIR["lr"], device=dev,
+        )
+        x, y = fed.x_all[:, :bs], fed.y_all[:, :bs]
+        _, grads = spmd._value_and_grad(spmd._node_loss(module, 0.0), fed.params, x, y)
+        before = [t.clone() for t in tree_leaves(fed.params)]
+        fed.run_round()
+        res[dev] = ([g.float().cpu() for g in tree_leaves(grads)],
+                    [(a - b).float().cpu() for a, b in zip(tree_leaves(fed.params), before)], fed._nb)
+    (g_cpu, d_cpu, _), (g_card, d_card, nb) = res[devices[0]], res[devices[1]]
+    return _rel_l2(g_cpu, g_card), _rel_l2(d_cpu, d_card), nb
+
+
+def _conv_gaps() -> dict:
+    """Each convolution of the pair's model alone, card against CPU: the
+    inputs of every ``vision._conv`` call of one forward of the 2 nodes on
+    the CPU, then each convolution vmapped over the nodes on the CPU and
+    on the card with one seeded cotangent, with TF32 off and on. Gives,
+    for each (False, True), the relative L2 of each convolution's forward, dgrad and
+    wgrad."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models import vision
+    from p2pfl_tpu_torch.models.vision import ResNet, init_resnet_params
+
+    n, bs = CIFAR_PAIR["nodes"], CIFAR_PAIR["batch"]
+    data = FederatedDataset.synthetic_mnist(n_train=n * 4 * bs, n_test=n * 16, **CIFAR_HARD)
+    module = ResNet((1, 1), dtype=torch.float32)
+    params = init_resnet_params(module, (32, 32, 3), 1, torch.device("cpu"))
+    x = torch.from_numpy(data.x_train[: n * bs]).reshape(n, bs, 32, 32, 3)
+    calls, plain = [], vision._conv
+
+    def recording(x_, kernel, stride, dt, bias=None):
+        calls.append((x_.detach().clone(), kernel.detach().clone(), stride))
+        return plain(x_, kernel, stride, dt, bias)
+
+    vision._conv = recording
+    try:
+        with torch.no_grad():
+            for i in range(n):
+                module(params, x[i])
+    finally:
+        vision._conv = plain
+    per_node = len(calls) // n
+    gen = torch.Generator().manual_seed(0)
+    out: dict = {False: [], True: []}
+    for c in range(per_node):
+        xs = torch.stack([calls[i * per_node + c][0] for i in range(n)])
+        ks = torch.stack([calls[i * per_node + c][1] for i in range(n)])
+        stride = calls[c][2]
+
+        def passes(dev, cot=None):
+            xd, kd = xs.to(dev).requires_grad_(True), ks.to(dev).requires_grad_(True)
+            y = torch.func.vmap(lambda a, b: plain(a, b, stride, torch.float32))(xd, kd)
+            cot = torch.randn(y.shape, generator=gen) if cot is None else cot
+            dx, dk = torch.autograd.grad(y, (xd, kd), cot.to(dev))
+            return cot, [t.detach().cpu() for t in (y, dx, dk)]
+
+        cot, ref = passes("cpu")
+        for tf32 in out:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                got = passes("cuda", cot)[1]
+            finally:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            out[tf32].append({name: _rel_l2([a], [b]) for name, a, b in zip(("forward", "dgrad", "wgrad"), ref, got)})
+    return out
+
+
+def cifar_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
+    """The package's fp32 on the card. Importing it turned both TF32 flags
+    off, and they are still off. A 2-node reduced-depth ResNet round on the
+    CPU (the plain path) against the same round on the card, from one init
+    and one data, in fp32 and bf16: one step's gradients
+    (``_value_and_grad`` on one batch) and the parameter change of the
+    round's 4 SGD steps, each by relative L2 within ``PAIR_REL_L2``. Each
+    of its convolutions' passes alone within ``CONV_REL_L2`` (``_conv_gaps``).
+    Then the mutation: with TF32 turned on in the card's convolutions and
+    matmuls, the fp32 pair must exceed its limit and a convolution's pass
+    its own."""
+    out: dict = {"tf32_off_after_import": not (torch.backends.cudnn.allow_tf32
+                                               or torch.backends.cuda.matmul.allow_tf32)}
+    ok = out["tf32_off_after_import"]
     for dtype in PAIR_REL_L2:
-        module = ResNet((1, 1), dtype=getattr(torch, dtype))
-        params = init_resnet_params(module, (32, 32, 3), 1, torch.device("cpu"))
-        res: dict = {}
-        for dev in devices:
-            model = TorchModel(module, tree_map(lambda x: x.to(dev), params), (32, 32, 3))
-            fed = spmd.SpmdFederation.from_dataset(
-                model, data, n_nodes=n, batch_size=bs, vote=False, seed=3, optimizer="sgd",
-                learning_rate=CIFAR_PAIR["lr"], device=dev,
-            )
-            x, y = fed.x_all[:, :bs], fed.y_all[:, :bs]
-            _, grads = spmd._value_and_grad(spmd._node_loss(module, 0.0), fed.params, x, y)
-            before = [t.clone() for t in tree_leaves(fed.params)]
-            fed.run_round()
-            res[dev] = ([g.float().cpu() for g in tree_leaves(grads)],
-                        [(a - b).float().cpu() for a, b in zip(tree_leaves(fed.params), before)], fed._nb)
-        (g_cpu, d_cpu, _), (g_card, d_card, nb) = res[devices[0]], res[devices[1]]
-        grad_err, step_err = _rel_l2(g_cpu, g_card), _rel_l2(d_cpu, d_card)
-        good = grad_err <= PAIR_REL_L2[dtype] and step_err <= PAIR_REL_L2[dtype] and nb == steps
+        grad_err, step_err, nb = _pair_errors(dtype, devices)
+        good = grad_err <= PAIR_REL_L2[dtype] and step_err <= PAIR_REL_L2[dtype] and nb == CIFAR_PAIR["steps"]
         ok &= good
         out[dtype] = {"grad_rel_l2": grad_err, "change_rel_l2": step_err, "limit": PAIR_REL_L2[dtype],
                       "steps": nb, "ok": good}
+    gaps = _conv_gaps()
+    worst = {tf32: max(max(row.values()) for row in rows) for tf32, rows in gaps.items()}
+    good = worst[False] <= CONV_REL_L2
+    ok &= good
+    out["convs"] = {"tf32_off": gaps[False], "tf32_on": gaps[True], "limit": CONV_REL_L2,
+                    "worst_off": worst[False], "worst_on": worst[True], "ok": good}
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        grad_err, step_err, _ = _pair_errors("float32", devices)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    caught = max(grad_err, step_err) > PAIR_REL_L2["float32"] and worst[True] > CONV_REL_L2
+    ok &= caught
+    out["float32_tf32_on"] = {"grad_rel_l2": grad_err, "change_rel_l2": step_err,
+                              "limit": PAIR_REL_L2["float32"], "conv_worst": worst[True], "caught": caught}
     return ok, out
 
 
@@ -2093,13 +2213,38 @@ SPLIT = (
                     "ComputeInternalGradients", "ComputeBackwardFusedParams", "GammaBeta")),
     ("optimizer_foreach", ("multi_tensor", "foreach")),
     ("gemm", ("gemm", "gemv", "cutlass", "sm90_")),
+    ("elementwise", ("elementwise_kernel", "reduce_kernel", "index_elementwise")),
 )
+
+
+def kernel_split(prof) -> tuple[dict, float, float, int, dict]:
+    """A profile's device kernels: (ms by kind of ``SPLIT``, the sum of the
+    kernels' times, the time the card was busy (the union of their
+    intervals: kernels may overlap), the count, the six costliest
+    kernels' ms)."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by: dict = {}
+    top: dict = {}
+    for e in events:
+        kind = next((k for k, keys in SPLIT if any(s in e.name for s in keys)), None)
+        if kind is None:
+            kind = "copies_fills" if e.name.startswith(("Memcpy", "Memset")) else "other"
+        ms = e.time_range.elapsed_us() / 1e3
+        by[kind] = by.get(kind, 0.0) + ms
+        top[e.name[:70]] = top.get(e.name[:70], 0.0) + ms
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
+    return by, sum(by.values()), busy / 1e3, len(events), top
 
 
 def round_split(fed) -> dict:
     """``torch.profiler``'s split of one eager ResNet-18 round (no eval)
     after a warm one: device milliseconds by kind of kernel (convolutions,
-    GroupNorm, the optimizer's foreach passes, other GEMMs, the rest) and
+    GroupNorm, the optimizer's foreach passes, other GEMMs, elementwise, the rest) and
     of the six costliest kernels, the aggregation's own device time
     (``_aggregate`` and the diffusion profiled apart on the round's
     output), and the card's idle share of the round's wall time (the
@@ -2109,33 +2254,11 @@ def round_split(fed) -> dict:
     from p2pfl_tpu_torch.ops.tree import tree_map
     from p2pfl_tpu_torch.parallel import spmd
 
-    def device_ms(prof) -> tuple[dict, float, float, int, dict]:
-        """(ms by kind, the sum of the kernels' times, the time the card
-        was busy (the union of their intervals: kernels may overlap), the
-        count, the six costliest kernels' ms)."""
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        by: dict = {}
-        top: dict = {}
-        for e in events:
-            kind = next((k for k, keys in SPLIT if any(s in e.name for s in keys)), None)
-            if kind is None:
-                kind = "copies_fills" if e.name.startswith(("Memcpy", "Memset")) else "other"
-            ms = e.time_range.elapsed_us() / 1e3
-            by[kind] = by.get(kind, 0.0) + ms
-            top[e.name[:70]] = top.get(e.name[:70], 0.0) + ms
-        busy, end = 0.0, -math.inf
-        for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
-            if stop > end:
-                busy += stop - max(start, end)
-                end = stop
-        top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:6])
-        return by, sum(by.values()), busy / 1e3, len(events), top
-
     fed.run_round()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _sync_s(fed.run_round)
-    by, total, busy, n_events, top = device_ms(prof)
+    by, total, busy, n_events, top = kernel_split(prof)
     if not n_events:
         return {"source": "torch.profiler (no device activity seen)", "wall_ms": wall * 1e3}
     mask, sel = fed._mask_inputs(fed._effective_mask())
@@ -2143,7 +2266,7 @@ def round_split(fed) -> dict:
         agg = spmd._aggregate(fed.params, mask, fed._samples, sel, fed.aggregator, fed.trim)
         tree_map(lambda a: a[None].expand(fed.n, *a.shape).clone(), agg)
         torch.cuda.synchronize()
-    agg_ms = device_ms(agg_prof)[1]
+    agg_ms = kernel_split(agg_prof)[1]
     return {"source": "torch.profiler", "wall_ms": wall * 1e3, "kernel_ms_sum": total, "busy_ms": busy,
             "kernels": n_events, "by_kind_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": top,
@@ -2234,8 +2357,9 @@ def config2_graph_and_resume() -> tuple[bool, dict]:
 
 def config4() -> tuple[bool, dict]:
     """Config 4: 10 nodes with ``remat``, the first 2 slots overwritten
-    with N(0, 1)·10 before every round (one seeded draw per leaf, the same
-    every round, as JAX's fixed key); 10 rounds each of Krum, TrimmedMean
+    with N(0, 1)·10 before every round (a generator seeded 0 for every
+    leaf, the same every round: JAX's one fixed key for every leaf, so
+    leaves of one shape get the same noise); 10 rounds each of Krum, TrimmedMean
     (trim 2), CenteredClip (τ 3) and FedAvg, the accuracy after the last
     and s/round of rounds 2-10. FedAvg, the undefended control, must end
     below every robust rule."""
@@ -2254,9 +2378,11 @@ def config4() -> tuple[bool, dict]:
         )
         secs = []
         for _ in range(C4["rounds"]):
-            gen = torch.Generator(fed.device).manual_seed(0)
 
-            def attack(x, gen=gen):
+            def attack(x):
+                # a generator seeded afresh for every leaf: JAX draws every
+                # leaf from one key, so leaves of one shape get one noise
+                gen = torch.Generator(fed.device).manual_seed(0)
                 x = x.clone()
                 x[:byz] = torch.randn(x.shape[1:], generator=gen, device=x.device, dtype=x.dtype) * 10.0
                 return x
@@ -2363,14 +2489,561 @@ def drive_cifar() -> tuple[bool, dict]:
     return ok, {"parts": parts, **summary}
 
 
-PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "mnist", "cifar")
+# ---- [chunked] BASELINE config 3: 64 ResNet-50 nodes time-sharing the card ----
+
+#: config 3 (``bench_suite.py:456-530``): 64 nodes in chunks of 16, 256
+#: CIFAR-100-shaped samples a node over Dirichlet(0.5) shards, batch 32,
+#: seed 3, remat, no vote; Adam over warmup-cosine 0 → 3e-3 (2 rounds of
+#: 8 steps) → 1e-4 (40 rounds of 8 steps) with averaged moments; 50 %
+#: within 60 rounds (``chunked_target``)
+C3 = dict(nodes=64, chunk=16, per_node=256, n_test=1024, batch=32, seed=3, peak=3e-3, end=1e-4,
+          warmup_rounds=2, decay_rounds=40, target=0.50, max_rounds=60, timed_rounds=3, serial_rounds=2)
+C3_TASK = dict(dim=(32, 32, 3), num_classes=100, modes=2, noise=0.5, proto_scale=0.7)
+#: the reduced chunked federation of the checks: 8 nodes in chunks of 4 of
+#: a reduced-depth ResNet (stages (1, 1)) on 16x16x3, 64 samples a node
+#: in batches of 16 (4 steps a round), remat
+C3_SMALL = dict(nodes=8, chunk=4, per_node=64, batch=16, shape=(16, 16, 3), rounds=2, lr=0.05)
+
+
+def _config3_fed():
+    """Config 3's federation on the card."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.optimizers import adam, warmup_cosine_decay_schedule
+    from p2pfl_tpu_torch.models.vision import resnet50
+    from p2pfl_tpu_torch.parallel.chunked import ChunkedFederation
+
+    spr = C3["per_node"] // C3["batch"]
+    sched = warmup_cosine_decay_schedule(0.0, C3["peak"], C3["warmup_rounds"] * spr, C3["decay_rounds"] * spr,
+                                         C3["end"])
+    data = FederatedDataset.synthetic_mnist(n_train=C3["nodes"] * C3["per_node"], n_test=C3["n_test"], **C3_TASK)
+    return ChunkedFederation.from_dataset(
+        resnet50(), data, n_nodes=C3["nodes"], chunk_size=C3["chunk"], strategy="dirichlet", alpha=0.5,
+        batch_size=C3["batch"], vote=False, seed=C3["seed"], remat=True, tx=adam(sched), keep_opt_state=True,
+    )
+
+
+def _small_chunked(device, dtype, tx):
+    """The reduced chunked federation on ``device``: one init (the CPU's
+    draw), one data, kept moments."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.base import TorchModel
+    from p2pfl_tpu_torch.models.vision import ResNet, init_resnet_params
+    from p2pfl_tpu_torch.ops.tree import tree_map
+    from p2pfl_tpu_torch.parallel.chunked import ChunkedFederation
+
+    k = C3_SMALL
+    module = ResNet((1, 1), dtype=dtype)
+    params = init_resnet_params(module, k["shape"], 0, torch.device("cpu"))
+    model = TorchModel(module, tree_map(lambda x: x.to(device), params), k["shape"])
+    data = FederatedDataset.synthetic_mnist(n_train=k["nodes"] * k["per_node"], n_test=k["nodes"] * 16,
+                                            dim=k["shape"], modes=2, noise=0.5, proto_scale=0.7)
+    return ChunkedFederation.from_dataset(model, data, n_nodes=k["nodes"], chunk_size=k["chunk"],
+                                          batch_size=k["batch"], vote=False, seed=3, remat=True, tx=tx,
+                                          keep_opt_state=True, device=device)
+
+
+def chunked_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
+    """One round of the reduced chunked federation in fp32 with SGD (the
+    change is the gradients' sum: no sign flips of Adam's first steps) on
+    the CPU against the card: the parameter change by relative L2 within
+    the fp32 pair limit ``PAIR_REL_L2``."""
+    from p2pfl_tpu_torch.learning.optimizers import sgd
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    changes = {}
+    for dev in devices:
+        fed = _small_chunked(dev, torch.float32, sgd(C3_SMALL["lr"], momentum=None))
+        before = [t.clone() for t in tree_leaves(fed.params)]
+        fed.run_round()
+        changes[dev] = [(a - b).float().cpu() for a, b in zip(tree_leaves(fed.params), before)]
+    err = _rel_l2(changes[devices[0]], changes[devices[1]])
+    return err <= PAIR_REL_L2["float32"], {"change_rel_l2": err, "limit": PAIR_REL_L2["float32"],
+                                          "nodes": C3_SMALL["nodes"], "chunk": C3_SMALL["chunk"]}
+
+
+def chunked_paths() -> tuple[bool, dict]:
+    """On the card, the reduced federation (bf16, Adam over a schedule,
+    kept moments) three ways for 2 rounds: the serial path
+    (``CHUNK_FUSED_REDUCE=False``, staging depth 1), the fused path eager
+    (a transform marked not capturable) and the fused path as the
+    captured chunk graph. Params, optimizer state and losses must be
+    bit-equal across the three."""
+    from p2pfl_tpu_torch.learning.learner import GradientTransformation
+    from p2pfl_tpu_torch.learning.optimizers import adam, warmup_cosine_decay_schedule
+    from p2pfl_tpu_torch.settings import Settings
+
+    def tx(capturable: bool):
+        t = adam(warmup_cosine_decay_schedule(0.0, 3e-3, 4, 40, 1e-4))
+        return t if capturable else GradientTransformation(t.init, t.update, False, t.node_stacked)
+
+    prior = (Settings.CHUNK_FUSED_REDUCE, Settings.CHUNK_STAGING_DEPTH)
+    runs = {}
+    try:
+        for name, fused, capturable in (("serial", False, True), ("fused_eager", True, False),
+                                        ("fused_graph", True, True)):
+            Settings.CHUNK_FUSED_REDUCE, Settings.CHUNK_STAGING_DEPTH = fused, (2 if fused else 1)
+            fed = _small_chunked("cuda", torch.bfloat16, tx(capturable))
+            losses = [fed.run_round()["train_loss"] for _ in range(C3_SMALL["rounds"])]
+            runs[name] = (torch.utils._pytree.tree_leaves((fed.params, fed.opt_state)), losses,
+                          bool(fed._graphs))
+    finally:
+        Settings.CHUNK_FUSED_REDUCE, Settings.CHUNK_STAGING_DEPTH = prior
+
+    def same(a, b):
+        return a[1] == b[1] and all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+
+    out = {"fused_eager_equals_serial": same(runs["fused_eager"], runs["serial"]),
+           "graph_equals_eager": same(runs["fused_graph"], runs["fused_eager"]),
+           "graph_captured": runs["fused_graph"][2] and not runs["fused_eager"][2],
+           "losses": {k: v[1] for k, v in runs.items()}}
+    return all(v for k, v in out.items() if k != "losses"), out
+
+
+def chunk_split(fed) -> dict:
+    """``torch.profiler``'s split of one chunk's program run eagerly (16
+    ResNet-50 nodes' epoch under remat and the fold into the
+    accumulators) by kind of kernel, the card's idle share of its wall
+    time, and the accumulation (``chunked._weighted_sums`` and
+    ``chunked._accumulate``, the fold ``_chunk_round_acc`` runs) profiled
+    apart on the same shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from p2pfl_tpu_torch.parallel import chunked
+
+    perm_np = fed._make_perm_np(1)
+    eff = fed.train_mask * fed.active_mask
+    inputs = fed._take({0: fed._stage_chunk_inputs(0, perm_np, eff)}, 0)
+    acc = chunked._zero_acc(fed.params, fed.opt_state)
+    kw = dict(module=fed.module, tx=fed._tx_stacked, remat=fed.remat, in_place=True)
+    chunked._chunk_round_acc(acc, fed.params, fed.opt_state, *inputs, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _sync_s(lambda: chunked._chunk_round_acc(acc, fed.params, fed.opt_state, *inputs, **kw))
+    by, total, busy, n_events, top = kernel_split(prof)
+    if not n_events:
+        return {"source": "torch.profiler (no device activity seen)", "wall_ms": wall * 1e3}
+    # the fold of ``_chunk_round_acc`` (``_weighted_sums`` then
+    # ``_accumulate``) on stacks of the trained slots' shapes
+    c = fed.chunk_size
+    stack, ostack = chunked._broadcast(fed.params, c), chunked._broadcast(fed.opt_state, c)
+    losses = torch.zeros(c, device=inputs[3].device)
+
+    def fold():
+        contrib = chunked._weighted_sums(stack, ostack, losses, inputs[3], inputs[4])
+        chunked._accumulate(acc, contrib, in_place=True)
+
+    fold()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as fold_prof:
+        fold()
+        torch.cuda.synchronize()
+    return {"source": "torch.profiler", "wall_ms": wall * 1e3, "kernel_ms_sum": total, "busy_ms": busy,
+            "kernels": n_events, "by_kind_ms": dict(sorted(by.items(), key=lambda kv: -kv[1])),
+            "top_kernels_ms": top, "accumulation_ms (profiled apart)": kernel_split(fold_prof)[1],
+            "idle_share": 1 - busy / (wall * 1e3)}
+
+
+def config3_rounds() -> tuple[bool, dict]:
+    """Config 3 at 64 nodes: a warm-up round (the chunk graph's capture),
+    ``reset(seed=3)``, 3 timed rounds; MFU of model FLOPs and of executed
+    FLOPs (remat's recompute, ``round_flops(hw=True)``) over the bf16
+    peak; peak memory; the serial path (host-side tree adds, staging depth
+    1, eager) against the overlapped one in s/round; the profiler's split
+    of one chunk."""
+    from p2pfl_tpu_torch.settings import Settings
+
+    fed = _config3_fed()
+    torch.cuda.reset_peak_memory_stats()
+    _, warm = _sync_s(fed.run_round)
+    fed.reset(seed=C3["seed"])
+    entries, secs = [], []
+    for _ in range(C3["timed_rounds"]):
+        entry, sec = _sync_s(fed.run_round)
+        entries.append(entry["train_loss"])
+        secs.append(sec)
+    s = statistics.median(secs)
+    flops, flops_hw = fed.round_flops(), fed.round_flops(hw=True)
+    peak = torch.cuda.max_memory_allocated()
+    prior = (Settings.CHUNK_FUSED_REDUCE, Settings.CHUNK_STAGING_DEPTH)
+    try:
+        Settings.CHUNK_FUSED_REDUCE, Settings.CHUNK_STAGING_DEPTH = False, 1
+        fed.run_round()
+        serial = [_sync_s(fed.run_round)[1] for _ in range(C3["serial_rounds"])]
+    finally:
+        Settings.CHUNK_FUSED_REDUCE, Settings.CHUNK_STAGING_DEPTH = prior
+    split = chunk_split(fed)
+    metrics = fed.evaluate()
+    out = {"nodes": fed.n, "chunk": fed.chunk_size, "steps_a_round": fed._nb, "warm_round_s": warm,
+           "s_per_round": secs, "median_s": s, "train_losses": entries,
+           "flops_per_round": flops, "flops_per_round_hw": flops_hw,
+           "mfu": flops / s / PEAK_BF16_FLOPS, "mfu_hw": flops_hw / s / PEAK_BF16_FLOPS,
+           "peak_memory_bytes": peak, "captured": bool(fed._graphs),
+           "staging_split": {"serial_s_per_round": serial, "overlapped_s_per_round": s,
+                             "serial_over_overlapped": statistics.median(serial) / s},
+           "chunk_split": split, "test_acc": metrics["test_acc"]}
+    ok = all(map(math.isfinite, entries + [metrics["test_loss"]])) and bool(fed._graphs)
+    return ok, out
+
+
+def drive_chunked() -> tuple[bool, dict]:
+    """BASELINE config 3 through ``ChunkedFederation`` (``chunked``): the
+    CPU-vs-card pair, the serial, fused and captured paths bit-equal on
+    the card, then the 64 ResNet-50 nodes' rounds. No hand kernel runs:
+    every count of ``_kernels.LAUNCHES`` must read 0."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    parts: dict = {}
+    checks: dict = {}
+    t = time.perf_counter()
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        good, parts[name] = fn()
+        checks[name] = good
+        parts[name]["part_s"] = time.perf_counter() - t0
+        log(f"[chunked] {name}: {json.dumps(parts[name])} {'OK' if good else 'FAIL'}")
+
+    part("pair", chunked_pair)
+    part("paths", chunked_paths)
+    part("config3", config3_rounds)
+    hand = dict(_kernels.LAUNCHES)
+    checks["no hand kernel launched"] = sum(hand.values()) == 0
+    summary = {"checks": checks, "hand_kernel_launches": hand, "seconds": time.perf_counter() - t}
+    ok = all(checks.values())
+    log(f"[chunked] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, {"parts": parts, **summary}
+
+
+def drive_chunked_target() -> tuple[bool, dict]:
+    """Config 3 to 50 % (``chunked_target``, run only when named): one
+    ``run_round(eval=True)`` a round, at most 60; the curve, rounds and
+    seconds to the target (from the first round, its capture included)."""
+    fed = _config3_fed()
+    torch.cuda.reset_peak_memory_stats()
+    curve, losses = [], []
+    rounds_to = seconds_to = None
+    t0 = time.perf_counter()
+    for r in range(C3["max_rounds"]):
+        entry = fed.run_round(eval=True)
+        curve.append(entry["test_acc"])
+        losses.append(entry["train_loss"])
+        if entry["test_acc"] >= C3["target"]:
+            rounds_to, seconds_to = r + 1, time.perf_counter() - t0
+            break
+    out = {"target": C3["target"], "rounds_to_target": rounds_to, "seconds_to_target": seconds_to,
+           "accuracy_curve": curve, "train_losses": losses, "seconds": time.perf_counter() - t0,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    ok = rounds_to is not None and all(map(math.isfinite, curve + losses))
+    log(f"[chunked_target] {json.dumps(out)} {'OK' if ok else 'FAIL'}")
+    return ok, out
+
+
+# ---- [nameplate] BASELINE config 5 at its 32 nodes ----
+
+#: config 5 at nameplate scale (``bench_suite.py:895-1060``): 32 nodes of 8
+#: sequences at batch 1 (8 steps a round), trained 4 at a time, seed 3,
+#: under ``mlp_qkv`` remat; the target run pretrains the base for 400
+#: Adafactor steps of 8 sequences, then runs at most 16 rounds to a
+#: next-token accuracy of 0.65 on the 15 %-shifted domain
+C5 = dict(nodes=32, node_chunk=4, seq=1024, per_node=8, batch=1, n_test=32, seed=3, timed_rounds=2,
+          pre_steps=400, pre_batch=8, pre_lr=3e-3, pre_train=512, pre_test=64, target=0.65, max_rounds=16,
+          check_layers=2)
+
+
+def _nameplate_cfg(depth: int = 22, policy="mlp_qkv", remat: bool = True):
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=depth, ffn_hidden=5632, lora_rank=8,
+        lora_mlp=True, remat=remat, remat_policy=policy if remat else None, scan_layers=True,
+    )
+
+
+def _nameplate_data():
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+
+    return FederatedDataset.synthetic_lm(vocab_size=4096, seq_len=C5["seq"], n_train=C5["nodes"] * C5["per_node"],
+                                         n_test=C5["n_test"], shift_frac=0.15)
+
+
+def _nameplate_fed(model, data):
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    return SpmdLoraFederation.from_dataset(model, data, n_nodes=C5["nodes"], batch_size=C5["batch"], vote=False,
+                                           seed=C5["seed"], node_chunk=C5["node_chunk"])
+
+
+def lora_step_flops(cfg, tokens_per_step: int, seq: int) -> float:
+    """Model FLOPs of one LoRA train step (forward and the input
+    gradients; no weight gradient of the frozen base) over
+    ``tokens_per_step`` tokens, as ``bench_suite.py``'s
+    ``_lora_step_flops_by_depth`` counts them: 1- and 2-layer clones with
+    dense attention (the attention products in the count), extrapolated
+    linearly in depth. Counted by ``FlopCounterMode`` on meta tensors
+    (products only: elementwise work is not counted)."""
+    from dataclasses import replace
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from p2pfl_tpu_torch.learning.lora import _lm_loss, split_lora
+    from p2pfl_tpu_torch.models.transformer import CausalLM, init_params
+    from p2pfl_tpu_torch.ops.tree import tree_map
+
+    def f(layers: int) -> int:
+        c = replace(cfg, n_layers=layers, remat=False, remat_policy=None, flash_config=None)
+        meta = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"),
+                        init_params(c, seed=0, device="cpu"))
+        lora, base = split_lora(meta)
+        lora = tree_map(lambda t: t.requires_grad_(True), lora)
+        x = torch.zeros((2, seq), dtype=torch.long, device="meta")
+        with FlopCounterMode(display=False) as counter:
+            loss, _ = _lm_loss(lora, base, CausalLM(c), x, x)
+            loss.backward()
+        return counter.get_total_flops()
+
+    f1, f2 = f(1), f(2)
+    return (f1 + (f2 - f1) * (cfg.n_layers - 1)) * (tokens_per_step / (2 * seq))
+
+
+def nameplate_flops(fed, cfg) -> tuple[float, float]:
+    """(model FLOPs, executed FLOPs) of a round, as ``bench_suite.py``
+    counts them: ``nb`` steps of every node's tokens; executed adds the
+    policy's recompute, the flash forward's two causal products
+    (2·2·(T/2)·dim a token a layer)."""
+    tokens = fed.n * C5["batch"] * C5["seq"]
+    flops = fed._nb * lora_step_flops(cfg, tokens, C5["seq"])
+    recompute = 2.0 * 2.0 * (C5["seq"] / 2) * cfg.dim * cfg.n_layers
+    return flops, flops + fed._nb * recompute * tokens
+
+
+def nameplate_remat_check() -> tuple[bool, dict]:
+    """At a 2-layer cut on the card: one step's loss and adapter gradients
+    under ``mlp_qkv`` against no remat, from one init and one batch of 4
+    nodes' sequences, and no remat against itself, with each backward.
+    The split backward (kernels 3 and 4: each output tile from one block)
+    is deterministic, and there ``mlp_qkv`` must equal no remat bit for
+    bit. Kernel 2 adds dQ tiles by bulk reductions in the order its blocks
+    finish, so two of its backwards differ in the last bits: there the
+    loss must be bit-equal and the gradients' gap within twice the gap of
+    two runs without remat."""
+    from dataclasses import replace
+
+    from p2pfl_tpu_torch.learning.lora import _lm_loss, split_lora
+    from p2pfl_tpu_torch.models.transformer import CausalLM, init_params, resolve_attention
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_map
+
+    depth = C5["check_layers"]
+    plain_cfg = _nameplate_cfg(depth, remat=False)
+    lora, base = split_lora(init_params(plain_cfg, seed=0, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lora = tree_map(lambda t: t + 0.02 * torch.randn(t.shape, generator=gen, device="cuda"), lora)
+    x = torch.randint(0, 4096, (C5["node_chunk"], C5["seq"]), generator=gen, device="cuda")
+    y = torch.randint(0, 4096, (C5["node_chunk"], C5["seq"]), generator=gen, device="cuda")
+    flash_cfg = default_flash_config(C5["seq"], plain_cfg.head_dim)
+
+    def step(cfg, attn):
+        leaves = tree_map(lambda t: t.detach().clone().requires_grad_(True), lora)
+        loss, _ = _lm_loss(leaves, base, CausalLM(cfg, attn), x, y)
+        loss.backward()
+        return loss.detach(), [t.grad.float() for _, t in tree_items(leaves)]
+
+    def equal(a, b):
+        return torch.equal(a[0], b[0]) and all(torch.equal(u, v) for u, v in zip(a[1], b[1]))
+
+    out: dict = {"layers": depth}
+    ok = True
+    for mode in ("split", "auto"):
+        attn = resolve_attention("flash", config=replace(flash_cfg, bwd_mode=mode))
+        ref, again = step(plain_cfg, attn), step(plain_cfg, attn)
+        remat = step(_nameplate_cfg(depth), attn)
+        row = {"repeat_bit_equal": equal(ref, again), "mlp_qkv_bit_equal": equal(ref, remat),
+               "loss_bit_equal": torch.equal(ref[0], remat[0]),
+               "grad_rel_l2_repeat": _rel_l2(ref[1], again[1]), "grad_rel_l2_mlp_qkv": _rel_l2(ref[1], remat[1])}
+        if mode == "split":
+            good = row["repeat_bit_equal"] and row["mlp_qkv_bit_equal"]
+        else:
+            good = row["loss_bit_equal"] and row["grad_rel_l2_mlp_qkv"] <= 2 * row["grad_rel_l2_repeat"]
+        row["ok"] = good
+        ok &= good
+        out[mode] = row
+    return ok, out
+
+
+def drive_nameplate() -> tuple[bool, dict]:
+    """Config 5 at 32 nodes (``nameplate``): 22L/2048d/32h/kv4 (0.98B),
+    seq 1024, LoRA rank 8 with ``lora_mlp``, ``remat_policy="mlp_qkv"``,
+    flash attention, ``node_chunk=4``, batch 1, 8 steps a round, seed 3,
+    a random base from seed 0: a warm-up round and 2 timed rounds, then
+    ``evaluate``. Launch counts are zeroed before and read after, and held
+    to the counts the code gives: chunks x steps x layers backward
+    launches (kernel 2) and twice that forward (kernel 1: the forward and
+    the policy's recompute) plus one a layer for the eval; every other
+    kernel at 0. Kernels 1 and 2 against their plain versions on one
+    layer's backward inputs kept from the drive; the remat check at 2
+    layers; s/round, peak memory, MFU of model and executed FLOPs."""
+    from p2pfl_tpu_torch.models.transformer import tiny_transformer
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+
+    t = time.perf_counter()
+    cfg = _nameplate_cfg()
+    model = tiny_transformer(seq_len=C5["seq"], seed=0, cfg=cfg, attn="flash")
+    fed = _nameplate_fed(model, _nameplate_data())
+    recorded: list = []
+    real_bwd = fa.flash_bwd_bhtd
+
+    def recording_bwd(*a):
+        # the drive's first layer backward, copied (nothing of the path
+        # reads the copy)
+        if not recorded:
+            recorded.append(tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a))
+        return real_bwd(*a)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rounds = 1 + C5["timed_rounds"]
+    fa.flash_bwd_bhtd = recording_bwd
+    _kernels.reset_launches()
+    try:
+        first, warm = _sync_s(fed.run_round)
+        timed = [_sync_s(fed.run_round) for _ in range(C5["timed_rounds"])]
+        metrics = fed.evaluate()
+    finally:
+        fa.flash_bwd_bhtd = real_bwd
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    chunks, nb, layers = fed.n // fed.node_chunk, fed._nb, cfg.n_layers
+    bwd = rounds * chunks * nb * layers
+    expected = {"flash_fwd": 2 * bwd + layers, "flash_bwd_dkvq": bwd}
+    secs = [s for _, s in timed]
+    s = statistics.median(secs)
+    flops, flops_hw = nameplate_flops(fed, cfg)
+    losses = [float(first["train_loss"])] + [float(e["train_loss"]) for e, _ in timed]
+    del fed, model
+    torch.cuda.empty_cache()
+    flash_cfg = default_flash_config(C5["seq"], cfg.head_dim)
+    worst = Worst()
+    q, k, v, _o, _lse, do, causal, _cfg = recorded[0]
+    kernels_ok = check_flash(q, k, v, do, causal, flash_cfg.block_q, flash_cfg.block_k, worst,
+                             f"nameplate layer backward inputs {list(q.shape)}")[0]
+    del recorded
+    remat_ok, remat = nameplate_remat_check()
+    checks = {
+        "launches exactly as expected": all(count == expected.get(name, 0) for name, count in launches.items()),
+        "kernels 1 and 2 within their limits on the drive's layer inputs": kernels_ok,
+        "mlp_qkv against no remat (2 layers)": remat_ok,
+        "losses and metrics finite": all(map(math.isfinite, losses + [metrics["test_loss"]])),
+    }
+    ok = all(checks.values())
+    summary = {"layers": layers, "nodes": C5["nodes"], "node_chunk": C5["node_chunk"], "steps_per_round": nb,
+               "remat_policy": cfg.remat_policy, "warm_round_s": warm, "s_per_round": secs, "median_s": s,
+               "train_losses": losses, "test_loss": metrics["test_loss"], "test_acc": metrics["test_acc"],
+               "flops_per_round": flops, "flops_per_round_hw": flops_hw,
+               "mfu": flops / s / PEAK_BF16_FLOPS, "mfu_hw": flops_hw / s / PEAK_BF16_FLOPS,
+               "peak_memory_bytes": peak, "launches": launches, "launches_expected": expected,
+               "kernel_checks_worst_share": worst.share, "kernel_checks_max_err": worst.err,
+               "remat_check": remat, "checks": checks, "seconds": time.perf_counter() - t}
+    log(f"[nameplate] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def pretrain_base(cfg) -> tuple[dict, list]:
+    """The nameplate row's central pretrain: the full-remat twin of the
+    model (``remat_policy=None``, the same tree) from seed 0, 400
+    Adafactor steps (``adafactor(3e-3)``, optax's defaults) of 8 sequences
+    drawn from numpy's ``default_rng(0)``, every parameter trained; the
+    loss every 50 steps and the last."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.learner import apply_updates, softmax_cross_entropy
+    from p2pfl_tpu_torch.learning.optimizers import adafactor
+    from p2pfl_tpu_torch.models.transformer import tiny_transformer
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_unflatten
+
+    data = FederatedDataset.synthetic_lm(vocab_size=4096, seq_len=C5["seq"], n_train=C5["pre_train"],
+                                         n_test=C5["pre_test"])
+    pre = tiny_transformer(seq_len=C5["seq"], seed=0, cfg=replace(cfg, remat_policy=None), attn="flash")
+    params = pre.params
+    tx = adafactor(learning_rate=C5["pre_lr"])
+    opt = tx.init(params)
+    x_all = torch.from_numpy(data.x_train).cuda()
+    y_all = torch.from_numpy(data.y_train).cuda()
+    rng = np.random.default_rng(0)
+    curve = []
+    for step in range(C5["pre_steps"]):
+        idx = torch.from_numpy(rng.integers(0, len(data.y_train), size=C5["pre_batch"])).cuda()
+        paths = [p for p, _ in tree_items(params)]
+        leaves = [t.detach().requires_grad_(True) for _, t in tree_items(params)]
+        logits = pre.module(tree_unflatten(dict(zip(paths, leaves))), x_all[idx])
+        loss = softmax_cross_entropy(logits, y_all[idx]).mean()
+        grads = torch.autograd.grad(loss, leaves)
+        del logits
+        with torch.no_grad():
+            updates, opt = tx.update(tree_unflatten(dict(zip(paths, grads))), opt, params)
+            params = apply_updates(params, updates)
+        if step % 50 == 0:
+            curve.append(float(loss.detach()))
+    curve.append(float(loss.detach()))
+    return params, curve
+
+
+def drive_nameplate_target() -> tuple[bool, dict]:
+    """Config 5's full recipe (``nameplate_target``, run only when named):
+    the base pretrained in the run (:func:`pretrain_base`), then the 32
+    LoRA nodes under ``mlp_qkv`` on the 15 %-shifted domain, one
+    ``run_round`` and ``evaluate`` a round, at most 16 rounds to a
+    next-token accuracy of 0.65; the pretrain curve, the accuracy curve,
+    rounds and seconds to the target (rounds only, the pretrain apart)."""
+    from p2pfl_tpu_torch.models.transformer import tiny_transformer
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _nameplate_cfg()
+    params, pre_curve = pretrain_base(cfg)
+    pre_s = time.perf_counter() - t
+    model = tiny_transformer(seq_len=C5["seq"], seed=0, cfg=cfg, attn="flash")
+    model.params = params
+    fed = _nameplate_fed(model, _nameplate_data())
+    del params
+    acc0 = fed.evaluate()["test_acc"]
+    curve, losses = [], []
+    rounds_to = seconds_to = None
+    t0 = time.perf_counter()
+    for r in range(C5["max_rounds"]):
+        losses.append(float(fed.run_round()["train_loss"]))
+        curve.append(fed.evaluate()["test_acc"])
+        if curve[-1] >= C5["target"]:
+            rounds_to, seconds_to = r + 1, time.perf_counter() - t0
+            break
+    out = {"pretrain_loss_curve": pre_curve, "pretrain_s": pre_s, "random_floor_loss": math.log(4096),
+           "pretrained_base_acc": acc0, "target": C5["target"], "rounds_to_target": rounds_to,
+           "seconds_to_target": seconds_to, "accuracy_curve": curve, "train_losses": losses,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "seconds": time.perf_counter() - t}
+    ok = rounds_to is not None and all(map(math.isfinite, curve + losses + pre_curve))
+    log(f"[nameplate_target] {json.dumps(out)} {'OK' if ok else 'FAIL'}")
+    return ok, out
+
+
+
+PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "mnist", "cifar",
+          "chunked", "nameplate")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
+#: the runs to a target accuracy (minutes each): run only when named in --only
+TARGET_PHASES = ("chunked_target", "nameplate_target")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", nargs="+", choices=PHASES + MULTI_CARD_PHASES, default=list(PHASES))
+    parser.add_argument("--only", nargs="+", choices=PHASES + MULTI_CARD_PHASES + TARGET_PHASES,
+                        default=list(PHASES))
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2380,9 +3053,6 @@ def main(argv=None) -> int:
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
     from p2pfl_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
@@ -2460,6 +3130,19 @@ def main(argv=None) -> int:
         ok &= good
     if "cifar" in args.only:
         good, _ = timed("cifar", drive_cifar)
+        ok &= good
+    if "chunked" in args.only:
+        good, _ = timed("chunked", drive_chunked)
+        ok &= good
+    if "nameplate" in args.only:
+        good, nameplate = timed("nameplate", drive_nameplate)
+        ok &= good
+        count("nameplate", nameplate["launches"], ("flash_fwd", "flash_bwd_dkvq"))
+    if "chunked_target" in args.only:
+        good, _ = timed("chunked_target", drive_chunked_target)
+        ok &= good
+    if "nameplate_target" in args.only:
+        good, _ = timed("nameplate_target", drive_nameplate_target)
         ok &= good
     if "exchange_peer" in args.only:
         ok &= timed("exchange_peer", check_exchange_peer, {})

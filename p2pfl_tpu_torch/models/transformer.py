@@ -24,6 +24,31 @@ batch is flattened to ``[N·bs, T, H, D]`` before attention, so a ring
 sees it as one batch. The layers always loop in Python; ``scan_layers``
 only says which JAX layout :mod:`p2pfl_tpu_torch.convert` reads and
 writes.
+
+``remat`` recomputes activations in the backward
+(``torch.utils.checkpoint``, non-reentrant), a block at a time, with
+JAX's ``remat_policy`` names. JAX's policies name the tensors to keep
+(``save_only_these_names``); PyTorch's selective-checkpoint policies
+decide per ATen op and cannot see the flash kernels, which launch
+through ``ctypes``. So each policy here is where the checkpointed
+segments of a block start and end:
+
+- ``None``: the whole block is one segment; its backward re-runs the
+  whole block forward;
+- ``"mlp"``: keeps the FFN's activations. One segment from the block
+  input to the FFN's input (norm, q/k/v, attention, output projection,
+  residual, norm); the FFN runs outside it, so its gate and up are kept.
+  The backward re-runs the attention side;
+- ``"mlp_qkv"``: also keeps the post-RoPE q, k and v (before the GQA
+  repeat). The q/k/v projections run outside any segment; one segment
+  from (block input, q, k, v) to the FFN's input holds the attention,
+  the output projection, the residual and the norm. Its backward re-runs
+  the flash forward (kernel 1, for the lse it saves), the output
+  projection and elementwise glue, as JAX's backward under this policy
+  does.
+
+A segment's backward gives the gradients the unsegmented block gives, bit
+for bit (``tests/test_torch_transformer.py``).
 """
 
 from __future__ import annotations
@@ -36,11 +61,32 @@ from typing import Any, Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.ops.attention import causal_attention
 from p2pfl_tpu_torch.ops.flash_attention import FlashConfig
+
+
+#: what each ``remat_policy`` keeps (JAX's ``checkpoint_name``s)
+_REMAT_SAVE_NAMES = {
+    "mlp": ("ffn_gate", "ffn_up"),
+    "mlp_qkv": ("ffn_gate", "ffn_up", "attn_q", "attn_k", "attn_v"),
+}
+
+
+def _check_remat_policy(name: Optional[str]) -> None:
+    if name is not None and name not in _REMAT_SAVE_NAMES:
+        raise ValueError(f"unknown remat_policy {name!r} (None|{'|'.join(_REMAT_SAVE_NAMES)})")
+
+
+def _segment(fn, *args):
+    """``fn(*args)`` as a checkpointed segment: its activations are dropped
+    after the forward and recomputed in the backward. No model op draws
+    random numbers, so no rng state is saved (a CUDA graph capture
+    refuses that query)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 @dataclass(frozen=True)
@@ -56,14 +102,27 @@ class TransformerConfig:
     lora_alpha: float = 16.0
     lora_mlp: bool = False
     dtype: Any = torch.bfloat16
-    # not ported yet: CausalLM raises on these (ROADMAP Queue A)
+    # not ported yet: CausalLM raises on it (ROADMAP Queue A)
     n_experts: int = 0
+    # per-block rematerialization and its policy (None | "mlp" |
+    # "mlp_qkv", the module docstring); a policy needs remat=True
     remat: bool = False
+    remat_policy: Optional[str] = None
     # the JAX parameter layout (scanned ``layers/block`` with a leading
     # [L] axis, or unrolled ``layer_{i}``); the port always loops
     scan_layers: bool = False
     # flash schedule: set → Attention runs flash attention under it
     flash_config: Optional[FlashConfig] = None
+
+    def __post_init__(self) -> None:
+        if self.remat_policy is not None:
+            _check_remat_policy(self.remat_policy)
+            if not self.remat:
+                raise ValueError(
+                    "remat_policy is only meaningful with remat=True — a "
+                    "policy on a no-remat model would silently change the "
+                    "memory/FLOPs profile the caller asked for"
+                )
 
     @property
     def head_dim(self) -> int:
@@ -135,17 +194,28 @@ class Attention(nn.Module):
         self.attend = attn_fn or causal_attention
 
     def forward(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        return self.core(p, *self.qkv(p, x))
+
+    def qkv(self, p: dict, x: torch.Tensor) -> tuple:
+        """Post-RoPE q ``[..., T, H, D]`` and k, v ``[..., T, kv, D]``
+        (before the GQA repeat): what ``mlp_qkv`` keeps."""
         cfg = self.cfg
         hd = cfg.head_dim
         lead, t = x.shape[:-2], x.shape[-2]
         q = rope(self.wq(p["wq"], x).reshape(*lead, t, cfg.n_heads, hd), cfg.rope_theta)
         k = rope(self.wk(p["wk"], x).reshape(*lead, t, cfg.n_kv_heads, hd), cfg.rope_theta)
         v = self.wv(p["wv"], x).reshape(*lead, t, cfg.n_kv_heads, hd)
+        return q, k, v
+
+    def core(self, p: dict, q, k, v) -> torch.Tensor:
+        """Attention over q, k, v and the output projection."""
+        cfg = self.cfg
+        lead, t = q.shape[:-3], q.shape[-3]
         # GQA: repeat K/V heads to match Q heads (autograd sums them back)
         rep = cfg.n_heads // cfg.n_kv_heads
         k = k.repeat_interleave(rep, dim=-2)
         v = v.repeat_interleave(rep, dim=-2)
-        flat = (-1, t, cfg.n_heads, hd)
+        flat = (-1, t, cfg.n_heads, cfg.head_dim)
         out = self.attend(q.reshape(flat), k.reshape(flat), v.reshape(flat))
         return self.wo(p["wo"], out.reshape(*lead, t, cfg.dim))
 
@@ -166,14 +236,36 @@ class MLP(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None) -> None:
         super().__init__()
+        self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.dtype)
         self.attn = Attention(cfg, attn_fn)
         self.mlp_norm = RMSNorm(cfg.dtype)
         self.mlp = MLP(cfg)
 
     def forward(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(p["attn"], self.attn_norm(p["attn_norm"], x))
-        return x + self.mlp(p["mlp"], self.mlp_norm(p["mlp_norm"], x))
+        cfg = self.cfg
+        if not cfg.remat:
+            return self._block(p, x)
+        if cfg.remat_policy is None:
+            return _segment(self._block, p, x)
+        if cfg.remat_policy == "mlp":
+            x, h = _segment(self._attn_side, p, x)
+        else:  # "mlp_qkv"
+            q, k, v = self.attn.qkv(p["attn"], self.attn_norm(p["attn_norm"], x))
+            x, h = _segment(self._attn_rest, p, x, q, k, v)
+        return x + self.mlp(p["mlp"], h)
+
+    def _block(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        x, h = self._attn_side(p, x)
+        return x + self.mlp(p["mlp"], h)
+
+    def _attn_side(self, p: dict, x: torch.Tensor) -> tuple:
+        """The residual after attention and the FFN's normed input."""
+        return self._attn_rest(p, x, *self.attn.qkv(p["attn"], self.attn_norm(p["attn_norm"], x)))
+
+    def _attn_rest(self, p: dict, x: torch.Tensor, q, k, v) -> tuple:
+        x = x + self.attn.core(p["attn"], q, k, v)
+        return x, self.mlp_norm(p["mlp_norm"], x)
 
 
 class CausalLM(nn.Module):
@@ -184,10 +276,6 @@ class CausalLM(nn.Module):
         if cfg.n_experts > 0:
             raise NotImplementedError(
                 "MoE FFN is not ported yet (ROADMAP Queue A item 6: transformer breadth)"
-            )
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP Queue A item 6: torch.utils.checkpoint)"
             )
         self.cfg = cfg
         self.layers = nn.ModuleList(Block(cfg, attn_fn) for _ in range(cfg.n_layers))

@@ -8,11 +8,15 @@ which gives every node exactly the gradient of its own loss (a global
 mean would scale each by 1/N). The frozen base keeps its kernels and
 embedding as a bf16 copy: the model casts them to bf16 at every use, so
 casting once is exact and halves the memory; norm scales stay fp32.
+``node_chunk`` trains the nodes that many at a time and ``remat``
+recomputes each step's forward in its backward, as in JAX; the model's
+own per-block remat is ``TransformerConfig.remat``/``remat_policy``.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import apply_updates, softmax_cross_entropy
@@ -22,36 +26,70 @@ from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_unf
 from p2pfl_tpu_torch.parallel.spmd import SpmdFederation, _aggregate
 
 
-def _lora_round_core(
-    stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, sel_idx,
-    *, module, tx, agg: str = "fedavg", trim: int = 0, keep_opt_state: bool = False,
-):
-    """One round: every node runs its local Adam epochs on its own batches
-    (``perm`` [N, epochs, nb, bs]), the train-set nodes' adapters are
-    aggregated (``agg`` over the ``sel_idx`` rows for the robust rules)
-    and broadcast back, and the optimizer state resets from the aggregate
-    unless ``keep_opt_state``. Returns (adapters', opt', mean train loss
-    over the train-set nodes)."""
+def _node_epochs(lora, opt, base, x_all, y_all, perm, *, module, tx, remat: bool):
+    """Every node's local epochs (``perm`` [N, epochs, nb, bs]) with the
+    nodes batched: one forward and backward a step for all N. ``remat``
+    recomputes the whole loss's forward in the backward. Returns
+    (adapters', opt', mean train loss [N])."""
     n, epochs, nb = perm.shape[0], perm.shape[1], perm.shape[2]
     nodes = torch.arange(n, device=perm.device)[:, None]
-    lora, opt = stacked_lora, opt_states
+    paths = [p for p, _ in tree_items(lora)]
     epoch_losses = []
     for e in range(epochs):
         step_losses = []
         for s in range(nb):
             idx = perm[:, e, s].long()  # [N, bs]
             bx, by = x_all[nodes, idx], y_all[nodes, idx]  # [N, bs, T]
-            paths = [p for p, _ in tree_items(lora)]
             leaves = [x.detach().requires_grad_(True) for x in tree_leaves(lora)]
-            node_loss, _ = _lm_loss(
-                tree_unflatten(dict(zip(paths, leaves))), base, module, bx, by, node_axis=True
-            )
-            grads = torch.autograd.grad(node_loss.sum(), leaves)
+
+            def loss_of(*lv, bx=bx, by=by):
+                return _lm_loss(tree_unflatten(dict(zip(paths, lv))), base, module, bx, by, node_axis=True)[0]
+
+            with torch.enable_grad():
+                node_loss = checkpoint(loss_of, *leaves, use_reentrant=False, preserve_rng_state=False) \
+                    if remat else loss_of(*leaves)
+                grads = torch.autograd.grad(node_loss.sum(), leaves)
             updates, opt = tx.update(tree_unflatten(dict(zip(paths, grads))), opt, lora)
             lora = apply_updates(lora, updates)
             step_losses.append(node_loss.detach())
         epoch_losses.append(torch.stack(step_losses).mean(0))
-    losses = torch.stack(epoch_losses).mean(0)  # [N]
+    return lora, opt, torch.stack(epoch_losses).mean(0)
+
+
+def _rows(tree, lo: int, hi: int):
+    """Rows ``lo:hi`` of a node-stacked state; a shared 0-d leaf (the
+    optimizer's step count) as it is."""
+    return torch.utils._pytree.tree_map(lambda a: a[lo:hi] if a.dim() else a, tree)
+
+
+def _lora_round_core(
+    stacked_lora, opt_states, base, x_all, y_all, perm, mask, weights, sel_idx,
+    *, module, tx, agg: str = "fedavg", trim: int = 0, keep_opt_state: bool = False,
+    remat: bool = False, node_chunk: int = 0,
+):
+    """One round: every node runs its local Adam epochs on its own batches
+    (``perm`` [N, epochs, nb, bs]), the train-set nodes' adapters are
+    aggregated (``agg`` over the ``sel_idx`` rows for the robust rules)
+    and broadcast back, and the optimizer state resets from the aggregate
+    unless ``keep_opt_state``. ``node_chunk``: the nodes train that many
+    at a time, a Python loop over node-stacked chunks (JAX's ``lax.scan``
+    of vmapped chunks): activation memory follows the nodes in flight.
+    Returns (adapters', opt', mean train loss over the train-set nodes)."""
+    n = perm.shape[0]
+    kw = dict(module=module, tx=tx, remat=remat)
+    if node_chunk and node_chunk < n:
+        parts = [
+            _node_epochs(_rows(stacked_lora, c0, c0 + node_chunk), _rows(opt_states, c0, c0 + node_chunk),
+                         base, x_all[c0:c0 + node_chunk], y_all[c0:c0 + node_chunk],
+                         perm[c0:c0 + node_chunk], **kw)
+            for c0 in range(0, n, node_chunk)
+        ]
+        # every chunk stepped the shared count alike: keep the last one's
+        lora, opt, losses = torch.utils._pytree.tree_map(
+            lambda *xs: torch.cat(xs) if xs[0].dim() else xs[-1], *parts
+        )
+    else:
+        lora, opt, losses = _node_epochs(stacked_lora, opt_states, base, x_all, y_all, perm, **kw)
 
     def sel(new, old):
         m = mask.reshape((n,) + (1,) * (new.dim() - 1)).to(new.dtype)
@@ -95,12 +133,18 @@ def spmd_lora_eval(stacked_lora, base, x_test, y_test, *, module):
 class SpmdLoraFederation(SpmdFederation):
     """Federation over adapter subtrees; frozen base stored once."""
 
-    def __init__(self, model: TorchModel, datasets: list[FederatedDataset], **kwargs) -> None:
+    def __init__(
+        self, model: TorchModel, datasets: list[FederatedDataset], node_chunk: int = 0, **kwargs
+    ) -> None:
         lora0, base0 = split_lora(model.params)
         if not tree_leaves(lora0):
             raise ValueError("model has no lora_* params")
+        n = len(datasets)
+        if node_chunk and node_chunk < n and n % node_chunk:
+            raise ValueError(f"node_chunk {node_chunk} must divide n_nodes {n}")
         self._lora_template = lora0
         self._base_template = base0
+        self.node_chunk = node_chunk
         super().__init__(model, datasets, **kwargs)
 
     def _stage_state(self) -> None:
@@ -116,7 +160,7 @@ class SpmdLoraFederation(SpmdFederation):
     def _round_kwargs(self) -> dict:
         return dict(
             module=self.module, tx=self.tx, agg=self.aggregator, trim=self.trim,
-            keep_opt_state=self.keep_opt_state,
+            keep_opt_state=self.keep_opt_state, remat=self.remat, node_chunk=self.node_chunk,
         )
 
     def run_round(self, epochs: int = 1) -> dict:

@@ -2,6 +2,13 @@
 
 Only the knobs the ported slices read, with the JAX package's names and
 defaults. Mutate the class attributes to change them, as there.
+
+``COMPUTE_DTYPE="float32"`` means IEEE fp32 on the card as on the CPU:
+importing :mod:`p2pfl_tpu_torch` turns TF32 off in cuBLAS's matmuls and
+cuDNN's convolutions, once, and no knob turns it back on (PyTorch's default
+would run an fp32 convolution in TF32, 10 mantissa bits). A caller who
+wants TF32 sets ``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` after the import.
 """
 
 from __future__ import annotations
@@ -81,6 +88,20 @@ class Settings:
     # retention of learning/checkpoint.py's save_state: keep the newest N
     # step directories; 0 = unbounded
     CHECKPOINT_KEEP_N: int = 0
+
+    # --- federation round hot path (parallel/chunked.py) ---
+    # how many chunks ahead ChunkedFederation stages its inputs (the
+    # round's shuffle indices, and x/y chunks when the data is not
+    # resident) while earlier chunks compute; 1 = stage each chunk just
+    # before it runs (the serial order), 2 = double buffering
+    CHUNK_STAGING_DEPTH: int = 2
+    # fold each chunk's weighted contribution into preallocated fp32
+    # accumulators as part of the chunk's work; False adds whole trees
+    # after every chunk (the serial reference path the parity test uses)
+    CHUNK_FUSED_REDUCE: bool = True
+    # the fused accumulators are updated in place (``add_``); False adds
+    # out of place into fresh tensors each chunk (the copy-safe path)
+    CHUNK_DONATE_BUFFERS: bool = True
 
     # --- monitoring (management/telemetry.py) ---
     TELEMETRY_ENABLED: bool = True
@@ -166,6 +187,9 @@ def set_test_settings() -> None:
     Settings.SCAFFOLD_FUSED_CI = True
     Settings.ROUND_FUSED = True
     Settings.CHECKPOINT_KEEP_N = 0
+    Settings.CHUNK_STAGING_DEPTH = 2
+    Settings.CHUNK_FUSED_REDUCE = True
+    Settings.CHUNK_DONATE_BUFFERS = True
     Settings.TRAIN_SET_SIZE = 4
     Settings.VOTE_TIMEOUT = 10.0
     Settings.AGGREGATION_TIMEOUT = 10.0

@@ -1,7 +1,9 @@
 """The full-model SpmdFederation on the card: ``run_fused`` replays a
 captured CUDA graph there, held bit for bit against the eager program
-(the MLP, and a scheduled ResNet span); a checkpoint restores onto the
-card and resumes bit for bit.
+(the MLP, and a scheduled ResNet span with and without remat); a
+checkpoint restores onto the card and resumes bit for bit; two processes
+run the same rounds to the same bits; fp32 products are IEEE fp32 there
+(the package turns TF32 off when imported).
 
 Marked ``cuda``: it needs an NVIDIA GPU and skips elsewhere. It imports
 nothing of the JAX package, so it runs on a machine without flax:
@@ -124,3 +126,65 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
     for x, y in zip(torch.utils._pytree.tree_leaves((a.params, a.opt_state)),
                     torch.utils._pytree.tree_leaves((b.params, b.opt_state))):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_captured_remat_span_matches_eager(cuda):
+    """With ``remat`` (non-reentrant checkpoint) the span still captures,
+    and its replays give the eager program's bits."""
+    fed, ref = _resnet_fed(cuda, remat=True), _resnet_fed(cuda, remat=True)
+    assert fed._capturable()
+    for _ in range(2):
+        got = fed.run_fused(1)
+        perms, mask, sel = ref._fused_inputs(1, 1)
+        out = tspmd.spmd_rounds_fused(ref.params, ref.opt_state, ref.x_all, ref.y_all, perms, mask,
+                                      ref._samples, sel, **ref._round_kwargs(), **ref._algo_kwargs(0))
+        ref.params, ref.opt_state = out[:2]
+        assert torch.equal(got[0]["train_loss"], out[2][0])
+        for (_, a), (_, b) in zip(tree_items(fed.params), tree_items(ref.params)):
+            assert torch.equal(a, b)
+    assert len(fed._spans) == 1
+
+
+_TWO_PROCESS = """
+import hashlib, sys, torch
+sys.path[:0] = [{repo!r}, {repo!r} + "/tests"]
+from test_torch_cuda_spmd import _resnet_fed
+fed = _resnet_fed(torch.device("cuda"))
+for _ in range(3):
+    fed.run_fused(1, eval=True)
+h = hashlib.sha256()
+for t in torch.utils._pytree.tree_leaves((fed.params, fed.opt_state)):
+    h.update(t.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+print("DIGEST", h.hexdigest())
+"""
+
+
+@pytest.mark.cuda
+def test_two_processes_give_the_same_bits(cuda):
+    """Config 2's recipe at a reduced depth, 3 captured rounds with eval,
+    in two processes with other ``PYTHONHASHSEED``s: the params and Adam
+    state end bit-equal (Queue C's C3: nothing of the round program varies
+    from process to process)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = str(pathlib.Path(__file__).resolve().parents[1])
+    digests = []
+    for seed in ("1", "2"):
+        proc = subprocess.run([sys.executable, "-c", _TWO_PROCESS.format(repo=repo)], capture_output=True,
+                              text=True, timeout=300, env=dict(os.environ, PYTHONHASHSEED=seed), cwd=repo)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        digests.append(next(line for line in proc.stdout.splitlines() if line.startswith("DIGEST")))
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.cuda
+def test_fp32_products_are_ieee_on_the_card(cuda):
+    """Importing the package turned both TF32 flags off, and building and
+    running a federation on the card leaves them off."""
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    _resnet_fed(cuda).run_round()
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32

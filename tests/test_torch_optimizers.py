@@ -162,3 +162,62 @@ def test_learner_adam_is_the_one_implementation():
         assert torch.equal(x, y) and torch.equal(x, z)
     assert a.capturable and optimizers.chain(a, b).capturable
     assert not learner.GradientTransformation(a.init, a.update).capturable
+
+
+def _adafactor_tree(seed: int) -> dict:
+    """Leaves of every kind Adafactor tells apart: rank 1 (full moment),
+    rank 2 factored (both axes >= 128), a tie of equal axes, one axis at
+    127 (the factor-size edge: full moment), rank 3 factored over its two
+    largest axes, and a small weight whose rms sits under the 1e-3 floor."""
+    rng = np.random.default_rng(seed)
+    shapes = {"bias": (200,), "kernel": (256, 130), "square": (128, 128), "edge": (256, 127),
+              "stack": (3, 130, 160)}
+    tree = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    tree["tiny"] = (1e-4 * rng.standard_normal((8, 4))).astype(np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("lr", [3e-3, "schedule"], ids=["const", "schedule"])
+def test_adafactor_matches_optax(lr):
+    """``adafactor`` (optax's defaults: ``min_dim_size_to_factor`` 128,
+    decay 0.8, clipping 1.0, parameter scale, eps 1e-30) against
+    ``optax.adafactor`` over 20 steps of numpy-seeded gradients, some 100x
+    larger so the block clip engages: params to 1e-6 relative to their
+    scale at every step, the factored statistics to 1e-5 relative (fp32
+    products in the same order; XLA's and torch's ``pow`` may differ by an
+    ulp), the count equal. The factoring chooses the leaves optax does."""
+    sched_args = (0.0, 3e-3, 5, 20, 1e-4)
+    jlr = optax.warmup_cosine_decay_schedule(*sched_args) if lr == "schedule" else lr
+    tlr = optimizers.warmup_cosine_decay_schedule(*sched_args) if lr == "schedule" else lr
+    jtx, ttx = optax.adafactor(learning_rate=jlr), optimizers.adafactor(learning_rate=tlr)
+    params = _adafactor_tree(0)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = {k: torch.tensor(v) for k, v in params.items()}
+    js, ts = jtx.init(jp), ttx.init(tp)
+    rng = np.random.default_rng(1)
+    for step in range(20):
+        scale = 100.0 if step % 5 == 0 else 1.0
+        grads = {k: (scale * rng.standard_normal(v.shape)).astype(np.float32) for k, v in params.items()}
+        ju, js = jtx.update(jax.tree.map(jnp.asarray, grads), js, jp)
+        jp = optax.apply_updates(jp, ju)
+        tu, ts = ttx.update({k: torch.tensor(v) for k, v in grads.items()}, ts, tp)
+        tp = apply_updates(tp, tu)
+        for k in params:
+            want = np.asarray(jp[k])
+            np.testing.assert_allclose(tp[k].numpy(), want, rtol=0, atol=1e-6 * np.abs(want).max(), err_msg=f"{k}@{step}")
+    jfac = js[0]
+    assert int(ts.count) == int(jfac.count) == 20
+    for name in ("v_row", "v_col", "v"):
+        for k in params:
+            want, got = np.asarray(getattr(jfac, name)[k]), getattr(ts, name)[k].numpy()
+            assert got.shape == want.shape, (name, k)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=0, err_msg=f"{name}/{k}")
+    factored = {k for k in params if getattr(ts, "v")[k].shape == (1,)}
+    assert factored == {"kernel", "square", "stack"}
+
+
+def test_adafactor_refuses_a_step_without_params():
+    tx = optimizers.adafactor(1e-3)
+    p = {"w": torch.ones(3)}
+    with pytest.raises(ValueError, match="needs the params"):
+        tx.update(p, tx.init(p))

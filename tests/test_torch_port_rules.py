@@ -51,7 +51,8 @@ def test_import_purity_in_a_fresh_process():
     assert len(mods) >= 15
     # the vision slice's modules are among those imported
     assert {"p2pfl_tpu_torch.learning.optimizers", "p2pfl_tpu_torch.learning.checkpoint",
-            "p2pfl_tpu_torch.examples.spmd_cifar", "p2pfl_tpu_torch.examples.heterogeneous"} <= set(mods)
+            "p2pfl_tpu_torch.examples.spmd_cifar", "p2pfl_tpu_torch.examples.heterogeneous",
+            "p2pfl_tpu_torch.parallel.chunked"} <= set(mods)
 
 
 @pytest.mark.parametrize(

@@ -506,14 +506,61 @@ def test_refusals(tmp_path):
         Settings.VOTE_EVERY_ROUND = False
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         fed.restore(str(tmp_path / "somewhere"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-        fed.profile_round()
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
-        fed.run_round(profile=True)
     fed.drop_node(0)
     fed.drop_node(1)
     with pytest.raises(RuntimeError, match="no active"):
         fed.run_round()
+
+
+@pytest.mark.parametrize("algo", ["plain", "scaffold", "fedadam"])
+def test_profile_round_breakdown_keys_and_state(algo):
+    """``profile_round`` (``tests/test_round_pipeline.py``'s twin): every
+    phase timed, ``last_profile`` set, and the federation untouched — the
+    next round of the profiled federation equals its unprofiled twin's bit
+    for bit (params, loss and the numpy rng stream), with participation
+    sampling and SCAFFOLD's or FedOpt's carried state in play."""
+    extra = {"plain": dict(participation=0.5), "scaffold": dict(scaffold=True, optimizer="sgd"),
+             "fedadam": dict(server_opt="adam")}[algo]
+    kw = dict(n_nodes=4, batch_size=16, vote=False, seed=3, device="cpu", **extra)
+    fed = SpmdFederation.from_dataset(mlp(seed=0, device="cpu"), _data(), **kw)
+    twin = SpmdFederation.from_dataset(mlp(seed=0, device="cpu"), _data(), **kw)
+    fed.run_round()
+    twin.run_round()
+    assert fed.last_profile is None
+    prof = fed.profile_round(epochs=1, iters=1)
+    assert prof is fed.last_profile
+    for key in ("total_s", "train_s", "correction_s", "aggregate_s"):
+        assert key in prof and prof[key] >= 0.0, prof
+    if algo == "plain":
+        assert prof["train_s"] == prof["total_s"] and prof["correction_s"] == 0.0
+    assert fed._rng.bit_generator.state == twin._rng.bit_generator.state
+    e1, e2 = fed.run_round(), twin.run_round()
+    assert torch.equal(e1["train_loss"], e2["train_loss"])
+    def state(f):
+        carried = [getattr(f, k) for k in ("c_global", "c_local", "opt_m", "opt_v") if hasattr(f, k)]
+        return torch.utils._pytree.tree_leaves((f.params, f.opt_state, *carried))
+
+    assert all(torch.equal(a, b) for a, b in zip(state(fed), state(twin), strict=True))
+
+
+def test_profile_round_restores_the_rng_when_a_probe_fails(monkeypatch):
+    """A probe that raises leaves the numpy rng where it was, and
+    ``run_round(profile=True)`` profiles the round it is about to run."""
+    fed = SpmdFederation.from_dataset(mlp(seed=0, device="cpu"), _data(), n_nodes=4, batch_size=16, vote=False,
+                                      seed=3, device="cpu")
+    before = fed._rng.bit_generator.state
+
+    def boom(*a, **k):
+        raise RuntimeError("probe failed")
+
+    monkeypatch.setattr(tspmd, "spmd_round", boom)
+    with pytest.raises(RuntimeError, match="probe failed"):
+        fed.profile_round()
+    assert fed._rng.bit_generator.state == before and fed.last_profile is None
+    monkeypatch.undo()
+    fed.run_round(profile=True)
+    assert set(fed.last_profile) >= {"total_s", "train_s", "correction_s", "aggregate_s"}
+    assert fed.round == 1
 
 
 def test_state_machine_and_examples(capsys, monkeypatch):

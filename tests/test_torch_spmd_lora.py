@@ -291,6 +291,50 @@ def test_federation_refusals():
         Settings.VOTE_EVERY_ROUND = False
 
 
+@pytest.mark.parametrize("policy", [None, "mlp_qkv"], ids=["full", "mlp_qkv"])
+def test_node_chunk_and_remat_match_unchunked_and_jax(policy):
+    """``node_chunk=2`` of 4 nodes with the federation's ``remat`` and the
+    model's per-block remat under ``policy`` (flash attention, fp32): one
+    round and a fused span equal the unchunked federation without any
+    remat bit for bit on the CPU, and agree with JAX's ``node_chunk``
+    federation under the same policy to the fp32 bounds above."""
+    kw = dict(vocab_size=VOCAB, seq_len=SEQ, n_train=32, n_test=16)
+    jcfg = jtr.TransformerConfig(**SMALL, dtype=jnp.float32, flash_config=JaxFlashConfig(16, 16), remat=True,
+                                 remat_policy=policy)
+    jmodel = jtr.tiny_transformer(seq_len=SEQ, seed=0, cfg=jcfg)
+    jfed = JaxFederation.from_dataset(jmodel, JaxDataset.synthetic_lm(**kw), node_chunk=2, remat=True, **FED)
+    plain = _port_model(jmodel, True, torch.float32)
+    tcfg = TransformerConfig(**SMALL, dtype=torch.float32, flash_config=FlashConfig(16, 16), remat=True,
+                             remat_policy=policy)
+    remat = TorchModel(CausalLM(tcfg), plain.params, (SEQ,), VOCAB, {"config": tcfg})
+    chunked = SpmdLoraFederation.from_dataset(remat, FederatedDataset.synthetic_lm(**kw), device="cpu",
+                                              node_chunk=2, remat=True, **FED)
+    whole = SpmdLoraFederation.from_dataset(plain, FederatedDataset.synthetic_lm(**kw), device="cpu", **FED)
+    je, ce, we = jfed.run_round(), chunked.run_round(), whole.run_round()
+    assert torch.equal(ce["train_loss"], we["train_loss"])
+    state = lambda f: torch.utils._pytree.tree_leaves((f.params, f.opt_state))  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(state(chunked), state(whole), strict=True))
+    assert float(ce["train_loss"]) == pytest.approx(float(je["train_loss"]), abs=2e-5)
+    assert _adapter_diff(jfed, chunked)[0] <= 5e-4
+    jf, cf, wf = jfed.run_fused(2), chunked.run_fused(2), whole.run_fused(2)
+    for a, b, c in zip(jf, cf, wf):
+        assert torch.equal(b["train_loss"], c["train_loss"])
+        assert float(b["train_loss"]) == pytest.approx(float(a["train_loss"]), abs=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(state(chunked), state(whole), strict=True))
+
+
+def test_node_chunk_must_divide_the_nodes():
+    """JAX's message, in both packages (the port checks at construction)."""
+    kw = dict(vocab_size=VOCAB, seq_len=SEQ, n_train=32, n_test=16)
+    jmodel = _jax_model(False, jnp.float32)
+    jfed = JaxFederation.from_dataset(jmodel, JaxDataset.synthetic_lm(**kw), node_chunk=3, **FED)
+    with pytest.raises(ValueError, match="node_chunk 3 must divide n_nodes 4"):
+        jfed.run_round()
+    with pytest.raises(ValueError, match="node_chunk 3 must divide n_nodes 4"):
+        SpmdLoraFederation.from_dataset(_port_model(jmodel, False, torch.float32), FederatedDataset.synthetic_lm(**kw),
+                                        device="cpu", node_chunk=3, **FED)
+
+
 def test_lora_eval_and_ce_match_optax():
     rng = np.random.default_rng(9)
     logits = rng.standard_normal((2, 5, VOCAB)).astype(np.float32) * 3

@@ -206,14 +206,105 @@ def test_node_stacked_adapters_equal_per_node_calls():
         torch.testing.assert_close(together[n], alone, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize(
-    "kwargs,match",
-    [({"n_experts": 4}, "MoE"), ({"remat": True}, "remat")],
-)
+@pytest.mark.parametrize("kwargs,match", [({"n_experts": 4}, "MoE")])
 def test_unported_options_raise(kwargs, match):
     cfg = ttr.TransformerConfig(**SMALL, **kwargs)
     with pytest.raises(NotImplementedError, match=match):
         ttr.CausalLM(cfg)
+
+
+def test_remat_policy_validation_matches_jax():
+    """An unknown policy and a policy without remat raise ValueError with
+    the JAX config's messages; every known policy builds."""
+    for mod in (jtr, ttr):
+        with pytest.raises(ValueError, match="unknown remat_policy"):
+            mod.TransformerConfig(**SMALL, remat=True, remat_policy="attn")
+        with pytest.raises(ValueError, match="only meaningful with remat=True"):
+            mod.TransformerConfig(**SMALL, remat_policy="mlp")
+    for policy in (None, "mlp", "mlp_qkv"):
+        ttr.CausalLM(ttr.TransformerConfig(**SMALL, remat=True, remat_policy=policy))
+
+
+POLICIES = [None, "mlp", "mlp_qkv"]
+
+
+def _logits_and_grads(tcfg, p, x, y):
+    """fp32 logits and d(mean CE)/d(adapters) of the port's model, with the
+    flash forward's and backward's calls counted."""
+    from p2pfl_tpu_torch.ops import flash_attention as fa
+
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = fa.flash_fwd_bhtd, fa.flash_bwd_bhtd
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    lora, base = split_lora(params_from_jax(p, device="cpu"))
+    lora = tree_map(lambda t: t.requires_grad_(True), lora)
+    fa.flash_fwd_bhtd, fa.flash_bwd_bhtd = count("fwd", fwd), count("bwd", bwd)
+    try:
+        loss, logits = _lm_loss(lora, base, ttr.CausalLM(tcfg), torch.tensor(x), torch.tensor(y))
+        loss.backward()
+    finally:
+        fa.flash_fwd_bhtd, fa.flash_bwd_bhtd = fwd, bwd
+    return logits.detach(), {path: leaf.grad for path, leaf in tree_items(lora)}, calls
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=["full", "mlp", "mlp_qkv"])
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_remat_is_bit_equal_to_no_remat(attn, policy):
+    """Every policy's logits and adapter gradients equal those without
+    remat bit for bit (fp32 and bf16 compute, on the CPU). With flash
+    attention the backward re-runs the flash forward once a layer under
+    every policy (each segment holds the attention), and the backward
+    runs once a layer."""
+    layers = SMALL["n_layers"]
+    for dtype in DTYPES:
+        jcfg, tcfg = _configs(dtype, attn == "flash", False)
+        _, p = _jax_params(jcfg, seed=4)
+        x, y = _tokens(seed=5)
+        ref = _logits_and_grads(tcfg, p, x, y)
+        got = _logits_and_grads(dataclasses.replace(tcfg, remat=True, remat_policy=policy), p, x, y)
+        assert torch.equal(got[0], ref[0])
+        assert ref[1].keys() == got[1].keys()
+        for path in ref[1]:
+            assert torch.equal(got[1][path], ref[1][path]), (dtype, path)
+        if attn == "flash":
+            assert ref[2] == {"fwd": layers, "bwd": layers}
+            assert got[2] == {"fwd": 2 * layers, "bwd": layers}
+
+
+@pytest.mark.parametrize("policy", POLICIES, ids=["full", "mlp", "mlp_qkv"])
+def test_remat_policies_match_flax(policy):
+    """Under each policy the port's logits and adapter gradients agree with
+    flax's under the same policy (``nn.remat`` with JAX's
+    ``save_only_these_names``) from the same params, at 2 layers, fp32,
+    with flash attention (the Pallas kernel in interpret mode): logits to
+    ``LOGIT_TOL``, gradients to ``GRAD_TOL`` of the largest."""
+    jcfg, tcfg = _configs("fp32", True, False)
+    jcfg = dataclasses.replace(jcfg, remat=True, remat_policy=policy)
+    tcfg = dataclasses.replace(tcfg, remat=True, remat_policy=policy)
+    jmodel, p = _jax_params(jcfg, seed=6)
+    x, y = _tokens(seed=7)
+    jlora, jbase = jax.tree.map(jnp.asarray, split_lora(p))
+
+    def jloss(lo):
+        from p2pfl_tpu.learning.lora import merge_params
+
+        logits = jmodel.module.apply({"params": merge_params(jbase, lo)}, x)
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y).mean(), logits
+
+    (_, jlogits), jgrads = jax.value_and_grad(jloss, has_aux=True)(jlora)
+    want = dict(tree_items(jax.tree.map(np.asarray, jgrads)))
+    logits, got, _ = _logits_and_grads(tcfg, p, x, y)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=LOGIT_TOL["fp32"])
+    assert got.keys() == want.keys()
+    scale = max(np.abs(g).max() for g in want.values())
+    for path in want:
+        np.testing.assert_allclose(got[path].numpy(), want[path], atol=GRAD_TOL["fp32"] * scale, err_msg=path)
 
 
 @pytest.mark.parametrize("attn", ["ring", "ring_flash", "auto"])

@@ -224,3 +224,27 @@ def test_vit_block_gelu_is_tanh():
     h = torch.linspace(-3, 3, 601)
     assert np.abs(np.asarray(nn.gelu(h.numpy())) - F.gelu(h, approximate="tanh").numpy()).max() <= 1e-6
     assert (F.gelu(h) - F.gelu(h, approximate="tanh")).abs().max() > 1e-4
+
+
+def test_package_import_turns_tf32_off():
+    """The port's fp32 means IEEE fp32 on the card: importing the package
+    turns both of torch's TF32 flags off, whatever they were, once.
+    Nothing after the import sets them again, so a caller's own choice
+    made after it stands (a fresh process: the flags are process-wide)."""
+    import pathlib
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True\n"
+        "import p2pfl_tpu_torch\n"
+        "print(torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)\n"
+        "torch.backends.cudnn.allow_tf32 = True\n"
+        "p2pfl_tpu_torch.resolve_device('cpu')\n"
+        "print(torch.backends.cudnn.allow_tf32)\n"
+    )
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.split() == ["False", "False", "True"]
