@@ -6,11 +6,13 @@
     python3 chip_smoke.py --only exchange gossip
     python3 chip_smoke.py --only node_lora
     python3 chip_smoke.py --only wire
+    python3 chip_smoke.py --only compress
     python3 chip_smoke.py --only mnist
     python3 chip_smoke.py --only cifar
     python3 chip_smoke.py --only chunked nameplate
     python3 chip_smoke.py --only chunked_target      # config 3 to 50 %
     python3 chip_smoke.py --only nameplate_target    # config 5's recipe to 0.65
+    python3 chip_smoke.py --only compress_control    # broken codecs: the spread limits' control
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -105,6 +107,29 @@ Phases, each of which makes the script exit non-zero if it fails (the
    transport's byte path, streamed, bit-equal to the gRPC pair. Parts
    (b)-(d) need ``grpc`` and are gated off, with a line saying so, where
    it is not installed;
+10b. [compress] the gossip Node's learning breadth (``drive_compress``),
+   each part failing the phase on its own: (a) BASELINE config 8 (4 MLP
+   Nodes over loopback gRPC, 2048/512 samples, batch 64, 2 rounds) under
+   ``none``, ``int8`` and ``topk8``: weight-plane MB and messages, least
+   accuracy (a compressed run within ``C8_ACC_GAP`` of ``none``'s),
+   s/round; (b) the gossip phase's 4 MLP Nodes under topk8 on the ICI
+   plane: kernel 9 carries the codec payloads, the only fallbacks are
+   ``anchor_round_mismatch``, ``bytes_moved`` equals the transfer trees'
+   bytes, one update through ``_move_codec`` equals ``encode_params`` →
+   ``decode_params`` bit for bit (topk8 and int8), and kernel 9 is held
+   against its plain version on that odd-length int8/int32 tree and
+   timed; (c) config 5's whole tree (0.98B fp32 params) through
+   ``encode_device`` under topk8 and int8 and ``decode_tk8_device``:
+   seconds, GB/s, peak memory, two layers bit-equal to the CPU's run (ties
+   included); (d) ``drive_node_lora``'s federation under topk8 on the ICI
+   plane, each node on its own slot: launches of kernels 1, 2 and 9,
+   adapters within ``LOSSY_REL_SPREAD``, one adapter update through the
+   plane equal to the byte path bit for bit, bases bit-unchanged; (e)
+   ``examples/secure_mnist --mode secagg`` (4 Nodes, 2 rounds) and a
+   round with one contributor crashed: every aggregate within
+   ``SECAGG_ATOL`` of the FedAvg of the recorded unmasked contributions,
+   mask seconds; (f) BASELINE config 9 (4 Nodes under concept shift, 5
+   rounds of 2 epochs): FedPer against one global FedAvg model;
 11. [mnist] ``bench.py``'s drive on the port
    (``p2pfl_tpu_torch/examples/bench_mnist.py``: 64 MLP nodes at full
    width, batch 64, fused chunks of 5 rounds to 98% test accuracy on the
@@ -157,14 +182,19 @@ Phases, each of which makes the script exit non-zero if it fails (the
 15. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
-   also each node_lora experiment and the nameplate drive, for 9 the
-   wire phase's gRPC ICI drive); then the
+   also each node_lora experiment, the nameplate drive and, for 1 and 2,
+   the compress phase's LoRA Nodes; for 9 the wire phase's gRPC ICI drive
+   and the compress phase's MLP and LoRA drives, with kernel 9's time on
+   the codec tree as ``codec_tree``); then the
    ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.
 
 ``--only chunked_target`` runs config 3 to 50 % (at most 60 rounds) and
 ``--only nameplate_target`` config 5's full recipe (400 Adafactor steps
 pretraining the base, then at most 16 rounds to 0.65): minutes each, so
-never by default.
+never by default. ``--only compress_control`` runs the compress phase's
+parts (b) and (d) under two broken codecs (peers' deltas dropped; deltas
+decoded onto the receiver's own params) and reads what their checks see:
+the control of ``LOSSY_REL_SPREAD`` (a few minutes, never by default).
 
 ``--only exchange_peer`` (never run by default: it needs two cards) times
 kernel 9 storing from cuda:0 into cuda:1's memory over NVLink.
@@ -3032,12 +3062,795 @@ def drive_nameplate_target() -> tuple[bool, dict]:
 
 
 
-PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "mnist", "cifar",
-          "chunked", "nameplate")
+# ---- phase 15: the wire codecs, FedPer and secure aggregation ----
+
+
+#: BASELINE config 8 (``bench_suite.py:1653-1704``): 4 MLP Nodes over
+#: loopback gRPC, synthetic MNIST 2048/512, batch 64, 2 rounds of 1 epoch
+C8 = dict(nodes=4, rounds=2, epochs=1, samples=2048, n_test=512, batch_size=64, topology="full")
+#: a compressed run's least final accuracy may trail the uncompressed
+#: run's by this much (JAX's row read them equal)
+C8_ACC_GAP = 0.02
+#: topk8's cross-node spread of one federation's models, max over nodes
+#: of ||θ_i − θ_0|| / ||θ_0||, by tree: each node folds its own params
+#: exactly and its peers' top 5 % of their round's change, so the spread
+#: is a share of how far a round moves the params. It bounds divergence:
+#: nodes that keep their own training (phase ``compress_control``'s
+#: ``wrong_base`` codec) read above it. It cannot see a codec that drops
+#: the peers' deltas (the ``dropped`` codec reads as the sound runs do):
+#: the bit-equality checks of one update through the plane hold that.
+#: Read on an H100 (sound / ``dropped`` / ``wrong_base``): MLP 0.033-0.049
+#: / 0.032 / 0.100, LoRA 0.078 / 0.090 / 0.268; each limit sits between
+#: the sound runs and ``wrong_base``
+LOSSY_REL_SPREAD = {"mlp": 0.075, "lora": 0.15}
+#: a secure-aggregation round's aggregate against the FedAvg of the
+#: recorded unmasked contributions, max abs (the JAX package's
+#: ``test_masks_cancel_in_weighted_fedavg`` bound; the masks are
+#: SECAGG_MASK_STD = 100 and cancel to fp32 rounding of their sum)
+SECAGG_ATOL = 1e-3
+#: BASELINE config 9 (``bench_suite.py:1974-2038``): FedPer's mean local
+#: accuracy must exceed one global FedAvg model's by at least this
+C9_MIN_GAIN = 0.30
+
+
+def _lossy_logs():
+    """A handler that keeps the ICI plane's failed-transfer logs."""
+    import logging
+
+    failures: list = []
+
+    class _Failed(logging.Handler):
+        def emit(self, record):
+            if "ICI shard transfer" in record.getMessage():
+                failures.append(record.getMessage())
+
+    return _Failed(), failures
+
+
+@contextlib.contextmanager
+def _ici_probes():
+    """Record the ICI plane's fallback reasons and the bytes every codec
+    transfer hands to the exchange (the counts of ``ici_stats`` read
+    beside them)."""
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+
+    rec = {"reasons": [], "transfer_bytes": 0, "transfers": 0}
+    real_fb, real_tb = ici_mod._fallback, ici_mod.transfer_buffers
+
+    def fallback(src, nei, reason):
+        rec["reasons"].append(reason)
+        real_fb(src, nei, reason)
+
+    def transfer(srcs, dst):
+        rec["transfer_bytes"] += sum(t.numel() * t.element_size() for t in srcs)
+        rec["transfers"] += 1
+        return real_tb(srcs, dst)
+
+    ici_mod._fallback, ici_mod.transfer_buffers = fallback, transfer
+    try:
+        yield rec
+    finally:
+        ici_mod._fallback, ici_mod.transfer_buffers = real_fb, real_tb
+
+
+def _rel_spread(trees: list) -> float:
+    """max over nodes of ||tree_i − tree_0|| / ||tree_0|| (fp64)."""
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    flat = [torch.cat([x.double().reshape(-1).cpu() for x in tree_leaves(t)]) for t in trees]
+    return max(float((f - flat[0]).norm() / flat[0].norm()) for f in flat[1:])
+
+
+@contextlib.contextmanager
+def _weights_sends():
+    """Count the gRPC weight messages by kind: ``init`` (the initial model),
+    ``own`` (a node's own contribution) and ``aggregate`` (a model of two or
+    more contributors). A peer that has not yet reported a model is sent it
+    again every ``GOSSIP_MODELS_PERIOD``, so beyond 12 own messages a round
+    the count reads how long receivers take to report."""
+    from p2pfl_tpu_torch.communication import grpc_transport as gt
+
+    kinds = {"init": 0, "own": 0, "aggregate": 0}
+    real_enc, real_stream = gt._enc_weights, gt.GrpcProtocol._try_stream_send
+
+    def note(env):
+        kind = "init" if env.cmd == "init_model" else "own" if len(env.update.contributors) == 1 else "aggregate"
+        kinds[kind] += 1
+
+    def enc(env):
+        note(env)
+        return real_enc(env)
+
+    def stream(self, channel, nei, env):
+        handled = real_stream(self, channel, nei, env)
+        if handled is not None:
+            note(env)
+        return handled
+
+    gt._enc_weights, gt.GrpcProtocol._try_stream_send = enc, stream
+    try:
+        yield kinds
+    finally:
+        gt._enc_weights, gt.GrpcProtocol._try_stream_send = real_enc, real_stream
+
+
+def compress_config8(device: str = "cuda") -> tuple[bool, dict]:
+    """(a) BASELINE config 8 at its stated size under ``none``, ``int8`` and
+    ``topk8``: weight-plane egress (``GrpcProtocol.wire_stats``), messages
+    (by kind, :func:`_weights_sends`), least final accuracy, s/round."""
+    from p2pfl_tpu_torch.examples import mnist
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+
+    try:
+        import grpc  # noqa: F401 — part (a) is a gRPC federation
+    except ImportError:
+        log("[compress] (a) config 8 needs grpc, which is not installed FAIL")
+        return False, {}
+    rows = {}
+    for mode in ("none", "int8", "topk8"):
+        set_test_settings()
+        logger.set_level("WARNING")
+        Settings.WIRE_COMPRESSION = mode
+        try:
+            with _weights_sends() as kinds:
+                out = mnist.run(protocol="grpc", device=device, **C8)
+        finally:
+            Settings.WIRE_COMPRESSION = "none"
+        ws = out["wire_stats"]
+        rows[mode] = dict(
+            weights_MB=sum(w["weights_bytes"] for w in ws) / 1e6, weights_msgs=sum(w["weights_msgs"] for w in ws),
+            msgs_by_kind=dict(kinds),
+            min_final_acc=min(m["test_acc"] for m in out["metrics"]),
+            test_loss=[m["test_loss"] for m in out["metrics"]], s_per_round=out["round_s"],
+            elapsed_s=out["elapsed_s"],
+        )
+    none = rows["none"]
+    checks = {
+        "int8 egress below none's": rows["int8"]["weights_MB"] < none["weights_MB"],
+        "topk8 egress below none's": rows["topk8"]["weights_MB"] < none["weights_MB"],
+        f"compressed least accuracy within {C8_ACC_GAP} of none's": all(
+            rows[m]["min_final_acc"] >= none["min_final_acc"] - C8_ACC_GAP for m in ("int8", "topk8")),
+        "losses finite": all(math.isfinite(x) for r in rows.values() for x in r["test_loss"]),
+    }
+    ok = all(checks.values())
+    summary = {"rows": rows, "egress_ratio_int8": none["weights_MB"] / rows["int8"]["weights_MB"],
+               "egress_ratio_topk8": none["weights_MB"] / rows["topk8"]["weights_MB"], "checks": checks}
+    log(f"[compress] (a) config 8: {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def _codec_trees(device: str) -> tuple[dict, dict, dict]:
+    """An MLP sender, anchor and receiver template plus two raw
+    passthrough leaves (bf16 and int32), from seeds."""
+    from p2pfl_tpu_torch.models.vision import mlp
+
+    def tree(seed):
+        t = dict(mlp(seed=seed, device=device).params)
+        g = torch.Generator(device=device).manual_seed(seed)
+        t["extra"] = {"bf16": torch.randn((3, 5, 7), generator=g, device=device).to(torch.bfloat16),
+                      "steps": torch.arange(7, dtype=torch.int32, device=device) + seed}
+        return t
+
+    return tree(0), tree(1), tree(2)
+
+
+def _first_round_residual(mode: str, tree: dict, anchor: dict):
+    """Under topk8, the error-feedback residual an earlier round's encode
+    of ``tree`` leaves behind (the device producer); None under int8."""
+    from p2pfl_tpu_torch.learning import weights as tw
+    from p2pfl_tpu_torch.settings import Settings
+
+    if mode != "topk8":
+        return None
+    residual: dict = {}
+    prev = Settings.WIRE_COMPRESSION_DEVICE
+    Settings.WIRE_COMPRESSION_DEVICE = True
+    try:
+        tw.encode_params(tree, compression=mode, anchor=anchor, anchor_tag="0:9", residual=residual)
+    finally:
+        Settings.WIRE_COMPRESSION_DEVICE = prev
+    return residual
+
+
+def _perturbed(tree, seed: int, scale: float = 1e-3):
+    """A copy of ``tree`` with a seeded perturbation on every other float
+    leaf; the rest stay equal (their deltas are all ties at zero)."""
+    from p2pfl_tpu_torch.learning.weights import named_leaves
+    from p2pfl_tpu_torch.ops.tree import tree_unflatten
+
+    out = {}
+    for i, (key, leaf) in enumerate(named_leaves(tree)[1]):
+        leaf = leaf.detach().clone()
+        if i % 2 == 0 and leaf.is_floating_point():
+            g = torch.Generator(device=leaf.device).manual_seed(seed * 1000 + i)
+            leaf += scale * torch.randn(leaf.shape, generator=g, device=leaf.device, dtype=leaf.dtype)
+        out[key] = leaf
+    return tree_unflatten(out)
+
+
+def codec_update_check(mode: str, params: dict, anchor: dict, template: dict, residual=None,
+                       device: str = "cuda") -> tuple[bool, dict, list]:
+    """One update through ``ici._move_codec`` between two disjoint slots
+    against ``encode_params`` → ``decode_params`` of the same update on
+    the same device (``ici.move_codec_against_bytes``), bit for bit, with
+    the error read as values beside; returns the transfer's sources (the
+    codec tree kernel 9 moved)."""
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.learning import weights as tw
+    from p2pfl_tpu_torch.parallel.ici_plane import slice_info_of
+    from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
+    from p2pfl_tpu_torch.settings import Settings
+
+    slices = node_slices(submesh_federation_mesh(2, devices=[device] * 2))
+    src_info, dst_info = slice_info_of(params, slices[0]), slice_info_of(template, slices[1])
+
+    class _Receiver:
+        @staticmethod
+        def wire_anchor():
+            return anchor, "1:0"
+
+    prev = Settings.WIRE_COMPRESSION_DEVICE
+    Settings.WIRE_COMPRESSION_DEVICE = True  # the producer the plane runs
+    try:
+        update = tw.ModelUpdate(params, ["a"], 10, anchor=anchor, anchor_tag="1:0", ef_residual=residual)
+        got, want, moved, srcs = ici_mod.move_codec_against_bytes(update, template, src_info, dst_info,
+                                                                  _Receiver(), mode)
+    finally:
+        Settings.WIRE_COMPRESSION_DEVICE = prev
+    got, want = dict(tw.named_leaves(got)[1]), dict(tw.named_leaves(want)[1])
+    equal = sorted(got) == sorted(want) and all(bits_equal(got[k], want[k]) for k in want)
+    err = max((got[k].double() - want[k].double()).abs().max().item() for k in want)
+    n_bytes = sum(t.numel() * t.element_size() for t in srcs)
+    row = dict(equal=equal, max_abs_err=err, moved=moved, transfer_bytes=n_bytes, buffers=len(srcs),
+               dtypes=sorted({str(t.dtype) for t in srcs}), residual=residual is not None,
+               byte_residues_mod16=sorted({t.numel() * t.element_size() % 16 for t in srcs} - {0}))
+    return equal and moved == n_bytes, row, srcs
+
+
+def compress_ici(device: str = "cuda") -> tuple[bool, dict]:
+    """(b) The ICI plane under topk8: the gossip phase's 4 MLP Nodes on
+    disjoint slots; one update through ``_move_codec`` against the byte
+    path; kernel 9 against its plain version on the codec tree."""
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.examples import mnist
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.ici_plane import exchange_plain
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+
+    set_test_settings()
+    logger.set_level("WARNING")
+    Settings.WIRE_COMPRESSION = "topk8"
+    handler, failures = _lossy_logs()
+    logger._logger.addHandler(handler)
+    ici_mod.reset_ici_stats()
+    _kernels.reset_launches()
+    try:
+        with _ici_probes() as rec:
+            out = mnist.run(nodes=4, weights_plane="ici", **{**GOSSIP_KW, "device": device})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = _kernels.LAUNCHES["ici_exchange"]
+        stats = ici_mod.ici_stats()
+    finally:
+        Settings.WIRE_COMPRESSION = "none"
+        logger._logger.removeHandler(handler)
+    params, anchor, template = _codec_trees(device)
+    updates = {mode: codec_update_check(mode, params, anchor, template, _first_round_residual(mode, template, anchor),
+                                        device) for mode in ("topk8", "int8")}
+    checks = {
+        "kernel 9 carried the codec payloads": device != "cuda" or launches > 0,
+        "shard_sends > 0": stats["shard_sends"] > 0,
+        "fallbacks only anchor_round_mismatch": set(rec["reasons"]) <= {"anchor_round_mismatch"},
+        "bytes_moved equals the transfer trees' bytes": stats["bytes_moved"] == rec["transfer_bytes"] > 0,
+        "no failed transfer": not failures,
+        "no alignment fix-up": stats["align_violations"] == 0,
+        "losses finite": all(math.isfinite(m["test_loss"]) for m in out["metrics"]),
+        f"models within the lossy spread ({LOSSY_REL_SPREAD['mlp']})": (
+            _rel_spread(out["params"]) <= LOSSY_REL_SPREAD["mlp"]),
+        **{f"_move_codec {m} equals the byte path bit for bit": u[0] for m, u in updates.items()},
+        "the codec tree holds buffers of a byte length not a multiple of 16": bool(
+            updates["topk8"][1]["byte_residues_mod16"]),
+    }
+    row = None
+    if device == "cuda":
+        srcs = updates["topk8"][2]
+        dsts, refs = [torch.empty_like(s) for s in srcs], [torch.empty_like(s) for s in srcs]
+        for d in dsts + refs:
+            d.zero_()
+        _kernels.ici_exchange(srcs, dsts)
+        exchange_plain(srcs, refs)
+        torch.cuda.synchronize()
+        checks["kernel 9 bit-equal to its plain version on the codec tree"] = all(
+            bits_equal(d, r) and bits_equal(d, s) for d, r, s in zip(dsts, refs, srcs))
+        # as values and as bytes (int8 q, int32 idx, fp32 scales, raw leaves)
+        err = max(max((d.double() - r.double()).nan_to_num().abs().max().item(),
+                      (d.reshape(-1).view(torch.uint8).int() - r.reshape(-1).view(torch.uint8).int()).abs().max().item())
+                  for d, r in zip(dsts, refs))
+        n_bytes = sum(s.numel() * s.element_size() for s in srcs)
+        bms, by = bound(2 * n_bytes, 0)
+        row = dict(leaves=len(srcs), bytes=n_bytes, max_abs_err=err,
+                   ms=time_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
+                   plain_ms=time_ms(lambda: exchange_plain(srcs, refs)), bound_ms=bms, bound_by=by,
+                   library_ms=time_ms(lambda: torch._foreach_copy_(refs, srcs)))
+        row.update(device_times(lambda: _kernels.ici_exchange(srcs, dsts),
+                                lambda: torch._foreach_copy_(refs, srcs)))
+    ok = all(checks.values())
+    summary = {"nodes": 4, "rounds": GOSSIP_KW["rounds"], "samples": GOSSIP_KW["samples"], "ici_stats": stats,
+               "launches_ici_exchange": launches, "fallback_reasons": sorted(set(rec["reasons"])),
+               "fallbacks": len(rec["reasons"]), "transfer_bytes": rec["transfer_bytes"],
+               "s_per_round": out["round_s"], "test_acc": [m["test_acc"] for m in out["metrics"]],
+               "rel_spread": _rel_spread(out["params"]), "updates": {m: u[1] for m, u in updates.items()},
+               "kernel9_codec_tree": row, "failed_transfer_logs": failures[:3], "checks": checks}
+    log(f"[compress] (b) ICI plane under topk8: {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def compress_full_width(device: str = "cuda", depth: int = 22) -> tuple[bool, dict]:
+    """(c) The codec on config 5's whole tree as fp32 master params: the
+    anchor is the tree, the params the anchor plus a seeded perturbation
+    (every fourth leaf left unchanged: all ties), a residual on half the
+    perturbed delta-coded leaves. ``encode_device`` under topk8 and int8
+    and ``decode_tk8_device``, timed; two layers' leaves encoded again on
+    the CPU from copies taken before, and the card's idx, q, scale,
+    residual and frame held bit for bit against them."""
+    from p2pfl_tpu_torch import native
+    from p2pfl_tpu_torch.learning import weights as tw
+    from p2pfl_tpu_torch.models.transformer import init_params
+    from p2pfl_tpu_torch.ops import compression as comp
+    from p2pfl_tpu_torch.ops.tree import tree_items
+    from p2pfl_tpu_torch.settings import Settings
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = _config5(depth)
+    anchor = dict(tree_items(init_params(cfg, seed=0, device=device)))
+    keys = sorted(anchor)
+    gen = torch.Generator(device=device).manual_seed(12)
+    params = {k: anchor[k] if i % 4 == 0 else anchor[k] + 1e-3 * torch.randn(
+        anchor[k].shape, generator=gen, device=device) for i, k in enumerate(keys)}
+    plan = comp.build_topk_plan(params, anchor, Settings.TOPK_FRACTION)
+    residual = {k: 1e-4 * torch.randn(anchor[k].numel(), generator=gen, device=device)
+                for i, k in enumerate(sorted(plan)) if i % 2 and params[k] is not anchor[k]}
+    sub = [k for k in keys if k.startswith(("layer_0/", "layer_1/"))]
+    cpu = {k: params[k].to("cpu", copy=True) for k in sub}
+    cpu_anchor = {k: anchor[k].to("cpu", copy=True) for k in sub}
+    cpu_res = {k: residual[k].to("cpu", copy=True) for k in sub if k in residual}
+    host_res = {k: v.clone() for k, v in cpu_res.items()}
+    n_params = sum(v.numel() for v in params.values())
+    param_bytes = 4 * n_params
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    plans, d2h = comp.encode_device(params, anchor, plan, residual)
+    sync()
+    tk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plans_i8, d2h_i8 = comp.encode_device(params, None, {}, None)
+    sync()
+    i8_s = time.perf_counter() - t0
+    items = []
+    for entry, bufs in plans:
+        if entry.get("enc") == "tk8":
+            idx = np.frombuffer(bufs[0], np.uint32)
+            vals = native.dequantize(np.frombuffer(bufs[1], np.int8), entry["scale"])
+            items.append((entry["k"], anchor[entry["k"]], idx, vals, tuple(entry["shape"]), torch.float32))
+    sync()
+    t0 = time.perf_counter()
+    decoded = comp.decode_tk8_device(items)
+    sync()
+    dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else float("nan")
+
+    # the CPU's run of the same producer on two layers' leaves
+    sub_plan = {k: plan[k] for k in sub if k in plan}
+    cpu_plans, _ = comp.encode_device(cpu, cpu_anchor, sub_plan, cpu_res)
+    card_sub = [(e, b) for e, b in plans if e["k"] in set(sub)]
+    entries_equal = [(e1, [bytes(x) for x in b1]) == (e2, [bytes(x) for x in b2])
+                     for (e1, b1), (e2, b2) in zip(card_sub, cpu_plans)]
+    residual_equal = all(bits_equal(residual[k].cpu(), cpu_res[k]) for k in cpu_res)
+    frame_equal = tw._frame(card_sub, "t") == tw._frame(cpu_plans, "t")
+    cpu_items = [(k, cpu_anchor[k], i, v, s, d) for k, _a, i, v, s, d in items if k in set(sub)]
+    cpu_dec = comp.decode_tk8_device(cpu_items)
+    decode_equal = all(bits_equal(decoded[k].cpu(), cpu_dec[k]) for k in cpu_dec)
+    i8_card = [(e, [bytes(x) for x in b]) for e, b in plans_i8 if e["k"] in set(sub)]
+    i8_cpu = [(e, [bytes(x) for x in b]) for e, b in comp.encode_device(cpu, None, {}, None)[0]]
+    # the host producer (numpy, the native quantize) on the same leaves:
+    # one layout, but its own choice among tied magnitudes and its
+    # reciprocal-multiply quantization, so its bytes may differ at ties
+    host_plans, _ = tw._encode_host(cpu, "topk8", cpu_anchor, sub_plan, host_res)
+    host_differs = sum(({**e1, "n": 0}, [bytes(x) for x in b1]) != ({**e2, "n": 0}, [bytes(x) for x in b2])
+                       for (e1, b1), (e2, b2) in zip(host_plans, cpu_plans))
+    host_gap = max(float((tw.decode_params(tw._frame(host_plans, "t"), anchor=cpu_anchor, anchor_tag="t")[k]
+                          - cpu_dec[k]).abs().max()) for k in cpu_dec)
+    checks = {
+        "topk8 idx/q/scale of two layers equal to the CPU's": all(entries_equal) and len(entries_equal) == len(sub),
+        "residual equal to the CPU's": residual_equal and len(cpu_res) > 0,
+        "frame byte-identical to the CPU's": frame_equal,
+        "tk8 decode equal to the CPU's": decode_equal,
+        "int8 of two layers equal to the CPU's": i8_card == i8_cpu,
+        "ties present (leaves left unchanged)": any(params[k] is anchor[k] for k in sub_plan),
+    }
+    del params, anchor, residual, decoded, plans, plans_i8
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    ok = all(checks.values())
+    summary = {"layers": depth, "params": n_params, "param_GB": param_bytes / 1e9,
+               "topk8_s": tk_s, "topk8_GBps": param_bytes / 1e9 / tk_s, "topk8_d2h_MB": d2h / 1e6,
+               "int8_s": i8_s, "int8_GBps": param_bytes / 1e9 / i8_s, "int8_d2h_MB": d2h_i8 / 1e6,
+               "decode_tk8_s": dec_s, "decode_leaves": len(items), "peak_mem_gb": peak,
+               "host_producer_entries_differing": host_differs, "host_vs_device_decoded_max_gap": host_gap,
+               "checks": checks}
+    log(f"[compress] (c) config 5's tree at full width: {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def compress_lora(depth: int = 22, rounds: int = 2, device: str = "cuda") -> tuple[bool, dict]:
+    """(d) ``drive_node_lora``'s config-5 federation (4 Nodes, seq 1024,
+    batch 2) under topk8 on the ICI plane, each node on its own slot of
+    the card; launches of kernels 1, 2 and 9 zeroed before and read after.
+    The nodes' adapters must end within ``LOSSY_REL_SPREAD["lora"]`` of each other
+    and every base bit-unchanged."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.lora import LoRALearner
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.models.transformer import tiny_transformer
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
+    from p2pfl_tpu_torch.settings import Settings
+    from p2pfl_tpu_torch.simulation import Simulation
+
+    _node_lora_settings()
+    Settings.WIRE_COMPRESSION, Settings.WEIGHTS_PLANE = "topk8", "ici"
+    k = NODE_LORA
+    n = k["nodes"]
+    data = FederatedDataset.synthetic_lm(
+        vocab_size=4096, seq_len=k["seq"], n_train=k["n_train"], n_test=k["n_test"], shift_frac=0.15
+    )
+    model = tiny_transformer(seq_len=k["seq"], seed=0, cfg=_config5(depth), attn="flash", device=device)
+    dev = tree_leaves(model.params)[0].device
+    slices = node_slices(submesh_federation_mesh(n, devices=[dev] * n))
+
+    def learner(i, shard):
+        lr = LoRALearner(model, shard, batch_size=k["batch"], learning_rate=k["lr"], seed=i)
+        lr.mesh = slices[i]  # its own slot: kernel 9 moves the codec payloads
+        return lr
+
+    handler, failures = _lossy_logs()
+    logger._logger.addHandler(handler)
+    sim = Simulation(n, learner, data, topology="full")
+    bases = [[x.cpu() for x in tree_leaves(node.learner.base)] for node in sim.nodes]
+    try:
+        with _ici_probes() as rec:
+            sim.start()
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            sim.learn(rounds=rounds, epochs=1, timeout=900)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(_kernels.LAUNCHES)
+        adapters = [n_.learner.get_parameters() for n_ in sim.nodes]
+        spread = _rel_spread(adapters)
+        # one adapter update with a residual through the plane against the
+        # byte path, on the drive's own trees and anchor
+        anchor = sim.nodes[0].learner.wire_anchor()[0]
+        update_ok, update_row, _ = codec_update_check(
+            "topk8", _perturbed(adapters[0], seed=5), anchor, adapters[1],
+            _first_round_residual("topk8", _perturbed(adapters[0], seed=6), anchor), dev.type)
+        metrics = sim.evaluate()
+        base_ok = all(all(torch.equal(a, b.cpu()) for a, b in zip(before, tree_leaves(node.learner.base)))
+                      for before, node in zip(bases, sim.nodes))
+    finally:
+        sim.stop()
+        logger._logger.removeHandler(handler)
+        Settings.WIRE_COMPRESSION, Settings.WEIGHTS_PLANE = "none", "bytes"
+    del sim, model, bases, adapters, anchor
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    on_card = dev.type == "cuda"
+    checks = {
+        "kernels 1 and 2 launched": not on_card or (launches["flash_fwd"] > 0 and launches["flash_bwd_dkvq"] > 0),
+        "kernel 9 carried the codec payloads": not on_card or launches["ici_exchange"] > 0,
+        "codec payloads moved between slots": rec["transfer_bytes"] > 0,
+        "fallbacks only anchor_round_mismatch": set(rec["reasons"]) <= {"anchor_round_mismatch"},
+        "no failed transfer": not failures,
+        f"adapters within the lossy spread ({LOSSY_REL_SPREAD['lora']})": spread <= LOSSY_REL_SPREAD["lora"],
+        "an adapter update through _move_codec equals the byte path bit for bit": update_ok,
+        "base bit-unchanged": base_ok,
+        "metrics finite": all(math.isfinite(m["test_loss"]) for m in metrics.values()),
+    }
+    ok = all(checks.values())
+    summary = {"layers": depth, "nodes": n, "seq": k["seq"], "rounds": rounds, "s_per_round": seconds / rounds,
+               "launches": {x: v for x, v in launches.items() if v}, "adapter_rel_spread": spread,
+               "update": update_row,
+               "fallbacks": len(rec["reasons"]), "transfer_bytes": rec["transfer_bytes"],
+               "test_loss": [m["test_loss"] for m in metrics.values()], "checks": checks}
+    log(f"[compress] (d) LoRA Nodes under topk8 on the ICI plane: {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, {**summary, "launches": launches}
+
+
+def _fedavg_f64(contribs: list) -> dict:
+    """Σ w·p / Σ w of recorded ``(params {path: fp64}, w)``, in fp64."""
+    total = sum(w for _p, w in contribs)
+    return {k: sum(w * p[k] for p, w in contribs) / total for k in contribs[0][0]}
+
+
+def _secagg_federation(device: str, rounds: int, crash: bool) -> dict:
+    """A 4-node secure-aggregation federation (memory transport): through
+    ``examples/secure_mnist.run``, or, with ``crash``, the same nodes with
+    node 3 hard-crashed as it enters round 0's TrainStage (``CrashSpec``)
+    and the survivors run to the end. Records every unmasked
+    contribution and its masked result (``secagg.mask_update``, timed)
+    and every node's aggregate as it enters RoundFinishedStage."""
+    from p2pfl_tpu_torch.communication.faults import CrashSpec, FaultPlan, install_fault_plan
+    from p2pfl_tpu_torch.examples import secure_mnist
+    from p2pfl_tpu_torch.learning import secagg
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.learner import TorchLearner
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.node import Node, stop_leaked_nodes
+    from p2pfl_tpu_torch.ops.tree import tree_items
+    from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+    from p2pfl_tpu_torch.utils import full_connection, wait_convergence, wait_to_finish
+
+    set_test_settings()
+    logger.set_level("WARNING")
+    rec = {"contrib": {}, "masked_std": [], "mask_s": [], "aggs": {}}
+    real_mask = secagg.mask_update
+
+    def f64(tree):
+        return {k: v.detach().double().cpu() for k, v in tree_items(tree)}
+
+    def mask(update, my_addr, train_set, priv, pubs, experiment, round_no, **kw):
+        # host clock, no device synchronize: another node may be capturing
+        # its train step as a CUDA graph, and a device-wide synchronize
+        # during a capture fails it (the masks' copies to the card wait for
+        # their own stream)
+        t0 = time.perf_counter()
+        out = real_mask(update, my_addr, train_set, priv, pubs, experiment, round_no, **kw)
+        rec["mask_s"].append(time.perf_counter() - t0)
+        raw = f64(update.params)
+        rec["contrib"][(round_no, my_addr)] = (raw, update.num_samples)
+        rec["masked_std"].append(min(float((v - raw[k]).std()) for k, v in f64(out.params).items()))
+        return out
+
+    def record(node, stage):
+        if stage == "RoundFinishedStage":
+            rec["aggs"][(node.state.round, node.addr)] = f64(node.learner.get_parameters())
+
+    def on_start(fleet):
+        for node in fleet:
+            node.stage_hooks.append(record)
+
+    secagg.mask_update = mask
+    try:
+        if not crash:
+            out = secure_mnist.run(mode="secagg", nodes=4, rounds=rounds, device=device, on_start=on_start)
+            rec["test_acc"] = [m["test_acc"] for m in out["metrics"]]
+            rec["survivors"] = out["addrs"]
+        else:
+            Settings.SECURE_AGGREGATION = True
+            data = FederatedDataset.synthetic_mnist(n_train=4096, n_test=512)
+            slices = node_slices(submesh_federation_mesh(4, devices=[device] * 4))
+            fleet = [Node(learner=TorchLearner(mlp(seed=i, device=device), data.partition(i, 4), batch_size=64,
+                                               seed=i, mesh=slices[i])) for i in range(4)]
+            try:
+                for node in fleet:
+                    node.start()
+                for node in fleet:
+                    full_connection(node, fleet)
+                wait_convergence(fleet, 3, only_direct=True, wait=30)
+                install_fault_plan(fleet, FaultPlan(seed=0, crashes={fleet[3].addr: CrashSpec("TrainStage", 0)}))
+                on_start(fleet)
+                fleet[0].set_start_learning(rounds=rounds, epochs=1)
+                wait_to_finish(fleet[:3], timeout=300)
+                rec["test_acc"] = [node.learner.evaluate()["test_acc"] for node in fleet[:3]]
+                rec["survivors"] = [node.addr for node in fleet[:3]]
+            finally:
+                for node in fleet:
+                    node.stop()
+                stop_leaked_nodes()
+                Settings.SECURE_AGGREGATION = False
+    finally:
+        secagg.mask_update = real_mask
+    return rec
+
+
+def compress_secagg(device: str = "cuda") -> tuple[bool, dict]:
+    """(e) Secure aggregation: ``examples/secure_mnist --mode secagg`` (4
+    Nodes, memory transport, 2 rounds): each round's aggregate on every
+    node against the FedAvg of the recorded unmasked contributions within
+    ``SECAGG_ATOL``; then one round with node 3 crashed on entering it:
+    the survivors' aggregate against the FedAvg of their own
+    contributions. Logs the mask seconds a node a round."""
+    runs = {"clean": _secagg_federation(device, rounds=2, crash=False),
+            "crash": _secagg_federation(device, rounds=1, crash=True)}
+    checks, gaps = {}, {}
+    for name, rec in runs.items():
+        rounds = sorted({r for r, _a in rec["aggs"]})
+        worst = 0.0
+        for r in rounds:
+            want = _fedavg_f64([c for (rr, _a), c in rec["contrib"].items() if rr == r])
+            for (rr, addr), got in rec["aggs"].items():
+                if rr == r and addr in rec["survivors"]:
+                    worst = max(worst, max(float((got[k] - want[k]).abs().max()) for k in want))
+        gaps[name] = worst
+        checks[f"{name}: every round's aggregate within {SECAGG_ATOL} of the unmasked FedAvg"] = (
+            bool(rounds) and worst <= SECAGG_ATOL
+            and all((r, a) in rec["aggs"] for r in rounds for a in rec["survivors"]))
+        checks[f"{name}: masked contributions far from the raw ones"] = min(rec["masked_std"]) > 1.0
+    checks["crash: three contributions, the survivors'"] = len(runs["crash"]["contrib"]) == 3
+    ok = all(checks.values())
+    summary = {"aggregate_max_gap": gaps, "mask_s_per_node_round": runs["clean"]["mask_s"],
+               "crash_mask_s": runs["crash"]["mask_s"],
+               "test_acc": {k: r["test_acc"] for k, r in runs.items()},
+               "masked_min_std": {k: min(r["masked_std"]) for k, r in runs.items()}, "checks": checks}
+    log(f"[compress] (e) secure aggregation: {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def compress_config9(device: str = "cuda") -> tuple[bool, dict]:
+    """(f) BASELINE config 9 at its stated size: 4 Nodes on
+    ``synthetic_mnist(4096, 1024, modes=4, noise=0.6, proto_scale=0.6)``,
+    node i's labels permuted by ``default_rng(100 + i)``, 5 rounds of 2
+    epochs, one global FedAvg model against FedPer (``personal=("Dense_2",)``):
+    mean local accuracy, bodies equal across nodes, heads apart."""
+    from p2pfl_tpu_torch.communication.memory import MemoryRegistry
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.learner import TorchLearner
+    from p2pfl_tpu_torch.learning.personalization import PersonalizedLearner
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.ops.tree import tree_items
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+    from p2pfl_tpu_torch.utils import full_connection, wait_convergence, wait_to_finish
+
+    rows, trees = {}, {}
+    for label in ("fedavg_global", "fedper_personal"):
+        set_test_settings()
+        logger.set_level("WARNING")
+        Settings.TRAIN_SET_SIZE = 4
+        MemoryRegistry.reset()
+        full = FederatedDataset.synthetic_mnist(n_train=4096, n_test=1024, modes=4, noise=0.6, proto_scale=0.6)
+        fleet = []
+        try:
+            for i in range(4):
+                shard = full.partition(i, 4)
+                perm = np.random.default_rng(100 + i).permutation(shard.num_classes)
+                shard.y_train, shard.y_test = perm[shard.y_train], perm[shard.y_test]
+                if label == "fedper_personal":
+                    lr = PersonalizedLearner(mlp(seed=i, device=device), shard, batch_size=64, personal=("Dense_2",))
+                else:
+                    lr = TorchLearner(mlp(seed=i, device=device), shard, batch_size=64)
+                fleet.append(Node(learner=lr))
+                fleet[-1].start()
+            for node in fleet:
+                full_connection(node, fleet)
+            wait_convergence(fleet, 3, only_direct=True, wait=30)
+            t0 = time.monotonic()
+            fleet[0].set_start_learning(rounds=5, epochs=2)
+            wait_to_finish(fleet, timeout=600)
+            elapsed = time.monotonic() - t0
+            accs = [float(node.learner.evaluate()["test_acc"]) for node in fleet]
+            trees[label] = [{k: v.float().cpu() for k, v in tree_items(node.learner.get_parameters())}
+                            for node in fleet]
+        finally:
+            for node in fleet:
+                node.stop()
+        rows[label] = {"mean_local_acc": float(np.mean(accs)), "per_node": accs, "wall_s": elapsed}
+    per = trees["fedper_personal"]
+    body = max(float((t[k] - per[0][k]).abs().max()) for t in per[1:] for k in t if not k.startswith("Dense_2"))
+    head = min(float((t[k] - per[0][k]).abs().max()) for t in per[1:] for k in t if k.startswith("Dense_2"))
+    gain = rows["fedper_personal"]["mean_local_acc"] - rows["fedavg_global"]["mean_local_acc"]
+    checks = {
+        f"FedPer's mean local accuracy >= global's + {C9_MIN_GAIN}": gain >= C9_MIN_GAIN,
+        "bodies equal across nodes (1e-4)": body <= 1e-4,
+        "heads differ across nodes": head > 1e-3,
+    }
+    ok = all(checks.values())
+    summary = {"rows": rows, "gain": gain, "body_max_gap": body, "head_min_gap": head, "checks": checks}
+    log(f"[compress] (f) config 9: {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def drive_compress() -> tuple[bool, dict]:
+    """Phase ``compress``: parts (a)-(f), each failing the phase on its own
+    (none is caught and skipped)."""
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    parts = {}
+    ok = True
+    for name, fn in (("config8", compress_config8), ("ici", compress_ici), ("full_width", compress_full_width),
+                     ("lora", compress_lora), ("secagg", compress_secagg), ("config9", compress_config9)):
+        t0 = time.perf_counter()
+        good, parts[name] = fn()
+        parts[name]["seconds"] = time.perf_counter() - t0
+        ok &= good
+        set_test_settings()
+    log(f"[compress] seconds per part: {json.dumps({k: round(v['seconds'], 1) for k, v in parts.items()})}")
+    return ok, parts
+
+
+#: the broken ICI codecs of phase ``compress_control``: ``dropped`` zeroes
+#: the tk8 values a receiver decodes (each delta-coded leaf lands as its
+#: anchor: the peers' deltas dropped); ``wrong_base`` decodes them onto the
+#: receiver's own current params in place of its anchor
+BROKEN_CODECS = ("dropped", "wrong_base")
+
+
+@contextlib.contextmanager
+def _broken_codec(kind: str):
+    """Every ICI receiver decodes through the broken codec ``kind``
+    (:data:`BROKEN_CODECS`)."""
+    from p2pfl_tpu_torch.ops import compression as comp
+
+    real = comp.decode_shard_device
+
+    def broken(bufs, tk_spec, dense_spec, anchor_named, template_named):
+        if kind == "dropped":
+            bufs = {k: torch.zeros_like(v) if k == "q" else v for k, v in bufs.items()}
+        else:
+            anchor_named = template_named
+        return real(bufs, tk_spec, dense_spec, anchor_named, template_named)
+
+    comp.decode_shard_device = broken
+    try:
+        yield
+    finally:
+        comp.decode_shard_device = real
+
+
+def drive_compress_control(device: str = "cuda") -> tuple[bool, dict]:
+    """Phase ``compress_control``, run only when named: parts (b) and (d)
+    under each broken codec of :data:`BROKEN_CODECS`, to read what their
+    checks see. Each part's one update through the plane must then differ
+    from the byte path (the bit-equality check can fail such a codec), and
+    under ``wrong_base`` (nodes that keep their own training) the spreads
+    must exceed ``LOSSY_REL_SPREAD``'s. The ``dropped`` spreads are read, not
+    held: the spread is a difference of the nodes' own residuals, which
+    the receivers' decode does not enter."""
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    readings: dict = {}
+    for kind in BROKEN_CODECS:
+        with _broken_codec(kind):
+            _, ici_part = compress_ici(device)
+            set_test_settings()
+            _, lora_part = compress_lora(device=device)
+            set_test_settings()
+        readings[kind] = dict(ici_mlp_spread=ici_part["rel_spread"], lora_spread=lora_part["adapter_rel_spread"],
+                              ici_mlp_update_equal=ici_part["updates"]["topk8"]["equal"],
+                              ici_mlp_update_err=ici_part["updates"]["topk8"]["max_abs_err"],
+                              lora_update_equal=lora_part["update"]["equal"],
+                              lora_update_err=lora_part["update"]["max_abs_err"])
+    checks = {
+        **{f"{k}: the updates differ from the byte path": not (r["ici_mlp_update_equal"] or r["lora_update_equal"])
+           for k, r in readings.items()},
+        f"wrong_base: the spreads exceed {LOSSY_REL_SPREAD}": (
+            readings["wrong_base"]["ici_mlp_spread"] > LOSSY_REL_SPREAD["mlp"]
+            and readings["wrong_base"]["lora_spread"] > LOSSY_REL_SPREAD["lora"]),
+    }
+    ok = all(checks.values())
+    log(f"[compress_control] {json.dumps({'readings': readings, 'checks': checks})} {'OK' if ok else 'FAIL'}")
+    return ok, readings
+
+
+PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "compress", "mnist",
+          "cifar", "chunked", "nameplate")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
-#: the runs to a target accuracy (minutes each): run only when named in --only
-TARGET_PHASES = ("chunked_target", "nameplate_target")
+#: the runs to a target accuracy (minutes each) and the control of the
+#: lossy codecs' spread limit: run only when named in --only
+TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control")
 
 
 def main(argv=None) -> int:
@@ -3125,6 +3938,14 @@ def main(argv=None) -> int:
             # kernel 9 also carries the gRPC fleet's weights on the ici plane
             count("wire_grpc_ici", {"ici_exchange": wire["runs"]["grpc_ici"]["launches_ici_exchange"]},
                   ("ici_exchange",))
+    compress: dict = {}
+    if "compress" in args.only:
+        good, compress = timed("compress", drive_compress)
+        ok &= good
+        # kernel 9 carries the codec payloads on the ICI plane (MLP and
+        # LoRA Nodes); kernels 1 and 2 run the LoRA Nodes' steps
+        count("compress_ici", {"ici_exchange": compress["ici"]["launches_ici_exchange"]}, ("ici_exchange",))
+        count("compress_lora", compress["lora"]["launches"], ("flash_fwd", "flash_bwd_dkvq", "ici_exchange"))
     if "mnist" in args.only:
         good, _ = timed("mnist", drive_mnist)
         ok &= good
@@ -3144,6 +3965,9 @@ def main(argv=None) -> int:
     if "nameplate_target" in args.only:
         good, _ = timed("nameplate_target", drive_nameplate_target)
         ok &= good
+    if "compress_control" in args.only:
+        good, _ = timed("compress_control", drive_compress_control)
+        ok &= good
     if "exchange_peer" in args.only:
         ok &= timed("exchange_peer", check_exchange_peer, {})
     log(f"[time] seconds per phase: {json.dumps(phase_s)}")
@@ -3152,7 +3976,11 @@ def main(argv=None) -> int:
     # hop, kernel 9 the gossip path's tree (the MLP's six fp32 leaves)
     rows = {**timings.get("causal", {}), **offs_timings.get("diagonal", {})}
     if "mlp_fp32" in exchange_timings:
-        rows["ici_exchange"] = exchange_timings["mlp_fp32"]
+        rows["ici_exchange"] = dict(exchange_timings["mlp_fp32"])
+        if compress.get("ici", {}).get("kernel9_codec_tree"):
+            # the same kernel on the codec tree (int32 idx, int8 q, fp32
+            # scales and the raw leaves of one update)
+            rows["ici_exchange"]["codec_tree"] = compress["ici"]["kernel9_codec_tree"]
     if rows:
         kernels = [
             {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -1,6 +1,6 @@
-"""Wire-protocol verbs of the port's gossip Node (the sync round's verbs of
-``p2pfl_tpu/commands``; the secure-aggregation, async and DCN verbs are
-not ported)."""
+"""Wire-protocol verbs of the port's gossip Node (the sync round's and the
+secure-aggregation verbs of ``p2pfl_tpu/commands``; the async and DCN verbs
+are not ported)."""
 
 from p2pfl_tpu_torch.commands.command import Command
 from p2pfl_tpu_torch.commands.control import (
@@ -8,6 +8,11 @@ from p2pfl_tpu_torch.commands.control import (
     ModelInitializedCommand,
     ModelsAggregatedCommand,
     ModelsReadyCommand,
+    SecAggNeedCommand,
+    SecAggPubCommand,
+    SecAggRecoverCommand,
+    SecAggRevealCommand,
+    SecAggShareCommand,
     VoteTrainSetCommand,
 )
 from p2pfl_tpu_torch.commands.heartbeat import HeartbeatCommand
@@ -28,6 +33,11 @@ __all__ = [
     "ModelsAggregatedCommand",
     "ModelsReadyCommand",
     "MetricsCommand",
+    "SecAggPubCommand",
+    "SecAggNeedCommand",
+    "SecAggRecoverCommand",
+    "SecAggRevealCommand",
+    "SecAggShareCommand",
     "InitModelCommand",
     "AddModelCommand",
 ]

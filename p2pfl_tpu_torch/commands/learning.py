@@ -4,7 +4,9 @@ Counterpart of ``p2pfl_tpu/commands/learning.py``. Weights arrive as live
 tensors (the in-memory transport, the ICI plane) or as wire bytes (gRPC,
 ``MEMORY_WIRE_CODEC``) that the learner decodes on receipt; a payload
 that does not decode or does not match the model stops the node, as in
-the reference. There is no secure-aggregation marker to strip.
+the reference, while a delta-coded payload against another round's anchor
+is skipped. A diffused aggregate marked ``secagg.CLEAN_MARKER`` (finalized
+under double masking) has the marker stripped and ``secagg_clean`` set.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING
 
 from p2pfl_tpu_torch.commands.command import Command
-from p2pfl_tpu_torch.exceptions import DecodingParamsError, ModelNotMatchingError
+from p2pfl_tpu_torch.exceptions import AnchorMismatchError, DecodingParamsError, ModelNotMatchingError
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
 
@@ -81,7 +83,7 @@ class InitModelCommand(Command):
             return
         try:
             update = node.learner.decode_update(update)
-        except (DecodingParamsError, ModelNotMatchingError) as exc:
+        except (DecodingParamsError, ModelNotMatchingError, AnchorMismatchError) as exc:
             logger.error(state.addr, f"init_model decode failed: {exc} — stopping node")
             node.stop_async()
             return
@@ -106,11 +108,28 @@ class AddModelCommand(Command):
         if not state.model_initialized_event.is_set():
             logger.debug(state.addr, f"add_model from {source} before init — ignored")
             return
+        if update is not None and update.contributors:
+            from p2pfl_tpu_torch.learning.secagg import CLEAN_MARKER
+
+            if CLEAN_MARKER in update.contributors:
+                # a finalized (self-mask-free) aggregate under double
+                # masking: strip the pseudo-contributor before any coverage
+                # comparison, and keep the fact for _secagg_finalize
+                update.contributors = [c for c in update.contributors if c != CLEAN_MARKER]
+                update.secagg_clean = True
         # decode BEFORE the round gates: a decode takes time, and a payload
         # gated against the round it arrived in must not land in the window
         # of the round the node moved to meanwhile
         try:
+            clean = update.secagg_clean
             update = node.learner.decode_update(update)
+            update.secagg_clean = clean
+        except AnchorMismatchError as exc:
+            # delta-coded against an anchor this node does not hold (a
+            # round behind or ahead of the sender): skip it and wait for
+            # one it can reconstruct; not fatal, unlike a corrupt payload
+            logger.info(state.addr, f"add_model from {source} skipped: {exc}")
+            return
         except (DecodingParamsError, ModelNotMatchingError) as exc:
             logger.error(state.addr, f"add_model decode failed: {exc} — stopping node")
             node.stop_async()

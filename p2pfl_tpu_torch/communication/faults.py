@@ -347,7 +347,7 @@ def byz_corrupt_update(plan: FaultPlan, src: str, dst: str, update, cmd: str):
 
     return ModelUpdate(
         corrupted, list(update.contributors), update.num_samples,
-        xp=update.xp, version=update.version, anchor_tag=update.anchor_tag,
+        xp=update.xp, version=update.version, anchor=update.anchor, anchor_tag=update.anchor_tag,
     )
 
 

@@ -1,13 +1,16 @@
 """The ICI weights plane: model payloads move slot to slot on the device.
 
-Counterpart of ``p2pfl_tpu/communication/ici.py`` for
-``Settings.WIRE_COMPRESSION="none"`` (the int8/topk8 composition,
-``_move_codec``, is not ported). ``Settings.WEIGHTS_PLANE = "ici"``
-re-routes MODEL payloads between nodes registered in this process
-through :func:`~p2pfl_tpu_torch.parallel.ici_plane.shard_transfer`: the
-sender's tensors are copied into fresh buffers on the receiver's slot by
-kernel 9 (on a card) or its plain version (on the CPU). Votes, coverage,
-beats and TTL floods keep riding the transport.
+Counterpart of ``p2pfl_tpu/communication/ici.py``.
+``Settings.WEIGHTS_PLANE = "ici"`` re-routes MODEL payloads between nodes
+registered in this process through
+:func:`~p2pfl_tpu_torch.parallel.ici_plane.shard_transfer`: the sender's
+tensors are copied into fresh buffers on the receiver's slot by kernel 9
+(on a card) or its plain version (on the CPU). Votes, coverage, beats and
+TTL floods keep riding the transport. Under ``WIRE_COMPRESSION`` ``"int8"``
+or ``"topk8"`` the plane composes with the device codec
+(:func:`_move_codec`): encode where the sender's params live, move the
+compressed buffers and the raw leaves in one exchange, decode against the
+receiver's anchor where it lives; nothing crosses to the host.
 
 - **The ``_do_send`` seam.** :func:`try_shard_send` runs inside the
   transport's ``_send_to_neighbor``, behind the protocol's send span and
@@ -23,7 +26,8 @@ beats and TTL floods keep riding the transport.
 - **Co-resident slices** (the same slots: learners without a mesh on one
   device, the way single-chip JAX learners on one device are) get a
   zero-copy handoff, the reference path's read-only contract, and count
-  zero bytes moved. **Disjoint slices** get a real transfer, counted in
+  zero bytes moved (under a codec the buffers are encoded and decoded,
+  and move zero bytes). **Disjoint slices** get a real transfer, counted in
   ``bytes_moved``, even when both slices name the same card.
 
 Delivery lands on the receiver's device, so
@@ -39,15 +43,22 @@ import weakref
 from typing import Optional, Tuple
 
 from p2pfl_tpu_torch.communication.message import WeightsEnvelope
-from p2pfl_tpu_torch.learning.weights import ModelUpdate
+from p2pfl_tpu_torch.learning.weights import ModelUpdate, named_leaves
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.management.telemetry import telemetry
-from p2pfl_tpu_torch.ops.tree import tree_align_copy_count, tree_align_devices, tree_leaves, tree_structure
+from p2pfl_tpu_torch.ops.tree import (
+    tree_align_copy_count,
+    tree_align_devices,
+    tree_leaves,
+    tree_structure,
+    tree_unflatten,
+)
 from p2pfl_tpu_torch.parallel.ici_plane import (
     SliceInfo,
     same_devices,
     shard_transfer,
     slice_info_of,
+    transfer_buffers,
     tree_device_bytes,
 )
 
@@ -187,6 +198,114 @@ def _leaf_meta_matches(a, b) -> bool:
     )
 
 
+def _move_codec(
+    update: ModelUpdate,
+    template,
+    src_info: SliceInfo,
+    dst_info: SliceInfo,
+    dst_learner,
+    mode: str,
+    sent: Optional[list] = None,
+) -> Optional[Tuple[dict, int]]:
+    """int8/topk8 on the plane: device encode → one exchange → device
+    decode against the receiver's anchor. ``(params, bytes moved)``, or
+    None when the receiver's anchor is of another round (the caller falls
+    back, and the byte path's AnchorMismatch skip applies). ``sent``, when
+    given, receives the buffers handed to the exchange."""
+    from p2pfl_tpu_torch.ops.compression import build_topk_plan, decode_shard_device, encode_shard_device
+    from p2pfl_tpu_torch.settings import Settings
+
+    named = dict(named_leaves(update.params)[1])
+    anchor_named = dict(named_leaves(update.anchor)[1]) if update.anchor is not None else None
+    topk_plan = build_topk_plan(named, anchor_named, Settings.TOPK_FRACTION if mode == "topk8" else 0.0)
+    dst_anchor_named = None
+    if topk_plan:
+        # delta segments reconstruct against the receiver's anchor: both
+        # ends must hold the same round's (their divergence is part of the
+        # codec's loss, as on the byte path)
+        dst_anchor, dst_tag = dst_learner.wire_anchor()
+        if dst_anchor is None or dst_tag != update.anchor_tag:
+            return None
+        dst_anchor_named = dict(named_leaves(dst_anchor)[1])
+
+    # encode once per content: repeat sends reuse the device buffers, and
+    # the residual folds once per content across both planes (whichever
+    # encodes first owns the fold, PayloadCache.ef_fold_once)
+    with update._encode_lock:
+        cache = update.payload_cache
+        key = None
+        if cache is not None and update.cache_version is not None:
+            key = ("ici", update.cache_version, update.cache_round, mode, update.anchor_tag,
+                   update.ef_residual is not None)
+            cached = cache.get(key)
+        else:
+            cached = getattr(update, "_ici_payload", None)
+        if cached is None:
+            residual = update.ef_residual
+            if residual is not None and cache is not None and update.cache_version is not None:
+                if not cache.ef_fold_once(update.ef_fold_key(mode)):
+                    residual = None
+            cached = encode_shard_device(named, anchor_named, topk_plan, residual)
+            if key is not None:
+                cache.put(key, cached)
+            else:
+                update._ici_payload = cached
+    tk_spec, dense_spec, payload = cached
+
+    coded = {k for k, _s, _b in tk_spec} | {k for k, _s in dense_spec}
+    raw_keys = [k for k in sorted(named) if k not in coded]
+    # one exchange: the codec buffers and the raw leaves together
+    names = [f"c/{k}" for k in sorted(payload)] + [f"r/{k}" for k in raw_keys]
+    srcs = [payload[n[2:]] for n in names if n[0] == "c"] + [named[k] for k in raw_keys]
+    if sent is not None:
+        sent.extend(srcs)
+    if same_devices(src_info, dst_info):
+        moved, landed = 0, srcs
+    else:
+        moved = sum(t.numel() * t.element_size() for t in srcs)
+        landed = transfer_buffers(srcs, dst_info)
+    by_name = dict(zip(names, landed))
+    template_named = dict(named_leaves(template)[1])
+    out = decode_shard_device(
+        {n[2:]: t for n, t in by_name.items() if n[0] == "c"}, tk_spec, dense_spec, dst_anchor_named, template_named
+    )
+    for k in raw_keys:
+        out[k] = by_name[f"r/{k}"]
+    return tree_unflatten(out), moved
+
+
+def move_codec_against_bytes(
+    update: ModelUpdate, template, src_info: SliceInfo, dst_info: SliceInfo, dst_learner, mode: str
+) -> Tuple[dict, dict, int, list]:
+    """One update through :func:`_move_codec` and through the byte path on
+    the same inputs (``encode_params`` → ``decode_params`` against the
+    receiver's anchor, then ``restore_like`` the template), for the checks
+    that hold the two equal bit for bit. ``update`` carries no payload
+    cache; its residual, if any, folds into both encodes (the byte path
+    folds a copy taken first). The byte path must run the device producer
+    (``settings.wire_compression_device``), as the plane always does.
+    Returns ``(got, want, moved, srcs)``: both trees, the bytes the plane
+    moved and the buffers it handed to the exchange."""
+    from p2pfl_tpu_torch.learning.weights import decode_params, encode_params, restore_like
+    from p2pfl_tpu_torch.settings import wire_compression_device
+
+    leaves = tree_leaves(update.params)
+    if not wire_compression_device(leaves[0].device):
+        raise ValueError("the byte path must run the device producer to match the plane's encode")
+    residual = None if update.ef_residual is None else {k: v.clone() for k, v in update.ef_residual.items()}
+    anchor, tag = dst_learner.wire_anchor()
+    srcs: list = []
+    out = _move_codec(update, template, src_info, dst_info, dst_learner, mode, sent=srcs)
+    if out is None:
+        raise ValueError(f"the receiver's anchor {tag!r} is not the update's {update.anchor_tag!r}")
+    got, moved = out
+    frame = encode_params(update.params, compression=mode, anchor=update.anchor, anchor_tag=update.anchor_tag,
+                          residual=residual)
+    device = tree_leaves(template)[0].device
+    want = restore_like(template, decode_params(frame, device, anchor=anchor, anchor_tag=tag))
+    return got, want, moved, srcs
+
+
 def try_shard_send(proto, nei: str, env) -> Optional[bool]:
     """Attempt an ICI delivery of one outgoing envelope.
 
@@ -244,7 +363,13 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
 
     mode = Settings.WIRE_COMPRESSION
     try:
-        if same_devices(src_info, dst_info):
+        if mode in ("int8", "topk8"):
+            out = _move_codec(update, template, src_info, dst_info, dst_learner, mode)
+            if out is None:
+                _fallback(src, nei, "anchor_round_mismatch")
+                return None
+            params, moved = out
+        elif same_devices(src_info, dst_info):
             # the tensors already lie where the receiver wants them: a
             # zero-copy handoff, the reference path's read-only contract
             moved, params = 0, update.params
@@ -255,12 +380,17 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
         logger.error(src, f"ICI shard transfer to {nei} failed: {exc!r}")
         return False
 
+    # the receiver re-encodes relays against its own anchor, as after the
+    # byte path's decode
+    dst_anchor, dst_tag = dst_learner.wire_anchor()
     delivered = ModelUpdate(
         params,
         list(update.contributors),
         update.num_samples,
         xp=update.xp or env.xp,
         sp=src_ep.handshake(mode),
+        anchor=dst_anchor,
+        anchor_tag=dst_tag,
     )
     # the no-fix-up contract, checked: delivery already lies on the
     # receiver's device, so aligning against it must move nothing

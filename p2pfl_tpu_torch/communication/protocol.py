@@ -338,8 +338,13 @@ class CommunicationProtocol(ABC):
                 dec.feed(frame)
             if not dec.complete:
                 raise ValueError("stream ended before its end chunk")
-            env.update.decoded_flat = dec.result_flat()
-            env.update.encoded = None
+            if dec.reassembled:
+                # a delta-coded (tk8) stream: the unary frame, decoded by
+                # the learner against its anchor
+                env.update.encoded = dec.result_payload()
+            else:
+                env.update.decoded_flat = dec.result_flat()
+                env.update.encoded = None
         except Exception as exc:  # noqa: BLE001 — one bad chunk = one failed transfer
             logger.log_comm_metric(self._address, "stream_recv_drop")
             logger.error(self._address, f"Dropping weights stream from {env.source}: {exc}")

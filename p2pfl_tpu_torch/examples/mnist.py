@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 
 def run(
@@ -36,6 +36,8 @@ def run(
     timeout: float = 600.0,
     devices: Optional[list] = None,
     protocol: str = "memory",
+    on_start: Optional[Callable] = None,
+    n_test: Optional[int] = None,
 ) -> dict:
     """Build, connect and run the federation; stop every node; return
     ``{"addrs", "params", "metrics", "round_s", "elapsed_s"}``: each
@@ -45,7 +47,9 @@ def run(
     ``set_start_learning`` until every node finished; on ``"grpc"`` also
     ``"wire_stats"``, each node's transport counters. ``devices`` (one
     per node) places the nodes' slots on several cards instead of all on
-    ``device``."""
+    ``device``. ``on_start(fleet)``, when given, runs once the nodes are
+    connected, before learning starts (a caller's probes and faults).
+    ``n_test`` test samples (default ``max(samples // 8, 256)``)."""
     from p2pfl_tpu_torch import resolve_device
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.learning.learner import TorchLearner
@@ -56,7 +60,7 @@ def run(
     from p2pfl_tpu_torch.utils import connect_line, full_connection, wait_convergence, wait_to_finish
 
     devs = [resolve_device(d) for d in devices] if devices is not None else [resolve_device(device)] * nodes
-    data = FederatedDataset.synthetic_mnist(n_train=samples, n_test=max(samples // 8, 256))
+    data = FederatedDataset.synthetic_mnist(n_train=samples, n_test=n_test or max(samples // 8, 256))
     slices = node_slices(submesh_federation_mesh(nodes, devices=devs))
     prev_plane, Settings.WEIGHTS_PLANE = Settings.WEIGHTS_PLANE, weights_plane
     fleet = []
@@ -81,6 +85,8 @@ def run(
             connect_line(fleet)
             wait_convergence(fleet, nodes - 1, only_direct=False, wait=30)
 
+        if on_start is not None:
+            on_start(fleet)
         t0 = time.monotonic()
         fleet[0].set_start_learning(rounds=rounds, epochs=epochs)
         # round boundaries as the initiator sees them (its round counter)

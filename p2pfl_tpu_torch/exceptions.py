@@ -39,12 +39,19 @@ class AnchorMismatchError(Exception):
     receiver skips the update and waits for one it can reconstruct."""
 
 
+class SecAggError(Exception):
+    """A secure-aggregation contribution cannot be masked safely. The
+    caller must not send it unmasked (peers' halves of the pair masks would
+    go uncancelled and turn a full-coverage aggregate into noise): it skips
+    the contribution, which leaves coverage incomplete and detectable."""
+
+
 class NeighborNotConnectedError(Exception):
     """The transport cannot reach the requested peer."""
 
 
 class UnsupportedByPortError(ValueError):
     """A configuration the JAX package supports but the port does not yet
-    (secure aggregation, lossy compression, the DCN plane, churn, ...):
+    (the DCN plane, churn, ...):
     raised at ``Node.start`` or where it is configured, never in the
     middle of a round."""

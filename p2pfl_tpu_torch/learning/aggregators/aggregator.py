@@ -1,8 +1,7 @@
 """Aggregator base: partial-aggregation bookkeeping around a pure kernel.
 
 Counterpart of ``p2pfl_tpu/learning/aggregators/aggregator.py`` without
-the Byzantine screen (ROADMAP item 7) and the secure-aggregation hooks
-(item 4b):
+the Byzantine screen (ROADMAP item 7):
 
 - ``set_nodes_to_aggregate(train_set)`` opens the round's collection window.
 - ``add_model(update)`` accepts a model or partial aggregation:
@@ -20,7 +19,9 @@ the Byzantine screen (ROADMAP item 7) and the secure-aggregation hooks
 
 Subclasses implement one pure function, :meth:`aggregate`, over a list of
 :class:`ModelUpdate`; stateful ones resync in :meth:`on_result` and
-drop their state in :meth:`reset_experiment`.
+drop their state in :meth:`reset_experiment`. Under secure aggregation
+only a ``MASK_COMPATIBLE`` (linear) strategy may run: ``StartLearningStage``
+aborts the experiment for any other, whose rule would act on masked noise.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ class Aggregator:
     #: True for stateful strategies whose :meth:`aggregate` must run once
     #: per round even when a single update covers the train set
     ALWAYS_AGGREGATE: bool = False
+    #: True for linear strategies, through which secure aggregation's
+    #: pairwise masks cancel (``learning/secagg.py``); robust strategies
+    #: inspect individual models, which masking forbids
+    MASK_COMPATIBLE: bool = False
 
     def __init__(self, node_name: str = "unknown") -> None:
         self.node_name = node_name
@@ -247,6 +252,13 @@ class Aggregator:
                 self.node_name,
                 f"Aggregation timeout — proceeding with partial coverage {sorted(covered)} of {sorted(train)}",
             )
+            if Settings.SECURE_AGGREGATION and covered != train:
+                # pairwise masks cancel only over the full train set: the
+                # stage runs the seed-disclosure recovery before applying
+                # this (GossipModelStage._secagg_finalize)
+                logger.warning(
+                    self.node_name, "SecAgg: partial coverage — unresolved pairwise masks; attempting dropout recovery"
+                )
         # one model is the result as it is when this node waits, when the
         # strategy is stateless, or when it is a peer's finished aggregate
         # (re-aggregating would step a stateful strategy twice); on_result
@@ -258,7 +270,18 @@ class Aggregator:
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
         with dispatch_span("aggregate", self.node_name, n_models=len(models)):
-            return self.aggregate(models)
+            result = self.aggregate(models)
+        return self._inherit_anchor(result, models)
+
+    @staticmethod
+    def _inherit_anchor(result: ModelUpdate, models: list[ModelUpdate]) -> ModelUpdate:
+        """Carry the delta-coding anchor through aggregation: a round's
+        updates share one anchor (the round-start global), so a fresh
+        aggregate re-encodes against it when it goes back on the wire."""
+        if result.anchor is None and models and models[0].anchor is not None:
+            result.anchor = models[0].anchor
+            result.anchor_tag = models[0].anchor_tag
+        return result
 
     def on_result(self, update: ModelUpdate) -> ModelUpdate:
         """Hook: the round resolved to ``update`` without this node running
@@ -296,7 +319,7 @@ class Aggregator:
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
         with dispatch_span("aggregate", self.node_name, n_models=len(todo)):
-            result = self.aggregate(todo)
+            result = self._inherit_anchor(self.aggregate(todo), todo)
         with self._lock:
             if self._memo_gen == gen:  # collected set unchanged since read
                 self._partial_memo[memo_key] = result

@@ -22,6 +22,7 @@ from p2pfl_tpu_torch.settings import Settings
 
 class FedAvg(Aggregator):
     SUPPORTS_PARTIALS = True
+    MASK_COMPATIBLE = True  # linear: secure aggregation's masks cancel through it
 
     def aggregate(self, models: list[ModelUpdate]) -> ModelUpdate:
         align_before = tree_align_copy_count()

@@ -252,8 +252,7 @@ def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor, module):
 
 
 class NodeLearner(ABC):
-    """Template for node learners (JAX ``NodeLearner``, without the wire
-    anchors and error feedback of the int8/topk8 codecs, ROADMAP item 4b)."""
+    """Template for node learners (JAX ``NodeLearner``)."""
 
     @abstractmethod
     def set_parameters(self, params: Any) -> None: ...
@@ -335,28 +334,78 @@ class NodeLearner(ABC):
 
     def get_model_update(self) -> ModelUpdate:
         """The current params as an update that carries the learner's
-        payload cache and model version: byte transports then encode each
-        model version once, however many peers and ticks it is sent to."""
+        payload cache and model version (byte transports then encode each
+        model version once, however many peers and ticks it is sent to)
+        and, under topk8, the pinned wire anchor."""
         update = ModelUpdate(self.get_parameters(), [self.addr], self.get_num_samples())
+        anchor = getattr(self, "_wire_anchor", None)
+        if anchor is not None:
+            update.anchor = anchor
+            update.anchor_tag = getattr(self, "_wire_anchor_tag", None)
         update.payload_cache = self.payload_cache()
         update.cache_version = self.model_version
         return update
 
+    def set_wire_anchor(self, params, tag: str) -> None:
+        """Pin the round-start global model as topk8's delta-coding anchor.
+
+        The stages call it where every node holds the round's shared model:
+        after the init-weights sync and at each round boundary. ``tag`` is
+        the round identity (``"experiment_epoch:round"``) both ends of a
+        delta-coded transfer must agree on. Under any other compression the
+        anchor is dropped."""
+        from p2pfl_tpu_torch.settings import Settings
+
+        if Settings.WIRE_COMPRESSION != "topk8":
+            self._wire_anchor = None
+            return
+        self._wire_anchor = params
+        self._wire_anchor_tag = tag
+
+    def wire_anchor(self) -> tuple:
+        """``(anchor tree or None, its tag or None)``."""
+        return getattr(self, "_wire_anchor", None), getattr(self, "_wire_anchor_tag", None)
+
+    def ef_residual_store(self) -> dict:
+        """The node's error-feedback residual (``{path: dropped delta mass}``).
+
+        ``TrainStage`` attaches it to the node's own contribution only, so
+        exactly one encode a round folds it (repeat sends hit the cached
+        bytes). Under the device producer its entries are tensors on the
+        params' device, written in place by the encode; the host producer
+        keeps numpy arrays. Either producer converts the other's entries
+        once, and entries whose tensor changed shape or left the topk path
+        are dropped at encode time. Code that mutates the dict directly
+        must call :meth:`bump_model_version`, or a cached payload built
+        from the old residual would be replayed."""
+        if not hasattr(self, "_ef_residual"):
+            self._ef_residual = {}
+        return self._ef_residual
+
+    def _decode_template(self, flat: dict):
+        """The tree a decoded flat dict restores into: the parameters."""
+        return self.get_parameters()
+
     def decode_update(self, update: ModelUpdate) -> ModelUpdate:
-        """A wire update decoded against this learner's tree, its leaves on
-        the learner's devices (a streamed transfer's leaves were decoded on
-        arrival). Raises ``ModelNotMatchingError`` on a structural mismatch
-        and ``DecodingParamsError`` on a malformed payload."""
+        """A wire update decoded against this learner's tree and wire
+        anchor, its leaves on the learner's devices (a streamed transfer's
+        dense leaves were decoded on arrival). Raises
+        ``ModelNotMatchingError`` on a structural mismatch,
+        ``DecodingParamsError`` on a malformed payload and
+        ``AnchorMismatchError`` on a delta-coded payload against another
+        round's anchor (or none). The result carries this learner's anchor,
+        so a relay re-encodes against it."""
         if update.params is not None:
             return update
-        template = self.get_parameters()
+        anchor, tag = self.wire_anchor()
         if update.decoded_flat is not None:
             flat = update.decoded_flat
         else:
-            flat = decode_params(update.encoded, tree_leaves(template)[0].device)
+            device = tree_leaves(self.get_parameters())[0].device
+            flat = decode_params(update.encoded, device, anchor=anchor, anchor_tag=tag)
         return ModelUpdate(
-            restore_like(template, flat), list(update.contributors), update.num_samples,
-            xp=update.xp, version=update.version,
+            restore_like(self._decode_template(flat), flat), list(update.contributors), update.num_samples,
+            xp=update.xp, version=update.version, anchor=anchor, anchor_tag=tag,
         )
 
 

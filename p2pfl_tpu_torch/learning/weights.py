@@ -21,15 +21,30 @@ each leaf the moment its bytes complete.
 Encode-once, send-many: gossip pushes one model version to many peers
 over many ticks, so the learner attaches its :class:`PayloadCache` and
 model version to every update it hands out and :meth:`ModelUpdate.encode`
-keys the bytes on ``(model version, round, wire compression, anchor tag)``.
+keys the bytes on ``(model version, round, wire compression, producer,
+anchor tag, error feedback?)``. The anchor tag is in the key because
+topk8 bytes are deltas against one round's anchor; the error-feedback
+flag isolates the one encode a round that folds (and writes) the
+residual store, and :meth:`PayloadCache.ef_fold_once` gives that fold to
+whichever plane (bytes or ICI) encodes the content first.
+
+Compression (``Settings.WIRE_COMPRESSION``): ``"int8"`` quantizes every
+float leaf symmetrically (``i8`` entries); ``"topk8"`` ships, for every
+float leaf of more than 16 elements with an anchor, the top
+``TOPK_FRACTION`` coordinates of ``params − anchor`` by magnitude as
+(uint32 index, int8 value) pairs (``tk8`` entries) under the round's
+``anchor_tag``, with error feedback through a residual store. Two
+producers emit the same layout: the host one (numpy and the native
+library, the JAX package's host producer byte for byte) and the device
+one (``ops/compression.py``, torch ops where the params live, the JAX
+package's device producer byte for byte); ``WIRE_COMPRESSION_DEVICE``
+picks (``settings.wire_compression_device``). bfloat16 leaves ship raw
+in both, as numpy's dtype kind decides it in the JAX package.
 
 Devices: encoding pulls each leaf to the host with a synchronous
 ``.cpu()`` (it waits for the stream that wrote the params); decoding
-lands every leaf on the device the caller names (the receiving learner's).
-Only ``Settings.WIRE_COMPRESSION="none"`` is ported: the int8/topk8
-producers, their anchors and error feedback are ROADMAP Queue A item 4b,
-and a peer's int8 or topk8 frame raises
-:class:`~p2pfl_tpu_torch.exceptions.UnsupportedByPortError` naming it.
+lands every leaf on the device the caller names (the receiving learner's),
+and a tk8 leaf on its anchor's device.
 
 Tensors handed around in an update are never written in place: the
 zero-copy paths (the memory transport's reference handoff, the ICI
@@ -48,11 +63,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-from p2pfl_tpu_torch.exceptions import (
-    DecodingParamsError,
-    ModelNotMatchingError,
-    UnsupportedByPortError,
-)
+from p2pfl_tpu_torch.exceptions import AnchorMismatchError, DecodingParamsError, ModelNotMatchingError
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_structure, tree_unflatten
 
 Tree = Any
@@ -66,6 +77,7 @@ _wire_stats = {
     "payload_bytes": 0,    # framed bytes produced
     "d2h_bytes": 0,        # bytes pulled from a device to the host
     "host_encodes": 0,
+    "device_encodes": 0,
     "stream_encodes": 0,
     # high-water mark (max, not sum) of any StreamDecoder's buffered bytes:
     # the receiver's bounded-memory claim, O(chunk + largest leaf)
@@ -140,8 +152,10 @@ class PayloadCache:
 
     def ef_fold_once(self, key: tuple) -> bool:
         """True exactly once per content key: the caller that gets True
-        owns the error-feedback fold of that content (the topk8 producers
-        of ROADMAP item 4b claim it through :meth:`ModelUpdate.ef_fold_key`)."""
+        owns the error-feedback fold of that content; every later encoder
+        of it (the other plane's, which caches under another key) encodes
+        without the residual instead of folding the just-written carry
+        again. Claimed through :meth:`ModelUpdate.ef_fold_key`."""
         with self._lock:
             if key in self._ef_marks:
                 return False
@@ -202,6 +216,13 @@ def _as_u8(arr: np.ndarray) -> memoryview:
     return memoryview(arr.reshape(-1).view(np.uint8))
 
 
+def _dtype_name(leaf) -> str:
+    """The numpy name of a leaf's dtype (``"bfloat16"`` for torch's)."""
+    if isinstance(leaf, torch.Tensor):
+        return str(leaf.dtype).replace("torch.", "")
+    return np.dtype(leaf.dtype).name
+
+
 def anchor_digest(tree: Tree) -> int:
     """CRC32C over a tree's buffers in canonical (sorted path) order."""
     from p2pfl_tpu_torch import native
@@ -213,25 +234,97 @@ def anchor_digest(tree: Tree) -> int:
     return crc
 
 
-def _encode_host(named: dict) -> tuple[list, int]:
-    """The host producer of the dense (``"none"``) path: per leaf in
-    sorted path order, its header entry and its bytes as a zero-copy
-    view. Returns ``(plans, d2h_bytes)``."""
+def _store_size(x) -> Optional[int]:
+    if isinstance(x, torch.Tensor):
+        return x.numel()
+    return getattr(x, "size", None)
+
+
+def _validate_residual(residual: Optional[dict], eligible_sizes: dict) -> None:
+    """Drop stale error-feedback entries in place before an encode: a key
+    that is not delta-coded this encode (a mode flip, a lost anchor, a
+    tensor under the size floor), or whose stored size no longer matches
+    its tensor (a changed architecture), would otherwise re-enter stale
+    or break the encode."""
+    if residual is None:
+        return
+    for key in list(residual):
+        size = eligible_sizes.get(key)
+        if size is None or _store_size(residual[key]) != size:
+            del residual[key]
+
+
+def _host_f32(x) -> np.ndarray:
+    """A leaf, anchor or stored residual as a host fp32 array (a carry the
+    device producer left on a card comes over once)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _encode_host(
+    named: dict,
+    compression: Optional[str],
+    anchor_named: Optional[dict],
+    topk_plan: dict,
+    residual: Optional[dict],
+) -> tuple[list, int]:
+    """The host producer: per leaf in sorted path order, its header entry
+    and its bytes as zero-copy views. ``topk_plan`` (``{path: budget}``)
+    says which leaves are delta-coded (``tk8``: ``np.argpartition``'s top-k
+    of ``params − anchor (+ residual)``, the native quantize, the residual
+    written back); under ``int8``/``topk8`` every other float leaf is
+    ``i8``, and the rest ship raw. The JAX package's host producer, byte
+    for byte. Returns ``(plans, d2h_bytes)``."""
+    from p2pfl_tpu_torch import native
+    from p2pfl_tpu_torch.ops.compression import is_float_leaf
+
     plans = []
     d2h = 0
     for key in sorted(named):
         arr, dtype_name, pulled = _host_array(named[key])
         d2h += pulled
         entry = {"k": key, "shape": list(arr.shape), "dtype": dtype_name}
-        plans.append((entry, (_as_u8(arr),)))
+        if key in topk_plan:
+            anchor_leaf = anchor_named[key]
+            anchor_arr = _host_f32(anchor_leaf)
+            if isinstance(anchor_leaf, torch.Tensor) and anchor_leaf.device.type != "cpu":
+                d2h += anchor_arr.nbytes
+            delta = _host_f32(named[key]).ravel() - anchor_arr.ravel()
+            if residual is not None and key in residual:
+                delta = delta + _host_f32(residual[key])
+            k = topk_plan[key]
+            idx = np.argpartition(np.abs(delta), -k)[-k:].astype(np.uint32)
+            idx.sort()
+            vals = delta[idx]
+            q, scale = native.quantize(vals)
+            if residual is not None:
+                # error feedback: what this payload does not carry (dropped
+                # coordinates and quantization error) feeds the next round
+                sent = np.zeros_like(delta)
+                sent[idx] = native.dequantize(q, scale)
+                residual[key] = delta - sent
+            bufs = (_as_u8(idx), _as_u8(q))
+            entry["enc"] = "tk8"
+            entry["scale"] = scale
+            entry["nnz"] = int(k)
+        elif compression in ("int8", "topk8") and is_float_leaf(named[key]):
+            q, scale = native.quantize(_host_f32(named[key]))
+            bufs = (_as_u8(q),)
+            entry["enc"] = "i8"
+            entry["scale"] = scale
+        else:
+            bufs = (_as_u8(arr),)
+        plans.append((entry, bufs))
     return plans, d2h
 
 
-def _frame_parts(plans: list) -> tuple[bytes, list]:
+def _frame_parts(plans: list, anchor_tag: Optional[str] = None) -> tuple[bytes, list]:
     """``(prefix, buffers)`` of the framed payload: ``prefix`` is the unary
     frame's magic + header length + JSON header, ``buffers`` the per-leaf
     byte views in entry order; their concatenation IS the unary payload,
-    which makes chunk streams byte-compatible with unary frames."""
+    which makes chunk streams byte-compatible with unary frames. A frame
+    with a ``tk8`` entry carries ``anchor_tag`` in its header."""
     from p2pfl_tpu_torch import native
 
     entries = []
@@ -243,7 +336,10 @@ def _frame_parts(plans: list) -> tuple[bytes, list]:
             crc = native.crc32c(b, crc)
             buffers.append(b)
         entries.append(entry)
-    header = json.dumps({"v": _VERSION, "t": entries, "crc": crc}).encode("utf-8")
+    head = {"v": _VERSION, "t": entries, "crc": crc}
+    if any(e.get("enc") == "tk8" for e in entries):
+        head["anchor_tag"] = anchor_tag if anchor_tag is not None else ""
+    header = json.dumps(head).encode("utf-8")
     prefix = bytearray(8 + len(header))
     prefix[0:4] = _MAGIC
     struct.pack_into("<I", prefix, 4, len(header))
@@ -251,9 +347,9 @@ def _frame_parts(plans: list) -> tuple[bytes, list]:
     return bytes(prefix), buffers
 
 
-def _frame(plans: list) -> bytes:
+def _frame(plans: list, anchor_tag: Optional[str] = None) -> bytes:
     """One preallocated frame: the payload bytes are written once."""
-    prefix, buffers = _frame_parts(plans)
+    prefix, buffers = _frame_parts(plans, anchor_tag)
     out = bytearray(len(prefix) + sum(len(b) for b in buffers))
     out[0 : len(prefix)] = prefix
     off = len(prefix)
@@ -398,32 +494,42 @@ def payload_from_chunks(chunks) -> bytes:
 # ---- encode ----
 
 
-def _check_compression(compression: Optional[str]) -> None:
-    from p2pfl_tpu_torch.settings import Settings
+def encode_params(
+    tree: Tree,
+    compression: Optional[str] = None,
+    anchor: Optional[Tree] = None,
+    anchor_tag: Optional[str] = None,
+    residual: Optional[dict] = None,
+    owner: Optional[str] = None,
+) -> bytes:
+    """Serialize a tree to the P2TW frame, byte-identical to the JAX
+    package's for the same leaves, mode and producer.
 
-    mode = Settings.WIRE_COMPRESSION if compression is None else compression
-    if mode != "none":
-        raise UnsupportedByPortError(
-            f"WIRE_COMPRESSION={mode!r} on a byte path: the int8/topk8 codecs are not "
-            "ported (ROADMAP Queue A item 4b)"
-        )
-
-
-def encode_params(tree: Tree, compression: Optional[str] = None, owner: Optional[str] = None) -> bytes:
-    """Serialize a tree of tensors to the P2TW frame, byte-identical to
-    the JAX package's for the same leaves. ``compression`` (default
-    ``Settings.WIRE_COMPRESSION``) must be ``"none"``. ``owner`` (the node
-    address) routes the per-node wire-byte counters into
-    ``logger.get_comm_metrics``; process-wide totals are always kept."""
-    plans, named, d2h = _encode_plans(tree, compression)
-    payload = _frame(plans)
-    _account_encode(named, len(payload), d2h, owner)
+    ``compression`` (default ``Settings.WIRE_COMPRESSION``): ``"none"``,
+    ``"int8"`` or ``"topk8"``. Under topk8 the eligible leaves are
+    delta-coded against ``anchor`` (the round-start global model) and the
+    frame carries ``anchor_tag`` (the round identity ``"epoch:round"``);
+    without an anchor every float leaf falls back to dense int8.
+    ``residual`` (a mutable ``{path: flat fp32}`` dict) turns on error
+    feedback: the mass a round drops re-enters the next round's delta.
+    Stale residual entries are dropped first (:func:`_validate_residual`).
+    The device producer (``ops/compression.py``) runs when
+    ``settings.wire_compression_device`` says so for the params' device,
+    else the host producer. ``owner`` (the node address) routes the
+    per-node wire-byte counters into ``logger.get_comm_metrics``;
+    process-wide totals are always kept."""
+    plans, named, d2h, producer = _encode_plans(tree, compression, anchor, residual)
+    payload = _frame(plans, anchor_tag)
+    _account_encode(named, len(payload), d2h, producer, owner)
     return payload
 
 
 def encode_params_chunked(
     tree: Tree,
     compression: Optional[str] = None,
+    anchor: Optional[Tree] = None,
+    anchor_tag: Optional[str] = None,
+    residual: Optional[dict] = None,
     owner: Optional[str] = None,
     chunk_bytes: Optional[int] = None,
 ) -> list[bytes]:
@@ -431,21 +537,45 @@ def encode_params_chunked(
     is never built (the sender holds one copy of the payload, as chunks)."""
     if chunk_bytes is None:
         chunk_bytes = _chunk_bytes_setting()
-    plans, named, d2h = _encode_plans(tree, compression)
-    prefix, buffers = _frame_parts(plans)
+    plans, named, d2h, producer = _encode_plans(tree, compression, anchor, residual)
+    prefix, buffers = _frame_parts(plans, anchor_tag)
     chunks = list(_gen_chunks(prefix, buffers, chunk_bytes))
-    _account_encode(named, len(prefix) + sum(len(b) for b in buffers), d2h, owner, streamed=True)
+    _account_encode(named, len(prefix) + sum(len(b) for b in buffers), d2h, producer, owner, streamed=True)
     return chunks
 
 
-def _encode_plans(tree: Tree, compression: Optional[str]) -> tuple[list, dict, int]:
+def _leaves_device(named: dict):
+    return next((v.device for v in named.values() if isinstance(v, torch.Tensor)), None)
+
+
+def _encode_plans(
+    tree: Tree, compression: Optional[str], anchor: Optional[Tree], residual: Optional[dict]
+) -> tuple[list, dict, int, str]:
+    """The pipeline behind both entry points: producer selection and the
+    per-tensor plans. ``(plans, named, d2h_bytes, producer)``."""
+    from p2pfl_tpu_torch.ops.compression import build_topk_plan, leaf_size
+    from p2pfl_tpu_torch.settings import Settings, wire_compression_device
+
     global _encode_calls
-    _check_compression(compression)
     with _encode_lock:
         _encode_calls += 1
+    if compression is None:
+        compression = Settings.WIRE_COMPRESSION
+    if compression not in ("none", "int8", "topk8"):
+        raise ValueError(f"unknown wire compression {compression!r}")
+    topk_frac = Settings.TOPK_FRACTION if compression == "topk8" else 0.0
     named = dict(named_leaves(tree)[1])
-    plans, d2h = _encode_host(named)
-    return plans, named, d2h
+    anchor_named = dict(named_leaves(anchor)[1]) if anchor is not None else None
+    topk_plan = build_topk_plan(named, anchor_named, topk_frac)
+    _validate_residual(residual, {key: leaf_size(named[key]) for key in topk_plan})
+    device = _leaves_device(named)
+    if compression in ("int8", "topk8") and device is not None and wire_compression_device(device):
+        from p2pfl_tpu_torch.ops.compression import encode_device
+
+        plans, d2h = encode_device(named, anchor_named, topk_plan, residual)
+        return plans, named, d2h, "device"
+    plans, d2h = _encode_host(named, compression, anchor_named, topk_plan, residual)
+    return plans, named, d2h, "host"
 
 
 def _leaf_nbytes(leaf) -> int:
@@ -454,13 +584,15 @@ def _leaf_nbytes(leaf) -> int:
     return np.asarray(leaf).nbytes
 
 
-def _account_encode(named: dict, payload_len: int, d2h: int, owner: Optional[str], streamed: bool = False) -> None:
+def _account_encode(
+    named: dict, payload_len: int, d2h: int, producer: str, owner: Optional[str], streamed: bool = False
+) -> None:
     raw_bytes = sum(_leaf_nbytes(leaf) for leaf in named.values())
     with _encode_lock:
         _wire_stats["raw_bytes"] += raw_bytes
         _wire_stats["payload_bytes"] += payload_len
         _wire_stats["d2h_bytes"] += d2h
-        _wire_stats["host_encodes"] += 1
+        _wire_stats[f"{producer}_encodes"] += 1
         if streamed:
             _wire_stats["stream_encodes"] += 1
     if owner:
@@ -469,7 +601,7 @@ def _account_encode(named: dict, payload_len: int, d2h: int, owner: Optional[str
         logger.log_comm_metric(owner, "wire_raw_bytes", raw_bytes)
         logger.log_comm_metric(owner, "wire_payload_bytes", payload_len)
         logger.log_comm_metric(owner, "wire_d2h_bytes", d2h)
-        logger.log_comm_metric(owner, "wire_encode_host")
+        logger.log_comm_metric(owner, f"wire_encode_{producer}")
 
 
 # ---- decode ----
@@ -478,47 +610,70 @@ Device = Union[str, torch.device, None]
 
 
 def _leaf_meta(e: dict) -> tuple[torch.dtype, int]:
-    """Check one header entry; ``(torch dtype, element count)``. Shared by
-    the unary and the streaming decoder (one decoder core)."""
-    if "enc" in e:
-        raise UnsupportedByPortError(
-            f"{e['k']}: a {e['enc']!r} (int8/topk8) leaf: decoding lossy payloads is "
-            "ROADMAP Queue A item 4b"
-        )
+    """Check one header entry against its byte length; ``(torch dtype,
+    element count)``. Shared by the unary and the streaming decoder (one
+    decoder core)."""
     dtype = _TORCH_DTYPES.get(e["dtype"])
     if dtype is None:
         raise DecodingParamsError(f"{e['k']}: dtype {e['dtype']!r} has no torch counterpart")
     count = int(np.prod(e["shape"], dtype=np.int64)) if e["shape"] else 1
-    expect = count * dtype.itemsize
+    enc = e.get("enc")
+    if enc == "tk8":
+        expect = int(e["nnz"]) * 5  # uint32 index + int8 value a coordinate
+    elif enc == "i8":
+        expect = count
+    elif enc is None:
+        expect = count * dtype.itemsize
+    else:
+        raise DecodingParamsError(f"{e['k']}: unknown encoding {enc!r}")
     if e["n"] != expect:
         raise DecodingParamsError(f"inconsistent header for {e['k']}: n={e['n']} vs shape {e['shape']}")
     return dtype, count
 
 
 def _decode_dense_leaf(e: dict, buf, device: Device) -> torch.Tensor:
-    """One leaf from exactly its ``e['n']`` bytes, as a tensor on
-    ``device``. A read-only source (a slice of received ``bytes``) is
-    copied once on the host; a writable one (the stream decoder's per-leaf
-    buffer) is wrapped. Either copy to a card is synchronous, so the
-    source outlives it."""
+    """One raw or ``i8`` leaf from exactly its ``e['n']`` bytes, as a
+    tensor on ``device``. A read-only source (a slice of received
+    ``bytes``) is copied once on the host; a writable one (the stream
+    decoder's per-leaf buffer) is wrapped. Either copy to a card is
+    synchronous, so the source outlives it. tk8 leaves never come here:
+    they need the anchor."""
+    from p2pfl_tpu_torch import native
+
     dtype, count = _leaf_meta(e)
-    np_dtype = np.int16 if dtype == torch.bfloat16 else np.dtype(e["dtype"])
-    arr = np.frombuffer(buf, dtype=np_dtype, count=count)
-    if not arr.flags.writeable:
-        arr = arr.copy()
-    t = torch.from_numpy(arr)
-    if dtype == torch.bfloat16:
-        t = t.view(torch.bfloat16)
+    if e.get("enc") == "i8":
+        q = np.frombuffer(buf, dtype=np.int8, count=count)
+        arr = native.dequantize(q, float(e["scale"])).astype(np.dtype(e["dtype"]))
+        t = torch.from_numpy(arr)
+    else:
+        np_dtype = np.int16 if dtype == torch.bfloat16 else np.dtype(e["dtype"])
+        arr = np.frombuffer(buf, dtype=np_dtype, count=count)
+        if not arr.flags.writeable:
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
+        if dtype == torch.bfloat16:
+            t = t.view(torch.bfloat16)
     t = t.reshape(e["shape"])
     return t if device is None else t.to(device)
 
 
-def decode_params(payload: bytes, device: Device = None) -> dict[str, torch.Tensor]:
+def decode_params(
+    payload: bytes, device: Device = None, anchor: Optional[Tree] = None, anchor_tag: Optional[str] = None
+) -> dict[str, torch.Tensor]:
     """Decode a P2TW frame to ``{path: tensor}`` on ``device`` (the CPU when
     None). Checks the magic, version, every entry against its byte length,
     and the CRC; any malformed payload raises :class:`DecodingParamsError`.
-    Lossy (int8/topk8) frames raise
-    :class:`~p2pfl_tpu_torch.exceptions.UnsupportedByPortError`."""
+
+    A delta-coded (``tk8``) frame needs an ``anchor`` whose round identity
+    ``anchor_tag`` equals the header's, else :class:`AnchorMismatchError`:
+    reconstructing against another round's model would be silently wrong.
+    Its indices must be strictly ascending and in range (both producers
+    emit them so). A tk8 leaf is ``anchor + scatter(q·scale)``: on the
+    anchor's device by ``ops/compression.py::decode_tk8_device`` when
+    ``settings.wire_compression_device`` says so for that device (after
+    the CRC verifies), else on the host; either lands it as the anchor
+    leaf's device and the frame's dtype say (the host result on
+    ``device``)."""
     try:
         mv = memoryview(payload)
         if bytes(mv[:4]) != _MAGIC:
@@ -528,8 +683,20 @@ def decode_params(payload: bytes, device: Device = None) -> dict[str, torch.Tens
         if header["v"] != _VERSION:
             raise DecodingParamsError(f"unsupported weights version {header['v']}")
         from p2pfl_tpu_torch import native
+        from p2pfl_tpu_torch.settings import wire_compression_device
 
-        flat = {}
+        anchor_flat = None
+        if "anchor_tag" in header:
+            if anchor is None:
+                raise AnchorMismatchError("payload is delta-coded (topk8) but no anchor is available")
+            if (anchor_tag or "") != header["anchor_tag"]:
+                raise AnchorMismatchError(
+                    f"anchor round mismatch (local {anchor_tag!r} != payload "
+                    f"{header['anchor_tag']!r}) — sender delta-coded against a "
+                    "different round's model"
+                )
+            anchor_flat = dict(named_leaves(anchor)[1])
+
         off = 8 + hlen
         crc = 0
         for e in header["t"]:
@@ -540,12 +707,46 @@ def decode_params(payload: bytes, device: Device = None) -> dict[str, torch.Tens
             off += e["n"]
         if "crc" in header and header["crc"] != crc:
             raise DecodingParamsError(f"CRC mismatch: payload corrupted ({crc} != {header['crc']})")
+
+        flat = {}
+        deferred: list = []  # tk8 leaves reconstructed where their anchor lives
         off = 8 + hlen
         for e in header["t"]:
-            flat[e["k"]] = _decode_dense_leaf(e, mv[off : off + e["n"]], device)
+            dtype, count = _leaf_meta(e)
+            if e.get("enc") != "tk8":
+                flat[e["k"]] = _decode_dense_leaf(e, mv[off : off + e["n"]], device)
+                off += e["n"]
+                continue
+            nnz = int(e["nnz"])
+            if anchor_flat is None or e["k"] not in anchor_flat:
+                raise AnchorMismatchError(f"no anchor tensor for delta-coded {e['k']}")
+            idx = np.frombuffer(payload, dtype=np.uint32, count=nnz, offset=off)
+            q = np.frombuffer(payload, dtype=np.int8, count=nnz, offset=off + nnz * 4)
+            if nnz and int(idx.max()) >= count:
+                raise DecodingParamsError(f"index out of range in {e['k']}")
+            if nnz > 1 and np.any(np.diff(idx.astype(np.int64)) <= 0):
+                raise DecodingParamsError(f"duplicate or unsorted indices in {e['k']}")
+            anchor_leaf = anchor_flat[e["k"]]
+            # both consumers: a scatter past the anchor's end would raise on
+            # the host and trap the card's context (every co-resident node)
+            size = anchor_leaf.numel() if isinstance(anchor_leaf, torch.Tensor) else np.size(anchor_leaf)
+            if size != count:
+                raise ModelNotMatchingError(f"anchor leaf {e['k']} has {size} elements, frame {count}")
+            vals = native.dequantize(q, float(e["scale"]))
+            if isinstance(anchor_leaf, torch.Tensor) and wire_compression_device(anchor_leaf.device):
+                deferred.append((e["k"], anchor_leaf, idx, vals, tuple(e["shape"]), dtype))
+            else:
+                dense = _host_f32(anchor_leaf).ravel().copy()
+                dense[idx] = dense[idx] + vals
+                t = torch.from_numpy(dense).reshape(e["shape"]).to(dtype)
+                flat[e["k"]] = t if device is None else t.to(device)
             off += e["n"]
+        if deferred:
+            from p2pfl_tpu_torch.ops.compression import decode_tk8_device
+
+            flat.update(decode_tk8_device(deferred))
         return flat
-    except (DecodingParamsError, UnsupportedByPortError):
+    except (DecodingParamsError, AnchorMismatchError):
         raise
     except Exception as exc:  # noqa: BLE001 — any malformed payload is a decode error
         raise DecodingParamsError(str(exc)) from exc
@@ -554,10 +755,14 @@ def decode_params(payload: bytes, device: Device = None) -> dict[str, torch.Tens
 class StreamDecoder:
     """Incremental decoder of one ``P2TC`` chunk stream.
 
-    Feed frames in order with :meth:`feed`. Each leaf is decoded onto
-    ``device`` the moment its bytes complete, so the receiver holds at
-    most one chunk frame and one open leaf buffer (``peak_scratch_bytes``)
-    instead of the model. Every chunk's CRC is checked on arrival and
+    Feed frames in order with :meth:`feed`. Each raw or ``i8`` leaf is
+    decoded onto ``device`` the moment its bytes complete, so the receiver
+    holds at most one chunk frame and one open leaf buffer
+    (``peak_scratch_bytes``) instead of the model. A delta-coded stream
+    (its header carries ``anchor_tag``) needs the receiver's anchor, which
+    the transport does not hold: the decoder then reassembles the unary
+    frame byte for byte (:meth:`result_payload`, about 0.25 bytes a
+    parameter) for :func:`decode_params` at materialize time. Every chunk's CRC is checked on arrival and
     folded into the header's whole-payload CRC with
     :func:`~p2pfl_tpu_torch.native.crc32c_combine` (no second pass over
     the bytes), which is verified at the end chunk with the chunk count
@@ -576,6 +781,7 @@ class StreamDecoder:
         self._leaf_fill = 0
         self._crc = 0
         self._flat: dict = {}
+        self._reassemble: Optional[bytearray] = None
         self._done = False
         self.chunks = 0
         self.payload_bytes = 0
@@ -585,6 +791,10 @@ class StreamDecoder:
     @property
     def complete(self) -> bool:
         return self._done
+
+    @property
+    def reassembled(self) -> bool:
+        return self._reassemble is not None
 
     def feed(self, frame) -> None:
         ctype, seq, body, crc = parse_stream_chunk(frame)
@@ -600,7 +810,8 @@ class StreamDecoder:
             self._data(body, crc)
         else:  # parse_stream_chunk admits only the three known types
             self._finish(body)
-        scratch = len(frame) + (len(self._leaf_buf) if self._leaf_buf is not None else 0)
+        held = self._reassemble if self._reassemble is not None else self._leaf_buf
+        scratch = len(frame) + (len(held) if held is not None else 0)
         self.peak_scratch_bytes = max(self.peak_scratch_bytes, scratch)
 
     def _start(self, body) -> None:
@@ -618,7 +829,10 @@ class StreamDecoder:
         self._entries = header["t"]
         for e in self._entries:
             _leaf_meta(e)  # check every entry before any bytes land
-        self._advance_leaf()
+        if "anchor_tag" in header or any(e.get("enc") == "tk8" for e in self._entries):
+            self._reassemble = bytearray(body)
+        else:
+            self._advance_leaf()
 
     def _advance_leaf(self) -> None:
         # zero-size leaves carry no bytes: complete them at once
@@ -640,6 +854,9 @@ class StreamDecoder:
 
         self._crc = native.crc32c_combine(self._crc, crc, len(body))
         self.payload_bytes += len(body)
+        if self._reassemble is not None:
+            self._reassemble += body
+            return
         off, n = 0, len(body)
         while off < n:
             if self._leaf_buf is None:
@@ -677,21 +894,41 @@ class StreamDecoder:
             )
 
     def result_flat(self) -> dict:
-        """The decoded ``{path: tensor}`` dict."""
+        """The decoded ``{path: tensor}`` dict (streams without tk8)."""
         if not self._done:
             raise DecodingParamsError("stream incomplete")
+        if self._reassemble is not None:
+            raise DecodingParamsError("delta-coded stream has no eager flat result — use result_payload()")
         return self._flat
+
+    def result_payload(self) -> bytes:
+        """The reassembled unary frame (delta-coded streams only)."""
+        if not self._done:
+            raise DecodingParamsError("stream incomplete")
+        if self._reassemble is None:
+            raise DecodingParamsError("dense stream was leaf-decoded on arrival — use result_flat()")
+        return bytes(self._reassemble)
 
 
 def estimate_payload_bytes(update: "ModelUpdate") -> Optional[int]:
     """The encoded size of an update without encoding it (transports pick
     unary or streaming from it): exact when the bytes exist, else the
-    leaves' bytes plus header slack; None when nothing is known."""
+    leaves' bytes scaled by the wire compression (int8 a quarter, topk8
+    with an anchor a twelfth, on the safe side of its density) plus header
+    slack; None when nothing is known."""
     if update.encoded is not None:
         return len(update.encoded)
     if update.params is None:
         return None
-    return sum(_leaf_nbytes(leaf) for _, leaf in named_leaves(update.params)[1]) + 4096
+    from p2pfl_tpu_torch.settings import Settings
+
+    raw = sum(_leaf_nbytes(leaf) for _, leaf in named_leaves(update.params)[1])
+    comp = Settings.WIRE_COMPRESSION
+    if comp == "int8":
+        raw //= 4
+    elif comp == "topk8" and update.anchor is not None:
+        raw //= 12
+    return raw + 4096
 
 
 def restore_like(template: Tree, flat: dict) -> Tree:
@@ -735,9 +972,21 @@ class ModelUpdate:
     xp: Optional[str] = None
     version: Optional[tuple] = None
     sp: Optional[tuple] = None
-    #: round identity of a delta-coded payload (item 4b); None on the
-    #: port's dense path
+    #: round identity of the delta-coding anchor, e.g. ``"1:3"``
     anchor_tag: Optional[str] = None
+    #: the round-start global model topk8 delta-codes against; attached by
+    #: the learner, inherited through aggregation, never serialized
+    anchor: Optional[Tree] = None
+    #: the error-feedback store (``{path: residual}``), set only on a
+    #: node's own train-stage contribution so exactly one encode a round
+    #: writes it
+    ef_residual: Optional[dict] = None
+    #: the round-start global kept by a failed secure-aggregation recovery
+    #: (a no-op round): GossipModelStage never diffuses it. Never serialized
+    noop_round: bool = False
+    #: a finalized (self-mask-free) aggregate a peer diffused under double
+    #: masking: set when AddModelCommand strips ``secagg.CLEAN_MARKER``
+    secagg_clean: bool = False
     #: the node's own fused-round accumulator ``(psum, wsum)``:
     #: ``num_samples × params`` in ``Settings.AGG_DTYPE``, folded inside
     #: the fused round (``parallel/spmd.py::fused_node_round``), and the
@@ -751,24 +1000,54 @@ class ModelUpdate:
     cache_version: Optional[int] = None
     cache_round: Optional[int] = None
     #: serializes encode(): the send fan-out may encode one instance from
-    #: several worker threads
+    #: several worker threads, and an error-feedback encode writes the
+    #: residual store, exactly once, under this lock
     _encode_lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def ef_fold_key(self, compression: str) -> tuple:
-        """The one key by which every encoder of this content claims the
+        """The one key by which every encoder of this content (the byte
+        path here, the ICI plane in ``communication/ici.py``) claims the
         error-feedback fold (``PayloadCache.ef_fold_once``)."""
         return (self.cache_version, self.cache_round, compression, self.anchor_tag)
 
     def _cache_key(self) -> Optional[tuple]:
-        """The unary payload's cache key, or None when not cacheable."""
-        from p2pfl_tpu_torch.settings import Settings
+        """The unary payload's cache key, or None when not cacheable. The
+        resolved producer is in it: device and host bytes decode alike but
+        differ at quantization ties."""
+        from p2pfl_tpu_torch.settings import Settings, wire_compression_device
 
         if self.payload_cache is None or self.cache_version is None:
             return None
-        return (self.cache_version, self.cache_round, Settings.WIRE_COMPRESSION, self.anchor_tag)
+        device = _leaves_device(dict(named_leaves(self.params)[1])) if self.params is not None else None
+        return (
+            self.cache_version,
+            self.cache_round,
+            Settings.WIRE_COMPRESSION,
+            wire_compression_device(device),
+            self.anchor_tag,
+            self.ef_residual is not None,
+        )
 
     def _owner(self) -> Optional[str]:
         return self.payload_cache.owner if self.payload_cache is not None else None
+
+    def _fold_residual(self) -> Optional[dict]:
+        """The residual this encode may fold: None when another plane's
+        encode of the same content already owns the fold."""
+        from p2pfl_tpu_torch.settings import Settings
+
+        residual = self.ef_residual
+        cache = self.payload_cache
+        if residual is not None and cache is not None and self.cache_version is not None:
+            if not cache.ef_fold_once(self.ef_fold_key(Settings.WIRE_COMPRESSION)):
+                return None
+        return residual
+
+    def _encode_fresh(self) -> bytes:
+        return encode_params(
+            self.params, anchor=self.anchor, anchor_tag=self.anchor_tag,
+            residual=self._fold_residual(), owner=self._owner(),
+        )
 
     def encode(self) -> bytes:
         with self._encode_lock:
@@ -791,7 +1070,7 @@ class ModelUpdate:
                 self.encoded = payload_from_chunks(chunked)
                 cache.put(key, self.encoded)
                 return self.encoded
-        self.encoded = encode_params(self.params, owner=self._owner())
+        self.encoded = self._encode_fresh()
         if key is not None:
             cache.put(key, self.encoded)
         return self.encoded
@@ -799,7 +1078,8 @@ class ModelUpdate:
     def encode_chunks(self, chunk_bytes: Optional[int] = None) -> list:
         """The P2TC chunk list, with :meth:`encode`'s encode-once rules: the
         list is cached per content, and unary bytes already encoded are
-        re-sliced instead of re-encoded (and back)."""
+        re-sliced instead of re-encoded (and back). The error-feedback fold
+        is claimed through the same :meth:`ef_fold_key`."""
         cbytes = chunk_bytes if chunk_bytes is not None else _chunk_bytes_setting()
         with self._encode_lock:
             if self.encoded is not None:
@@ -815,7 +1095,10 @@ class ModelUpdate:
                     chunks = chunk_encoded_payload(unary, cbytes)
                     cache.put(("chunks", *key, cbytes), chunks)
                     return chunks
-            chunks = encode_params_chunked(self.params, owner=self._owner(), chunk_bytes=cbytes)
+            chunks = encode_params_chunked(
+                self.params, anchor=self.anchor, anchor_tag=self.anchor_tag,
+                residual=self._fold_residual(), owner=self._owner(), chunk_bytes=cbytes,
+            )
             if key is not None:
                 cache.put(("chunks", *key, cbytes), chunks)
             return chunks
@@ -837,7 +1120,7 @@ class ModelUpdate:
             if payload is None and key is not None:
                 payload = cache.peek(key)
             if payload is None:
-                payload = encode_params(self.params, owner=self._owner())
+                payload = self._encode_fresh()
                 self.encoded = payload
                 if key is not None:
                     cache.put(key, payload)

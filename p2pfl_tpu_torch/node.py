@@ -10,10 +10,12 @@ pure-communication use.
 
 The transport is the in-memory one by default or the gRPC one
 (``communication/grpc_transport.py``); byte transports ship the P2TW
-codec, decoded onto the learner's device. Not ported: the async control
-plane, the journal and resume, the DCN plane, secure aggregation and the
-int8/topk8 wire codecs. A setting that asks for one of them raises at
-:meth:`Node.start`, never in the middle of a round.
+codec (``"none"``, ``"int8"`` or ``"topk8"`` with error feedback),
+decoded onto the learner's device. ``Settings.SECURE_AGGREGATION`` masks
+the train set's contributions (``learning/secagg.py``). Not ported: the
+async control plane, the journal and resume, and the DCN plane; a setting
+that asks for one of them raises at :meth:`Node.start`, never in the
+middle of a round.
 """
 
 from __future__ import annotations
@@ -32,6 +34,11 @@ from p2pfl_tpu_torch.commands import (
     ModelInitializedCommand,
     ModelsAggregatedCommand,
     ModelsReadyCommand,
+    SecAggNeedCommand,
+    SecAggPubCommand,
+    SecAggRecoverCommand,
+    SecAggRevealCommand,
+    SecAggShareCommand,
     StartLearningCommand,
     StopLearningCommand,
     VoteTrainSetCommand,
@@ -66,19 +73,10 @@ def stop_leaked_nodes() -> list[str]:
 
 def _check_supported() -> None:
     """Refuse, before anything runs, what the port does not do yet."""
-    if Settings.SECURE_AGGREGATION:
-        raise UnsupportedByPortError(
-            "SECURE_AGGREGATION=True: secure aggregation is not ported (ROADMAP Queue A item 4b)"
-        )
     if Settings.WEIGHTS_PLANE not in ("bytes", "ici"):
         raise UnsupportedByPortError(
             f"WEIGHTS_PLANE={Settings.WEIGHTS_PLANE!r}: only bytes and ici are ported "
             "(the DCN plane is ROADMAP Queue A item 9)"
-        )
-    if Settings.WIRE_COMPRESSION != "none":
-        raise UnsupportedByPortError(
-            f"WIRE_COMPRESSION={Settings.WIRE_COMPRESSION!r} on the {Settings.WEIGHTS_PLANE} plane: "
-            "the int8/topk8 codecs are not ported (ROADMAP Queue A item 4b)"
         )
 
 
@@ -120,6 +118,9 @@ class Node:
         self.total_rounds = 0
         self.epochs = 1
         self.pending_init_update: Optional[ModelUpdate] = None
+        # the round-start global, kept under secure aggregation for a round
+        # whose masked aggregate cannot be recovered (the stages' no-op)
+        self.round_start_params: Optional[Any] = None
         # an init_model that raced ahead of start_learning, with its arrival
         # time, consumed by StartLearningStage while fresh
         self._early_init_lock = threading.Lock()
@@ -144,6 +145,11 @@ class Node:
             ModelsAggregatedCommand(self),
             ModelsReadyCommand(self.state),
             MetricsCommand(self.state),
+            SecAggPubCommand(self.state),
+            SecAggRecoverCommand(self.state),
+            SecAggNeedCommand(self),
+            SecAggShareCommand(self.state),
+            SecAggRevealCommand(self.state),
             InitModelCommand(self),
             AddModelCommand(self),
         ):
@@ -288,11 +294,14 @@ class Node:
     def _on_peer_evicted(self, addr: str) -> None:
         """Mid-round train-set repair: a train-set member was evicted. If
         it has not contributed, shrink the round's coverage target to the
-        survivors and re-announce our coverage."""
+        survivors and re-announce our coverage. Inert under secure
+        aggregation: a survivors-only close would apply an aggregate still
+        carrying the dead member's pair masks, and the stages' seed
+        recovery owns the dropout there."""
         st = self.state
         # wake a vote wait blocked on the evicted peer's vote
         st.votes_ready_event.set()
-        if not Settings.TRAIN_SET_REPAIR:
+        if not Settings.TRAIN_SET_REPAIR or Settings.SECURE_AGGREGATION:
             return
         with st.train_set_lock:
             if st.round is None or addr == self.addr:

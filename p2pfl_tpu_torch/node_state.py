@@ -1,5 +1,5 @@
 """Per-node mutable learning state (counterpart of ``p2pfl_tpu/node_state.py``,
-without the secure-aggregation and async fields).
+without the async fields).
 
 The reference's four lock-latches are real :class:`threading.Event`
 objects here, as in the JAX package.
@@ -36,6 +36,35 @@ class NodeState:
         # subtracts this set. Writers replace it, never mutate it.
         self.train_set_evicted: set = set()
         self.train_set_votes: Dict[str, Dict[str, int]] = {}
+
+        # secure aggregation (learning/secagg.py): this node's DH private key
+        # for the experiment and peers' announced (public key, sample count),
+        # the first announcement per peer latched (SecAggPubCommand)
+        self.secagg_priv: Optional[int] = None
+        self.secagg_pubs: Dict[str, tuple] = {}
+        # the sample count THIS node announced: masking must use exactly it
+        self.secagg_samples: Optional[int] = None
+        # dropout recovery: (round, dropped, survivor) -> the pair seed the
+        # survivor re-disclosed (secagg_recover)
+        self.secagg_disclosed: Dict[tuple, int] = {}
+        # (round, dropped) (and (round, dropped, requester)) this node
+        # already disclosed its seed for
+        self.secagg_disclosure_sent: set = set()
+        # double masking: round -> this node's self-mask seed b_i^r
+        self.secagg_self_seed: Dict[int, int] = {}
+        # (round, owner) -> this node's decrypted Shamir share (x, y)
+        self.secagg_shares_held: Dict[tuple, tuple] = {}
+        # (round, owner, revealer) -> revealed (x, y); x == 0 is the owner's
+        # direct disclosure of its seed
+        self.secagg_share_reveals: Dict[tuple, tuple] = {}
+        # share reveals for a round ahead of this node's, re-validated by
+        # commands/control.py::promote_early_reveals once its set latches
+        self.secagg_early_reveals: Dict[tuple, tuple] = {}
+        # (round, owner) reveals THIS node already broadcast
+        self.secagg_reveal_sent: set = set()
+        # (round, addr) treated as dropped this round: never help rebuild
+        # the self seed of a node whose pair seeds may have been disclosed
+        self.secagg_round_dropped: set = set()
 
         # counts experiments entered: tells "never started" from "finished"
         self.experiment_epoch = 0
@@ -84,5 +113,16 @@ class NodeState:
             self.train_set = []
             self.train_set_evicted = set()
         self.train_set_votes = {}
+        self.secagg_priv = None
+        self.secagg_pubs = {}
+        self.secagg_samples = None
+        self.secagg_disclosed = {}
+        self.secagg_disclosure_sent = set()
+        self.secagg_self_seed = {}
+        self.secagg_shares_held = {}
+        self.secagg_share_reveals = {}
+        self.secagg_early_reveals = {}
+        self.secagg_reveal_sent = set()
+        self.secagg_round_dropped = set()
         self.votes_ready_event.clear()
         self.model_initialized_event.clear()

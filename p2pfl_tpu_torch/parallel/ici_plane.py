@@ -166,8 +166,17 @@ def shard_transfer(tree: Tree, filler: Tree, src: SliceInfo, dst: SliceInfo) -> 
         if fill.shape != leaf.shape or fill.dtype != leaf.dtype:
             raise ValueError(f"shard_transfer: leaf {tuple(leaf.shape)} {leaf.dtype} "
                              f"for filler {tuple(fill.shape)} {fill.dtype}")
-    srcs = [x for _, x in items]
+    outs = transfer_buffers([x for _, x in items], dst)
+    return tree_unflatten({k: o for (k, _), o in zip(items, outs)})
+
+
+def transfer_buffers(srcs: list, dst: SliceInfo) -> list:
+    """Fresh buffers on ``dst``'s slot holding ``srcs``, filled by one
+    :func:`exchange` (one launch of kernel 9 on a card): the transfer of
+    :func:`shard_transfer` and of the ICI plane's codec payloads
+    (``communication/ici.py``), whose int8/int32 buffers have byte
+    lengths of any residue mod 16."""
     outs = [torch.empty(x.shape, dtype=x.dtype, device=dst.device) for x in srcs]
     exchange(srcs, outs)
-    return tree_unflatten({k: o for (k, _), o in zip(items, outs)})
+    return outs
 

@@ -13,6 +13,8 @@ wants TF32 sets ``torch.backends.cuda.matmul.allow_tf32`` and
 
 from __future__ import annotations
 
+from typing import Optional
+
 
 class Settings:
     # --- general ---
@@ -64,10 +66,21 @@ class Settings:
     WAIT_HEARTBEATS_CONVERGENCE: float = 1.0
     # the reference elects once, in round 0; True re-elects every round
     VOTE_EVERY_ROUND: bool = False
-    # secure aggregation is a gossip-plane protocol; the SPMD federation
-    # refuses it (one program is one trust domain) and the Node's secagg
-    # verbs are not ported (True raises at Node.start)
+    # secure aggregation (learning/secagg.py): train-set nodes agree a DH
+    # seed per peer at experiment start and mask their contribution so the
+    # masks cancel in the FedAvg sum. A gossip-plane protocol: the SPMD
+    # federations refuse it (one program is one trust domain). FedAvg
+    # only, and it needs WIRE_COMPRESSION="none"
     SECURE_AGGREGATION: bool = False
+    # per-pair Gaussian mask scale: pair (i, j) is masked at
+    # STD·sqrt(w_j/w_i) on node i (sample counts ride the DH keys)
+    SECAGG_MASK_STD: float = 100.0
+    # seconds a train-set node waits for peers' seed disclosures after an
+    # aggregation timeout with dropouts, before the round becomes a no-op
+    SECAGG_RECOVERY_TIMEOUT: float = 30.0
+    # Bonawitz double masking: every contribution also carries a per-round
+    # self mask whose seed is t-of-n Shamir-shared with the train set
+    SECAGG_DOUBLE_MASK: bool = True
     # aggregation accumulates in this dtype
     AGG_DTYPE: str = "float32"
     # models compute in this dtype (parameters and logits stay float32);
@@ -121,10 +134,23 @@ class Settings:
     # "protobuf" (the reference's node.proto schema, proto_wire.py);
     # receivers sniff every frame, so mixed fleets interoperate
     WIRE_FORMAT: str = "envelope"
-    # wire compression of model payloads: only "none" is ported (the
-    # int8/topk8 codecs are ROADMAP Queue A item 4b); anything else raises
-    # at Node.start and in the encoder
+    # wire compression of model payloads (learning/weights.py): "none";
+    # "int8", symmetric per-tensor quantization (4x smaller payloads); or
+    # "topk8", the top-k int8 deltas against the round-start global model
+    # with error feedback (0.25 bytes a parameter at the default fraction)
     WIRE_COMPRESSION: str = "none"
+    # fraction of delta coordinates topk8 keeps a tensor
+    TOPK_FRACTION: float = 0.05
+    # topk8's error feedback: dropped coordinates accumulate locally and
+    # re-enter the next round's delta
+    TOPK_ERROR_FEEDBACK: bool = True
+    # the int8/topk8 encode as torch ops where the params live
+    # (ops/compression.py; the residual stays there between rounds), and
+    # the tk8 decode as a scatter onto the anchor where it lives. None
+    # picks by the params' device: the device producer for CUDA tensors,
+    # the host (numpy) producer on the CPU; True/False force it. Read the
+    # resolved value through wire_compression_device()
+    WIRE_COMPRESSION_DEVICE: Optional[bool] = None
     # streaming byte plane: a payload estimated at or above
     # WIRE_STREAM_THRESHOLD MB ships as P2TC chunk frames of about
     # WIRE_CHUNK_MB over send_weights_stream (the memory transport's byte
@@ -146,6 +172,19 @@ class Settings:
     # parallel/ici_plane.py (kernel 9 on the card), the control plane
     # staying on the transport (communication/ici.py)
     WEIGHTS_PLANE: str = "bytes"
+
+
+def wire_compression_device(device=None) -> bool:
+    """Resolve ``Settings.WIRE_COMPRESSION_DEVICE``: an explicit True or
+    False stands; None picks the device producer for tensors on a CUDA
+    ``device`` and the host producer elsewhere (the JAX package's rule by
+    backend, with the params' device type in the backend's place). Both
+    producers emit frames of one layout, so the choice never changes
+    what a receiver decodes."""
+    explicit = Settings.WIRE_COMPRESSION_DEVICE
+    if explicit is not None:
+        return bool(explicit)
+    return device is not None and getattr(device, "type", str(device).split(":")[0]) == "cuda"
 
 
 def set_test_settings() -> None:
@@ -183,6 +222,9 @@ def set_test_settings() -> None:
     Settings.TELEMETRY_RING_SPANS = 4096
     Settings.TELEMETRY_BEAT_SPANS = False
     Settings.WIRE_COMPRESSION = "none"
+    # explicit, as in the JAX package's preset: tests drive the device
+    # producer's code on whatever device they run on
+    Settings.WIRE_COMPRESSION_DEVICE = True
     Settings.WEIGHTS_PLANE = "bytes"
     Settings.SCAFFOLD_FUSED_CI = True
     Settings.ROUND_FUSED = True
@@ -193,5 +235,6 @@ def set_test_settings() -> None:
     Settings.TRAIN_SET_SIZE = 4
     Settings.VOTE_TIMEOUT = 10.0
     Settings.AGGREGATION_TIMEOUT = 10.0
+    Settings.SECAGG_RECOVERY_TIMEOUT = 6.0
     Settings.WAIT_HEARTBEATS_CONVERGENCE = 0.4
     Settings.LOG_LEVEL = "DEBUG"

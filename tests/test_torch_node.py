@@ -481,32 +481,54 @@ def test_stale_and_future_round_add_model_gates():
 
 
 def test_unported_settings_raise_at_start():
+    """The DCN plane is still refused at ``Node.start``; secure aggregation
+    and the int8/topk8 codecs on either plane now start. Secure
+    aggregation with a lossy codec aborts the experiment in
+    ``StartLearningStage`` with the JAX package's message, before any
+    training."""
     node = Node(learner=DummyLearner(device="cpu"))
-    for knob, value, item in (("SECURE_AGGREGATION", True, "item 4"), ("WEIGHTS_PLANE", "dcn", "item 9")):
-        prev = getattr(Settings, knob)
+    Settings.WEIGHTS_PLANE = "dcn"
+    try:
+        with pytest.raises(ValueError, match="only bytes.*item 9"):
+            node.start()
+    finally:
+        Settings.WEIGHTS_PLANE = "bytes"
+    assert not node.is_running()
+    for knob, value in (("SECURE_AGGREGATION", True), ("MEMORY_WIRE_CODEC", True)):
         setattr(Settings, knob, value)
         try:
-            with pytest.raises(ValueError, match=f"not ported.*{item}|only bytes.*{item}"):
-                node.start()
+            node.start()
+            assert node.is_running()
         finally:
-            setattr(Settings, knob, prev)
-    # lossy compression is refused on either plane, the byte path included
-    for plane, mode in (("ici", "topk8"), ("bytes", "int8"), ("bytes", "topk8")):
+            node.stop()
+            setattr(Settings, knob, False)
+    for plane, mode in (("ici", "topk8"), ("ici", "int8"), ("bytes", "int8"), ("bytes", "topk8")):
         Settings.WEIGHTS_PLANE, Settings.WIRE_COMPRESSION = plane, mode
+        n = Node(learner=DummyLearner(device="cpu"))
         try:
-            with pytest.raises(ValueError, match="WIRE_COMPRESSION.*item 4"):
-                node.start()
+            n.start()
+            assert n.is_running()
         finally:
+            n.stop()
             Settings.WEIGHTS_PLANE, Settings.WIRE_COMPRESSION = "bytes", "none"
-    assert not node.is_running()
-    # the byte codec of the memory transport is ported: it starts
-    Settings.MEMORY_WIRE_CODEC = True
+    # secure aggregation with a lossy codec: the experiment aborts at start
+    errors: list = []
+    Settings.SECURE_AGGREGATION, Settings.WIRE_COMPRESSION = True, "int8"
+    n = Node(learner=DummyLearner(device="cpu"))
+    prev_error = logger.error
+    logger.error = lambda node, msg: errors.append(msg)
     try:
-        node.start()
-        assert node.is_running()
+        n.start()
+        n.set_start_learning(rounds=1, epochs=1)
+        deadline = time.monotonic() + 10
+        while n.learning_active() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not n.learning_active() and n.state.round is None
+        assert any("SECURE_AGGREGATION is incompatible with WIRE_COMPRESSION='int8'" in e for e in errors)
     finally:
-        node.stop()
-        Settings.MEMORY_WIRE_CODEC = False
+        logger.error = prev_error
+        n.stop()
+        Settings.SECURE_AGGREGATION, Settings.WIRE_COMPRESSION = False, "none"
 
 
 def test_example_runs_on_the_cpu_and_refuses_without_a_card(monkeypatch):

@@ -53,6 +53,10 @@ def test_import_purity_in_a_fresh_process():
     assert {"p2pfl_tpu_torch.learning.optimizers", "p2pfl_tpu_torch.learning.checkpoint",
             "p2pfl_tpu_torch.examples.spmd_cifar", "p2pfl_tpu_torch.examples.heterogeneous",
             "p2pfl_tpu_torch.parallel.chunked"} <= set(mods)
+    # and the Node's learning breadth: the wire codecs, secure aggregation,
+    # FedPer and their example
+    assert {"p2pfl_tpu_torch.ops.compression", "p2pfl_tpu_torch.learning.secagg",
+            "p2pfl_tpu_torch.learning.personalization", "p2pfl_tpu_torch.examples.secure_mnist"} <= set(mods)
 
 
 @pytest.mark.parametrize(
@@ -115,7 +119,10 @@ def test_entry_points_raise_without_cuda():
     from p2pfl_tpu_torch.models.vision import cnn, mlp
     from p2pfl_tpu_torch.parallel.mesh import submesh_federation_mesh
 
-    for call in (mlp, cnn, DummyLearner, lambda: submesh_federation_mesh(2), lambda: run(nodes=2, rounds=1)):
+    from p2pfl_tpu_torch.examples import secure_mnist
+
+    for call in (mlp, cnn, DummyLearner, lambda: submesh_federation_mesh(2), lambda: run(nodes=2, rounds=1),
+                 lambda: secure_mnist.run(nodes=2, rounds=1)):
         with pytest.raises(DeviceUnavailableError):
             call()
 

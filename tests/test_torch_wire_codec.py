@@ -25,10 +25,11 @@ from p2pfl_tpu import native as jnative
 from p2pfl_tpu.learning import weights as jw
 from p2pfl_tpu.models.base import FlaxModel
 from p2pfl_tpu.models.vision import MLP as JaxMLP
+from p2pfl_tpu.settings import Settings as JaxSettings
 from p2pfl_tpu_torch import native
 from p2pfl_tpu_torch.communication import ici
 from p2pfl_tpu_torch.communication.memory import MemoryRegistry
-from p2pfl_tpu_torch.exceptions import DecodingParamsError, ModelNotMatchingError, UnsupportedByPortError
+from p2pfl_tpu_torch.exceptions import DecodingParamsError, ModelNotMatchingError
 from p2pfl_tpu_torch.learning import weights as tw
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import DummyLearner, TorchLearner
@@ -146,20 +147,32 @@ def test_p2tc_streams_are_byte_identical_and_cross_decode(name):
 
 @pytest.mark.parametrize("mode", ["int8", "topk8"])
 def test_lossy_frames_and_encodes_raise_naming_item_4(mode):
-    """A JAX peer's int8 or topk8 frame, unary or streamed, and a port
-    encode with either mode raise ``UnsupportedByPortError``: the lossy
-    codecs are ROADMAP item 4."""
+    """Until ROADMAP item 4b a JAX peer's int8 or topk8 frame raised on the
+    port; now the port decodes it, unary and streamed, to the leaves JAX's
+    own decoder gives (bit for bit, on the same anchor), and the port's
+    encode of the same tree under the same mode is JAX's frame byte for
+    byte (both host producers)."""
     tree = {"w": np.linspace(-1, 1, 4096, dtype=np.float32)}
     anchor = {"w": np.zeros(4096, np.float32)}
-    frame = jw.encode_params(tree, compression=mode, anchor=anchor, anchor_tag="0:1")
-    with pytest.raises(UnsupportedByPortError, match="item 4"):
-        tw.decode_params(frame)
-    dec = tw.StreamDecoder()
-    with pytest.raises(UnsupportedByPortError, match="item 4"):
+    prev = (JaxSettings.WIRE_COMPRESSION_DEVICE, Settings.WIRE_COMPRESSION_DEVICE)
+    JaxSettings.WIRE_COMPRESSION_DEVICE = Settings.WIRE_COMPRESSION_DEVICE = False
+    try:
+        frame = jw.encode_params(tree, compression=mode, anchor=anchor, anchor_tag="0:1")
+        want = jw.decode_params(frame, anchor=anchor, anchor_tag="0:1")["w"]
+        got = tw.decode_params(frame, anchor=_to_torch(anchor), anchor_tag="0:1")["w"]
+        assert _same_leaf(_as_numpy(got), want)
+        dec = tw.StreamDecoder()
         for chunk in jw.chunk_encoded_payload(frame, CHUNK):
             dec.feed(chunk)
-    with pytest.raises(UnsupportedByPortError, match="item 4"):
-        tw.encode_params(_to_torch(tree), compression=mode)
+        if mode == "topk8":
+            # delta-coded: the stream reassembles the unary frame
+            assert dec.reassembled and dec.result_payload() == frame
+        else:
+            assert _same_leaf(_as_numpy(dec.result_flat()["w"]), want)
+        port = tw.encode_params(_to_torch(tree), compression=mode, anchor=_to_torch(anchor), anchor_tag="0:1")
+        assert port == frame
+    finally:
+        JaxSettings.WIRE_COMPRESSION_DEVICE, Settings.WIRE_COMPRESSION_DEVICE = prev
 
 
 def test_a_dtype_torch_cannot_hold_is_a_decode_error():
