@@ -35,8 +35,11 @@ of 64 q rows in place of three, 168 registers a thread in place of 128),
 ``dq_head_order`` (q tiles longest first within each head only), and the
 probes ``dq_no_products`` and ``dq_skeleton``.
 
-Every build is timed on device alone (behind a sleep kernel, median of
-20) in four cases: causal and full at [4·32, 1024, 64], the diagonal and
+The sources hold every head width (32, 64, 128); the ring-depth and
+consumer-count edits change widths 32 and 64, while width 128 keeps its
+own layout (``setmaxnreg``, shared memory at its limit). Every build is
+timed on device alone (behind a sleep kernel, median of 20) at width 64,
+in four cases: causal and full at [4·32, 1024, 64], the diagonal and
 fully visible ring hops at [2·32, 1024, 64] with a nonzero lse
 cotangent, bf16; SDPA's backward alone on the same inputs is the
 yardstick, and the shipped sources are timed again at the end, to show
@@ -79,12 +82,13 @@ DQ_SRC = Path(chip_smoke.DQ_SRC)
 OUT = Path("build/bwd_ablation")
 REPO = Path(__file__).resolve().parent
 
-NO_REDUCE = [("        if (tid == 0) tma_reduce_add(&tdq, base + stage_off, 32 * wg, q0, it.bh);\n", "")]
+NO_REDUCE = [("            tma_reduce_add(&tdq, base + stage_off + a * BQ * S::RB, (D / 2) * wg + a * S::RB / 4, q0, it.bh);\n",
+              "            ;\n")]
 NO_PRODUCTS = [
     ("        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc,", "        for (int kk = 0; kk < 0; ++kk) wgmma_ss(sc,"),
     ("        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp,", "        for (int kk = 0; kk < 0; ++kk) wgmma_ss(dp,"),
-    ("  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dv_acc,", "  for (int kk = 0; kk < 0; ++kk) wgmma_rs(dv_acc,"),
-    ("  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dk_acc,", "  for (int kk = 0; kk < 0; ++kk) wgmma_rs(dk_acc,"),
+    ("  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dv_acc,", "  for (int kk = 0; kk < 0; ++kk) wgmma_rs<D>(dv_acc,"),
+    ("  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dk_acc,", "  for (int kk = 0; kk < 0; ++kk) wgmma_rs<D>(dk_acc,"),
     ("        for (int kk = 0; kk < BK / 16; ++kk)\n", "        for (int kk = 0; kk < 0; ++kk)\n"),
 ]
 NO_SOFTMAX = [
@@ -111,7 +115,7 @@ ABLATIONS = {
 DQ_NO_PRODUCTS = [
     ("      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc,", "      for (int kk = 0; kk < 0; ++kk) wgmma_ss(sc,"),
     ("      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp,", "      for (int kk = 0; kk < 0; ++kk) wgmma_ss(dp,"),
-    ("      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc,", "      for (int kk = 0; kk < 0; ++kk) wgmma_rs(acc,"),
+    ("      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(acc,", "      for (int kk = 0; kk < 0; ++kk) wgmma_rs<D>(acc,"),
 ]
 DQ_NO_SOFTMAX = [
     ("        float pv = ex2(fmaf(sc[idx], scale_log2, -m[h]));\n", "        float pv = sc[idx];\n"),
@@ -123,7 +127,8 @@ DQ_ABLATIONS = {
                    "constexpr int N_CONSUMERS = 2; // consumer warpgroups")],
     "dq_two_blocks": [("constexpr int N_CONSUMERS = 3; // consumer warpgroups",
                        "constexpr int N_CONSUMERS = 2; // consumer warpgroups"),
-                      ("__global__ void __launch_bounds__(NTHREADS, 1)", "__global__ void __launch_bounds__(NTHREADS, 2)")],
+                      ("__global__ void __launch_bounds__(Dq<D>::NTHREADS, 1)",
+                       "__global__ void __launch_bounds__(Dq<D>::NTHREADS, D == 128 ? 1 : 2)")],
     "dq_stages_2": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
     "dq_stages_3": [("constexpr int STAGES = 4;", "constexpr int STAGES = 3;")],
     "dq_exp2f": [("        float pv = ex2(fmaf(", "        float pv = exp2f(fmaf(")],
@@ -131,7 +136,7 @@ DQ_ABLATIONS = {
     "dq_head_order": [
         ("const int bh = blockIdx.x;\n  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;",
          "const int bh = blockIdx.y;\n  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;"),
-        ("dim3 grid(bh, (T + BQ - 1) / BQ);", "dim3 grid((T + BQ - 1) / BQ, bh);"),
+        ("dim3 grid(bh, (T + L::BQ - 1) / L::BQ);", "dim3 grid((T + L::BQ - 1) / L::BQ, bh);"),
     ],
     "dq_no_products": DQ_NO_PRODUCTS,
     "dq_skeleton": DQ_NO_PRODUCTS + DQ_NO_SOFTMAX,

@@ -13,6 +13,8 @@
     python3 chip_smoke.py --only chunked_target      # config 3 to 50 %
     python3 chip_smoke.py --only nameplate_target    # config 5's recipe to 0.65
     python3 chip_smoke.py --only compress_control    # broken codecs: the spread limits' control
+    python3 chip_smoke.py --only kernels config7 moe
+    python3 chip_smoke.py --only moe_target          # config 10's 113M MoE federation to 0.60
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -21,9 +23,9 @@ Phases, each of which makes the script exit non-zero if it fails (the
 2. build the CUDA kernels from ``p2pfl_tpu_torch/csrc`` with ``nvcc`` (one
    per source, in parallel) and print what ``-Xptxas -v`` says of each,
    with the registers, spills and dynamic shared memory of every
-   instantiation of the forward (``flash_fwd_sm90``), the fused and
-   dK/dV backward (``flash_bwd_sm90``) and the dQ pass
-   (``flash_bwd_dq_sm90``);
+   instantiation (head widths 32, 64, 128) of the forward
+   (``flash_fwd_sm90``), the fused and dK/dV backward (``flash_bwd_sm90``)
+   and the dQ pass (``flash_bwd_dq_sm90``);
 3. [kernels] hold kernels 1-4 against their plain PyTorch versions on the
    card at the flash path's attention shape (4 nodes x batch 1, T 1024,
    32 heads, head dim 64, bf16), causal and full, on the inputs of seeds
@@ -36,14 +38,20 @@ Phases, each of which makes the script exit non-zero if it fails (the
    call by its device time alone; then the backward at [1·32, 32768, 64]
    causal, where JAX's dispatch picks the split pass: kernels 3 + 4,
    kernel 2 and SDPA's backward, device time beside the bound (checked
-   against the plain versions at T 4096);
+   against the plain versions at T 4096); then kernels 1-4 at head
+   widths 32 and 128 at config 7's shapes (``[8·8, 4096, 32]``,
+   ``[8·2, 4096, 128]``, causal): held to their plain versions at seeds
+   0-4, launched 220 times back to back (outputs against the first
+   call's), and timed as the width-64 rows are;
 4. [offs] the same for the offset-aware kernels 5-8 at a ring hop's shape
    (2 nodes x 32 heads, T_local 1024, bf16) in five visibility cases
    (diagonal, fully visible, fully masked, and two off-tile pairs, one
    with rows that see nothing inside a visited tile), both backward
    structures with a nonzero lse cotangent, seeds 0-4, exact zeros where
-   no pair reaches; then ``ring_attention(impl="flash")`` at [2, 4096,
-   32, 64] with R = 4 against unsharded flash;
+   no pair reaches; at head widths 32 and 128 (``[2·64, 1024, 32]``,
+   ``[2·16, 1024, 128]``) the diagonal and late off-tile hops, seeds 0-4;
+   then ``ring_attention(impl="flash")`` at [2, 4096, 32, 64] with R = 4
+   against unsharded flash;
 5. [main] the flash path at full width and depth: federated LoRA on the
    TinyLlama-architecture causal LM (22L/2048d/32h/kv4/ffn5632, vocab 4096,
    seq 1024, LoRA rank 8 with lora_mlp) through ``tiny_transformer(attn=
@@ -179,19 +187,42 @@ Phases, each of which makes the script exit non-zero if it fails (the
    (every other kernel at 0) and held against their plain versions on one
    layer's backward inputs; ``mlp_qkv`` against no remat at 2 layers;
    s/round, peak memory, MFU of model and executed FLOPs;
-15. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
+15. [config7] BASELINE config 7 uncut (``drive_config7``): 4L/256d/8h/kv8
+   (head dim 32), ffn 688, vocab 1024, batch 8; at T 512, 1024, 2048 and
+   4096 the dense and flash models' forward and train step (ms, MFU of the
+   dense twin's FLOPs), ``pick_attention``'s answer and the smallest T
+   where flash's train step beats dense's; counted drives of 3 train steps
+   in which kernels 1 and 2 launch exactly steps x layers times (kernels
+   3 and 4 under ``bwd_mode="split"``; the 2-head D 128 variant at its
+   width, fused and split), every other kernel 0; the bare kernels' head-dim scaling at T
+   4096 (8x32, 4x64, 2x128); the D 128 variant's train step; one train
+   step's gradients at T 512 on the card against the CPU's plain
+   versions (``GRAD_REL_L2``);
+16. [moe] BASELINE config 10's MoE rows (``drive_moe``) through
+   ``SpmdLmFederation``: (a) 8 nodes of the 4L/128d 8-expert top-2 MoE,
+   vocab 512, seq 128, batch 16, seed 3 to 0.60 within 12 rounds, then
+   s/round and MFU; (b) the 6L/512d MoE's grad step at batch 16, seq 512
+   (executed-FLOP MFU); (c) 4 nodes of that 113M model (batch 4): s/round,
+   MFU, peak memory; no hand kernel (dense attention); (d) one round of 2
+   nodes at 2L/64d with 4 experts, fp32, on the CPU against the card:
+   routing identical on one input, params within ``C10_PAIR_REL_L2``;
+17. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
    also each node_lora experiment, the nameplate drive and, for 1 and 2,
    the compress phase's LoRA Nodes; for 9 the wire phase's gRPC ICI drive
    and the compress phase's MLP and LoRA drives, with kernel 9's time on
-   the codec tree as ``codec_tree``); then the
-   ``nvidia-smi`` line again, and last ``{"ok": true, "device": {...}}``.
+   the codec tree as ``codec_tree``; for 1-4 also config 7's drives),
+   ``launches_by_width`` the flash kernels' launches of the whole run by
+   head width, and for kernels 1-4 ``widths`` the rows at widths 32 and
+   128; then the ``nvidia-smi`` line again, and last ``{"ok": true,
+   "device": {...}}``.
 
-``--only chunked_target`` runs config 3 to 50 % (at most 60 rounds) and
+``--only chunked_target`` runs config 3 to 50 % (at most 60 rounds),
 ``--only nameplate_target`` config 5's full recipe (400 Adafactor steps
-pretraining the base, then at most 16 rounds to 0.65): minutes each, so
-never by default. ``--only compress_control`` runs the compress phase's
+pretraining the base, then at most 16 rounds to 0.65) and ``--only
+moe_target`` config 10's 113M MoE federation to 0.60 (at most 15 rounds of
+3 epochs): minutes each, so never by default. ``--only compress_control`` runs the compress phase's
 parts (b) and (d) under two broken codecs (peers' deltas dropped; deltas
 decoded onto the receiver's own params) and reads what their checks see:
 the control of ``LOSSY_REL_SPREAD`` (a few minutes, never by default).
@@ -210,6 +241,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -376,29 +408,27 @@ def build_report(log_text: str) -> list:
 
     words = ("registers", "spill", "error", "Compiling", "warning", "Potential")
     lines = [line.strip() for line in log_text.splitlines() if any(w in line for w in words)]
-    # kernel, its source, the shared memory of each instantiation (by the
-    # mangled template arguments: OFFS, then WITH_DQ for the backward)
+    # kernel, its template flags after the head width, the shared memory of
+    # an instantiation (by the width, and WITH_DQ for the backward)
     kernels = (
-        ("flash_fwd_sm90", "flash_fwd_sm90", {"ILb0E": _kernels.flash_fwd_smem_bytes,
-                                              "ILb1E": _kernels.flash_fwd_smem_bytes}),
-        ("flash_bwd_sm90", "flash_bwd_sm90", {"ILb0ELb1E": _kernels.flash_bwd_smem_bytes,
-                                              "ILb1ELb1E": _kernels.flash_bwd_smem_bytes,
-                                              "ILb0ELb0E": _kernels.flash_bwd_dkv_smem_bytes,
-                                              "ILb1ELb0E": _kernels.flash_bwd_dkv_smem_bytes}),
-        ("flash_bwd_dq_sm90", "flash_bwd_dq_sm90", {"ILb0E": _kernels.flash_bwd_dq_smem_bytes,
-                                                    "ILb1E": _kernels.flash_bwd_dq_smem_bytes}),
+        ("flash_fwd_sm90", ("OFFS",), lambda d, bits: _kernels.flash_fwd_smem_bytes(d)),
+        ("flash_bwd_sm90", ("OFFS", "WITH_DQ"),
+         lambda d, bits: (_kernels.flash_bwd_smem_bytes if bits[1] == "1" else _kernels.flash_bwd_dkv_smem_bytes)(d)),
+        ("flash_bwd_dq_sm90", ("OFFS",), lambda d, bits: _kernels.flash_bwd_dq_smem_bytes(d)),
     )
-    for kernel, source, smem_of in kernels:
-        section = log_text.split(f"== {source}.cu", 1)[-1].split("\n== ", 1)[0]
+    for kernel, flags, smem_of in kernels:
+        section = log_text.split(f"== {kernel}.cu", 1)[-1].split("\n== ", 1)[0]
         for entry in section.split("Compiling entry function")[1:]:
             name = entry.split("'")[1]
-            args = next(a for a in sorted(smem_of, key=len, reverse=True) if f"{kernel}{a}" in name)
-            inst = ", ".join(f"{flag}={'true' if bit == '1' else 'false'}"
-                             for flag, bit in zip(("OFFS", "WITH_DQ"), args[3::4]))
+            m = re.search(rf"{kernel}ILi(\d+)E((?:Lb[01]E)+)", name)
+            if m is None:
+                continue
+            d, bits = int(m.group(1)), re.findall(r"Lb([01])E", m.group(2))
+            inst = ", ".join([f"D={d}"] + [f"{f}={'true' if b == '1' else 'false'}" for f, b in zip(flags, bits)])
             regs = next((w.split("Used ")[1].split(" ")[0] for w in entry.splitlines() if "Used " in w), "?")
             spill = [w.strip() for w in entry.splitlines() if "spill" in w]
             lines.append(f"{kernel}<{inst}>: {regs} registers; {'; '.join(spill) or 'no spill line'}; "
-                         f"{smem_of[args]()} bytes of dynamic shared memory a block")
+                         f"{smem_of(d, bits)} bytes of dynamic shared memory a block")
     return lines
 
 
@@ -459,21 +489,63 @@ def check_flash(q, k, v, do, causal: bool, bq: int, bk: int, worst: Worst, tag: 
     return ok, o, lse, delta
 
 
-def check_kernels(results: dict) -> bool:
+def time_rows(x: tuple, causal: bool, worst: Worst, bq: int, bk: int) -> dict:
+    """Kernels 1-4 on one input ``x = (q, k, v, dO, O, lse, delta)``:
+    kernel, plain version, the analytic bound and one PyTorch library call
+    as a yardstick (SDPA's forward; SDPA's backward alone for the
+    backward), each kernel also by its device time alone and its host time
+    a call, the library call by its device time alone, and the split pair's
+    device time. → kernel → row."""
     from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, o, lse, delta = x
+    b, h, t, d = q.shape
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)  # (q, k) pairs computed
+    bf16, f32 = 2, 4
+    qkv_bytes = 3 * b * h * t * d * bf16
+    row_bytes = b * h * t * f32
+    rows = {}
+    ms = time_ms(lambda: _kernels.flash_fwd(q, k, v, causal))
+    plain = time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, bq, bk), iters=3, warmup=1)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    bms, by = bound(qkv_bytes + b * h * t * d * bf16 + row_bytes, 4 * d * pairs)
+    rows["flash_fwd"] = dict(max_abs_err=worst.err["flash_fwd"], ms=ms, plain_ms=plain,
+                             bound_ms=bms, bound_by=by, library_ms=lib)
+    rows["flash_fwd"].update(device_times(
+        lambda: _kernels.flash_fwd(q, k, v, causal),
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)))
+
+    lib_bwd = sdpa_backward(q, k, v, do, is_causal=causal)
+    lib_bwd_ms = time_ms(lib_bwd)
+    bwd_in = qkv_bytes + b * h * t * d * bf16 + 2 * row_bytes  # q, k, v, dO, lse, delta
+    out1 = b * h * t * d * bf16
+    args = (q, k, v, do, lse, delta, causal)
+    for name, kernel, plain_fn, n_out, flops in (
+        ("flash_bwd_dkvq", _kernels.flash_bwd_fused, fa.flash_bwd_fused_plain, 3, 10),
+        ("flash_bwd_dq", _kernels.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
+        ("flash_bwd_dkv", _kernels.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
+    ):
+        bms, by = bound(bwd_in + n_out * out1, flops * d * pairs)
+        rows[name] = dict(
+            max_abs_err=worst.err[name], ms=time_ms(lambda: kernel(*args)),
+            plain_ms=time_ms(lambda: plain_fn(*args, bq, bk), iters=3, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=lib_bwd_ms)
+        rows[name].update(device_times(lambda: kernel(*args), lib_bwd))
+    # the split pair against SDPA's backward alone, device time
+    rows["flash_bwd_dq"]["pair_device_ms"] = time_device_ms(lambda: _kernels.flash_bwd_split(*args))
+    return rows
+
+
+def check_kernels(results: dict) -> bool:
     from p2pfl_tpu_torch.ops.autotune import default_flash_config
 
     b, h, t, d = 4, 32, 1024, 64  # 4 nodes x batch 1 at the slice's shape
     cfg = default_flash_config(t, d)
     bq, bk = cfg.block_q, cfg.block_k
     ok = True
-    bf16, f32 = 2, 4
-    qkv_bytes = 3 * b * h * t * d * bf16
-    row_bytes = b * h * t * f32
     for causal in (True, False):
         tag = "causal" if causal else "full"
-        pairs = b * h * (t * (t + 1) // 2 if causal else t * t)  # (q, k) pairs computed
         worst = Worst()
         for seed in SEEDS:
             q, k, v, do = randn_inputs((b, h, t, d), seed)
@@ -481,46 +553,80 @@ def check_kernels(results: dict) -> bool:
             ok &= good
             if seed == SEEDS[0]:
                 timed_on = (q, k, v, do, o, lse, delta)
-        q, k, v, do, o, lse, delta = timed_on
         limits = {name: f"worst element at {worst.share[name]:.2f} of its limit over seeds {list(SEEDS)}"
                   for name in worst.share}
-
-        # ---- timing: kernel, plain version, library yardstick, bound ----
-        rows = {}
-        ms = time_ms(lambda: _kernels.flash_fwd(q, k, v, causal))
-        plain = time_ms(lambda: fa.flash_fwd_plain(q, k, v, causal, bq, bk), iters=3, warmup=1)
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal))
-        bms, by = bound(qkv_bytes + b * h * t * d * bf16 + row_bytes, 4 * d * pairs)
-        rows["flash_fwd"] = dict(max_abs_err=worst.err["flash_fwd"], ms=ms, plain_ms=plain,
-                                 bound_ms=bms, bound_by=by, library_ms=lib)
-        rows["flash_fwd"].update(device_times(
-            lambda: _kernels.flash_fwd(q, k, v, causal),
-            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)))
-
-        lib_bwd = sdpa_backward(q, k, v, do, is_causal=causal)
-        lib_bwd_ms = time_ms(lib_bwd)
-        bwd_in = qkv_bytes + b * h * t * d * bf16 + 2 * row_bytes  # q, k, v, dO, lse, delta
-        out1 = b * h * t * d * bf16
-        args = (q, k, v, do, lse, delta, causal)
-        for name, kernel, plain_fn, n_out, flops in (
-            ("flash_bwd_dkvq", _kernels.flash_bwd_fused, fa.flash_bwd_fused_plain, 3, 10),
-            ("flash_bwd_dq", _kernels.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
-            ("flash_bwd_dkv", _kernels.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
-        ):
-            bms, by = bound(bwd_in + n_out * out1, flops * d * pairs)
-            rows[name] = dict(
-                max_abs_err=worst.err[name], ms=time_ms(lambda: kernel(*args)),
-                plain_ms=time_ms(lambda: plain_fn(*args, bq, bk), iters=3, warmup=1),
-                bound_ms=bms, bound_by=by, library_ms=lib_bwd_ms)
-            rows[name].update(device_times(lambda: kernel(*args), lib_bwd))
-        # the split pair against SDPA's backward alone, device time
-        rows["flash_bwd_dq"]["pair_device_ms"] = time_device_ms(lambda: _kernels.flash_bwd_split(*args))
+        rows = time_rows(timed_on, causal, worst, bq, bk)
         for name, row in rows.items():
             log(f"[kernels] {name} {tag} [{b}x{h}, {t}, {d}] bf16: {json.dumps(row)} "
                 f"limit: {limits[name]}")
         results[tag] = rows
     ok &= long_sequence(results)
+    ok &= check_widths(results)
+    return ok
+
+
+#: kernels 1-4 at the other head widths, at config 7's attention shapes
+#: (batch 8, T 4096, H·D = 256): [8·8, 4096, 32] and [8·2, 4096, 128]
+WIDTH_SHAPES = {32: (8, 8, 4096), 128: (8, 2, 4096)}
+#: launches queued back to back (the pattern that caught lost barrier phases)
+B2B_CALLS = 200
+
+
+def back_to_back(call, dq_exact: bool) -> list:
+    """``call`` (a backward: → (dQ, dK, dV)) launched ``B2B_CALLS`` times
+    back to back with no host synchronisation, as a drive or a timing loop
+    queues them, then 20 times each behind a sleep kernel (the timing
+    loop's pattern); each call's outputs against the first call's on the
+    card, so nothing waits between launches: → the elements that differ,
+    by output. With ``dq_exact`` false dQ (kernel 2's bulk reductions add
+    in no fixed order) counts its elements past ``check``'s limit with no
+    terms instead. A lost barrier phase hangs a call: run under a timeout."""
+    first = call()
+    ref_dq = first[0].float()
+    dq_limit = RTOL * ref_dq.abs() + RTOL * ref_dq.pow(2).mean().sqrt()
+    bad = torch.zeros(len(first), dtype=torch.int64, device=ref_dq.device)
+    for n in range(B2B_CALLS + 20):
+        if n >= B2B_CALLS:
+            torch.cuda._sleep(1_000_000)
+        for i, (x, ref) in enumerate(zip(call(), first)):
+            if i == 0 and not dq_exact:
+                bad[i] += ((x.float() - ref_dq).abs() > dq_limit).sum()
+            else:
+                bad[i] += (x != ref).sum()
+    torch.cuda.synchronize()
+    return bad.tolist()
+
+
+def check_widths(results: dict) -> bool:
+    """Kernels 1-4 at head widths 32 and 128 (``WIDTH_SHAPES``), causal:
+    against their plain versions on the inputs of seeds 0-4, timed as the
+    width-64 rows are, and launched back to back."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.autotune import default_flash_config
+
+    ok = True
+    for d, (b, h, t) in WIDTH_SHAPES.items():
+        cfg = default_flash_config(t, d)
+        worst = Worst()
+        for seed in SEEDS:
+            q, k, v, do = randn_inputs((b, h, t, d), seed)
+            good, o, lse, delta = check_flash(q, k, v, do, True, cfg.block_q, cfg.block_k, worst,
+                                              f"D {d} [{b}x{h}, {t}, {d}] causal seed {seed}")
+            ok &= good
+            if seed == SEEDS[0]:
+                timed_on = (q, k, v, do, o, lse, delta)
+        args = (*timed_on[:4], timed_on[5], timed_on[6], True)
+        bad = {"fused": back_to_back(lambda: _kernels.flash_bwd_fused(*args), dq_exact=False),
+               "split": back_to_back(lambda: _kernels.flash_bwd_split(*args), dq_exact=True)}
+        good = all(n == 0 for counts in bad.values() for n in counts)
+        ok &= good
+        log(f"[kernels] D {d}: {B2B_CALLS + 20} back-to-back calls, elements differing from the first call "
+            f"(fused dQ past the limit): {json.dumps(bad)} {'OK' if good else 'FAIL'}")
+        rows = time_rows(timed_on, True, worst, cfg.block_q, cfg.block_k)
+        for name, row in rows.items():
+            row["limit_share"] = worst.share[name]
+            log(f"[kernels] {name} D {d} causal [{b}x{h}, {t}, {d}] bf16: {json.dumps(row)}")
+        results[f"D{d}"] = rows
     return ok
 
 
@@ -711,6 +817,21 @@ def check_offs_kernels(results: dict) -> bool:
             log(f"[offs] {name} {case} (q_off {q_off}, k_off {k_off}) [{b}x{h}, {t}, {d}] bf16: "
                 f"{json.dumps(row)} limit: {limits[name]}")
         results[case] = rows
+    # kernels 5-8 at the other head widths, one hop shape each ([2·64,
+    # 1024, 32], [2·16, 1024, 128]: H·D as above), the diagonal hop and
+    # the one whose rows see nothing inside a visited tile, seeds 0-4
+    for d_w, h_w in ((32, 64), (128, 16)):
+        worst = Worst()
+        for seed in SEEDS:
+            x = randn_inputs((b, h_w, t, d_w), seed)
+            for case in ("diagonal", "offtile_late"):
+                gen = torch.Generator(device="cuda").manual_seed(100 + seed)
+                good, _ = check_offs(*x, *OFFSET_CASES[case], bq, bk, gen, worst,
+                                     f"D {d_w} [{b}x{h_w}, {t}, {d_w}] {case} seed {seed}")
+                ok &= good
+        results[f"D{d_w}"] = {name: {"max_abs_err": worst.err[name], "limit_share": worst.share[name]}
+                              for name in worst.err}
+        log(f"[offs] D {d_w}: {json.dumps(results[f'D{d_w}'])}")
     return ok
 
 
@@ -3844,13 +3965,415 @@ def drive_compress_control(device: str = "cuda") -> tuple[bool, dict]:
     return ok, readings
 
 
+# ---- phase 15: BASELINE config 7 (long context, head widths, attn="auto") ----
+
+#: config 7's model (``bench_suite.py:1445-1650``): 4L/256d/8h/kv8 (head
+#: dim 32), SwiGLU 688, vocab 1024, batch 8, no adapters
+C7 = dict(vocab_size=1024, dim=256, n_layers=4, n_heads=8, n_kv_heads=8, ffn_hidden=688, lora_rank=0)
+C7_BATCH = 8
+C7_SEQS = (512, 1024, 2048, 4096)
+#: train steps of each counted drive (launches are held to steps x layers)
+C7_COUNTED_STEPS = 3
+
+
+def _c7_model(seq: int, attn: str, bwd_mode: str = "auto", device="cuda", **over):
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.ops.flash_attention import FlashConfig
+
+    pin = FlashConfig(bwd_mode=bwd_mode) if attn == "flash" and bwd_mode != "auto" else None
+    cfg = TransformerConfig(**{**C7, **over}, flash_config=pin)
+    return tiny_transformer(seq_len=seq, seed=0, cfg=cfg, attn=attn, device=device)
+
+
+def _c7_steps(model, seq: int, device="cuda"):
+    """(train step, forward step, loss and gradients) of config 7's
+    benchmark on one batch of random tokens: the train step is the loss's
+    gradient and an SGD update ``p - 1e-4·g`` in place, as JAX's row."""
+    from p2pfl_tpu_torch.learning.learner import softmax_cross_entropy
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_unflatten
+
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, C7["vocab_size"], (C7_BATCH, seq), generator=gen).to(device)
+    targets = torch.roll(tokens, -1, dims=1)
+    paths = [k for k, _ in tree_items(model.params)]
+    leaves = [v for _, v in tree_items(model.params)]
+
+    def grads():
+        lv = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            loss = softmax_cross_entropy(model.module(tree_unflatten(dict(zip(paths, lv))), tokens), targets).mean()
+            return loss, torch.autograd.grad(loss, lv)
+
+    def train():
+        _, g = grads()
+        with torch.no_grad():
+            torch._foreach_add_(leaves, g, alpha=-1e-4)
+
+    @torch.no_grad()
+    def fwd():
+        return softmax_cross_entropy(model.module(model.params, tokens), targets).mean()
+
+    return train, fwd, grads
+
+
+def _train_flops(model, seq: int) -> tuple[int, int]:
+    """(forward, forward + backward) FLOPs of config 7's loss on one batch,
+    counted on meta tensors (the dense twin: the kernels do not run on meta)."""
+    from p2pfl_tpu_torch.parallel.spmd import _model_step_flops
+
+    x = torch.zeros((1, C7_BATCH, seq), dtype=torch.int64)
+    return _model_step_flops(model.module, model.params, x, x, C7_BATCH)
+
+
+def _c7_launches(seq: int, bwd_mode: str = "auto", **over) -> tuple[dict, dict, int]:
+    """Launch counts of ``C7_COUNTED_STEPS`` flash train steps: (counts,
+    the flash kernels' counts by head width, layers)."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    model = _c7_model(seq, "flash", bwd_mode, **over)
+    train, _, _ = _c7_steps(model, seq)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for _ in range(C7_COUNTED_STEPS):
+        train()
+    torch.cuda.synchronize()
+    counts = dict(_kernels.LAUNCHES)
+    by_width = {k: dict(v) for k, v in _kernels.LAUNCHES_BY_WIDTH.items()}
+    return counts, by_width, model.extra["config"].n_layers
+
+
+def _expected(counts: dict, want: dict) -> bool:
+    """Every kernel launched exactly as ``want`` says, every other at 0."""
+    return all(counts[k] == want.get(k, 0) for k in counts)
+
+
+def c7_head_dim_scaling(t: int = 4096) -> dict:
+    """The bare kernels at T 4096 with H·D = 256 (8x32, 4x64, 2x128, batch
+    8, causal), JAX's ``head_dim_scaling`` rows: forward ms and fwd + bwd
+    ms (the backward by difference) with the kernels' FLOP counts' MFU
+    (JAX's formulas)."""
+    from p2pfl_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {}
+    for h, d in ((8, 32), (4, 64), (2, 128)):
+        q, k, v, g = randn_inputs((C7_BATCH, t, h, d), 0)
+        qg, kg, vg = (x.requires_grad_(True) for x in (q, k, v))
+
+        def fwd():
+            with torch.no_grad():
+                return flash_attention(q, k, v, True)
+
+        def train():
+            return torch.autograd.grad(flash_attention(qg, kg, vg, True), (qg, kg, vg), g)
+
+        fl_fwd = 0.5 * 2 * 2 * C7_BATCH * h * t * t * d
+        s_fwd, s_all = time_ms(fwd, iters=10) / 1e3, time_ms(train, iters=10) / 1e3
+        s_bwd = max(s_all - s_fwd, 1e-9)
+        out[f"D{d}"] = {"fwd_ms": s_fwd * 1e3, "fwd_mfu": fl_fwd / s_fwd / PEAK_BF16_FLOPS,
+                        "bwd_ms": s_bwd * 1e3, "bwd_mfu": 2.5 * fl_fwd / s_bwd / PEAK_BF16_FLOPS}
+    return out
+
+
+def drive_config7() -> tuple[bool, dict]:
+    """BASELINE config 7 uncut on the card: for T 512-4096 the dense and the
+    flash model's forward and train step (ms, MFU of the dense twin's FLOPs
+    as JAX's row), ``pick_attention``'s answer and the smallest T where
+    flash's train step beats dense's; the bare kernels' head-dim scaling at
+    T 4096; the 2-head (D 128) variant; kernels 1 and 2 launched exactly
+    steps x layers times in a counted drive at each T (kernels 3 and 4
+    under ``bwd_mode="split"`` at T 4096; the D 128 variant's, fused and
+    split, at its width), every other kernel at 0; one train step's gradients at T 512
+    on the card's kernels against the CPU's plain versions by relative L2
+    (``GRAD_REL_L2``)."""
+    from p2pfl_tpu_torch.models.transformer import pick_attention
+    from p2pfl_tpu_torch.ops.tree import tree_map
+
+    ok = True
+    rows: dict = {}
+    launches: dict = {}
+    widths: dict = {}
+    for t in C7_SEQS:
+        row = {"auto_picks": pick_attention(t, "cuda")}
+        for attn in ("dense", "flash"):
+            model = _c7_model(t, attn)
+            train, fwd, _ = _c7_steps(model, t)
+            row[f"{attn}_fwd_ms"] = time_ms(fwd, iters=10, warmup=2)
+            row[f"{attn}_train_ms"] = time_ms(train, iters=10, warmup=2)
+            if attn == "dense":
+                fl_fwd, fl_train = _train_flops(model, t)
+            del model, train, fwd
+            torch.cuda.empty_cache()
+        for attn in ("dense", "flash"):
+            row[f"{attn}_fwd_mfu"] = fl_fwd / (row[f"{attn}_fwd_ms"] / 1e3) / PEAK_BF16_FLOPS
+            row[f"{attn}_train_mfu"] = fl_train / (row[f"{attn}_train_ms"] / 1e3) / PEAK_BF16_FLOPS
+        row["speedup_train"] = row["dense_train_ms"] / row["flash_train_ms"]
+        counts, width, layers = _c7_launches(t)
+        n = C7_COUNTED_STEPS * layers
+        good = _expected(counts, {"flash_fwd": n, "flash_bwd_dkvq": n}) and width["flash_bwd_dkvq"][32] == n
+        row["launches"] = {k: v for k, v in counts.items() if v}
+        launches[f"config7_T{t}"], widths[f"config7_T{t}"] = counts, width
+        ok &= good
+        log(f"[config7] T {t}: {json.dumps(row)} {'OK' if good else 'FAIL'}")
+        rows[f"T{t}"] = row
+    # the split backward at T 4096, and the D 128 variant (2 heads) at its width
+    counts, width, layers = _c7_launches(4096, "split")
+    n = C7_COUNTED_STEPS * layers
+    good = _expected(counts, {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}) and width["flash_bwd_dq"][32] == n
+    launches["config7_split_T4096"], widths["config7_split_T4096"] = counts, width
+    counts128, width128, _ = _c7_launches(4096, n_heads=2, n_kv_heads=2)
+    good &= (_expected(counts128, {"flash_fwd": n, "flash_bwd_dkvq": n})
+             and width128["flash_fwd"][128] == width128["flash_bwd_dkvq"][128] == n)
+    launches["config7_D128_T4096"], widths["config7_D128_T4096"] = counts128, width128
+    split128, wsplit128, _ = _c7_launches(4096, "split", n_heads=2, n_kv_heads=2)
+    good &= (_expected(split128, {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n})
+             and wsplit128["flash_bwd_dq"][128] == wsplit128["flash_bwd_dkv"][128] == n)
+    launches["config7_D128_split_T4096"], widths["config7_D128_split_T4096"] = split128, wsplit128
+    ok &= good
+    log(f"[config7] launches, split backward at T 4096: {json.dumps({k: v for k, v in counts.items() if v})}; "
+        f"2-head (D 128) variant by width: {json.dumps({k: v for k, v in width128.items() if any(v.values())})}, "
+        f"split: {json.dumps({k: v for k, v in wsplit128.items() if any(v.values())})} "
+        f"{'OK' if good else 'FAIL'}")
+    crossover = next((t for t in C7_SEQS if rows[f"T{t}"]["flash_train_ms"] < rows[f"T{t}"]["dense_train_ms"]), None)
+
+    scaling = c7_head_dim_scaling()
+    variant = _c7_model(4096, "flash", n_heads=2, n_kv_heads=2)
+    train, _, _ = _c7_steps(variant, 4096)
+    v_ms = time_ms(train, iters=10, warmup=2)
+    _, v_flops = _train_flops(_c7_model(4096, "dense", n_heads=2, n_kv_heads=2), 4096)
+    del variant, train
+    torch.cuda.empty_cache()
+
+    # one train step's gradients at T 512 (D 32): card kernels against the CPU's plain versions
+    t = 512
+    cpu = _c7_model(t, "flash", device="cpu")
+    card = _c7_model(t, "flash")
+    card.params = tree_map(lambda x: x.to("cuda"), cpu.params)
+    _, g_cpu = _c7_steps(cpu, t, "cpu")[2]()
+    _, g_gpu = _c7_steps(card, t)[2]()
+    grad_err = max(((a.float().cpu() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+                   for a, b in zip(g_gpu, g_cpu))
+    good = grad_err <= GRAD_REL_L2
+    ok &= good
+    summary = {"rows": rows, "flash_beats_dense_from_T": crossover, "head_dim_scaling_T4096": scaling,
+               "head_width_variant_T4096": {"model": "4L/256d, 2 heads (D 128)", "train_ms": v_ms,
+                                            "train_mfu": v_flops / (v_ms / 1e3) / PEAK_BF16_FLOPS},
+               "grad_rel_l2_T512": grad_err, "tol_grad_rel_l2": GRAD_REL_L2, "launches": launches,
+               "launches_by_width": widths}
+    log(f"[config7] crossover (smallest T where flash's train step beats dense's): {crossover}; head-dim scaling: "
+        f"{json.dumps(scaling)}; variant: {json.dumps(summary['head_width_variant_T4096'])}; gradients card vs CPU "
+        f"at T {t}: rel L2 {grad_err:.3e} (limit {GRAD_REL_L2}) {'OK' if good else 'FAIL'}")
+    return ok, summary
+
+
+# ---- phase 16: BASELINE config 10's MoE rows (SpmdLmFederation) ----
+
+#: config 10's MoE federation (``bench_suite.py:1756-1846``)
+C10 = dict(vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=8, ffn_hidden=256, lora_rank=0,
+           n_experts=8, moe_top_k=2)
+C10_TARGET, C10_MAX_ROUNDS = 0.60, 12
+#: the at-scale MoE model (``_moe_step_at_scale`` and ``config10_moe_scale``:
+#: 6L/512d, 8 heads, kv 2, 8 experts, ffn 1408, vocab 4096, seq 512)
+C10_SCALE = dict(vocab_size=4096, dim=512, n_layers=6, n_heads=8, n_kv_heads=2, ffn_hidden=1408, lora_rank=0,
+                 n_experts=8, moe_top_k=2)
+#: part (d): card against CPU, 2 nodes at 2L/64d with 4 experts, fp32, SGD
+C10_PAIR = dict(vocab_size=64, dim=64, n_layers=2, n_heads=2, n_kv_heads=2, ffn_hidden=64, lora_rank=0,
+                n_experts=4, moe_top_k=2)
+#: relative L2 of the pair's params after the round: fp32 on both sides
+#: with TF32 off, the products summed in other orders
+C10_PAIR_REL_L2 = 1e-4
+
+
+def _moe_fed(cfg_kw: dict, seq: int, nodes: int, batch: int, n_train: int, n_test: int, device="cuda", **kw):
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.parallel.spmd_lm import SpmdLmFederation
+
+    cfg = TransformerConfig(**cfg_kw)
+    model = tiny_transformer(seq_len=seq, cfg=cfg, device=device)
+    data = FederatedDataset.synthetic_lm(vocab_size=cfg.vocab_size, seq_len=seq, n_train=n_train, n_test=n_test)
+    return SpmdLmFederation.from_dataset(model, data, n_nodes=nodes, batch_size=batch, vote=False, seed=3,
+                                         device=device, **kw)
+
+
+def _steady_s(fed, rounds: int = 3) -> list:
+    """Seconds of ``rounds`` rounds of one epoch, each ended by a synchronize."""
+    secs = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        fed.run_round()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def _to_target(fed, target: float, max_rounds: int, epochs: int = 1) -> dict:
+    """Rounds of ``epochs`` each, evaluated after each, until the mean
+    next-token accuracy reaches ``target``."""
+    curve, hit, t0 = [], None, time.perf_counter()
+    for r in range(max_rounds):
+        fed.run_round(epochs=epochs)
+        curve.append(fed.evaluate()["test_acc"])
+        if curve[-1] >= target:
+            hit = (r + 1, time.perf_counter() - t0)
+            break
+    return {"acc_curve": curve, "target_acc": target, "rounds_to_target": hit and hit[0],
+            "time_to_target_s": hit and hit[1]}
+
+
+def moe_step_at_scale() -> dict:
+    """Part (b): one node's grad step of the at-scale MoE model (batch 16,
+    seq 512) with an SGD update: ms a step and the MFU of the executed
+    FLOPs (dense dispatch computes every [E, C] expert slot), counted on
+    meta tensors."""
+    from p2pfl_tpu_torch.learning.learner import _loss
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_unflatten
+    from p2pfl_tpu_torch.parallel.spmd import _model_step_flops
+
+    seq, batch = 512, 16
+    model = tiny_transformer(seq_len=seq, cfg=TransformerConfig(**C10_SCALE))
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, C10_SCALE["vocab_size"], (batch, seq), generator=gen).to("cuda")
+    targets = torch.roll(tokens, -1, dims=1)
+    paths = [k for k, _ in tree_items(model.params)]
+    leaves = [v for _, v in tree_items(model.params)]
+
+    def step():
+        lv = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            loss, _ = _loss(tree_unflatten(dict(zip(paths, lv))), model.module, tokens, targets)
+            g = torch.autograd.grad(loss, lv)
+        with torch.no_grad():
+            torch._foreach_add_(leaves, g, alpha=-1e-4)
+
+    ms = time_ms(step, iters=10, warmup=3)
+    x = torch.zeros((1, batch, seq), dtype=torch.int64)
+    _, flops = _model_step_flops(model.module, model.params, x, x, batch)
+    out = {"model": "6L/512d MoE, 8 experts top-2, ffn 1408, seq 512, batch 16", "n_params": model.param_count,
+           "step_ms": ms, "flops_per_step": flops, "mfu_hw": flops / (ms / 1e3) / PEAK_BF16_FLOPS}
+    del model, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_pair(devices=("cpu", "cuda")) -> tuple[bool, dict]:
+    """Part (d): one round of 2 nodes at 2L/64d with 4 experts (fp32, SGD)
+    on the CPU and on the card from one init and data: the router's
+    dispatch of the round's first batch computed on both devices (identical
+    from identical probabilities; how many tokens' experts differ when each
+    device computes its own), and the params after the round by relative
+    L2 (``C10_PAIR_REL_L2``)."""
+    from p2pfl_tpu_torch.learning.learner import sgd
+    from p2pfl_tpu_torch.models.transformer import moe_route
+    from p2pfl_tpu_torch.ops.tree import tree_leaves, tree_map
+
+    feds = {dev: _moe_fed({**C10_PAIR, "dtype": torch.float32}, 32, 2, 8, 32, 16, device=dev, tx=sgd(0.05))
+            for dev in devices}
+    cpu, card = feds[devices[0]], feds[devices[-1]]
+    card.params = tree_map(lambda x: x.to(devices[-1]), cpu.params)
+    card.opt_state = card.tx.init(card.params)
+    # the first layer's routing of node 0's first training batch
+    x = cpu.x_all[0, :8]
+    routes = {}
+    for dev, fed in feds.items():
+        p = tree_map(lambda a: a[0], fed.params)
+        h = torch.nn.functional.embedding(x.to(dev).long(), p["embed"])
+        blk = fed.module.layers[0]
+        h = h + blk.attn(p["layer_0"]["attn"], blk.attn_norm(p["layer_0"]["attn_norm"], h))
+        hs = blk.mlp_norm(p["layer_0"]["mlp_norm"], h).reshape(-1, C10_PAIR["dim"])
+        routes[dev] = torch.softmax(hs.float() @ p["layer_0"]["mlp"]["router"].float(), -1)
+    s = routes[devices[0]].shape[0]
+    cap = max(1, int(-(-2 * s // 4) * 1.25))
+    same_probs = [moe_route(routes[devices[0]].to(dev), 2, cap)[0].cpu() for dev in devices]
+    own = [moe_route(routes[dev], 2, cap)[0].cpu() for dev in devices]
+    routing_identical = bool(torch.equal(same_probs[0], same_probs[1]))
+    tokens_moved = int(((own[0] > 0) != (own[1] > 0)).any(-1).any(-1).sum())
+    for fed in feds.values():
+        fed.run_round()
+    err = _rel_l2([t.cpu() for t in tree_leaves(card.params)], [t for t in tree_leaves(cpu.params)])
+    ok = routing_identical and err <= C10_PAIR_REL_L2
+    return ok, {"routing_identical_on_one_input": routing_identical,
+                "tokens_routed_otherwise_from_own_logits": tokens_moved, "tokens": s,
+                "params_rel_l2": err, "limit": C10_PAIR_REL_L2}
+
+
+def drive_moe() -> tuple[bool, dict]:
+    """BASELINE config 10's MoE rows through ``SpmdLmFederation`` (dense
+    attention at seq 128 and 512: no hand kernel runs, every count of
+    ``_kernels.LAUNCHES`` must read 0): (a) 8 nodes of the 4L/128d MoE (8
+    experts, top-2), vocab 512, seq 128, batch 16, seed 3: rounds to 0.60
+    (at most 12), a settling round, 3 steady rounds (s/round, MFU from
+    ``round_flops``); (b) the at-scale grad step; (c) the 4-node 113M
+    federation (batch 4, seq 512): a warm-up round, 3 timed rounds,
+    s/round, MFU, peak memory; (d) one round on the CPU against the card."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    ok = True
+    out: dict = {}
+    _kernels.reset_launches()
+    fed = _moe_fed(C10, 128, 8, 16, 8 * 256, 512)
+    a = _to_target(fed, C10_TARGET, C10_MAX_ROUNDS)
+    fed.run_round()
+    torch.cuda.synchronize()
+    secs = _steady_s(fed)
+    flops = fed.round_flops()
+    s = statistics.median(secs)
+    a.update(s_per_round=secs, flops_per_round=flops, mfu=flops / s / PEAK_BF16_FLOPS,
+             params=fed.model.param_count)
+    good = a["rounds_to_target"] is not None
+    ok &= good
+    log(f"[moe] (a) 8-node MoE federation: {json.dumps(a)} {'OK' if good else 'FAIL'}")
+    out["federation"] = a
+    del fed
+    torch.cuda.empty_cache()
+
+    b = moe_step_at_scale()
+    log(f"[moe] (b) step at scale: {json.dumps(b)}")
+    out["step_at_scale"] = b
+
+    torch.cuda.reset_peak_memory_stats()
+    fed = _moe_fed(C10_SCALE, 512, 4, 4, 4 * 64, 32)
+    fed.run_round()
+    torch.cuda.synchronize()
+    secs = _steady_s(fed)
+    flops = fed.round_flops()
+    s = statistics.median(secs)
+    c = {"params": fed.model.param_count, "steps_per_round": fed._nb, "s_per_round": secs,
+         "flops_per_round": flops, "mfu_hw": flops / s / PEAK_BF16_FLOPS,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[moe] (c) 4-node 113M federation: {json.dumps(c)}")
+    out["scale"] = c
+    del fed
+    torch.cuda.empty_cache()
+    counts = dict(_kernels.LAUNCHES)
+    good = not any(counts.values())
+    ok &= good
+    log(f"[moe] hand kernels launched by (a)-(c) (dense attention): {json.dumps(counts)} {'OK' if good else 'FAIL'}")
+
+    good, d = moe_pair()
+    ok &= good
+    log(f"[moe] (d) one round card vs CPU: {json.dumps(d)} {'OK' if good else 'FAIL'}")
+    out["pair"] = d
+    return ok, out
+
+
+def drive_moe_target() -> tuple[bool, dict]:
+    """Part (c)'s federation to 0.60: at most 15 rounds of 3 epochs (JAX's
+    ``config10_moe_scale`` recipe)."""
+    fed = _moe_fed(C10_SCALE, 512, 4, 4, 4 * 64, 32)
+    res = _to_target(fed, C10_TARGET, 15, epochs=3)
+    ok = res["rounds_to_target"] is not None
+    log(f"[moe_target] 4-node 113M MoE federation: {json.dumps(res)} {'OK' if ok else 'FAIL'}")
+    return ok, res
+
+
 PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "compress", "mnist",
-          "cifar", "chunked", "nameplate")
+          "cifar", "chunked", "nameplate", "config7", "moe")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 #: the runs to a target accuracy (minutes each) and the control of the
 #: lossy codecs' spread limit: run only when named in --only
-TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control")
+TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target")
 
 
 def main(argv=None) -> int:
@@ -3883,10 +4406,18 @@ def main(argv=None) -> int:
     launches: dict = {}
     phase_s: dict = {}
 
-    def count(path: str, counts: dict, names) -> None:
+    #: kernel → {path: {head width: launches}}
+    by_width: dict = {}
+
+    def count(path: str, counts: dict, names, widths: dict = None) -> None:
+        """Record a drive's counts; ``widths`` gives them by head width
+        (name → {width: n}), else the drive ran the width-64 models."""
         for name in names:
             if counts[name]:
                 launches.setdefault(name, {})[path] = counts[name]
+                if name.startswith("flash_"):
+                    split = widths[name] if widths else {64: counts[name]}
+                    by_width.setdefault(name, {})[path] = {d: n for d, n in split.items() if n}
 
     def timed(name, fn, *a):
         t = time.perf_counter()
@@ -3959,6 +4490,18 @@ def main(argv=None) -> int:
         good, nameplate = timed("nameplate", drive_nameplate)
         ok &= good
         count("nameplate", nameplate["launches"], ("flash_fwd", "flash_bwd_dkvq"))
+    if "config7" in args.only:
+        good, c7 = timed("config7", drive_config7)
+        ok &= good
+        for path, counts in c7["launches"].items():
+            count(path, counts, ("flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv"),
+                  c7["launches_by_width"][path])
+    if "moe" in args.only:
+        good, _ = timed("moe", drive_moe)
+        ok &= good
+    if "moe_target" in args.only:
+        good, _ = timed("moe_target", drive_moe_target)
+        ok &= good
     if "chunked_target" in args.only:
         good, _ = timed("chunked_target", drive_chunked_target)
         ok &= good
@@ -3982,10 +4525,14 @@ def main(argv=None) -> int:
             # scales and the raw leaves of one update)
             rows["ici_exchange"]["codec_tree"] = compress["ici"]["kernel9_codec_tree"]
     if rows:
+        for d in WIDTH_SHAPES:
+            for name, row in timings.get(f"D{d}", {}).items():
+                rows.setdefault(name, {}).setdefault("widths", {})[str(d)] = row
         kernels = [
             {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
              "launches": next(iter(launches.get(name, {}).values()), 0),
-             "launches_by_path": launches.get(name, {}), **rows[name]}
+             "launches_by_path": launches.get(name, {}),
+             **({"launches_by_width": by_width[name]} if name in by_width else {}), **rows[name]}
             for name in REPLACES if name in rows
         ]
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,8 @@ where a row's max moved, and the row maxima and sums in four partial
 chains. Each build is compiled with ``nvcc`` into its own library under
 ``build/fwd_ablation/``, held against the plain PyTorch version (the
 tolerances of ``chip_smoke.py``) and timed on device alone (behind a
-sleep kernel, median of 20) in the cases of ``chip_smoke.py``: kernel 1
+sleep kernel, median of 20) at head width 64 (each edit changes every
+width's instantiation) in the cases of ``chip_smoke.py``: kernel 1
 causal and full at [4·32, 1024, 64], kernel 5 diagonal, fully visible and
 fully masked at [2·32, 1024, 64], bf16. SDPA's forward on the same inputs
 is timed as the yardstick, and the shipped source again at the end, to
@@ -85,7 +86,9 @@ def ablated_source(edits, src: Path = SRC) -> str:
 
 
 def build_all(ablations: dict = ABLATIONS, src_path: Path = SRC, out: Path = OUT) -> dict:
-    """One nvcc per ablation, all at once: name -> (library or None, ptxas report)."""
+    """One nvcc per ablation, all at once: name -> (library or None, ptxas
+    report). The edited copies include ``csrc/sm90_common.cuh`` from the
+    package."""
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, edits in ablations.items():
@@ -93,7 +96,7 @@ def build_all(ablations: dict = ABLATIONS, src_path: Path = SRC, out: Path = OUT
         src.write_text(ablated_source(edits, src_path))
         lib = out / f"lib_{name}.so"
         procs[name] = (lib, subprocess.Popen(
-            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(_kernels.CSRC), "-shared", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (lib, proc) in procs.items():

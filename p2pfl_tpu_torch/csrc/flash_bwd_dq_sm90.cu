@@ -4,7 +4,7 @@
 // Port of the Pallas kernels in p2pfl_tpu/ops/flash_attention.py:
 //   p2p_flash_bwd_dq       <- _dq_kernel       kernel 3
 //   p2p_flash_bwd_dq_offs  <- _dq_kernel_offs  kernel 7
-// Both are flash_bwd_dq_sm90<OFFS>; the pass's dK and dV are
+// Both are flash_bwd_dq_sm90<D, OFFS>; the pass's dK and dV are
 // flash_bwd_sm90.cu's. With OFFS the causal mask is in global coordinates
 // (q row i sees k row j where q_off + i >= k_off + j, the two offsets
 // being plain int arguments), loop bounds divide with C's '/' (truncating
@@ -12,8 +12,10 @@
 // call) gets P = 0, and the lse cotangent enters as
 // dS = P (dP - delta + g_lse).
 //
-// Layout: q, k, v, dO, dq are [BH, T, 64] bf16, contiguous; lse, delta and
-// g_lse are [BH, T] fp32 (natural log). T must be a multiple of 64.
+// Layout: q, k, v, dO, dq are [BH, T, D] bf16, contiguous, D = 32, 64 or
+// 128 (one instantiation a width; sm90_common.cuh has the shared-memory
+// layout of each); lse, delta and g_lse are [BH, T] fp32 (natural log). T
+// must be a multiple of 64.
 // Rounding points follow the JAX kernel: bf16 operands and fp32 sums, dS
 // cast to bf16 before dS K, dQ scaled once at the end. A q row that no k
 // row reaches gets dQ = 0 exactly.
@@ -39,7 +41,7 @@
 //     P = exp2(S scale log2e - lse log2e) (ex2.approx.ftz, one FMA; the
 //     mask compiled into the tiles past the causal frontier only) and
 //     dS = P (dP - delta) convert in registers into the bf16 A operand of
-//     dQ += dS K (wgmma m64n64k16, K an MN-major B from the same stage);
+//     dQ += dS K (wgmma m64nDk16, K an MN-major B from the same stage);
 //     dQ stays in fp32 registers for the whole k loop. No cross-block
 //     state, no atomics;
 //   - dQ, S and dP (96 fp32 registers) are live at once, more than the 96
@@ -48,7 +50,11 @@
 //     bytes and serialised the wgmmas), so one block runs an SM, with
 //     three consumer warpgroups: 13 warps, at most four on a
 //     sub-partition, 128 registers a thread (two warpgroups took 168 and
-//     ran 3-10% slower); each product is waited on before its result is
+//     ran 3-10% slower). At D = 128 dQ alone is 64 registers and a
+//     block's Q and dO 96 KB: two consumer warpgroups (128 q rows a
+//     block) beside a whole producer warpgroup, which hands them its
+//     registers (setmaxnreg: 240 a consumer thread, 24 a producer
+//     thread). Each product is waited on before its result is
 //     read, and the other warpgroups keep the tensor cores busy meanwhile;
 //   - the epilogue stages dQ scale as bf16 in the warpgroup's rows of the
 //     Q tile (swizzled) and writes it with 16-byte stores; a warpgroup
@@ -62,157 +68,35 @@
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch. Nothing here allocates or synchronises.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <cmath>
-
-typedef __nv_bfloat16 bf16;
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int D = 64;          // head_dim, the only width built
 constexpr int N_CONSUMERS = 3; // consumer warpgroups
 constexpr int WG_ROWS = 64;    // q rows per consumer warpgroup (wgmma M)
-constexpr int BQ = N_CONSUMERS * WG_ROWS;  // q rows per block
 constexpr int BK = 64;         // k rows per tile
 constexpr int STAGES = 4;      // K/V ring depth
-constexpr int NTHREADS = N_CONSUMERS * 128 + 32;  // + one producer warp
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr uint32_t ROW_BYTES = D * sizeof(bf16);        // 128: one swizzle row
-constexpr uint32_t Q_BYTES = BQ * ROW_BYTES;            // the block's Q (or dO)
-constexpr uint32_t KV_BYTES = BK * ROW_BYTES;           // 8 KB: a tile of K (or V)
-// shared memory: [Q | dO | K0 V0 | K1 V1 | ... | barriers], every tile
-// 1024-byte aligned (the swizzle pattern repeats every 8 rows of 128 bytes)
-constexpr uint32_t OFF_Q = 0;
-constexpr uint32_t OFF_DO = OFF_Q + Q_BYTES;
-constexpr uint32_t OFF_KV = OFF_DO + Q_BYTES;
-constexpr uint32_t OFF_BAR = OFF_KV + STAGES * 2 * KV_BYTES;
-constexpr uint32_t N_BARS = 1 + 2 * STAGES;  // Q and dO, then full and empty per stage
-constexpr uint32_t SMEM_BYTES = 1024 + OFF_BAR + N_BARS * 8;  // + alignment slack
-
-// ---- PTX wrappers: mbarrier, TMA, wgmma ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One [rows, 64] bf16 box of a [BH, T, 64] tensor map into shared memory,
-// completing on `bar`; rows past T arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile written with the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (SBO), layout type SWIZZLE_128B.
-// The same form serves the K-major Q, dO, K and V tiles of S and dP and
-// the MN-major K tile of dS K (64 columns = one swizzle atom, so the
-// leading offset is unused).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accesses of an accumulator across the
-// wait of the asynchronous wgmma that writes it.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC32(d)                                                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),  \
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),  \
-      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-#define ACC32_REGS                                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs), B
-// MN-major in shared memory (the transpose bit of the bf16 instruction).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to zero
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
+// the dQ pass at width D: shared memory [Q | dO | K0 V0 | K1 V1 | ... |
+// barriers], every tile 1024-byte aligned; at D = 128 two consumer
+// warpgroups and a producer warpgroup that gives them its registers
+template <int D>
+struct Dq {
+  typedef Swz<2 * D> S;
+  static constexpr bool REG_SPLIT = D == 128;
+  static constexpr int NC = REG_SPLIT ? 2 : N_CONSUMERS;  // consumer warpgroups
+  static constexpr int NTHREADS = NC * 128 + (REG_SPLIT ? 128 : 32);  // + the producer
+  static constexpr int BQ = NC * WG_ROWS;  // q rows per block
+  static constexpr int NS = REG_SPLIT ? 3 : STAGES;  // K/V ring depth
+  static constexpr uint32_t Q_BYTES = BQ * 2 * D;  // the block's Q (or dO)
+  static constexpr uint32_t KV_BYTES = BK * 2 * D;  // a tile of K (or V)
+  static constexpr uint32_t OFF_Q = 0;
+  static constexpr uint32_t OFF_DO = OFF_Q + Q_BYTES;
+  static constexpr uint32_t OFF_KV = OFF_DO + Q_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_KV + NS * 2 * KV_BYTES;
+  static constexpr uint32_t N_BARS = 1 + 2 * NS;  // Q and dO, then full and empty per stage
+  static constexpr uint32_t SMEM_BYTES = 1024 + OFF_BAR + N_BARS * 8;  // + alignment slack
+};
 
 // k tiles [0, n) that the 64 q rows from local row r0 stream (the offset
 // form is _dq_kernel_offs's bound: global coordinates, truncating
@@ -252,18 +136,23 @@ __device__ __forceinline__ void softmax_grad(const float (&sc)[32], const float 
 }
 
 // ---------------------------------------------------------------------------
-// The kernel. The first 128 N_CONSUMERS threads are the consumer
-// warpgroups, the last 32 the producer warp; after the barrier set-up the
-// two roles never meet at a block-wide barrier again. Named barrier 1 + wg
-// is warpgroup wg's own (0 is __syncthreads').
+// The kernel. The first 128 NC threads are the consumer warpgroups, the
+// rest the producer (a warp, or at D = 128 a warpgroup); after the barrier
+// set-up the two roles never meet at a block-wide barrier again. Named
+// barrier 1 + wg is warpgroup wg's own (0 is __syncthreads').
 // ---------------------------------------------------------------------------
-template <bool OFFS>
-__global__ void __launch_bounds__(NTHREADS, 1)
+template <int D, bool OFFS>
+__global__ void __launch_bounds__(Dq<D>::NTHREADS, 1)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   const float* __restrict__ glse, bf16* __restrict__ dq, int T, int causal,
                   int q_off, int k_off, float scale, float scale_log2) {
+  typedef Dq<D> L;
+  typedef typename L::S S;
+  constexpr int NC = L::NC, BQ = L::BQ, STAGES = L::NS;
+  constexpr uint32_t OFF_Q = L::OFF_Q, OFF_DO = L::OFF_DO, OFF_KV = L::OFF_KV, OFF_BAR = L::OFF_BAR;
+  constexpr uint32_t Q_BYTES = L::Q_BYTES, KV_BYTES = L::KV_BYTES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -282,37 +171,39 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   // the block streams the k tiles its longest warpgroup needs
   int n_blk = 0;
 #pragma unroll
-  for (int w = 0; w < N_CONSUMERS; ++w) n_blk = max(n_blk, wg_k_tiles<OFFS>(q0 + w * WG_ROWS, T, causal, qo, ko));
+  for (int w = 0; w < NC; ++w) n_blk = max(n_blk, wg_k_tiles<OFFS>(q0 + w * WG_ROWS, T, causal, qo, ko));
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), N_CONSUMERS);
+      mbar_init(empty(s), NC);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  if (warp == N_CONSUMERS * 4) {
+  if (warp >= NC * 4) {
     // ---- producer: one thread issues every TMA load ----
-    if (threadIdx.x % 32 == 0 && n_blk > 0) {
+    if constexpr (L::REG_SPLIT) reg_dealloc<24>();
+    if (threadIdx.x == NC * 128 && n_blk > 0) {
       mbar_expect_tx(bar_q, 2 * Q_BYTES);
-      tma_load(base + OFF_Q, &tq, bar_q, q0, bh);
-      tma_load(base + OFF_DO, &tdo, bar_q, q0, bh);
+      tma_load_tile<D>(base + OFF_Q, &tq, bar_q, BQ, q0, bh);
+      tma_load_tile<D>(base + OFF_DO, &tdo, bar_q, BQ, q0, bh);
       for (int j = 0; j < n_blk; ++j) {
         const int s = j % STAGES, use = j / STAGES;
         if (use > 0) mbar_wait(empty(s), (use - 1) & 1);  // every warpgroup released it
         mbar_expect_tx(full(s), 2 * KV_BYTES);
-        tma_load(kv_tile(s, 0), &tk, full(s), j * BK, bh);
-        tma_load(kv_tile(s, 1), &tv, full(s), j * BK, bh);
+        tma_load_tile<D>(kv_tile(s, 0), &tk, full(s), BK, j * BK, bh);
+        tma_load_tile<D>(kv_tile(s, 1), &tv, full(s), BK, j * BK, bh);
       }
     }
     return;
   }
 
   // ---- consumer warpgroup wg: q rows [r0, r0 + 64) of the block ----
+  if constexpr (L::REG_SPLIT) reg_alloc<240>();
   const int wg = warp / 4, tid = threadIdx.x % 128;
   const int wi = warp % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
@@ -335,14 +226,15 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     }
   }
 
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float sc[32], dp[32];
   uint32_t da[16];  // dS of the tile, bf16 pairs
 
-  const uint64_t q_desc = smem_desc(base + OFF_Q + wg * WG_ROWS * ROW_BYTES);
-  const uint64_t do_desc = smem_desc(base + OFF_DO + wg * WG_ROWS * ROW_BYTES);
+  // the warpgroup's first rows of Q and dO (atom 0)
+  const uint32_t q_rows = base + OFF_Q + wg * WG_ROWS * S::RB;
+  const uint32_t do_rows = base + OFF_DO + wg * WG_ROWS * S::RB;
   if (n_blk > 0) mbar_wait(bar_q, 0);  // also orders the epilogue's reuse of the Q tile
   // a tile whose last column passes the warpgroup's first row takes the mask
   auto masked = [&](int j) { return (OFFS || causal) && (ko + j * BK + BK - 1 > qo + r0); };
@@ -360,22 +252,23 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     const int s = j % STAGES;
     mbar_wait(full(s), (j / STAGES) & 1);
     if (j < n_own) {
-      const uint64_t k_desc = smem_desc(kv_tile(s, 0)), v_desc = smem_desc(kv_tile(s, 1));
+      const uint32_t k_tile = kv_tile(s, 0), v_tile = kv_tile(s, 1);
+      constexpr uint32_t QA = BQ * S::RB, KA = BK * S::RB;  // column atoms' distances
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, S::k_desc(q_rows, QA, kk), S::k_desc(k_tile, KA, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk > 0);
+      for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, S::k_desc(do_rows, QA, kk), S::k_desc(v_tile, KA, kk), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(sc);
       reg_fence(dp);
       if (masked(j)) softmax_grad<true, OFFS>(sc, dp, da, m, dl, gl, diff(j), scale_log2);
       else softmax_grad<false, OFFS>(sc, dp, da, m, dl, gl, diff(j), scale_log2);
-      // dQ += dS K: K an MN-major B, each k16 step 16 k rows of 128 bytes further
+      // dQ += dS K: K an MN-major B, each k16 step 16 k rows further
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc, da + 4 * kk, k_desc + (16 * ROW_BYTES >> 4) * kk);
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<D>(acc, da + 4 * kk, S::mn_desc(k_tile, KA, kk));
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(acc);
@@ -387,97 +280,62 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   // ---- epilogue: dQ scale as bf16 through the warpgroup's rows of the Q tile ----
   if (r0 >= T) return;  // the rows past T of the last block
-  unsigned char* stage = smem + OFF_Q + wg * WG_ROWS * ROW_BYTES;
+  unsigned char* stage = smem + OFF_Q;  // the warpgroup's rows of the Q tile
+  const int srow = wg * WG_ROWS;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = 16 * wi + g + 8 * h;
-      *reinterpret_cast<uint32_t*>(stage + r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t) =
+      *reinterpret_cast<uint32_t*>(stage + S::off(BQ, srow + r, i, 4 * t)) =
           pack_bf16(acc[4 * i + 2 * h] * scale, acc[4 * i + 2 * h + 1] * scale);
     }
   named_bar(1 + wg, 128);
   bf16* out = dq + ((size_t)bh * T + r0) * D;
 #pragma unroll
-  for (int n = 0; n < WG_ROWS * ROW_BYTES / 16 / 128; ++n) {
-    const int c = tid + 128 * n, r = c / 8, cc = c % 8;
+  for (int n = 0; n < WG_ROWS * 2 * D / 16 / 128; ++n) {
+    const int c = tid + 128 * n, r = c / (D / 8), cc = c % (D / 8);
     *reinterpret_cast<uint4*>(out + r * D + cc * 8) =
-        *reinterpret_cast<const uint4*>(stage + r * ROW_BYTES + ((cc ^ (r & 7)) << 4));
+        *reinterpret_cast<const uint4*>(stage + S::off(BQ, srow + r, cc));
   }
 }
 
 // ---- host side ----
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [BH, T, 64] bf16 at `ptr`, read in boxes of [rows, 64] with the 128-byte swizzle
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int T, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)ROW_BYTES, (cuuint64_t)T * ROW_BYTES};
-  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int MAX_DEVICES = 64;
-
-template <bool OFFS>
+template <int D, bool OFFS>
 int launch(const void* q, const void* k, const void* v, const void* dO, const void* lse,
            const void* delta, const void* glse, void* dq, int bh, int T, int causal, int q_off,
            int k_off, cudaStream_t stream) {
+  typedef Dq<D> L;
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap mq, mk, mv, mdo;
-  if (!encode(fn, &mq, q, bh, T, BQ) || !encode(fn, &mk, k, bh, T, BK) ||
-      !encode(fn, &mv, v, bh, T, BK) || !encode(fn, &mdo, dO, bh, T, BQ))
+  if (!encode_bf16<D>(fn, &mq, q, bh, T, L::BQ) || !encode_bf16<D>(fn, &mk, k, bh, T, BK) ||
+      !encode_bf16<D>(fn, &mv, v, bh, T, BK) || !encode_bf16<D>(fn, &mdo, dO, bh, T, L::BQ))
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   static bool smem_set[MAX_DEVICES] = {};  // the attribute, once a device
   if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_sm90<OFFS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)SMEM_BYTES);
+    err = cudaFuncSetAttribute(flash_bwd_dq_sm90<D, OFFS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)L::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   const float scale = 1.0f / sqrtf((float)D);
-  dim3 grid(bh, (T + BQ - 1) / BQ);
-  flash_bwd_dq_sm90<OFFS><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+  dim3 grid(bh, (T + L::BQ - 1) / L::BQ);
+  flash_bwd_dq_sm90<D, OFFS><<<grid, L::NTHREADS, L::SMEM_BYTES, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, (const float*)glse, (bf16*)dq, T,
       causal, q_off, k_off, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-constexpr int BAD_SHAPE = -1;
-
 // TMA reads from 16-byte aligned addresses; the 16-byte stores need the same of dq
 bool bad_shape(const void* q, const void* k, const void* v, const void* dO, const void* dq, int bh,
-               int T, int d) {
+               int T) {
   const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dO | (uintptr_t)dq;
-  return d != D || T % BK != 0 || T <= 0 || bh <= 0 || (any & 15) != 0;
+  return T % BK != 0 || T <= 0 || bh <= 0 || (any & 15) != 0;
 }
 
 }  // namespace
@@ -490,8 +348,11 @@ bool bad_shape(const void* q, const void* k, const void* v, const void* dO, cons
 extern "C" int p2p_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dO,
                                 const void* lse, const void* delta, void* dq, int bh, int T,
                                 int D, int causal, void* stream) {
-  if (bad_shape(q, k, v, dO, dq, bh, T, D)) return BAD_SHAPE;
-  return launch<false>(q, k, v, dO, lse, delta, nullptr, dq, bh, T, causal, 0, 0, (cudaStream_t)stream);
+  if (bad_shape(q, k, v, dO, dq, bh, T)) return BAD_SHAPE;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, false>(q, k, v, dO, lse, delta, nullptr, dq, bh, T, causal, 0, 0,
+                                             (cudaStream_t)stream);
+  });
 }
 
 // offset-aware (ring attention hops); causal by construction
@@ -499,9 +360,15 @@ extern "C" int p2p_flash_bwd_dq_offs(const void* q, const void* k, const void* v
                                      const void* lse, const void* delta, const void* glse,
                                      void* dq, int bh, int T, int D, int q_off, int k_off,
                                      void* stream) {
-  if (bad_shape(q, k, v, dO, dq, bh, T, D)) return BAD_SHAPE;
-  return launch<true>(q, k, v, dO, lse, delta, glse, dq, bh, T, 1, q_off, k_off, (cudaStream_t)stream);
+  if (bad_shape(q, k, v, dO, dq, bh, T)) return BAD_SHAPE;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, true>(q, k, v, dO, lse, delta, glse, dq, bh, T, 1, q_off, k_off,
+                                            (cudaStream_t)stream);
+  });
 }
 
-// dynamic shared memory of one block of the dQ pass, in bytes
-extern "C" int p2p_flash_bwd_dq_smem_bytes() { return (int)SMEM_BYTES; }
+// dynamic shared memory of one block of the dQ pass at a head width, in
+// bytes (-1 for a width not built)
+extern "C" int p2p_flash_bwd_dq_smem_bytes(int head_dim) {
+  return by_width(head_dim, [](auto w) { return (int)Dq<decltype(w)::value>::SMEM_BYTES; });
+}

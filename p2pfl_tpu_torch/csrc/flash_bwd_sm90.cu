@@ -8,7 +8,7 @@
 //                                                  _offs_kv_bounds)             kernel 6
 //   p2p_flash_bwd_dkv       <- _dkv_kernel       (+ _dkv_step)                   kernel 4
 //   p2p_flash_bwd_dkv_offs  <- _dkv_kernel_offs  (+ _dkv_step_offs)              kernel 8
-// All four are flash_bwd_sm90<OFFS, WITH_DQ>. With WITH_DQ they compute dQ,
+// All four are flash_bwd_sm90<D, OFFS, WITH_DQ>. With WITH_DQ they compute dQ,
 // dK and dV in one sweep, five block products per (q, k) tile pair; without
 // it (the split pass, whose dQ is flash_bwd_dq_sm90.cu's) dK and dV alone,
 // four products a pair, and every dQ step below is compiled out. With
@@ -18,9 +18,10 @@
 // q row at the lse sentinel (it sees nothing in the call) gets P = 0, and
 // the lse cotangent enters as dS = P (dP - delta + g_lse).
 //
-// Layout: q, k, v, dO, dk, dv are [BH, T, 64] bf16, contiguous; lse,
-// delta and g_lse are [BH, T] fp32 (natural log); dq_acc is [BH, T, 64]
-// fp32 followed by 16 bytes (the blocks' work counter), all zeroed by the
+// Layout: q, k, v, dO, dk, dv are [BH, T, D] bf16, contiguous, D = 32, 64
+// or 128 (one instantiation a width; sm90_common.cuh has the
+// shared-memory layout of each); lse, delta and g_lse are [BH, T] fp32
+// (natural log); dq_acc is [BH, T, D] fp32 followed by 16 bytes (the blocks' work counter), all zeroed by the
 // caller, which casts dQ afterwards. Without dQ, dv is followed by the 16
 // zeroed bytes of the counter. T must be a multiple of 64. Rounding
 // points follow the JAX kernel: bf16 operands and fp32 sums, P cast to
@@ -49,22 +50,23 @@
 //     stages with one full and one empty barrier each, which runs on
 //     across items;
 //   - products with swapped operands: S^T = K Q^T and dP^T = V dO^T are
-//     wgmma m64n64k16 from shared memory (both K-major), so the
+//     wgmma m64n64k16 from shared memory (both K-major, D / 16 k16
+//     steps), so the
 //     accumulators lie by k row; P^T = exp2(S^T scale log2e - lse log2e)
 //     (ex2.approx.ftz, one FMA; the mask compiled into the tiles at the
 //     causal frontier only) and dS^T = P^T (dP^T - delta) convert in
 //     registers into the A operands of dV += P^T dO and dK += dS^T Q
-//     (dO and Q MN-major B operands from the stage); dK and dV stay in
-//     fp32 registers for the whole sweep;
+//     (wgmma m64nDk16, dO and Q MN-major B operands from the stage); dK
+//     and dV stay in fp32 registers for the whole sweep;
 //   - dQ = dS K contracts over the item's 128 k rows: each warpgroup
 //     writes its dS^T rows to a swizzled shared tile (double-buffered),
 //     the two meet at a named barrier, and each computes one half of D
-//     (wgmma m64n32k16, dS an MN-major A from shared memory, K^T a K-major
-//     B transposed once per item into shared memory);
-//   - each warpgroup stages its fp32 [64, 32] half of the tile's dQ
+//     (wgmma m64n(D/2)k16, dS an MN-major A from shared memory, K^T a
+//     K-major B transposed once per item into shared memory);
+//   - each warpgroup stages its fp32 [64, D / 2] half of the tile's dQ
 //     (swizzled, double-buffered) and one thread adds it into dq_acc with
-//     one bulk tensor reduction (cp.reduce.async.bulk.tensor ... add.f32),
-//     in place of per-element atomics;
+//     bulk tensor reductions (cp.reduce.async.bulk.tensor ... add.f32, one
+//     box a 128-byte column atom), in place of per-element atomics;
 //   - a warpgroup whose k rows no row of the q tile sees (or past T)
 //     skips S, dP and the softmax gradient and contributes dS = 0; an
 //     item whose k rows no q row sees loads nothing and writes dK = dV =
@@ -77,6 +79,13 @@
 //     while dP^T runs) need more: ptxas then serialises the wgmmas
 //     (C7512), and the first, given 240 registers by setmaxnreg on a full
 //     producer warpgroup, was no faster on the card;
+//   - at D = 128 dK and dV alone are 128 registers a thread: the block
+//     takes a whole producer warpgroup (384 threads), which hands the
+//     consumers its registers (setmaxnreg: 240 a consumer thread, 24 a
+//     producer thread), and shared memory holds one item's K and V (64
+//     KB), two Q/dO stages and one dQ staging buffer a warpgroup, so the
+//     fused kernel's 227 KB fit; the dK/dV pass keeps two items' K and V
+//     and two stages;
 //   - the epilogue stages dK and dV as bf16 in the warpgroup's halves of
 //     the item's K and V tiles (swizzled) and writes them with 16-byte
 //     stores;
@@ -95,223 +104,51 @@
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch. Nothing here allocates or synchronises.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <cmath>
-
-typedef __nv_bfloat16 bf16;
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int D = 64;          // head_dim, the only width built
 constexpr int BK = 128;        // k rows per block: two warpgroups of 64
 constexpr int WG_ROWS = 64;    // k rows per consumer warpgroup (wgmma M)
 constexpr int BQ = 64;         // q rows per streamed tile
 constexpr int STAGES = 3;      // Q/dO ring depth
 constexpr int SPLIT_STAGES = 3;  // the same without dQ
 constexpr int N_CONSUMERS = 2; // consumer warpgroups
-constexpr int NTHREADS = N_CONSUMERS * 128 + 32;  // + one producer warp
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
-constexpr uint32_t ROW_BYTES = D * sizeof(bf16);        // 128: one swizzle row
-constexpr uint32_t KV_BYTES = BK * ROW_BYTES;           // 16 KB: a block's K (or V)
-constexpr uint32_t WG_BYTES = WG_ROWS * ROW_BYTES;      // 8 KB: a warpgroup's half
-constexpr uint32_t TILE_BYTES = BQ * ROW_BYTES;         // 8 KB: a q tile of Q (or dO)
 constexpr uint32_t ROWS_BYTES = BQ * sizeof(float);     // 256: a tile's lse (delta, g_lse)
-constexpr uint32_t DQ_HALF_BYTES = BQ * 32 * sizeof(float);  // 8 KB: [64, 32] fp32
-// shared memory, every tile 1024-byte aligned (the swizzle repeats every
-// 8 rows of 128 bytes):
-// [K0 V0 K1 V1 (two items' K and V) | K^T (two [64 d, 64 k] tiles) |
-//  Q0 dO0 Q1 dO1 ... | dS^T x 2 | dQ staging: warpgroup 0 x 2, warpgroup 1 x 2 |
+constexpr uint32_t DST_BYTES = BK * BQ * 2;             // 16 KB: a tile's dS^T, [128 k, 64 q] bf16
+// shared memory of width D, every tile 1024-byte aligned (the swizzle
+// repeats every 1024 bytes):
+// [K0 V0 K1 V1 (NKV items' K and V) | K^T (two [D, 64 k] tiles) |
+//  Q0 dO0 Q1 dO1 ... | dS^T x 2 | dQ staging: warpgroup 0 x NDQ, warpgroup 1 x NDQ |
 //  rows: lse, delta, g_lse a stage | barriers: full and empty per K/V
 //  buffer, then full and empty per stage | item ids]; without dQ the K^T,
-// dS^T and staging tiles take no room
-template <bool WITH_DQ>
+// dS^T and staging tiles take no room. K^T and dS^T rows are 64 k or q
+// values (128 bytes) at every width.
+template <int D, bool WITH_DQ>
 struct Smem {
-  static constexpr int NS = WITH_DQ ? STAGES : SPLIT_STAGES;  // ring depth
-  static constexpr uint32_t N_BARS = 4 + 2 * NS;
+  typedef Swz<2 * D> S;   // bf16 tiles of K, V, Q, dO; also the fp32 dQ staging, D / 2 wide
+  static constexpr bool REG_SPLIT = D == 128;  // a producer warpgroup hands its registers over
+  static constexpr int NTHREADS = N_CONSUMERS * 128 + (REG_SPLIT ? 128 : 32);  // + the producer
+  static constexpr int NS = D == 128 ? 2 : (WITH_DQ ? STAGES : SPLIT_STAGES);  // ring depth
+  static constexpr int NKV = D == 128 && WITH_DQ ? 1 : 2;  // items' K/V buffers
+  static constexpr int NDQ = D == 128 ? 1 : 2;             // dQ staging buffers a warpgroup
+  static constexpr uint32_t KV_BYTES = BK * 2 * D;         // a block's K (or V)
+  static constexpr uint32_t WG_BYTES = WG_ROWS * 2 * D;    // a warpgroup's rows of it
+  static constexpr uint32_t TILE_BYTES = BQ * 2 * D;       // a q tile of Q (or dO)
+  static constexpr uint32_t KT_BYTES = D * 64 * 2;         // a [D, 64 k] tile of K^T
+  static constexpr uint32_t DQ_HALF_BYTES = BQ * (D / 2) * sizeof(float);  // [64, D / 2] fp32
+  static constexpr uint32_t N_BARS = 2 * NKV + 2 * NS;
   static constexpr uint32_t KV = 0;
-  static constexpr uint32_t KT = KV + 4 * KV_BYTES;
-  static constexpr uint32_t QDO = KT + (WITH_DQ ? KV_BYTES : 0);
+  static constexpr uint32_t KT = KV + NKV * 2 * KV_BYTES;
+  static constexpr uint32_t QDO = KT + (WITH_DQ ? 2 * KT_BYTES : 0);
   static constexpr uint32_t DS = QDO + NS * 2 * TILE_BYTES;
-  static constexpr uint32_t DQ = DS + (WITH_DQ ? 2 * KV_BYTES : 0);
-  static constexpr uint32_t ROWS = DQ + (WITH_DQ ? N_CONSUMERS * 2 * DQ_HALF_BYTES : 0);
+  static constexpr uint32_t DQ = DS + (WITH_DQ ? 2 * DST_BYTES : 0);
+  static constexpr uint32_t ROWS = DQ + (WITH_DQ ? N_CONSUMERS * NDQ * DQ_HALF_BYTES : 0);
   static constexpr uint32_t BAR = ROWS + NS * 3 * ROWS_BYTES;
-  static constexpr uint32_t BYTES = 1024 + BAR + N_BARS * 8 + 2 * 4;  // + item ids, alignment slack
+  static constexpr uint32_t BYTES = 1024 + BAR + N_BARS * 8 + NKV * 4;  // + item ids, alignment slack
+  static_assert(BYTES <= 232448, "a block's shared memory on the H100");
 };
-
-// ---- PTX wrappers: mbarrier, TMA, bulk reduction, wgmma ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One [rows, 64] bf16 box of a [BH, T, 64] tensor map into shared memory,
-// completing on `bar`; rows past T arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// `bytes` contiguous bytes from global into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Add a [64 rows, 32] fp32 box from shared memory (128-byte swizzle) into
-// the [BH, T, 64] fp32 tensor at (col, row, bh); one bulk group.
-__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map, uint32_t src, int col,
-                                               int row, int bh) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(col), "r"(row), "r"(bh)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's bulk groups still read shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-
-// Make this thread's generic shared-memory writes visible to the async
-// proxy (wgmma operands, bulk reductions)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile written with the 128-byte
-// swizzle: 8-row groups 1024 bytes apart (SBO), layout type SWIZZLE_128B.
-// The same form serves K-major tiles (K, Q, dO for S^T and dP^T; K^T for
-// dQ) and MN-major tiles of 64 columns, one swizzle atom wide (Q and dO
-// for dK and dV, dS^T for dQ), whose leading offset is unused.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accesses of an accumulator across the
-// wait of the asynchronous wgmma that writes it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC16(d)                                                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),    \
-      "+f"(d[15])
-
-#define ACC32(d)                                                                                   \
-  ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),  \
-      "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-
-#define ACC16_REGS "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-
-#define ACC32_REGS                                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ACC32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A in registers (bf16 pairs), B
-// MN-major in shared memory (the transpose bit of the bf16 instruction).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_REGS
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 32] (+)= A[64 x 16] . B[16 x 32], A MN-major and B K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss_n32_ta(float (&d)[16], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " ACC16_REGS
-      ", %16, %17, p, 1, 1, 1, 0;\n}\n"
-      : ACC16(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit; results below 2^-126 flush to zero
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) { return min(max(x, lo), hi); }
 
 // First q tile that k block `k0` streams (the offset form is
 // _offs_kv_bounds's start: global coordinates, truncating division); q
@@ -366,13 +203,15 @@ __device__ __forceinline__ void softmax_grad(const float (&sc)[32], const float 
 
 // dV += P^T dO and dK += dS^T Q for one warpgroup and tile: A from
 // registers, dO and Q MN-major B operands from the stage, each k16 step 16
-// q rows of 128 bytes further. Issued, not waited on.
-__device__ __forceinline__ void dkv_products(float (&dv_acc)[32], float (&dk_acc)[32], const uint32_t (&pa)[16],
-                                             const uint32_t (&da)[16], uint64_t do_desc, uint64_t q_desc) {
+// q rows further. Issued, not waited on.
+template <int D>
+__device__ __forceinline__ void dkv_products(float (&dv_acc)[D / 2], float (&dk_acc)[D / 2], const uint32_t (&pa)[16],
+                                             const uint32_t (&da)[16], uint32_t do_tile, uint32_t q_tile) {
+  typedef Swz<2 * D> S;
 #pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dv_acc, pa + 4 * kk, do_desc + (16 * ROW_BYTES >> 4) * kk);
+  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dv_acc, pa + 4 * kk, S::mn_desc(do_tile, BQ * S::RB, kk));
 #pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs(dk_acc, da + 4 * kk, q_desc + (16 * ROW_BYTES >> 4) * kk);
+  for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dk_acc, da + 4 * kk, S::mn_desc(q_tile, BQ * S::RB, kk));
 }
 
 // One work item: the k block k0 of head bh and the q tiles it streams.
@@ -406,26 +245,32 @@ __device__ __forceinline__ Item item(int w, int n_bh, int T, int causal, int q_o
 // item from a counter the launch's blocks share (`next`, zeroed by the
 // caller), so a block that finishes early takes more, and hands it to the
 // consumers with the item's K/V buffer. Threads 0-255 are the two
-// consumer warpgroups, 256-287 the producer warp; after the barrier
+// consumer warpgroups, the rest the producer (a warp, or at D = 128 a
+// warpgroup of which one thread loads); after the barrier
 // set-up the producer never meets the consumers at a barrier again. A
 // tile counter runs across the block's items, so the Q/dO ring, the dS^T
 // buffers and the dQ staging carry over from one item to the next; K and
 // V alternate between two buffers, so the producer loads the next item's
 // K and V and first tiles while this item runs, and an item's dK and dV
-// leave through its own K/V buffer. Named barriers: 1 and 2 each warpgroup's own, 3 both
+// leave through its own K/V buffer (at D = 128 with dQ there is one K/V
+// buffer, so an item's loads wait for the last item's epilogue). Named
+// barriers: 1 and 2 each warpgroup's own, 3 both
 // consumer warpgroups (0 is __syncthreads'). WITH_DQ = false drops every
 // step of dQ (K^T, dS^T, barrier 3, the staging and the reductions).
 // ---------------------------------------------------------------------------
-template <bool OFFS, bool WITH_DQ>
-__global__ void __launch_bounds__(NTHREADS, 1)
+template <int D, bool OFFS, bool WITH_DQ>
+__global__ void __launch_bounds__((Smem<D, WITH_DQ>::NTHREADS), 1)
 flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse,
                const float* __restrict__ delta, const float* __restrict__ glse,
                bf16* __restrict__ dk, bf16* __restrict__ dv, int* __restrict__ next, int n_bh,
                int T, int causal, int q_off, int k_off, float scale, float scale_log2) {
-  typedef Smem<WITH_DQ> L;
+  typedef Smem<D, WITH_DQ> L;
+  typedef typename L::S S;
   constexpr int STAGES = L::NS;  // this pass's ring depth
+  constexpr int NKV = L::NKV, NDQ = L::NDQ;
+  constexpr uint32_t KV_BYTES = L::KV_BYTES, WG_BYTES = L::WG_BYTES, TILE_BYTES = L::TILE_BYTES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -433,12 +278,12 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const uint32_t bar0 = base + L::BAR;
   auto k_buf = [&](int b) { return L::KV + (2 * b) * KV_BYTES; };  // V follows K
   auto kv_full = [&](int b) { return bar0 + 8 * b; };
-  auto kv_empty = [&](int b) { return bar0 + 8 * (2 + b); };
+  auto kv_empty = [&](int b) { return bar0 + 8 * (NKV + b); };
   auto q_tile = [&](int s) { return base + L::QDO + (2 * s) * TILE_BYTES; };
   auto do_tile = [&](int s) { return base + L::QDO + (2 * s + 1) * TILE_BYTES; };
   auto rows = [&](int s, int which) { return L::ROWS + (3 * s + which) * ROWS_BYTES; };
-  auto full = [&](int s) { return bar0 + 8 * (4 + s); };
-  auto empty = [&](int s) { return bar0 + 8 * (4 + STAGES + s); };
+  auto full = [&](int s) { return bar0 + 8 * (2 * NKV + s); };
+  auto empty = [&](int s) { return bar0 + 8 * (2 * NKV + STAGES + s); };
   // the item each K/V buffer holds, -1 when the launch's items are done
   volatile int* item_of = reinterpret_cast<volatile int*>(smem + L::BAR + L::N_BARS * 8);
 
@@ -446,7 +291,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int qo = OFFS ? q_off : 0, ko = OFFS ? k_off : 0;  // global offsets
 
   if (threadIdx.x == 0) {
-    for (int b = 0; b < 2; ++b) {
+    for (int b = 0; b < NKV; ++b) {
       mbar_init(kv_full(b), 1);
       mbar_init(kv_empty(b), N_CONSUMERS);
     }
@@ -459,16 +304,17 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
-  if (warp == N_CONSUMERS * 4) {
+  if (warp >= N_CONSUMERS * 4) {
     // ---- producer: one thread issues every load ----
-    if (threadIdx.x % 32 != 0) return;
+    if constexpr (L::REG_SPLIT) reg_dealloc<24>();
+    if (threadIdx.x != N_CONSUMERS * 128) return;
     const uint32_t tile_tx = 2 * TILE_BYTES + (OFFS ? 3 : 2) * ROWS_BYTES;
     int c = 0;  // tiles loaded
     for (int n_kv = 0;; ++n_kv) {  // items handed out
       const int w = atomicAdd(next, 1);
-      // the buffer's item two back is done (its dK and dV are written)
-      const int b = n_kv & 1;
-      if (n_kv >= 2) mbar_wait(kv_empty(b), ((n_kv >> 1) - 1) & 1);
+      // the buffer's item NKV back is done (its dK and dV are written)
+      const int b = n_kv % NKV;
+      if (n_kv >= NKV) mbar_wait(kv_empty(b), (n_kv / NKV - 1) & 1);
       if (w >= n_items) {
         item_of[b] = -1;
         mbar_arrive(kv_full(b));
@@ -481,16 +327,16 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         continue;
       }
       mbar_expect_tx(kv_full(b), 2 * KV_BYTES);
-      tma_load(base + k_buf(b), &tk, kv_full(b), it.k0, it.bh);
-      tma_load(base + k_buf(b) + KV_BYTES, &tv, kv_full(b), it.k0, it.bh);
+      tma_load_tile<D>(base + k_buf(b), &tk, kv_full(b), BK, it.k0, it.bh);
+      tma_load_tile<D>(base + k_buf(b) + KV_BYTES, &tv, kv_full(b), BK, it.k0, it.bh);
       const size_t row0 = (size_t)it.bh * T;
       for (int j = 0; j < it.n_tiles; ++j, ++c) {
         const int s = c % STAGES, use = c / STAGES;
         const int q0 = (it.start + j) * BQ;
         if (use > 0) mbar_wait(empty(s), (use - 1) & 1);  // both warpgroups released it
         mbar_expect_tx(full(s), tile_tx);
-        tma_load(q_tile(s), &tq, full(s), q0, it.bh);
-        tma_load(do_tile(s), &tdo, full(s), q0, it.bh);
+        tma_load_tile<D>(q_tile(s), &tq, full(s), BQ, q0, it.bh);
+        tma_load_tile<D>(do_tile(s), &tdo, full(s), BQ, q0, it.bh);
         bulk_load(base + rows(s, 0), lse + row0 + q0, ROWS_BYTES, full(s));
         bulk_load(base + rows(s, 1), delta + row0 + q0, ROWS_BYTES, full(s));
         if (OFFS) bulk_load(base + rows(s, 2), glse + row0 + q0, ROWS_BYTES, full(s));
@@ -500,20 +346,21 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 
   // ---- consumer warpgroup wg: k rows [k0 + 64 wg, k0 + 64 wg + 64) of each item ----
+  if constexpr (L::REG_SPLIT) reg_alloc<240>();
   const int wg = warp / 4, tid = threadIdx.x % 128;
   const int wi = warp % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // row in the 8-row group, column pair
   const int lim_row = 16 * wi + g - 2 * t;
-  float dk_acc[32], dv_acc[32], dq[16];
+  float dk_acc[D / 2], dv_acc[D / 2], dq[D / 4];
   float sc[32], dp[32];
   uint32_t pa[16], da[16];  // P^T and dS^T, bf16 pairs
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+  for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
   int c = 0;  // tiles consumed
 
   for (int n_kv = 0;; ++n_kv) {
-    const int b = n_kv & 1;
-    mbar_wait(kv_full(b), (n_kv >> 1) & 1);
+    const int b = n_kv % NKV;
+    mbar_wait(kv_full(b), (n_kv / NKV) & 1);
     const int w = item_of[b];
     if (w < 0) break;
     const Item it = item<OFFS>(w, n_bh, T, causal, qo, ko);
@@ -526,7 +373,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         const uint4 zero = make_uint4(0, 0, 0, 0);
 #pragma unroll
         for (int n = 0; n < WG_BYTES / 16 / 128; ++n) {
-          const int cc = tid + 128 * n, r = cc / 8, ch = cc % 8;
+          const int cc = tid + 128 * n, r = cc / (D / 8), ch = cc % (D / 8);
           *reinterpret_cast<uint4*>(dk + (row0 + r0 + r) * D + ch * 8) = zero;
           *reinterpret_cast<uint4*>(dv + (row0 + r0 + r) * D + ch * 8) = zero;
         }
@@ -539,26 +386,27 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     }
 
     const uint32_t off_k = k_buf(b), off_v = off_k + KV_BYTES;
-    const uint64_t dk_desc = smem_desc(base + off_k + wg * WG_BYTES);
-    const uint64_t dv_desc = smem_desc(base + off_v + wg * WG_BYTES);
+    // this warpgroup's first rows of the item's K and V (atom 0)
+    const uint32_t k_rows = base + off_k + wg * WG_ROWS * S::RB;
+    const uint32_t v_rows = base + off_v + wg * WG_ROWS * S::RB;
     if constexpr (WITH_DQ) {
       // both warpgroups are done with the last item's K^T
       named_bar(3, N_CONSUMERS * 128);
-      // K^T for the dQ product: two K-major [64 d, 64 k] tiles, swizzled;
-      // each thread moves two 8-column chunks of two neighbouring k rows
+      // K^T for the dQ product: two K-major [D, 64 k] tiles, swizzled
+      // (rows of 64 k, 128 bytes); each thread moves two 8-column chunks of
+      // two neighbouring k rows
       for (int n = threadIdx.x; n < (BK / 2) * (D / 8); n += N_CONSUMERS * 128) {
         const int kr = 2 * (n % (BK / 2)), ch = n / (BK / 2);  // k rows kr, kr + 1; d columns 8ch ..
-        const uint4 lo = *reinterpret_cast<const uint4*>(smem + off_k + kr * ROW_BYTES + ((ch ^ (kr & 7)) << 4));
-        const uint4 hi = *reinterpret_cast<const uint4*>(smem + off_k + (kr + 1) * ROW_BYTES +
-                                                         ((ch ^ ((kr + 1) & 7)) << 4));
+        const uint4 lo = *reinterpret_cast<const uint4*>(smem + off_k + S::off(BK, kr, ch));
+        const uint4 hi = *reinterpret_cast<const uint4*>(smem + off_k + S::off(BK, kr + 1, ch));
         const uint16_t* ea = reinterpret_cast<const uint16_t*>(&lo);
         const uint16_t* eb = reinterpret_cast<const uint16_t*>(&hi);
-        unsigned char* kt = smem + L::KT + (kr / 64) * WG_BYTES;
+        unsigned char* kt = smem + L::KT + (kr / 64) * L::KT_BYTES;
         const int kc = kr % 64;
 #pragma unroll
         for (int u = 0; u < 8; ++u) {
           const int d = 8 * ch + u;
-          *reinterpret_cast<uint32_t*>(kt + d * ROW_BYTES + (((kc / 8) ^ (d & 7)) << 4) + (kc % 8) * 2) =
+          *reinterpret_cast<uint32_t*>(kt + d * 128 + (((kc / 8) ^ (d & 7)) << 4) + (kc % 8) * 2) =
               (uint32_t)ea[u] | ((uint32_t)eb[u] << 16);
         }
       }
@@ -566,7 +414,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     }
 
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     // the tile's first q row against this warpgroup's first k row
     const int kq = ko + r0 - qo;
 
@@ -577,7 +425,7 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       const float* lse_s = reinterpret_cast<const float*>(smem + rows(s, 0));
       const float* delta_s = reinterpret_cast<const float*>(smem + rows(s, 1));
       const float* glse_s = reinterpret_cast<const float*>(smem + rows(s, 2));
-      const uint64_t q_desc = smem_desc(q_tile(s)), do_desc = smem_desc(do_tile(s));
+      constexpr uint32_t KA = BK * S::RB, QA = BQ * S::RB;  // column atoms' distances
       // a tile whose last q row comes before this warpgroup's first k row
       // adds nothing; one whose first q row comes before its last k row
       // takes the mask
@@ -586,9 +434,9 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         // S^T = K Q^T and dP^T = V dO^T, both from shared memory
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, dk_desc + 2 * kk, q_desc + 2 * kk, kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(sc, S::k_desc(k_rows, KA, kk), S::k_desc(q_tile(s), QA, kk), kk > 0);
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, dv_desc + 2 * kk, do_desc + 2 * kk, kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(dp, S::k_desc(v_rows, KA, kk), S::k_desc(do_tile(s), QA, kk), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(sc);
@@ -603,58 +451,68 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
         for (int i = 0; i < 16; ++i) pa[i] = da[i] = 0u;
       }
       if constexpr (WITH_DQ) {
-        // this thread's bulk reduction of two tiles ago has read its staging
-        if (tid == 0) bulk_wait_read<1>();
-        // dS^T rows of this warpgroup into the tile's dS^T buffer
-        unsigned char* ds_t = smem + L::DS + (c & 1) * KV_BYTES + wg * WG_BYTES;
+        // this thread's bulk reduction of NDQ tiles ago has read its staging
+        if (tid == 0) bulk_wait_read<NDQ - 1>();
+        // dS^T rows of this warpgroup into the tile's dS^T buffer ([128 k,
+        // 64 q], 128-byte rows at every width)
+        typedef Swz<128> T128;
+        unsigned char* ds_t = smem + L::DS + (c & 1) * DST_BYTES;
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = 16 * wi + g + 8 * h;
-            *reinterpret_cast<uint32_t*>(ds_t + r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t) = da[2 * i + h];
+            *reinterpret_cast<uint32_t*>(ds_t + T128::off(BK, wg * WG_ROWS + r, i, 4 * t)) = da[2 * i + h];
           }
         fence_async_smem();
         // dV += P^T dO and dK += dS^T Q
         wgmma_fence();
-        dkv_products(dv_acc, dk_acc, pa, da, do_desc, q_desc);
+        dkv_products<D>(dv_acc, dk_acc, pa, da, do_tile(s), q_tile(s));
         wgmma_commit();
         named_bar(3, N_CONSUMERS * 128);  // both halves of dS^T are written
-        // dQ[:, 32 wg .. 32 wg + 31] = dS K over the item's 128 k rows: dS^T
-        // an MN-major A (16 k rows a step), K^T a K-major B (32 bytes a step)
+        // dQ[:, D/2 wg .. D/2 wg + D/2 - 1] = dS K over the item's 128 k
+        // rows: dS^T an MN-major A (16 k rows a step), K^T a K-major B (32
+        // bytes a step; the warpgroup's D / 2 rows of each K^T tile)
         wgmma_fence();
-        const uint32_t ds_all = base + L::DS + (c & 1) * KV_BYTES;
+        const uint32_t ds_all = base + L::DS + (c & 1) * DST_BYTES;
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_ss_n32_ta(dq, smem_desc(ds_all + kk * 16 * ROW_BYTES),
-                          smem_desc(base + L::KT + (kk / 4) * WG_BYTES + wg * 32 * ROW_BYTES) + 2 * (kk % 4),
-                          kk > 0);
+          wgmma_ss_ta<D / 2>(dq, T128::desc(ds_all + kk * 16 * 128),
+                             T128::desc(base + L::KT + (kk / 4) * L::KT_BYTES + wg * (D / 2) * 128) + 2 * (kk % 4),
+                             kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(dv_acc);
         reg_fence(dk_acc);
         reg_fence(dq);
         if (tid == 0) mbar_arrive(empty(s));  // Q, dO and the rows of the stage are consumed
-        // scale dQ's share into this warpgroup's staging half (fp32, 128-byte
-        // swizzle) and add it into dq_acc with one bulk reduction
-        const uint32_t stage_off = L::DQ + (2 * wg + (c & 1)) * DQ_HALF_BYTES;
+        // scale dQ's share into this warpgroup's staging half (fp32 rows of
+        // 2D bytes, swizzled as a bf16 row of D) and add it into dq_acc
+        // with one bulk reduction a column atom
+        const uint32_t stage_off = L::DQ + (NDQ * wg + c % NDQ) * L::DQ_HALF_BYTES;
         unsigned char* st = smem + stage_off;
+        constexpr int CPR = S::RB / 16;  // 16-byte chunks of an atom's row
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < D / 16; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = 16 * wi + g + 8 * h;
-            *reinterpret_cast<float2*>(st + r * 128 + (((2 * i + (t >> 1)) ^ (r & 7)) << 4) + 8 * (t & 1)) =
+            *reinterpret_cast<float2*>(st + S::at(BQ, 2 * i / CPR, r, 2 * i % CPR + (t >> 1), 8 * (t & 1))) =
                 make_float2(dq[4 * i + 2 * h] * scale, dq[4 * i + 2 * h + 1] * scale);
           }
         fence_async_smem();
         named_bar(1 + wg, 128);
-        if (tid == 0) tma_reduce_add(&tdq, base + stage_off, 32 * wg, q0, it.bh);
+        if (tid == 0) {
+#pragma unroll
+          for (int a = 0; a < S::ATOMS; ++a)
+            tma_reduce_add(&tdq, base + stage_off + a * BQ * S::RB, (D / 2) * wg + a * S::RB / 4, q0, it.bh);
+          bulk_commit();
+        }
       } else {
         if (!skip) {
           // dV += P^T dO and dK += dS^T Q
           wgmma_fence();
-          dkv_products(dv_acc, dk_acc, pa, da, do_desc, q_desc);
+          dkv_products<D>(dv_acc, dk_acc, pa, da, do_tile(s), q_tile(s));
           wgmma_commit();
           wgmma_wait<0>();
           reg_fence(dv_acc);
@@ -673,14 +531,15 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       if (tid == 0) mbar_arrive(kv_empty(b));
       continue;
     }
-    unsigned char* out_k = smem + off_k + wg * WG_BYTES;
-    unsigned char* out_v = smem + off_v + wg * WG_BYTES;
+    unsigned char* out_k = smem + off_k;
+    unsigned char* out_v = smem + off_v;
+    const int srow = wg * WG_ROWS;  // this warpgroup's rows of the tiles
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < D / 8; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = 16 * wi + g + 8 * h;
-        const uint32_t off = r * ROW_BYTES + ((i ^ (r & 7)) << 4) + 4 * t;
+        const uint32_t off = S::off(BK, srow + r, i, 4 * t);
         *reinterpret_cast<uint32_t*>(out_k + off) =
             pack_bf16(dk_acc[4 * i + 2 * h] * scale, dk_acc[4 * i + 2 * h + 1] * scale);
         *reinterpret_cast<uint32_t*>(out_v + off) = pack_bf16(dv_acc[4 * i + 2 * h], dv_acc[4 * i + 2 * h + 1]);
@@ -690,57 +549,18 @@ flash_bwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     bf16* gv = dv + (row0 + r0) * D;
 #pragma unroll
     for (int n = 0; n < WG_BYTES / 16 / 128; ++n) {
-      const int cc = tid + 128 * n, r = cc / 8, ch = cc % 8;
-      const uint32_t off = r * ROW_BYTES + ((ch ^ (r & 7)) << 4);
+      const int cc = tid + 128 * n, r = cc / (D / 8), ch = cc % (D / 8);
+      const uint32_t off = S::off(BK, srow + r, ch);
       *reinterpret_cast<uint4*>(gk + r * D + ch * 8) = *reinterpret_cast<const uint4*>(out_k + off);
       *reinterpret_cast<uint4*>(gv + r * D + ch * 8) = *reinterpret_cast<const uint4*>(out_v + off);
     }
-    named_bar(1 + wg, 128);  // the buffer is read: an item two on may load into it
+    named_bar(1 + wg, 128);  // the buffer is read: an item NKV on may load into it
     if (tid == 0) mbar_arrive(kv_empty(b));
   }
   if (WITH_DQ && tid == 0) bulk_wait_read<0>();  // the staging stays valid until read
 }
 
 // ---- host side ----
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [BH, T, 64] at `ptr` (bf16, or fp32), read or reduced in boxes of
-// [rows, cols] with the 128-byte swizzle (cols · element size <= 128)
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int T, int rows, int cols,
-            bool fp32) {
-  const cuuint64_t elem_bytes = fp32 ? 4 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {D * elem_bytes, (cuuint64_t)T * D * elem_bytes};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int MAX_DEVICES = 64;
 
 // streaming multiprocessors of the current device (the persistent grid's
 // size), read once a device: the host work of a call counts in every ring hop
@@ -753,24 +573,27 @@ int sm_count(int dev) {
   return n[dev];
 }
 
-template <bool OFFS, bool WITH_DQ>
+template <int D, bool OFFS, bool WITH_DQ>
 int launch(const void* q, const void* k, const void* v, const void* dO, const void* lse,
            const void* delta, const void* glse, void* dk, void* dv, void* dq_acc, int bh, int T,
            int causal, int q_off, int k_off, cudaStream_t stream) {
+  typedef Smem<D, WITH_DQ> L;
   EncodeTiled fn = encoder();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap mq, mk, mv, mdo, mdq = {};  // no dQ map without dQ
-  if (!encode(fn, &mq, q, bh, T, BQ, D, false) || !encode(fn, &mk, k, bh, T, BK, D, false) ||
-      !encode(fn, &mv, v, bh, T, BK, D, false) || !encode(fn, &mdo, dO, bh, T, BQ, D, false) ||
-      (WITH_DQ && !encode(fn, &mdq, dq_acc, bh, T, BQ, 32, true)))
+  // dq_acc is reduced into in boxes of [64 rows, one column atom of the
+  // fp32 staging], whose rows are 2D bytes
+  if (!encode_bf16<D>(fn, &mq, q, bh, T, BQ) || !encode_bf16<D>(fn, &mk, k, bh, T, BK) ||
+      !encode_bf16<D>(fn, &mv, v, bh, T, BK) || !encode_bf16<D>(fn, &mdo, dO, bh, T, BQ) ||
+      (WITH_DQ && !encode<L::S::RB>(fn, &mdq, dq_acc, bh, T, D, BQ, 4)))
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  constexpr uint32_t smem_bytes = Smem<WITH_DQ>::BYTES;
+  constexpr uint32_t smem_bytes = L::BYTES;
   static bool smem_set[MAX_DEVICES] = {};  // the attribute, once a device
   if (dev >= MAX_DEVICES || !smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_bwd_sm90<OFFS, WITH_DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flash_bwd_sm90<D, OFFS, WITH_DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) smem_set[dev] = true;
@@ -780,23 +603,21 @@ int launch(const void* q, const void* k, const void* v, const void* dO, const vo
   const size_t n = (size_t)bh * T * D;
   int* next = WITH_DQ ? reinterpret_cast<int*>(static_cast<float*>(dq_acc) + n)
                       : reinterpret_cast<int*>(static_cast<bf16*>(dv) + n);
-  flash_bwd_sm90<OFFS, WITH_DQ><<<min(n_items, sm_count(dev)), NTHREADS, smem_bytes, stream>>>(
+  flash_bwd_sm90<D, OFFS, WITH_DQ><<<min(n_items, sm_count(dev)), L::NTHREADS, smem_bytes, stream>>>(
       mq, mk, mv, mdo, mdq, (const float*)lse, (const float*)delta, (const float*)glse, (bf16*)dk,
       (bf16*)dv, next, bh, T, causal, q_off, k_off, scale, scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-constexpr int BAD_SHAPE = -1;
-
 // TMA and the bulk copies read from 16-byte aligned addresses; the
 // 16-byte stores need the same of dk and dv
 bool bad_shape(const void* q, const void* k, const void* v, const void* dO, const void* lse,
                const void* delta, const void* glse, const void* dk, const void* dv,
-               const void* dq_acc, int bh, int T, int d) {
+               const void* dq_acc, int bh, int T) {
   const uintptr_t any = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dO |
                         (uintptr_t)lse | (uintptr_t)delta | (uintptr_t)glse | (uintptr_t)dk |
                         (uintptr_t)dv | (uintptr_t)dq_acc;
-  return d != D || T % BQ != 0 || T <= 0 || bh <= 0 || (any & 15) != 0;
+  return T % BQ != 0 || T <= 0 || bh <= 0 || (any & 15) != 0;
 }
 
 }  // namespace
@@ -810,9 +631,11 @@ extern "C" int p2p_flash_bwd_dkvq(const void* q, const void* k, const void* v, c
                                   const void* lse, const void* delta, void* dk, void* dv,
                                   void* dq_acc, int bh, int T, int D, int causal,
                                   void* stream) {
-  if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, D)) return BAD_SHAPE;
-  return launch<false, true>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T, causal, 0, 0,
-                             (cudaStream_t)stream);
+  if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T)) return BAD_SHAPE;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, false, true>(q, k, v, dO, lse, delta, nullptr, dk, dv, dq_acc, bh, T,
+                                                   causal, 0, 0, (cudaStream_t)stream);
+  });
 }
 
 // offset-aware (ring attention hops); causal by construction
@@ -821,31 +644,42 @@ extern "C" int p2p_flash_bwd_dkvq_offs(const void* q, const void* k, const void*
                                        const void* glse, void* dk, void* dv, void* dq_acc,
                                        int bh, int T, int D, int q_off, int k_off,
                                        void* stream) {
-  if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, D)) return BAD_SHAPE;
-  return launch<true, true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, 1, q_off, k_off,
-                            (cudaStream_t)stream);
+  if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T)) return BAD_SHAPE;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, true, true>(q, k, v, dO, lse, delta, glse, dk, dv, dq_acc, bh, T, 1,
+                                                  q_off, k_off, (cudaStream_t)stream);
+  });
 }
 
 // the split pass's dK and dV; dv is followed by 16 zeroed bytes
 extern "C" int p2p_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dO,
                                  const void* lse, const void* delta, void* dk, void* dv,
                                  int bh, int T, int D, int causal, void* stream) {
-  if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr, bh, T, D)) return BAD_SHAPE;
-  return launch<false, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr, bh, T, causal, 0, 0,
-                              (cudaStream_t)stream);
+  if (bad_shape(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr, bh, T)) return BAD_SHAPE;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, false, false>(q, k, v, dO, lse, delta, nullptr, dk, dv, nullptr, bh, T,
+                                                    causal, 0, 0, (cudaStream_t)stream);
+  });
 }
 
 extern "C" int p2p_flash_bwd_dkv_offs(const void* q, const void* k, const void* v,
                                       const void* dO, const void* lse, const void* delta,
                                       const void* glse, void* dk, void* dv, int bh, int T,
                                       int D, int q_off, int k_off, void* stream) {
-  if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh, T, D)) return BAD_SHAPE;
-  return launch<true, false>(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh, T, 1, q_off, k_off,
-                             (cudaStream_t)stream);
+  if (bad_shape(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh, T)) return BAD_SHAPE;
+  return by_width(D, [&](auto w) {
+    return launch<decltype(w)::value, true, false>(q, k, v, dO, lse, delta, glse, dk, dv, nullptr, bh, T, 1,
+                                                   q_off, k_off, (cudaStream_t)stream);
+  });
 }
 
-// dynamic shared memory of one block of the fused backward, in bytes
-extern "C" int p2p_flash_bwd_smem_bytes() { return (int)Smem<true>::BYTES; }
+// dynamic shared memory of one block of the fused backward at a head
+// width, in bytes (-1 for a width not built)
+extern "C" int p2p_flash_bwd_smem_bytes(int head_dim) {
+  return by_width(head_dim, [](auto w) { return (int)Smem<decltype(w)::value, true>::BYTES; });
+}
 
 // the same of the split dK/dV pass
-extern "C" int p2p_flash_bwd_dkv_smem_bytes() { return (int)Smem<false>::BYTES; }
+extern "C" int p2p_flash_bwd_dkv_smem_bytes(int head_dim) {
+  return by_width(head_dim, [](auto w) { return (int)Smem<decltype(w)::value, false>::BYTES; });
+}

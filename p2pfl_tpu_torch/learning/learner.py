@@ -33,6 +33,7 @@ import torch
 from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.learning.weights import ModelUpdate, PayloadCache, decode_params, restore_like
 from p2pfl_tpu_torch.management.logger import logger
+from p2pfl_tpu_torch.models.base import apply_with_aux
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_structure, tree_unflatten
 
 
@@ -176,12 +177,11 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.T
 
 
 def _loss(params: dict, module, x: torch.Tensor, y: torch.Tensor):
-    """Training loss and logits: mean CE plus the model's auxiliary
-    losses. The JAX package adds the MoE layers' sown router losses; the
-    port has no MoE layer, so the auxiliary term is 0 and the loss is the
-    mean CE."""
-    logits = module(params, x)
-    return softmax_cross_entropy(logits, y).mean(), logits
+    """Training loss and logits: mean CE plus the model's auxiliary losses
+    (the MoE layers' router losses, :func:`apply_with_aux`; 0 for a dense
+    model), as JAX's learner."""
+    logits, aux = apply_with_aux(module, params, x)
+    return softmax_cross_entropy(logits, y).mean() + aux, logits
 
 
 def _prox_term(params: dict, anchor: dict, mu: float) -> torch.Tensor:

@@ -21,6 +21,7 @@ from p2pfl_tpu_torch.learning.learner import (
     NodeLearner, _check_structure, adam, apply_updates, ce_eval, softmax_cross_entropy,
 )
 from p2pfl_tpu_torch.management.logger import logger
+from p2pfl_tpu_torch.models.base import apply_with_aux
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_unflatten
 
 
@@ -70,13 +71,15 @@ def frozen_base(base: dict, dtype: torch.dtype, device: torch.device) -> dict:
 
 
 def _lm_loss(lora, base, module, x, y, node_axis: bool = False):
-    """Training loss + logits. ``node_axis``: x, y and the adapters carry a
-    leading node axis N and the loss is each node's mean CE, shape [N]."""
-    logits = module(merge_params(base, lora), x)
+    """Training loss + logits: mean CE plus the MoE layers' router losses
+    (:func:`apply_with_aux`), as JAX's ``_lm_loss``. ``node_axis``: x, y
+    and the adapters carry a leading node axis N and the loss is each
+    node's, shape [N] (the MoE layers route each node's tokens apart)."""
+    logits, aux = apply_with_aux(module, merge_params(base, lora), x)
     ce = softmax_cross_entropy(logits, y)
     if node_axis:
-        return ce.reshape(ce.shape[0], -1).mean(1), logits
-    return ce.mean(), logits
+        return ce.reshape(ce.shape[0], -1).mean(1) + aux, logits
+    return ce.mean() + aux, logits
 
 
 def lora_train_epoch(lora: dict, opt_state, base: dict, xs: torch.Tensor, ys: torch.Tensor, module, tx):

@@ -5,10 +5,10 @@ The reference's MLP and CNN (MNIST), ResNet-18/50 and the ViT (CIFAR
 shapes); the transformer is ``models/transformer.py``.
 """
 
-from p2pfl_tpu_torch.models.base import TorchModel
+from p2pfl_tpu_torch.models.base import TorchModel, apply_with_aux
 from p2pfl_tpu_torch.models.vision import CNN, MLP, ResNet, ViT, cnn, mlp, resnet18, resnet50, vit
 
 __all__ = [
-    "TorchModel", "MLP", "CNN", "ResNet", "ViT",
+    "TorchModel", "apply_with_aux", "MLP", "CNN", "ResNet", "ViT",
     "mlp", "cnn", "resnet18", "resnet50", "vit",
 ]

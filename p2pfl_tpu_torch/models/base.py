@@ -16,6 +16,20 @@ import torch
 from p2pfl_tpu_torch.ops.tree import tree_leaves
 
 
+def apply_with_aux(module: torch.nn.Module, params: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(output, aux)``: the module's output and its auxiliary training
+    losses (JAX's ``apply_with_aux``, which reads what the MoE layers sow).
+    A module with ``forward_with_aux`` (the causal LM) returns them itself,
+    the MoE layers' router losses summed; any other module's aux is an fp32
+    zero on the output's device. Pure: it batches under
+    ``torch.func.vmap`` and records into a CUDA graph."""
+    fn = getattr(module, "forward_with_aux", None)
+    if fn is not None:
+        return fn(params, x)
+    out = module(params, x)
+    return out, out.new_zeros((), dtype=torch.float32)
+
+
 @dataclass
 class TorchModel:
     """A parameter-free ``nn.Module`` bound to a concrete parameter tree."""

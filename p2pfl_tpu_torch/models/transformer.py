@@ -16,9 +16,17 @@ with one more leading axis than usual (``lora_a`` of ``[N, in, r]``) is a
 node-stacked adapter and pairs with an input whose first axis is N: the
 federation runs all nodes in one call this way instead of vmapping.
 
+The FFN is SwiGLU, or with ``n_experts > 0`` :class:`MoEMLP` (capacity
+dispatch over stacked ``[E, ...]`` experts). Its router losses reach the
+training loss through :meth:`CausalLM.forward_with_aux` and
+:func:`p2pfl_tpu_torch.models.base.apply_with_aux` (flax sows them; the
+port returns them beside the logits).
+
 Attention backends: ``"dense"`` (``ops/attention.py``), ``"flash"``
 (``ops/flash_attention.py``: CUDA kernels on the GPU, their plain
-versions on the CPU), and the sequence-sharded rings ``"ring"`` and
+versions on the CPU), ``"auto"`` (:func:`pick_attention`: flash on a CUDA
+device from ``Settings.FLASH_MIN_SEQ_LEN`` on, else dense), and the
+sequence-sharded rings ``"ring"`` and
 ``"ring_flash"`` (``ops/attention.py::ring_attention``); the node-stacked
 batch is flattened to ``[N·bs, T, H, D]`` before attention, so a ring
 sees it as one batch. The layers always loop in Python; ``scan_layers``
@@ -102,8 +110,13 @@ class TransformerConfig:
     lora_alpha: float = 16.0
     lora_mlp: bool = False
     dtype: Any = torch.bfloat16
-    # not ported yet: CausalLM raises on it (ROADMAP Queue A)
+    # mixture-of-experts FFN (n_experts=0: dense SwiGLU everywhere); the
+    # capacity is C = ceil(k·S/E · moe_capacity) tokens an expert
     n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity: float = 1.25
+    moe_aux_coef: float = 1e-2  # Switch load-balance loss coefficient
+    moe_zloss_coef: float = 1e-3  # router z-loss coefficient
     # per-block rematerialization and its policy (None | "mlp" |
     # "mlp_qkv", the module docstring); a policy needs remat=True
     remat: bool = False
@@ -233,6 +246,81 @@ class MLP(nn.Module):
         return self.w2(p["w2"], F.silu(gate) * up)
 
 
+def moe_route(probs: torch.Tensor, top_k: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's iterative top-k dispatch of ``MoEMLP``: router probabilities
+    ``[..., S, E]`` fp32 → (combine ``[..., S, E, C]``, the top-1 one-hot
+    ``[..., S, E]``). Each pass takes every token's best remaining expert
+    (``argmax``: the first of ties), its slot is the count of earlier
+    tokens that chose that expert (a running fill count across passes), a
+    token past the capacity is dropped, and the kept gates are
+    renormalised to sum to 1 a token. One-hots are comparisons against
+    ``arange``, so the function batches under ``torch.func.vmap``."""
+    e = probs.shape[-1]
+    experts = torch.arange(e, device=probs.device)
+    slots = torch.arange(capacity, device=probs.device)
+    combine = probs.new_zeros((*probs.shape, capacity))
+    counts = probs.new_zeros((*probs.shape[:-2], 1, e))
+    p = probs
+    top1 = None
+    for _ in range(top_k):
+        onehot = (p.argmax(dim=-1, keepdim=True) == experts).to(probs.dtype)  # [.., S, E]
+        if top1 is None:
+            top1 = onehot
+        gate = (p * onehot).sum(-1)
+        # position of each token within its chosen expert's buffer
+        pos = onehot.cumsum(dim=-2) - onehot + counts
+        pos_in_e = (pos * onehot).sum(-1)
+        keep = (pos_in_e < capacity).to(probs.dtype)
+        slot = (pos_in_e.clamp(max=capacity - 1).long()[..., None] == slots).to(probs.dtype)  # [.., S, C]
+        combine = combine + (gate * keep)[..., None, None] * onehot[..., None] * slot[..., None, :]
+        counts = counts + onehot.sum(dim=-2, keepdim=True)
+        p = p * (1.0 - onehot)  # mask the chosen expert for the next pass
+    total = combine.sum(dim=(-2, -1), keepdim=True)
+    return combine / total.clamp(min=1e-9), top1
+
+
+class MoEMLP(nn.Module):
+    """Mixture-of-experts SwiGLU FFN with capacity-based dense dispatch
+    (JAX's ``MoEMLP``, the GShard/Switch formulation): the router's
+    ``[S, E, C]`` dispatch and combine tensors turn the layer into batched
+    matmuls of static shapes, the experts stacked on a leading ``[E, ...]``
+    axis. Tokens past an expert's capacity ``C = ceil(k·S/E · capacity)``
+    are dropped (their combine weight is 0; the residual carries them).
+
+    Routing runs over the last two input dims ``[b, t]`` (S = b·t tokens),
+    as JAX's layer sees ``[b, t, d]``; any dims before them (a node-stacked
+    input) route apart. ``forward`` returns ``(out, aux)`` with aux the
+    Switch load-balance loss ``E·Σ_e f_e·p̄_e`` times ``moe_aux_coef``
+    plus the router z-loss ``mean(logsumexp(logits)²)`` times
+    ``moe_zloss_coef``, one a routing group (a scalar for ``[b, t, d]``)."""
+
+    def __init__(self, cfg: TransformerConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+
+    def forward(self, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        dt, e, k = cfg.dtype, cfg.n_experts, cfg.moe_top_k
+        lead, d = x.shape[:-3], x.shape[-1]
+        s = x.shape[-3] * x.shape[-2]
+        xs = x.reshape(*lead, s, d)
+        logits = xs.float() @ p["router"].float()  # [.., S, E]
+        probs = torch.softmax(logits, dim=-1)
+        capacity = max(1, int(-(-k * s // e) * cfg.moe_capacity))
+        combine, top1 = moe_route(probs, k, capacity)
+        dispatch = (combine > 0.0).to(dt)  # [.., S, E, C]
+        xe = torch.einsum("...sec,...sd->...ecd", dispatch, xs.to(dt))  # [.., E, C, D]
+        gate = torch.einsum("...ecd,edf->...ecf", xe, p["w1"].to(dt))
+        up = torch.einsum("...ecd,edf->...ecf", xe, p["w3"].to(dt))
+        ye = torch.einsum("...ecf,efd->...ecd", F.silu(gate) * up, p["w2"].to(dt))
+        out = torch.einsum("...sec,...ecd->...sd", combine.to(dt), ye)
+        # Switch load-balance loss: E · Σ_e (top-1 token fraction · mean prob)
+        balance = e * (top1.mean(dim=-2) * probs.mean(dim=-2)).sum(-1)
+        zloss = (torch.logsumexp(logits, dim=-1) ** 2).mean(-1)
+        aux = cfg.moe_aux_coef * balance + cfg.moe_zloss_coef * zloss
+        return out.reshape(x.shape), aux
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None) -> None:
         super().__init__()
@@ -240,9 +328,16 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.dtype)
         self.attn = Attention(cfg, attn_fn)
         self.mlp_norm = RMSNorm(cfg.dtype)
-        self.mlp = MLP(cfg)
+        self.mlp = MoEMLP(cfg) if cfg.n_experts > 0 else MLP(cfg)
 
     def forward(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_aux(p, x)[0]
+
+    def forward_with_aux(self, p: dict, x: torch.Tensor) -> tuple:
+        """``(x, aux)``: the block's output and its FFN's router losses
+        (``None`` for the dense SwiGLU). Under ``remat_policy`` "mlp" and
+        "mlp_qkv" the FFN (experts too) runs outside every segment, so its
+        gate and up activations are kept."""
         cfg = self.cfg
         if not cfg.remat:
             return self._block(p, x)
@@ -253,11 +348,18 @@ class Block(nn.Module):
         else:  # "mlp_qkv"
             q, k, v = self.attn.qkv(p["attn"], self.attn_norm(p["attn_norm"], x))
             x, h = _segment(self._attn_rest, p, x, q, k, v)
-        return x + self.mlp(p["mlp"], h)
+        out, aux = self._ffn(p["mlp"], h)
+        return x + out, aux
 
-    def _block(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, p: dict, h: torch.Tensor) -> tuple:
+        if isinstance(self.mlp, MoEMLP):
+            return self.mlp(p, h)
+        return self.mlp(p, h), None
+
+    def _block(self, p: dict, x: torch.Tensor) -> tuple:
         x, h = self._attn_side(p, x)
-        return x + self.mlp(p["mlp"], h)
+        out, aux = self._ffn(p["mlp"], h)
+        return x + out, aux
 
     def _attn_side(self, p: dict, x: torch.Tensor) -> tuple:
         """The residual after attention and the FFN's normed input."""
@@ -273,32 +375,63 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, attn_fn: Optional[Callable] = None) -> None:
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE FFN is not ported yet (ROADMAP Queue A item 6: transformer breadth)"
-            )
+        if cfg.scan_layers and cfg.n_experts > 0:
+            # as JAX: its scanned layout cannot hold MoE layers (flax's scan
+            # does not thread the sown router losses)
+            raise NotImplementedError("scan_layers with MoE: use unrolled layers for MoE")
         self.cfg = cfg
         self.layers = nn.ModuleList(Block(cfg, attn_fn) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dtype)
 
     def forward(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return self.forward_with_aux(params, tokens)[0]
+
+    def forward_with_aux(self, params: dict, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(logits, aux)``: aux sums the MoE layers' router losses (what
+        JAX's ``apply_with_aux`` reads from the sown collection), an fp32
+        zero for a dense model."""
         dt = self.cfg.dtype
         emb = params["embed"]
         x = F.embedding(tokens.long(), emb).to(dt)
+        aux = None
         for i, block in enumerate(self.layers):
-            x = block(params[f"layer_{i}"], x)
+            x, a = block.forward_with_aux(params[f"layer_{i}"], x)
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = self.final_norm(params["final_norm"], x)
-        return (x @ emb.to(dt).t()).float()  # tied embeddings
+        logits = (x @ emb.to(dt).t()).float()  # tied embeddings
+        return logits, logits.new_zeros(()) if aux is None else aux
+
+
+def pick_attention(seq_len: int, device=None) -> str:
+    """The ``attn="auto"`` policy (JAX's ``pick_attention``): ``"flash"``
+    on a CUDA device from ``Settings.FLASH_MIN_SEQ_LEN`` on, ``"dense"``
+    below it and anywhere else. JAX answers dense off the TPU, where its
+    kernel would run in interpret mode; here the CPU's flash is the plain
+    versions, a correctness path, not a fast one. ``device=None`` is the
+    card, as every entry point's default. Single-device policy: the rings
+    shard the sequence over a mesh and are chosen explicitly."""
+    from p2pfl_tpu_torch.settings import Settings
+
+    if resolve_device(device).type != "cuda":
+        return "dense"
+    return "flash" if seq_len >= Settings.FLASH_MIN_SEQ_LEN else "dense"
 
 
 def resolve_attention(
-    attn: str, config: Optional[FlashConfig] = None, mesh: Any = None
+    attn: str, config: Optional[FlashConfig] = None, mesh: Any = None,
+    seq_len: Optional[int] = None, device=None,
 ) -> Optional[Callable]:
     """Map a backend name to an ``(q, k, v) -> out`` callable (``None`` =
-    dense, as in JAX). ``"ring"`` and ``"ring_flash"`` shard the sequence
-    over the ``Settings.MESH_MODEL_AXIS`` axis of ``mesh``; ``config`` is
-    the flash schedule of ``"flash"`` and of every ring hop of
-    ``"ring_flash"``."""
+    dense, as in JAX). ``"auto"`` picks dense or flash by ``seq_len`` on
+    ``device`` (:func:`pick_attention`). ``"ring"`` and ``"ring_flash"``
+    shard the sequence over the ``Settings.MESH_MODEL_AXIS`` axis of
+    ``mesh``; ``config`` is the flash schedule of ``"flash"`` and of every
+    ring hop of ``"ring_flash"``."""
+    if attn == "auto":
+        if seq_len is None:
+            raise ValueError("attn='auto' needs seq_len to pick a backend")
+        attn = pick_attention(seq_len, device)
     if attn == "dense":
         return None
     if attn == "flash":
@@ -316,12 +449,7 @@ def resolve_attention(
             ring_attention, mesh=mesh, axis_name=Settings.MESH_MODEL_AXIS,
             impl="flash" if flash else "dense", flash_config=config if flash else None,
         )
-    if attn == "auto":
-        raise NotImplementedError(
-            "attn='auto' is not ported yet: it waits for a crossover measured "
-            "on the card (ROADMAP Queue A item 6, pick_attention)"
-        )
-    raise ValueError(f"unknown attention backend {attn!r} (dense|flash|ring|ring_flash)")
+    raise ValueError(f"unknown attention backend {attn!r} (auto|dense|flash|ring|ring_flash)")
 
 
 # ---- initialisation (flax's initialisers, from a torch.Generator) ----
@@ -332,8 +460,10 @@ def _normal(shape, std, gen, device):
 
 
 def _lecun_normal(shape, gen, device):
-    """flax ``lecun_normal``: truncated normal in [-2, 2] std, variance 1/fan_in."""
-    std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+    """flax ``lecun_normal``: truncated normal in [-2, 2] std, variance
+    1/fan_in, fan_in = shape[-2] times the leading dims (flax's receptive
+    field: an ``[E, in, out]`` expert stack has fan_in E·in)."""
+    std = math.sqrt(1.0 / math.prod(shape[:-1])) / 0.87962566103423978
     lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
     u = torch.rand(shape, generator=gen, device=device, dtype=torch.float32) * (hi - lo) + lo
     return torch.erfinv(2 * u - 1) * math.sqrt(2) * std
@@ -357,6 +487,16 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> dict:
     def norm():
         return {"scale": torch.ones(cfg.dim, device=dev)}
 
+    def moe():
+        # JAX's MoEMLP params: the router, then the [E, ...] expert stacks
+        e, d, f = cfg.n_experts, cfg.dim, cfg.ffn_hidden
+        return {
+            "router": _normal((d, e), 0.02, gen, dev),
+            "w1": _lecun_normal((e, d, f), gen, dev),
+            "w3": _lecun_normal((e, d, f), gen, dev),
+            "w2": _lecun_normal((e, f, d), gen, dev),
+        }
+
     r, r_mlp = cfg.lora_rank, cfg.lora_rank if cfg.lora_mlp else 0
     params: dict = {"embed": _normal((cfg.vocab_size, cfg.dim), 0.02, gen, dev)}
     for i in range(cfg.n_layers):
@@ -369,7 +509,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> dict:
                 "wo": dense(cfg.n_heads * hd, cfg.dim, r),
             },
             "mlp_norm": norm(),
-            "mlp": {
+            "mlp": moe() if cfg.n_experts > 0 else {
                 "w1": dense(cfg.dim, cfg.ffn_hidden, r_mlp),
                 "w3": dense(cfg.dim, cfg.ffn_hidden, r_mlp),
                 "w2": dense(cfg.ffn_hidden, cfg.dim, r_mlp),
@@ -390,7 +530,8 @@ def tiny_transformer(
 ) -> TorchModel:
     """A LoRA-ready causal LM bound to fresh parameters on ``device``.
 
-    ``attn`` is ``"dense"``, ``"flash"``, ``"ring"`` or ``"ring_flash"``
+    ``attn`` is ``"auto"`` (:func:`pick_attention` for ``seq_len`` on
+    ``device``), ``"dense"``, ``"flash"``, ``"ring"`` or ``"ring_flash"``
     (the ring ones need ``mesh``, a
     :func:`~p2pfl_tpu_torch.parallel.mesh.federation_mesh` whose ``model``
     axis shards the sequence); ``attn_fn`` overrides it. For flash,
@@ -400,6 +541,8 @@ def tiny_transformer(
     ``"ring_flash"`` (each hop's kernel sees ``seq_len // model``).
     """
     cfg = cfg or TransformerConfig()
+    if attn == "auto":
+        attn = pick_attention(seq_len, device)
     if attn_fn is None:
         if attn in ("flash", "ring_flash"):
             from p2pfl_tpu_torch.ops.autotune import _fit, default_flash_config

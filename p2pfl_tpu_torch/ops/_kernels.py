@@ -14,8 +14,14 @@ plain C interface. The library's name carries a hash of the sources, so
 an edited source is never served by a stale build. Nothing here runs at
 import: the build happens inside the first launch.
 
+The flash kernels are built at head widths 32, 64 and 128
+(:data:`HEAD_DIMS`: one instantiation a width of each template, the
+shared-memory layouts in ``csrc/sm90_common.cuh``); the C entry points
+dispatch on the width they are given. :data:`LAUNCHES_BY_WIDTH` counts
+the flash launches of each width beside :data:`LAUNCHES`.
+
 Each wrapper checks device, dtype, contiguity and shapes and raises on
-anything the kernels were not built for; it launches on PyTorch's current
+anything the kernels were not built for (any other head width too); it launches on PyTorch's current
 stream, raises if the launch returned a CUDA error, and adds one to its
 entry in :data:`LAUNCHES`. Outputs and scratch are allocated here with
 ``torch.empty`` / ``torch.zeros``; the kernels allocate nothing.
@@ -44,7 +50,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2pfl_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (``-c``); the link adds ``-shared``
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIM = 64  # the only head width built (the slice's)
+HEAD_DIMS = (32, 64, 128)  # the head widths built
 TILE = 64  # the kernels' q/k tile: T must be a multiple
 
 #: launches per kernel since the last :func:`reset_launches`
@@ -52,6 +58,11 @@ LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkvq": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_fwd_offs": 0, "flash_bwd_dkvq_offs": 0, "flash_bwd_dq_offs": 0,
     "flash_bwd_dkv_offs": 0, "ici_exchange": 0,
+}
+
+#: the flash kernels' launches by head width since the last :func:`reset_launches`
+LAUNCHES_BY_WIDTH: dict[str, dict[int, int]] = {
+    name: {d: 0 for d in HEAD_DIMS} for name in LAUNCHES if name.startswith("flash_")
 }
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -63,13 +74,13 @@ SIGNATURES = {
     "p2p_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
     "p2p_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
     "p2p_flash_fwd_offs": [_P] * 5 + [_I] * 5 + [_P],
-    "p2p_flash_fwd_smem_bytes": [],
+    "p2p_flash_fwd_smem_bytes": [_I],
     "p2p_flash_bwd_dkvq_offs": [_P] * 10 + [_I] * 5 + [_P],
-    "p2p_flash_bwd_smem_bytes": [],
+    "p2p_flash_bwd_smem_bytes": [_I],
     "p2p_flash_bwd_dkv_offs": [_P] * 9 + [_I] * 5 + [_P],
-    "p2p_flash_bwd_dkv_smem_bytes": [],
+    "p2p_flash_bwd_dkv_smem_bytes": [_I],
     "p2p_flash_bwd_dq_offs": [_P] * 8 + [_I] * 5 + [_P],
-    "p2p_flash_bwd_dq_smem_bytes": [],
+    "p2p_flash_bwd_dq_smem_bytes": [_I],
     "p2p_ici_exchange": [_P, _I, _P],
     "p2p_ici_max_entries": [],
     "p2p_enable_peer_access": [_I, _I],
@@ -85,6 +96,9 @@ def reset_launches() -> None:
     with _launch_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+        for widths in LAUNCHES_BY_WIDTH.values():
+            for d in widths:
+                widths[d] = 0
 
 
 def _nvcc() -> str:
@@ -159,13 +173,15 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
-def _check(name: str, rc: int) -> None:
+def _check(name: str, rc: int, head_dim: Optional[int] = None) -> None:
     if rc == -1:
         raise ValueError(f"{name}: shape not supported by the kernel")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     with _launch_lock:
         LAUNCHES[name] += 1
+        if head_dim is not None:
+            LAUNCHES_BY_WIDTH[name][head_dim] += 1
 
 
 def _check_inputs(**tensors: torch.Tensor) -> tuple[int, int, int, int]:
@@ -186,8 +202,8 @@ def _check_inputs(**tensors: torch.Tensor) -> tuple[int, int, int, int]:
         want_shape = (b, h, t) if row else (b, h, t, d)
         if tuple(x.shape) != want_shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)} != {want_shape}")
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim {d} not built (built: {HEAD_DIM})")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not built (built: {HEAD_DIMS})")
     if t % TILE:
         raise ValueError(f"T={t} must be a multiple of {TILE}")
     return b, h, t, d
@@ -207,31 +223,30 @@ def flash_fwd(q, k, v, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b * h, t, d, int(causal), _stream(),
     )
-    _check("flash_fwd", rc)
+    _check("flash_fwd", rc, d)
     return o, lse
 
 
-def flash_fwd_smem_bytes() -> int:
-    """Dynamic shared memory of one block of the forward (kernels 1 and 5),
-    as the built library sizes it (``-Xptxas -v`` reports static memory
-    only)."""
-    return _load().p2p_flash_fwd_smem_bytes()
+def flash_fwd_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory of one block of the forward (kernels 1 and 5)
+    at a head width, as the built library sizes it (``-Xptxas -v``
+    reports static memory only); -1 for a width not built."""
+    return _load().p2p_flash_fwd_smem_bytes(head_dim)
 
 
-def flash_bwd_smem_bytes() -> int:
-    """Dynamic shared memory of one block of the fused backward (kernels 2
-    and 6)."""
-    return _load().p2p_flash_bwd_smem_bytes()
+def flash_bwd_smem_bytes(head_dim: int) -> int:
+    """The same of the fused backward (kernels 2 and 6)."""
+    return _load().p2p_flash_bwd_smem_bytes(head_dim)
 
 
-def flash_bwd_dkv_smem_bytes() -> int:
+def flash_bwd_dkv_smem_bytes(head_dim: int) -> int:
     """The same of the split dK/dV pass (kernels 4 and 8)."""
-    return _load().p2p_flash_bwd_dkv_smem_bytes()
+    return _load().p2p_flash_bwd_dkv_smem_bytes(head_dim)
 
 
-def flash_bwd_dq_smem_bytes() -> int:
+def flash_bwd_dq_smem_bytes(head_dim: int) -> int:
     """The same of the split dQ pass (kernels 3 and 7)."""
-    return _load().p2p_flash_bwd_dq_smem_bytes()
+    return _load().p2p_flash_bwd_dq_smem_bytes(head_dim)
 
 
 def _dq_accumulator(q: torch.Tensor) -> torch.Tensor:
@@ -255,7 +270,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, causal: bool):
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
         b * h, t, d, int(causal), _stream(),
     )
-    _check("flash_bwd_dkvq", rc)
+    _check("flash_bwd_dkvq", rc, d)
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -277,7 +292,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), b * h, t, d, int(causal), _stream(),
     )
-    _check("flash_bwd_dq", rc)
+    _check("flash_bwd_dq", rc, d)
     return dq
 
 
@@ -291,7 +306,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool) -> tuple[torch.Tensor, 
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, d, int(causal),
         _stream(),
     )
-    _check("flash_bwd_dkv", rc)
+    _check("flash_bwd_dkv", rc, d)
     return dk, dv
 
 
@@ -324,7 +339,7 @@ def flash_fwd_offs(q, k, v, q_off: int, k_off: int) -> tuple[torch.Tensor, torch
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         b * h, t, d, q_off, k_off, _stream(),
     )
-    _check("flash_fwd_offs", rc)
+    _check("flash_fwd_offs", rc, d)
     return o, lse
 
 
@@ -341,7 +356,7 @@ def flash_bwd_fused_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
         delta.data_ptr(), glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
         b * h, t, d, q_off, k_off, _stream(),
     )
-    _check("flash_bwd_dkvq_offs", rc)
+    _check("flash_bwd_dkvq_offs", rc, d)
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -355,7 +370,7 @@ def flash_bwd_dq_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int) -> 
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), glse.data_ptr(), dq.data_ptr(), b * h, t, d, q_off, k_off, _stream(),
     )
-    _check("flash_bwd_dq_offs", rc)
+    _check("flash_bwd_dq_offs", rc, d)
     return dq
 
 
@@ -370,7 +385,7 @@ def flash_bwd_dkv_offs(q, k, v, do, lse, delta, glse, q_off: int, k_off: int):
         delta.data_ptr(), glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, d,
         q_off, k_off, _stream(),
     )
-    _check("flash_bwd_dkv_offs", rc)
+    _check("flash_bwd_dkv_offs", rc, d)
     return dk, dv
 
 

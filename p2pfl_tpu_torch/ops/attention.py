@@ -37,7 +37,9 @@ def causal_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     acc = acc_dtype(q.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) * scale
     mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-    logits = torch.where(mask, logits, torch.tensor(NEG_INF, dtype=acc, device=q.device))
+    # a scalar fill, not a host tensor: a CUDA graph capture (a captured
+    # MoE round runs dense attention) refuses host-to-device copies
+    logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(acc), v.to(acc)).to(q.dtype)
 

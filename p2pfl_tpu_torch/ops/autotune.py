@@ -2,18 +2,20 @@
 
 Only the shipped ``"cpu"`` row is carried over, so the plain PyTorch
 versions on the CPU walk the same blocks as the JAX kernels in interpret
-mode. There is no GPU row: nothing has been measured on a card yet.
+mode, at every head width (its blocks depend on T alone). There is no GPU
+row: the CUDA kernels have no block sizes to choose.
 
-On CUDA the kernels use their own fixed tiles: the forward of
-``csrc/flash_fwd_sm90.cu`` and the split dQ pass of
-``csrc/flash_bwd_dq_sm90.cu`` 128 q rows a block (two warpgroups of 64)
-against 64-row K/V tiles, the fused backward and the split dK/dV pass of
-``csrc/flash_bwd_sm90.cu`` 128 k rows a block (two warpgroups of 64)
-against 64-row Q/dO tiles. From a :class:`FlashConfig` they read only
-``bwd_mode`` (fused or split backward, through ``_bwd_use_fused``) and
-the ``causal`` flag
-passed beside it; block sizes and ``q_span`` shape only the plain
-versions. Tuning caches and sweeps are not ported.
+On CUDA the kernels use their own fixed tiles at each head width (32, 64
+and 128): the forward of ``csrc/flash_fwd_sm90.cu`` 128 q rows a block
+(two warpgroups of 64) against 64-row K/V tiles; the split dQ pass of
+``csrc/flash_bwd_dq_sm90.cu`` 192 q rows a block (128 at D = 128); the
+fused backward and the split dK/dV pass of ``csrc/flash_bwd_sm90.cu`` 128
+k rows a block (two warpgroups of 64) against 64-row Q/dO tiles. From a
+:class:`FlashConfig` they read only ``bwd_mode`` (fused or split
+backward, through ``_bwd_use_fused``) and the ``causal`` flag passed
+beside it; block sizes and ``q_span`` shape only the plain versions. The
+tuning caches and sweeps are not ported (ROADMAP): with fixed tiles a
+sweep would have only ``bwd_mode`` to choose.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
 """parallel of the PyTorch port (see the JAX package's module of the same path).
 
-``ChunkedFederation``, ``SpmdFederation`` and ``SpmdLoraFederation`` are
-importable from here; each loads its module on first use.
+``ChunkedFederation``, ``SpmdFederation``, ``SpmdLoraFederation``,
+``SpmdLmFederation`` and ``PipelineFederation`` (which raises: not
+ported) are importable from here; each loads its module on first use.
 """
 
 _EXPORTS = {
     "ChunkedFederation": "p2pfl_tpu_torch.parallel.chunked",
     "SpmdFederation": "p2pfl_tpu_torch.parallel.spmd",
     "SpmdLoraFederation": "p2pfl_tpu_torch.parallel.spmd_lora",
+    "SpmdLmFederation": "p2pfl_tpu_torch.parallel.spmd_lm",
+    "PipelineFederation": "p2pfl_tpu_torch.parallel.spmd_lm",
 }
 
 __all__ = list(_EXPORTS)

@@ -90,6 +90,14 @@ class Settings:
     # (exact under plain SGD, keeps no round-start params); False takes
     # option II's (x - y_i)/(K·lr) from the round-start anchor
     SCAFFOLD_FUSED_CI: bool = True
+    # sequence length at and above which attn="auto" picks the flash
+    # kernels over dense attention on a CUDA device (anywhere else "auto"
+    # stays dense: the plain versions are a correctness path). JAX's is
+    # 1024, its TPU crossover; on an H100 config 7's flash train step beat
+    # dense's from T 512, the shortest length measured, in most runs
+    # (host-bound steps; PERF.md; `python3 chip_smoke.py --only config7`
+    # measures it)
+    FLASH_MIN_SEQ_LEN: int = 512
     # the gossip Node's round compute (eval of the incoming model, every
     # local epoch, the node's own weighted partial-aggregation fold) as
     # one call (parallel/spmd.py::fused_node_round, driven by

@@ -20,6 +20,8 @@ pytestmark = pytest.mark.cuda
 
 #: every kernel-against-plain check runs on the inputs of each seed
 SEEDS = chip_smoke.SEEDS
+#: the head widths the flash kernels are built for
+WIDTHS = (32, 64, 128)
 
 
 @pytest.fixture
@@ -47,10 +49,11 @@ def _close(got, want, terms=None):
     assert chip_smoke.check(got, want, terms)[2] <= 1
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("causal", [True, False])
-def test_kernels_match_plain(cuda, causal):
+def test_kernels_match_plain(cuda, causal, d):
     for seed in SEEDS:
-        q, k, v, do = _inputs(cuda, seed=seed)
+        q, k, v, do = _inputs(cuda, d=d, seed=seed)
         o, lse = _kernels.flash_fwd(q, k, v, causal)
         o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, 64, 64)
         _close(o, o_ref, fa.flash_fwd_magnitude(q, k, v, causal, 64, 64))
@@ -97,11 +100,12 @@ def _check_fwd(o, lse, o_ref, lse_ref, terms, dead=0):
         assert torch.count_nonzero(o[..., :dead, :]) == 0 and bool((lse[..., :dead] == -1e30).all())
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("shape", list(FWD_SHAPES))
-def test_forward_edges_match_plain(cuda, shape):
+def test_forward_edges_match_plain(cuda, shape, d):
     b, h, t, causal = FWD_SHAPES[shape]
     for seed in SEEDS:
-        q, k, v = _inputs(cuda, b=b, h=h, t=t, n=3, seed=seed)
+        q, k, v = _inputs(cuda, b=b, h=h, t=t, d=d, n=3, seed=seed)
         _check_fwd(*_kernels.flash_fwd(q, k, v, causal), *fa.flash_fwd_plain(q, k, v, causal, 64, 64),
                    fa.flash_fwd_magnitude(q, k, v, causal, 64, 64))
     torch.cuda.synchronize()
@@ -116,11 +120,12 @@ FWD_OFFSETS = {
 }
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("case", list(FWD_OFFSETS))
-def test_offset_forward_half_tile_matches_plain(cuda, case):
+def test_offset_forward_half_tile_matches_plain(cuda, case, d):
     q_off, k_off = FWD_OFFSETS[case]
     for seed in SEEDS:
-        q, k, v = _inputs(cuda, b=1, h=3, t=192, n=3, seed=seed)
+        q, k, v = _inputs(cuda, b=1, h=3, t=192, d=d, n=3, seed=seed)
         _check_fwd(*_kernels.flash_fwd_offs(q, k, v, q_off, k_off),
                    *fa.flash_fwd_offs_plain(q, k, v, q_off, k_off, 64, 64),
                    fa.flash_fwd_offs_magnitude(q, k, v, q_off, k_off, 64, 64), dead=min(max(k_off - q_off, 0), 192))
@@ -132,10 +137,10 @@ def test_offset_forward_half_tile_matches_plain(cuda, case):
 # a long full sweep, one head and an odd number of heads ----
 
 
-def _check_backward_edges(cuda, shape, backward):
+def _check_backward_edges(cuda, shape, backward, d):
     b, h, t, causal = FWD_SHAPES[shape]
     for seed in SEEDS:
-        q, k, v, do = _inputs(cuda, b=b, h=h, t=t, seed=seed)
+        q, k, v, do = _inputs(cuda, b=b, h=h, t=t, d=d, seed=seed)
         o, lse = _kernels.flash_fwd(q, k, v, causal)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, causal)
@@ -145,28 +150,30 @@ def _check_backward_edges(cuda, shape, backward):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("shape", list(FWD_SHAPES))
-def test_fused_backward_edges_match_plain(cuda, shape):
-    _check_backward_edges(cuda, shape, _kernels.flash_bwd_fused)
+def test_fused_backward_edges_match_plain(cuda, shape, d):
+    _check_backward_edges(cuda, shape, _kernels.flash_bwd_fused, d)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("shape", list(FWD_SHAPES))
-def test_split_backward_edges_match_plain(cuda, shape):
+def test_split_backward_edges_match_plain(cuda, shape, d):
     """Kernels 3 and 4 (csrc/flash_bwd_dq_sm90.cu and the dK/dV pass of
     csrc/flash_bwd_sm90.cu) at the forward's edges: blocks of 128 rows
     whose second warpgroup lies past T, a long full sweep, one head and an
     odd number of heads."""
-    _check_backward_edges(cuda, shape, _kernels.flash_bwd_split)
+    _check_backward_edges(cuda, shape, _kernels.flash_bwd_split, d)
 
 
-def _check_offset_backward_half_tile(cuda, case, backward):
+def _check_offset_backward_half_tile(cuda, case, backward, d):
     """At T 192 with a nonzero lse cotangent: dQ rows that no k tile
     reaches and dK/dV rows of keys that no q row sees are exact zeros (all
     three of a fully masked hop)."""
     q_off, k_off = FWD_OFFSETS[case]
     t = 192
     for seed in SEEDS:
-        q, k, v, do = _inputs(cuda, b=1, h=3, t=t, seed=seed)
+        q, k, v, do = _inputs(cuda, b=1, h=3, t=t, d=d, seed=seed)
         o, lse = _kernels.flash_fwd_offs(q, k, v, q_off, k_off)
         delta = (do.float() * o.float()).sum(-1)
         gen = torch.Generator(device=cuda).manual_seed(100 + seed)
@@ -186,16 +193,18 @@ def _check_offset_backward_half_tile(cuda, case, backward):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("case", list(FWD_OFFSETS))
-def test_offset_fused_backward_half_tile_matches_plain(cuda, case):
+def test_offset_fused_backward_half_tile_matches_plain(cuda, case, d):
     """Kernel 6."""
-    _check_offset_backward_half_tile(cuda, case, _kernels.flash_bwd_fused_offs)
+    _check_offset_backward_half_tile(cuda, case, _kernels.flash_bwd_fused_offs, d)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("case", list(FWD_OFFSETS))
-def test_offset_split_backward_half_tile_matches_plain(cuda, case):
+def test_offset_split_backward_half_tile_matches_plain(cuda, case, d):
     """Kernels 7 and 8."""
-    _check_offset_backward_half_tile(cuda, case, _kernels.flash_bwd_split_offs)
+    _check_offset_backward_half_tile(cuda, case, _kernels.flash_bwd_split_offs, d)
 
 
 #: the back-to-back tests' cases at chip_smoke's T 1024: the fully masked
@@ -203,19 +212,14 @@ def test_offset_split_backward_half_tile_matches_plain(cuda, case):
 #: the diagonal hop, a hop whose first k rows no q row sees, and kernels
 #: 3/4 causal and full at chip_smoke's 4 x 32 heads
 B2B_CASES = {"masked": (0, 1024), "diagonal": (1024, 1024), "split": (0, 128), "causal": None, "full": None}
-B2B_CALLS = 200
 
 
-def _back_to_back(cuda, case, backward, backward_offs, dq_exact: bool):
-    """Launches queued without a host synchronisation, as a drive or a
-    timing loop queues them: B2B_CALLS back to back, then 20 each behind a
-    sleep kernel (the timing loop's pattern). Each call's outputs are
-    compared with the first call's on the card, so nothing waits between
-    launches: → the differing elements per output; with ``dq_exact``
-    false, dQ's elements past chip_smoke's limit (no terms) instead. A lost
-    barrier phase hangs a call; run the card tests under a timeout."""
+def _back_to_back(cuda, case, backward, backward_offs, dq_exact: bool, d: int = 64):
+    """chip_smoke's ``back_to_back`` (B2B_CALLS launches queued, then 20
+    behind sleep kernels, each call against the first) on one case's
+    inputs: → the differing elements per output."""
     offs = B2B_CASES[case]
-    q, k, v, do = _inputs(cuda, b=2 if offs else 4, h=32, t=1024)
+    q, k, v, do = _inputs(cuda, b=2 if offs else 4, h=32, t=1024, d=d)
     if offs is None:
         causal = case == "causal"
         o, lse = _kernels.flash_fwd(q, k, v, causal)
@@ -225,38 +229,27 @@ def _back_to_back(cuda, case, backward, backward_offs, dq_exact: bool):
         o, lse = _kernels.flash_fwd_offs(q, k, v, *offs)
         args = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), torch.zeros_like(lse), *offs)
         call = lambda: backward_offs(*args)  # noqa: E731
-    first = call()
-    ref_dq = first[0].float()
-    dq_limit = chip_smoke.RTOL * ref_dq.abs() + chip_smoke.RTOL * ref_dq.pow(2).mean().sqrt()
-    bad = torch.zeros(len(first), dtype=torch.int64, device=cuda)
-    for n in range(B2B_CALLS + 20):
-        if n >= B2B_CALLS:
-            torch.cuda._sleep(1_000_000)
-        for i, (x, ref) in enumerate(zip(call(), first)):
-            if i == 0 and not dq_exact:
-                bad[i] += ((x.float() - ref_dq).abs() > dq_limit).sum()
-            else:
-                bad[i] += (x != ref).sum()
-    torch.cuda.synchronize()
-    return bad.tolist()
+    return chip_smoke.back_to_back(call, dq_exact)
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("case", ["masked", "diagonal", "split"])
-def test_fused_backward_back_to_back_calls_agree(cuda, case):
+def test_fused_backward_back_to_back_calls_agree(cuda, case, d):
     """Kernels 2 and 6 hand out their work items and buffers without a
     lost barrier phase: every call's dK and dV equal the first call's bit
     for bit, and its dQ (summed through bulk reductions in no fixed order)
     is within the limit of the first call's."""
-    bad = _back_to_back(cuda, case, _kernels.flash_bwd_fused, _kernels.flash_bwd_fused_offs, dq_exact=False)
+    bad = _back_to_back(cuda, case, _kernels.flash_bwd_fused, _kernels.flash_bwd_fused_offs, dq_exact=False, d=d)
     assert bad == [0, 0, 0]
 
 
+@pytest.mark.parametrize("d", WIDTHS)
 @pytest.mark.parametrize("case", list(B2B_CASES))
-def test_split_backward_back_to_back_calls_agree(cuda, case):
+def test_split_backward_back_to_back_calls_agree(cuda, case, d):
     """The same for kernels 3/4 ("causal", "full") and 7/8: the dK/dV pass
     hands out work items from a counter like the fused backward, and every
     output has one summation order, so all calls agree bit for bit."""
-    bad = _back_to_back(cuda, case, _kernels.flash_bwd_split, _kernels.flash_bwd_split_offs, dq_exact=True)
+    bad = _back_to_back(cuda, case, _kernels.flash_bwd_split, _kernels.flash_bwd_split_offs, dq_exact=True, d=d)
     assert bad == [0, 0, 0]
 
 
@@ -310,12 +303,18 @@ def test_launch_counts_and_refusals(cuda):
     _kernels.reset_launches()
     _kernels.flash_fwd(q, k, v, True)
     assert _kernels.LAUNCHES["flash_fwd"] == 1
+    assert _kernels.LAUNCHES_BY_WIDTH["flash_fwd"] == {32: 0, 64: 1, 128: 0}
     with pytest.raises(TypeError):
         _kernels.flash_fwd(q.float(), k.float(), v.float(), True)
     with pytest.raises(ValueError, match="multiple"):
         _kernels.flash_fwd(q[:, :, :100].contiguous(), k[:, :, :100].contiguous(), v[:, :, :100].contiguous(), True)
+    # a width that is not built (96) raises; it never runs the plain version
     with pytest.raises(ValueError, match="head_dim"):
-        _kernels.flash_fwd(*(x[..., :32].contiguous() for x in (q, k, v)), True)
+        _kernels.flash_fwd(*(torch.cat([x, x[..., :32]], -1) for x in (q, k, v)), True)
+    o96 = torch.empty((2, 4, 128, 96), dtype=torch.bfloat16, device=cuda)
+    assert _kernels._load().p2p_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o96.data_ptr(),
+                                          o96.data_ptr(), 8, 128, 96, 1, _kernels._stream()) == -1
+    assert _kernels.flash_fwd_smem_bytes(96) == -1
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.flash_fwd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True)
     assert _kernels.LAUNCHES["flash_fwd"] == 1

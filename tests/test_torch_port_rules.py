@@ -134,12 +134,12 @@ def test_kernel_sources_and_bindings_agree():
     and importing the module built nothing."""
     sources = {p.name: p.read_text() for p in sorted((PKG / "csrc").glob("*.cu"))}
     argcs = {
-        "flash_bwd_dq_sm90.cu": {"p2p_flash_bwd_dq": 12, "p2p_flash_bwd_dq_offs": 14, "p2p_flash_bwd_dq_smem_bytes": 0},
+        "flash_bwd_dq_sm90.cu": {"p2p_flash_bwd_dq": 12, "p2p_flash_bwd_dq_offs": 14, "p2p_flash_bwd_dq_smem_bytes": 1},
         "flash_bwd_sm90.cu": {
-            "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_smem_bytes": 0,
-            "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dkv_offs": 15, "p2p_flash_bwd_dkv_smem_bytes": 0,
+            "p2p_flash_bwd_dkvq": 14, "p2p_flash_bwd_dkvq_offs": 16, "p2p_flash_bwd_smem_bytes": 1,
+            "p2p_flash_bwd_dkv": 13, "p2p_flash_bwd_dkv_offs": 15, "p2p_flash_bwd_dkv_smem_bytes": 1,
         },
-        "flash_fwd_sm90.cu": {"p2p_flash_fwd": 10, "p2p_flash_fwd_offs": 11, "p2p_flash_fwd_smem_bytes": 0},
+        "flash_fwd_sm90.cu": {"p2p_flash_fwd": 10, "p2p_flash_fwd_offs": 11, "p2p_flash_fwd_smem_bytes": 1},
         "ici_exchange.cu": {"p2p_ici_exchange": 3, "p2p_ici_max_entries": 0, "p2p_enable_peer_access": 2},
     }
     assert sorted(sources) == sorted(argcs)

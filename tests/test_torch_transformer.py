@@ -208,9 +208,17 @@ def test_node_stacked_adapters_equal_per_node_calls():
 
 @pytest.mark.parametrize("kwargs,match", [({"n_experts": 4}, "MoE")])
 def test_unported_options_raise(kwargs, match):
-    cfg = ttr.TransformerConfig(**SMALL, **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        ttr.CausalLM(cfg)
+    """The MoE FFN is ported: the model builds with it, and, as in JAX,
+    refuses it only with scanned layers (the JAX layout of which cannot
+    hold MoE params: flax's scan does not thread the sown losses)."""
+    ttr.CausalLM(ttr.TransformerConfig(**SMALL, **kwargs))
+    for mod in (jtr, ttr):
+        cfg = mod.TransformerConfig(**SMALL, **kwargs, scan_layers=True)
+        with pytest.raises(NotImplementedError, match=match):
+            if mod is jtr:
+                mod.tiny_transformer(seq_len=SEQ, cfg=cfg)
+            else:
+                mod.CausalLM(cfg)
 
 
 def test_remat_policy_validation_matches_jax():
@@ -309,15 +317,19 @@ def test_remat_policies_match_flax(policy):
 
 @pytest.mark.parametrize("attn", ["ring", "ring_flash", "auto"])
 def test_unported_attention_backends_raise(attn):
-    """"auto" is not ported and raises. The rings are ported: without a
-    mesh they raise, with a CPU ring of 4 shards their logits equal the
-    dense model's (fp32, 3e-5)."""
+    """Every backend is ported; an unknown name raises. "auto" on the CPU
+    builds the dense model (bit-equal logits), as JAX's answers dense off
+    its accelerator. The rings without a mesh raise, with a CPU ring of 4
+    shards their logits equal the dense model's (fp32, 3e-5)."""
     cfg = ttr.TransformerConfig(**SMALL, dtype=torch.float32)
     with pytest.raises(ValueError, match="unknown"):
         ttr.resolve_attention("sparse")
     if attn == "auto":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.tiny_transformer(seq_len=SEQ, cfg=cfg, attn=attn, device="cpu")
+        auto = ttr.tiny_transformer(seq_len=SEQ, seed=2, cfg=cfg, attn=attn, device="cpu")
+        dense = ttr.tiny_transformer(seq_len=SEQ, seed=2, cfg=cfg, device="cpu")
+        x, _ = _tokens(seed=4)
+        assert torch.equal(auto.module(auto.params, torch.tensor(x)), dense.module(dense.params, torch.tensor(x)))
+        assert jtr.pick_attention(8192, backend="cpu") == ttr.pick_attention(8192, "cpu") == "dense"
         return
     from p2pfl_tpu_torch.parallel.mesh import federation_mesh
 
