@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only compress_control    # broken codecs: the spread limits' control
     python3 chip_smoke.py --only kernels config7 moe
     python3 chip_smoke.py --only moe_target          # config 10's 113M MoE federation to 0.60
+    python3 chip_smoke.py --only async               # the async control plane and the journal
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -206,13 +207,36 @@ Phases, each of which makes the script exit non-zero if it fails (the
    MFU, peak memory; no hand kernel (dense attention); (d) one round of 2
    nodes at 2L/64d with 4 experts, fp32, on the CPU against the card:
    routing identical on one input, params within ``C10_PAIR_REL_L2``;
-17. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
+17. [async] the async control plane on gossip Nodes (``drive_async``),
+   every payload between Nodes on the ICI plane, each Node's learner on its
+   own slot of the card: (a) one ``async_update`` through kernel 9 against
+   the byte path, bit for bit with its version triple, then
+   ``bench_async.py::run_threaded``'s fleet (10 MLP Nodes, synthetic MNIST
+   8192/2048 seed 3, batch 64, 4 local updates, ``_make_plan``'s seed 1905:
+   the last Node slow by 0.5 s inbound, the one before it crashed at its
+   update 1, 1 % drops) in ``sync``, ``async`` and ``hier``
+   (``HIER_CLUSTER_SIZE=4``) modes: wall seconds, least and most accuracy
+   of the survivors on the whole test set (each >= 0.8), the comm counters,
+   the staleness histogram, kernel 9's launches equal to the plane's shard
+   sends and no fallback; (b) 6 Nodes with one sign-flip attacker,
+   ``BYZ_SCREEN``, the trimmed mean and ``BYZ_SUSPICION_BETA=0.8``:
+   ``byz_evicted`` fires and the survivors reach 0.8; (c) 5 Nodes, one
+   edge journaled, killed by a ``RestartSpec`` and ``Node.resume``d onto
+   the card: its params bit-equal to its last committed snapshot, its
+   first push after the resume accepted; (d) ``SimulatedAsyncFleet`` at
+   1,000 nodes x 6 updates (slow 10 % at 10x, crash 1 %, drop 1 %, seed
+   1905), flat and with clusters of 32, on the card against the same fleet
+   on the CPU: merge count and version sequence equal, host seconds and
+   the virtual makespan;
+18. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
    also each node_lora experiment, the nameplate drive and, for 1 and 2,
    the compress phase's LoRA Nodes; for 9 the wire phase's gRPC ICI drive
    and the compress phase's MLP and LoRA drives, with kernel 9's time on
-   the codec tree as ``codec_tree``; for 1-4 also config 7's drives),
+   the codec tree as ``codec_tree``, and the async phase's drives,
+   ``async_<mode>``, ``async_byzantine`` and ``async_resume``; for 1-4 also
+   config 7's drives),
    ``launches_by_width`` the flash kernels' launches of the whole run by
    head width, and for kernels 1-4 ``widths`` the rows at widths 32 and
    128; then the ``nvidia-smi`` line again, and last ``{"ok": true,
@@ -4367,8 +4391,486 @@ def drive_moe_target() -> tuple[bool, dict]:
     return ok, res
 
 
+# ---- phase 17: the async control plane and durability ----
+
+#: ``bench_async.py::run_threaded``'s fleet (``BENCH_ASYNC.json`` "fleet")
+ASYNC_FLEET = dict(nodes=10, n_train=8192, n_test=2048, data_seed=3, batch=64, updates=4, slow_s=0.5, seed=1905)
+ASYNC_TARGET_ACC = 0.80
+#: ``bench_async.py::run_simulated``'s fleet: slow 10 % at 10x, crash 1 %, drop 1 %
+ASYNC_SIM = dict(nodes=1000, updates=6, slow_frac=0.10, slow_factor=10.0, seed=1905, local_lr=0.7)
+
+
+def _async_settings() -> None:
+    """``bench_async.py::_fleet_settings``: the test presets with the JAX
+    package's low-latency clocks and the fleet's FedBuff knobs, on the ICI
+    plane."""
+    from p2pfl_tpu_torch.settings import Settings, set_test_settings
+
+    set_test_settings()
+    for name, value in dict(GRPC_TIMEOUT=2.0, HEARTBEAT_PERIOD=0.3, HEARTBEAT_TIMEOUT=1.5, GOSSIP_PERIOD=0.02,
+                            GOSSIP_MODELS_PERIOD=0.05, VOTE_TIMEOUT=30.0, AGGREGATION_TIMEOUT=60.0,
+                            WAIT_HEARTBEATS_CONVERGENCE=0.4, MESSAGE_RETRY_BASE=0.1, MESSAGE_RETRY_CAP=0.8,
+                            BREAKER_SUSPECT_TIMEOUT=0.8, TRAIN_SET_SIZE=10, FEDBUFF_K=4, FEDBUFF_ALPHA=0.5,
+                            FEDBUFF_SERVER_LR=1.0, ASYNC_MAX_STALENESS=16, ASYNC_DRAIN_TIMEOUT=20.0,
+                            WEIGHTS_PLANE="ici", HIER_CLUSTER_SIZE=0, BYZ_SCREEN=False,
+                            ASYNC_ROBUST_AGG="fedavg", BYZ_SUSPICION_BETA=0.5).items():
+        setattr(Settings, name, value)
+
+
+def _async_nodes(n: int, device: str, data, addr_prefix: str = "node", slices=None):
+    """``n`` Nodes of the 784-256-128-10 MLP, each learner on its own slot
+    of ``submesh_federation_mesh(n, devices=[device] * n)`` (so every ICI
+    delivery is a real transfer), started and fully connected."""
+    from p2pfl_tpu_torch.learning.learner import TorchLearner
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
+    from p2pfl_tpu_torch.utils import full_connection, wait_convergence
+
+    slices = slices or node_slices(submesh_federation_mesh(n, devices=[device] * n))
+    nodes = [Node(learner=TorchLearner(mlp(seed=i, device=device), data.partition(i, n),
+                                       batch_size=ASYNC_FLEET["batch"], seed=i, mesh=slices[i]),
+                  address=f"{addr_prefix}-{i}") for i in range(n)]
+    for node in nodes:
+        node.start()
+    for node in nodes:
+        full_connection(node, nodes)
+    wait_convergence(nodes, n - 1, only_direct=True, wait=30)
+    return nodes, slices
+
+
+def _full_test_acc(learner, data) -> float:
+    """The fleet model's accuracy on the whole held-out set."""
+    from p2pfl_tpu_torch.learning.learner import eval_step
+
+    x, y = data.test_arrays()
+    dev = learner.device
+    _loss, acc = eval_step(learner.get_parameters(), torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+                           learner.module)
+    return float(acc)
+
+
+def _plane_counts() -> dict:
+    """Kernel 9's launches, the ICI plane's counters and its fallbacks by
+    reason (the plane's ``ici_fallback`` events)."""
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+    from p2pfl_tpu_torch.ops import _kernels
+
+    reasons: dict = {}
+    for s in telemetry.spans():
+        if s.name == "ici_fallback":
+            r = (s.attrs or {}).get("reason", "?")
+            reasons[r] = reasons.get(r, 0) + 1
+    return {"launches_ici_exchange": _kernels.LAUNCHES["ici_exchange"], "ici_stats": ici_mod.ici_stats(),
+            "fallbacks_by_reason": reasons}
+
+
+def _reset_counts() -> None:
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.communication.memory import MemoryRegistry
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+    from p2pfl_tpu_torch.ops import _kernels
+
+    MemoryRegistry.reset()
+    ici_mod.ShardPlaneRegistry.reset()
+    ici_mod.reset_ici_stats()
+    _kernels.reset_launches()
+    logger.reset_comm_metrics()
+    telemetry.reset()
+
+
+def _comm_sums(prefixes=("async", "byz", "screen", "journal", "node_resumed", "train_set_repair", "root_failover",
+                         "membership_changed", "fault_")) -> dict:
+    from p2pfl_tpu_torch.management.logger import logger
+
+    out: dict = {}
+    for d in logger.get_comm_metrics().values():
+        for k, v in d.items():
+            if k.startswith(prefixes):
+                out[k] = out.get(k, 0) + int(v)
+    return dict(sorted(out.items()))
+
+
+def _staleness() -> dict:
+    from p2pfl_tpu_torch.management.telemetry import telemetry
+
+    return {k.split("/")[0]: v for k, v in telemetry.value_histograms().items() if k.endswith("/staleness")}
+
+
+def async_threaded(mode: str, device: str = "cuda", fleet: dict = ASYNC_FLEET) -> dict:
+    """``bench_async.py::run_threaded`` on the port: a fresh fleet in
+    ``mode`` (``sync`` rounds, flat ``async`` FedBuff or ``hier`` with
+    clusters of 4) under ``_make_plan``'s seeded faults (the last node slow
+    on inbound weights, the one before it crashed at its update 1, 1 %
+    drops), every payload between nodes on the ICI plane. Returns the row:
+    wall seconds to the survivors' finish, least and most accuracy of the
+    survivors' final models on the whole test set, the comm counters, the
+    staleness histogram, kernel 9's launches beside the plane's counters."""
+    from p2pfl_tpu_torch.communication.faults import CrashSpec, EdgeFault, FaultPlan, install_fault_plan, remove_fault_plan
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.settings import Settings
+    from p2pfl_tpu_torch.utils import wait_to_finish
+
+    _async_settings()
+    Settings.FEDERATION_MODE = "sync" if mode == "sync" else "async"
+    Settings.HIER_CLUSTER_SIZE = 4 if mode == "hier" else 0
+    _reset_counts()
+    n = fleet["nodes"]
+    data = FederatedDataset.synthetic_mnist(n_train=fleet["n_train"], n_test=fleet["n_test"], seed=fleet["data_seed"])
+    nodes, _ = _async_nodes(n, device, data, addr_prefix=f"{mode}")
+    addrs = [x.addr for x in nodes]
+    plan = FaultPlan(seed=fleet["seed"], default=EdgeFault(drop=0.01), slow_nodes={addrs[-1]: fleet["slow_s"]},
+                     crashes={addrs[-2]: CrashSpec(stage="TrainStage" if mode == "sync" else "AsyncTrainStage",
+                                                   round_no=1)})
+    install_fault_plan(nodes, plan)
+    survivors = nodes[:-2] + nodes[-1:]
+    try:
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=fleet["updates"], epochs=1)
+        wait_to_finish(survivors, timeout=300)
+        wall = time.monotonic() - t0
+        if device != "cpu":
+            torch.cuda.synchronize()
+        accs = [_full_test_acc(x.learner, data) for x in survivors]
+        row = {"mode": mode, "wall_s": wall, "final_acc_min": min(accs), "final_acc_max": max(accs),
+               "crashed": not nodes[-2].is_running(), "comm": _comm_sums(), "staleness": _staleness(),
+               **_plane_counts()}
+    finally:
+        remove_fault_plan(nodes)
+        for x in nodes:
+            x.stop()
+        Settings.FEDERATION_MODE = "sync"
+    return row
+
+
+def async_byzantine(device: str = "cuda", fleet: dict = ASYNC_FLEET, n: int = 6) -> dict:
+    """A live async federation of ``n`` MLP Nodes with one sign-flip
+    attacker (an edge), the admission screen on, the trimmed mean and
+    ``BYZ_SUSPICION_BETA=0.8`` (one clear rejection quarantines): the
+    attacker must be evicted and the survivors reach the target."""
+    from p2pfl_tpu_torch.communication.faults import ByzantineSpec, FaultPlan, install_fault_plan, remove_fault_plan
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.settings import Settings
+    from p2pfl_tpu_torch.utils import wait_to_finish
+
+    _async_settings()
+    Settings.FEDERATION_MODE = "async"
+    Settings.BYZ_SCREEN = True
+    Settings.ASYNC_ROBUST_AGG = "trimmed-mean"
+    Settings.BYZ_SUSPICION_BETA = 0.8
+    _reset_counts()
+    data = FederatedDataset.synthetic_mnist(n_train=fleet["n_train"], n_test=fleet["n_test"], seed=fleet["data_seed"])
+    nodes, _ = _async_nodes(n, device, data, addr_prefix="byz")
+    attacker = nodes[1]  # node byz-0 sorts first: the root; byz-1 is an edge
+    install_fault_plan(nodes, FaultPlan(seed=fleet["seed"], byzantine={attacker.addr: ByzantineSpec(kind="sign_flip")}))
+    survivors = [x for x in nodes if x is not attacker]
+    try:
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=fleet["updates"], epochs=1)
+        wait_to_finish(nodes, timeout=300)
+        wall = time.monotonic() - t0
+        accs = [_full_test_acc(x.learner, data) for x in survivors]
+        return {"nodes": n, "attacker": attacker.addr, "wall_s": wall, "final_acc_min": min(accs),
+                "final_acc_max": max(accs), "comm": _comm_sums(), **_plane_counts()}
+    finally:
+        remove_fault_plan(nodes)
+        for x in nodes:
+            x.stop()
+        for name, value in (("FEDERATION_MODE", "sync"), ("BYZ_SCREEN", False), ("ASYNC_ROBUST_AGG", "fedavg"),
+                            ("BYZ_SUSPICION_BETA", 0.5)):
+            setattr(Settings, name, value)
+
+
+def async_resume(device: str = "cuda", fleet: dict = ASYNC_FLEET, n: int = 5) -> dict:
+    """The kill-and-resurrect drill: ``n`` Nodes paced at 0.3 s an update,
+    10 updates each; a journal in a temporary directory on one edge, killed
+    at its update 2 by a ``RestartSpec`` and brought back
+    by ``Node.resume`` onto ``device``, on its own slot. Its learner must
+    hold the params of its last committed snapshot bit for bit (recorded
+    at the commit), and the root's version vector must accept its first
+    push after the resume (a replay would be dropped)."""
+    import tempfile
+
+    from p2pfl_tpu_torch.communication.faults import FaultPlan, RestartSpec, install_fault_plan, remove_fault_plan
+    from p2pfl_tpu_torch.federation import buffer as buffer_mod
+    from p2pfl_tpu_torch.federation.staleness import as_version
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.learner import TorchLearner
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.node import Node
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.settings import Settings
+    from p2pfl_tpu_torch.utils import wait_to_finish
+
+    _async_settings()
+    Settings.FEDERATION_MODE = "async"
+    Settings.FEDBUFF_K = 2
+    _reset_counts()
+    data = FederatedDataset.synthetic_mnist(n_train=fleet["n_train"], n_test=fleet["n_test"], seed=fleet["data_seed"])
+    nodes, slices = _async_nodes(n, device, data, addr_prefix="rz")
+    victim = nodes[3]
+    jdir = tempfile.mkdtemp(prefix="p2pfl-journal-")
+    victim.enable_journal(jdir)
+    committed: list = []  # host copies of the victim's params at each commit
+    journal = victim.journal
+    real_commit = journal.commit_snapshot
+
+    def commit(snap, learner=None):
+        name = real_commit(snap, learner=learner)
+        committed.append([x.detach().cpu().clone() for x in tree_leaves(learner.get_parameters())])
+        return name
+
+    journal.commit_snapshot = commit
+    offers: list = []  # (origin, seq, accepted) of every offer at any buffer
+    real_offer = buffer_mod.BufferedAggregator.offer
+
+    def offer(self, update, screen_origin=None):
+        ver = as_version(update.version)
+        before = self._vv.last(ver.origin) if ver is not None else None
+        res = real_offer(self, update, screen_origin=screen_origin)
+        if ver is not None:
+            offers.append((ver.origin, ver.seq, time.monotonic(), before < ver.seq == self._vv.last(ver.origin)))
+        return res
+
+    revived: list = []
+    checks: dict = {}
+
+    def resurrect(addr):
+        learner = TorchLearner(mlp(seed=99, device=device), data.partition(3, n), batch_size=fleet["batch"], seed=99,
+                               mesh=slices[3])
+        checks["resume_t"] = time.monotonic()
+        node = Node.resume(jdir, learner=learner, rounds=2)
+        # read before the workflow adopts a global: it first waits
+        # WAIT_HEARTBEATS_CONVERGENCE (0.4 s) for the overlay
+        got = [x.detach().cpu() for x in tree_leaves(node.learner.get_parameters())]
+        checks["resumed params bit-equal to the last committed snapshot"] = bool(committed) and all(
+            torch.equal(a, b) for a, b in zip(got, committed[-1], strict=True))
+        checks["resumed learner on the card" if device != "cpu" else "resumed learner on the CPU"] = all(
+            x.device.type == torch.device(device).type for x in tree_leaves(node.learner.get_parameters()))
+        revived.append(node)
+
+    install_fault_plan(nodes, FaultPlan(seed=7, restarts={victim.addr: RestartSpec(round_no=2, resume_after_s=1.0)}),
+                       resurrect_fn=resurrect)
+
+    def pace(node, stage_name):
+        # the fleet keeps training while the victim dies and comes back:
+        # its pushes after the resume must still find the root's buffer
+        if stage_name == "AsyncTrainStage":
+            time.sleep(0.3)
+
+    for x in nodes:
+        x.stage_hooks.append(pace)
+    buffer_mod.BufferedAggregator.offer = offer
+    try:
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=10, epochs=1)
+        deadline = time.monotonic() + 120
+        while not revived and time.monotonic() < deadline:
+            time.sleep(0.05)
+        survivors = [x for x in nodes if x is not victim] + revived
+        wait_to_finish(survivors, timeout=300)
+        wall = time.monotonic() - t0
+        after = [(seq, ok) for origin, seq, t, ok in offers if origin == victim.addr and t >= checks.get("resume_t", 1e18)]
+        accs = [_full_test_acc(x.learner, data) for x in survivors]
+        return {"nodes": n, "victim": victim.addr, "wall_s": wall, "snapshots_committed": len(committed),
+                "post_resume_offers": after[:6], "final_acc_min": min(accs), "final_acc_max": max(accs),
+                "checks": {**{k: v for k, v in checks.items() if k != "resume_t"},
+                           "resurrected": bool(revived),
+                           "first push after the resume accepted": bool(after) and after[0][1]},
+                "comm": _comm_sums(), **_plane_counts()}
+    finally:
+        buffer_mod.BufferedAggregator.offer = real_offer
+        remove_fault_plan(nodes)
+        for x in nodes + revived:
+            x.stop()
+        Settings.FEDERATION_MODE = "sync"
+        Settings.FEDBUFF_K = 4
+
+
+def async_simulated(device: str, cluster: int, sim: dict = ASYNC_SIM) -> tuple:
+    """``bench_async.py::run_simulated``'s fleet on ``device``: → (result,
+    host seconds)."""
+    from p2pfl_tpu_torch.communication.faults import CrashSpec, EdgeFault, FaultPlan
+    from p2pfl_tpu_torch.federation.simfleet import SimulatedAsyncFleet
+
+    n = sim["nodes"]
+    addrs = [f"sim-{i:04d}" for i in range(n)]
+    plan = FaultPlan(seed=sim["seed"], default=EdgeFault(drop=0.01),
+                     crashes={a: CrashSpec(stage="AsyncTrainStage", round_no=2) for a in addrs[7::100][:max(1, n // 100)]})
+    fleet = SimulatedAsyncFleet(n, seed=sim["seed"], cluster_size=cluster, updates_per_node=sim["updates"],
+                                slow_frac=sim["slow_frac"], slow_factor=sim["slow_factor"], plan=plan,
+                                local_lr=sim["local_lr"], device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = fleet.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def async_update_through_plane(device: str = "cuda") -> dict:
+    """One ``async_update`` between two MLP Nodes on their own slots of
+    ``device`` over the ICI plane, against the byte path's
+    ``encode_params`` → ``decode_params`` of the same update: the
+    receiver's ``async_update`` handler is swapped for a capture. → the
+    check results, kernel 9's launches and the version triple that
+    arrived."""
+    from p2pfl_tpu_torch.commands.command import Command
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.learning.weights import ModelUpdate, decode_params, encode_params
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_items
+
+    _async_settings()
+    _reset_counts()
+    data = FederatedDataset.synthetic_mnist(n_train=512, n_test=64, seed=3)
+    nodes, _ = _async_nodes(2, device, data, addr_prefix="plane")
+    got: list = []
+
+    class Capture(Command):
+        @staticmethod
+        def get_name() -> str:
+            return "async_update"
+
+        def execute(self, source, round, *args, update=None, **kwargs):  # noqa: A002
+            got.append(update)
+
+    try:
+        src, dst = nodes
+        dst.protocol.add_command(Capture())
+        src.learner.fit()
+        upd = ModelUpdate(src.learner.get_parameters(), [src.addr], 64, xp="xp-plane", version=(src.addr, 7, 3))
+        sent = src.protocol.send(dst.addr, src.protocol.build_weights("async_update", 0, upd), create_connection=True)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        want = decode_params(encode_params(upd.params))
+        leaves = dict(tree_items(got[0].params)) if got else {}
+        return {
+            "sent": sent, "version": got[0].version if got else None,
+            "launches_ici_exchange": _kernels.LAUNCHES["ici_exchange"], **_plane_counts(),
+            "checks": {
+                "delivered": bool(got),
+                "version triple and xp intact": bool(got) and tuple(got[0].version) == (src.addr, 7, 3)
+                and got[0].xp == "xp-plane",
+                "bit-equal to the byte path": bool(got) and leaves.keys() == want.keys() and all(
+                    torch.equal(leaves[k].cpu(), want[k]) for k in want),
+                "on the receiver's device": bool(got) and all(
+                    x.device.type == torch.device(device).type for x in leaves.values()),
+                # one delivery, by one launch of kernel 9 on a card (the
+                # plain copy on the CPU)
+                "kernel 9 moved it" if device != "cpu" else "the plane moved it":
+                    ici_mod.ici_stats()["shard_sends"] == 1
+                    and (device == "cpu" or _kernels.LAUNCHES["ici_exchange"] == 1),
+            },
+        }
+    finally:
+        for x in nodes:
+            x.stop()
+
+
+def drive_async(device: str = "cuda", fleet: dict = ASYNC_FLEET, sim: dict = ASYNC_SIM) -> tuple[bool, dict]:
+    """The async control plane and its durability on the card, parts
+    (a)-(d) (see the module docs); each part fails the phase on its own."""
+    import logging
+
+    from p2pfl_tpu_torch.management.logger import logger
+
+    logger.set_level("WARNING")
+    failures: list = []
+
+    class _Failed(logging.Handler):
+        def emit(self, record):
+            if "ICI shard transfer" in record.getMessage() or "Async workflow failed" in record.getMessage():
+                failures.append(record.getMessage())
+
+    handler = _Failed()
+    logger._logger.addHandler(handler)
+    ok = True
+    out: dict = {"threaded": {}}
+    try:
+        plane = async_update_through_plane(device)
+        good = all(plane["checks"].values())
+        ok &= good
+        out["plane"] = plane
+        log(f"[async] (a) one async_update over the ICI plane against the byte path: {json.dumps(plane)} "
+            f"{'OK' if good else 'FAIL'}")
+        for mode in ("sync", "async", "hier"):
+            row = async_threaded(mode, device, fleet)
+            stats = row["ici_stats"]
+            checks = {
+                f"least accuracy >= {ASYNC_TARGET_ACC}": row["final_acc_min"] >= ASYNC_TARGET_ACC,
+                "victim crashed": row["crashed"],
+                "kernel 9 launched" if device != "cpu" else "plain exchange ran": stats["shard_sends"] > 0,
+                "kernel 9 launches == shard sends": device == "cpu" or row["launches_ici_exchange"] == stats["shard_sends"],
+                "no ici fallback": stats["fallback_bytes"] == 0 and not row["fallbacks_by_reason"],
+                "no alignment fix-up": stats["align_violations"] == 0,
+            }
+            if mode != "sync":
+                checks["async merges"] = row["comm"].get("async_merge", 0) > 0
+            row["checks"] = checks
+            good = all(checks.values())
+            ok &= good
+            out["threaded"][mode] = row
+            log(f"[async] (a) {mode}: wall {row['wall_s']:.3f} s, accuracy {row['final_acc_min']:.4f}-"
+                f"{row['final_acc_max']:.4f}, kernel 9 {row['launches_ici_exchange']} launches for "
+                f"{stats['shard_sends']} shard sends, fallbacks {row['fallbacks_by_reason']}; "
+                f"{json.dumps(row)} {'OK' if good else 'FAIL'}")
+        b = async_byzantine(device, fleet)
+        b["checks"] = {
+            "byz_evicted fired": b["comm"].get("byz_evicted", 0) >= 1,
+            "screen rejected": b["comm"].get("screen_reject", 0) >= 1,
+            f"survivors' least accuracy >= {ASYNC_TARGET_ACC}": b["final_acc_min"] >= ASYNC_TARGET_ACC,
+            "no ici fallback": b["ici_stats"]["fallback_bytes"] == 0,
+        }
+        good = all(b["checks"].values())
+        ok &= good
+        out["byzantine"] = b
+        log(f"[async] (b) Byzantine: {json.dumps(b)} {'OK' if good else 'FAIL'}")
+        c = async_resume(device, fleet)
+        c["checks"]["survivors' finite accuracy"] = math.isfinite(c["final_acc_min"])
+        good = all(c["checks"].values())
+        ok &= good
+        out["resume"] = c
+        log(f"[async] (c) kill and resurrect: {json.dumps(c)} {'OK' if good else 'FAIL'}")
+        out["simulated"] = {}
+        for name, cluster in (("flat", 0), ("hier_cluster32", 32)):
+            card, card_s = async_simulated(device, cluster, sim)
+            host, host_s = async_simulated("cpu", cluster, sim)
+            curve = lambda r: [(t, v) for t, v, _ in r.loss_curve]  # noqa: E731
+            losses = np.asarray([l for *_, l in card.loss_curve]), np.asarray([l for *_, l in host.loss_curve])
+            d = {"nodes": sim["nodes"], "updates_per_node": sim["updates"], "merges": card.merges,
+                 "versions": card.version, "host_s": card_s, "host_s_cpu_fleet": host_s,
+                 "makespan_virtual_s": card.virtual_time, "crashed": len(card.crashed),
+                 "updates_sent": card.updates_sent, "final_loss": card.final_loss(),
+                 "loss_max_rel_gap_vs_cpu": float(np.max(np.abs(losses[0] - losses[1]) / np.maximum(losses[1], 1e-30)))
+                 if len(losses[0]) == len(losses[1]) and len(losses[0]) else None}
+            d["checks"] = {
+                "merge count equals the CPU's": card.merges == host.merges,
+                "version sequence (and merge times) equal the CPU's": curve(card) == curve(host),
+                "crashed equal": card.crashed == host.crashed,
+                "finite losses": bool(np.all(np.isfinite(losses[0]))),
+                "params on the card": card.params["w"].device.type == torch.device(device).type,
+            }
+            good = all(d["checks"].values())
+            ok &= good
+            out["simulated"][name] = d
+            log(f"[async] (d) simulated {name}: {sim['nodes']} nodes x {sim['updates']} updates, "
+                f"{card.merges} merges, host {card_s:.3f} s (CPU fleet {host_s:.3f} s), virtual makespan "
+                f"{card.virtual_time:.3f} s; {json.dumps(d)} {'OK' if good else 'FAIL'}")
+    finally:
+        logger._logger.removeHandler(handler)
+    if failures:
+        ok = False
+        log(f"[async] failure logs: {failures[:3]} FAIL")
+    return ok, out
+
+
 PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "compress", "mnist",
-          "cifar", "chunked", "nameplate", "config7", "moe")
+          "cifar", "chunked", "nameplate", "config7", "moe", "async")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 #: the runs to a target accuracy (minutes each) and the control of the
@@ -4499,6 +5001,15 @@ def main(argv=None) -> int:
     if "moe" in args.only:
         good, _ = timed("moe", drive_moe)
         ok &= good
+    if "async" in args.only:
+        good, async_out = timed("async", drive_async)
+        ok &= good
+        # kernel 9 carries every async payload between the Nodes' slots
+        for mode, row in async_out["threaded"].items():
+            count(f"async_{mode}", {"ici_exchange": row["launches_ici_exchange"]}, ("ici_exchange",))
+        for part in ("byzantine", "resume"):
+            if part in async_out:
+                count(f"async_{part}", {"ici_exchange": async_out[part]["launches_ici_exchange"]}, ("ici_exchange",))
     if "moe_target" in args.only:
         good, _ = timed("moe_target", drive_moe_target)
         ok &= good

@@ -1,6 +1,6 @@
-"""Wire-protocol verbs of the port's gossip Node (the sync round's and the
-secure-aggregation verbs of ``p2pfl_tpu/commands``; the async and DCN verbs
-are not ported)."""
+"""Wire-protocol verbs of the port's gossip Node (the sync round's, the
+secure-aggregation and the async-federation verbs of ``p2pfl_tpu/commands``;
+the DCN verbs are not ported)."""
 
 from p2pfl_tpu_torch.commands.command import Command
 from p2pfl_tpu_torch.commands.control import (
@@ -14,6 +14,15 @@ from p2pfl_tpu_torch.commands.control import (
     SecAggRevealCommand,
     SecAggShareCommand,
     VoteTrainSetCommand,
+)
+from p2pfl_tpu_torch.commands.federation import (
+    AsyncDoneCommand,
+    AsyncJoinCommand,
+    AsyncLeaveCommand,
+    AsyncModelCommand,
+    AsyncPullCommand,
+    AsyncUpdateCommand,
+    AsyncViewCommand,
 )
 from p2pfl_tpu_torch.commands.heartbeat import HeartbeatCommand
 from p2pfl_tpu_torch.commands.learning import (
@@ -40,4 +49,11 @@ __all__ = [
     "SecAggShareCommand",
     "InitModelCommand",
     "AddModelCommand",
+    "AsyncUpdateCommand",
+    "AsyncModelCommand",
+    "AsyncDoneCommand",
+    "AsyncJoinCommand",
+    "AsyncPullCommand",
+    "AsyncViewCommand",
+    "AsyncLeaveCommand",
 ]

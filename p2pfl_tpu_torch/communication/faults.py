@@ -29,10 +29,12 @@ A duplicated control message comes back after ``duplicate_delay`` with a
 fresh id and ``ttl=1`` (a relay the dedup ring has forgotten); a
 duplicated weights envelope is re-sent as it was.
 
-Churn (:class:`RestartSpec`, :class:`JoinSpec`, :class:`LeaveSpec`,
-:func:`schedule_churn`) needs ``Node.resume`` and the journal of ROADMAP
-Queue A item 7: each raises
-:class:`~p2pfl_tpu_torch.exceptions.UnsupportedByPortError`.
+Churn rides the same plan: :class:`RestartSpec` kills a node like a
+:class:`CrashSpec` and resurrects it ``resume_after_s`` later through the
+harness's ``resurrect_fn`` (``Node.resume`` from its journal);
+:class:`JoinSpec` and :class:`LeaveSpec` add and remove members of a
+running async experiment, armed on a live fleet by :func:`schedule_churn`
+and replayed on the virtual clock by ``federation/simfleet.py``.
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ import numpy as np
 import torch
 
 from p2pfl_tpu_torch.communication.message import Message, WeightsEnvelope
-from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.management.telemetry import telemetry
 from p2pfl_tpu_torch.ops.tree import tree_map
@@ -110,33 +111,43 @@ class ByzantineSpec:
     cmds: tuple = ("async_update", "add_model")
 
 
-def _churn_unported(*args, **kwargs):
-    raise UnsupportedByPortError(
-        "churn (restart, join, leave) needs Node.resume and the node journal: "
-        "not ported (ROADMAP Queue A item 7)"
-    )
-
-
+@dataclass(frozen=True)
 class RestartSpec:
-    """Kill a node and resurrect it from its journal: not ported."""
+    """Kill a node like a :class:`CrashSpec`, then RESURRECT it.
 
-    __init__ = _churn_unported
+    The crash half is a CrashSpec's (hard crash at ``stage``/``round_no``,
+    ``after_s`` into the stage); ``resume_after_s`` later the harness brings
+    the node back from its journal (``federation/durability.py``): the live
+    fleet's ``resurrect_fn`` calls ``Node.resume(journal_dir)``, the
+    simulator schedules a ``resurrect`` event on its virtual clock. Either
+    way the node re-enters through the elastic join with its journaled
+    identity.
+    """
+
+    stage: str = "AsyncTrainStage"
+    round_no: Optional[int] = 0
+    after_s: float = 0.0
+    resume_after_s: float = 1.0
 
 
+@dataclass(frozen=True)
 class JoinSpec:
-    """A member joining a running experiment: not ported."""
+    """A member JOINS the running experiment at ``at_s`` seconds (the
+    simulator's virtual clock, or wall clock after :func:`schedule_churn`);
+    it bootstraps by pulling its aggregator's current global."""
 
-    __init__ = _churn_unported
+    at_s: float
 
 
+@dataclass(frozen=True)
 class LeaveSpec:
-    """A member leaving a running experiment: not ported."""
+    """A member LEAVES the running experiment at ``at_s``. ``graceful``
+    announces it (``async_leave``; an aggregator forwards its partial buffer
+    first); otherwise the exit is found like a crash, by heartbeat silence
+    or the simulator's ``evict_delay``."""
 
-    __init__ = _churn_unported
-
-
-#: the live fleet's churn timers: not ported
-schedule_churn = _churn_unported
+    at_s: float
+    graceful: bool = True
 
 
 class FaultCrash(Exception):
@@ -152,7 +163,9 @@ class FaultPlan:
     an iterable of one-way ``(src, dst)`` blocks. ``slow_nodes`` maps a
     receiver address to the latency every inbound weights delivery pays.
     ``crashes`` maps a node address to a :class:`CrashSpec`,
-    ``byzantine`` an attacker's address to its :class:`ByzantineSpec`.
+    ``byzantine`` an attacker's address to its :class:`ByzantineSpec`,
+    ``restarts`` to a :class:`RestartSpec`, and ``joins`` / ``leaves`` to
+    the churn events of an async experiment.
     """
 
     def __init__(
@@ -164,6 +177,9 @@ class FaultPlan:
         slow_nodes: Optional[dict[str, float]] = None,
         crashes: Optional[dict[str, CrashSpec]] = None,
         byzantine: Optional[dict[str, ByzantineSpec]] = None,
+        restarts: Optional[dict[str, RestartSpec]] = None,
+        joins: Optional[dict[str, JoinSpec]] = None,
+        leaves: Optional[dict[str, LeaveSpec]] = None,
     ) -> None:
         self.seed = seed
         self.default = default
@@ -172,6 +188,9 @@ class FaultPlan:
         self.slow_nodes = dict(slow_nodes or {})
         self.crashes = dict(crashes or {})
         self.byzantine = dict(byzantine or {})
+        self.restarts = dict(restarts or {})
+        self.joins = dict(joins or {})
+        self.leaves = dict(leaves or {})
         self._rngs: dict[tuple[str, str], random.Random] = {}
         self._byz_rngs: dict[tuple[str, str], random.Random] = {}
         self._rng_lock = threading.Lock()
@@ -382,34 +401,53 @@ def hard_crash(node: "Node") -> None:
     node.state.status = "Idle"
 
 
-def make_stage_hook(plan: FaultPlan) -> Callable[["Node", str], None]:
-    """A ``Node.stage_hooks`` entry firing the plan's crash specs."""
+def make_stage_hook(
+    plan: FaultPlan, resurrect_fn: Optional[Callable[[str], None]] = None
+) -> Callable[["Node", str], None]:
+    """A ``Node.stage_hooks`` entry firing the plan's crash and restart
+    specs. ``resurrect_fn(addr)`` is the live half of a restart, called
+    ``resume_after_s`` after the kill on a daemon timer (only the harness
+    can rebuild models and data and call ``Node.resume``); without it a
+    RestartSpec is its crash half alone."""
 
-    def kill(node: "Node", stage_name: str, sync: bool) -> None:
+    def kill(node: "Node", spec, stage_name: str, sync: bool) -> None:
         hard_crash(node)
+        delay = getattr(spec, "resume_after_s", None)
+        if delay is not None and resurrect_fn is not None:
+            t = threading.Timer(max(delay, 0.001), _resurrect, args=(node.addr,))
+            t.daemon = True
+            t.start()
         if sync:
             raise FaultCrash(f"{node.addr} crashed entering {stage_name}")
 
+    def _resurrect(addr: str) -> None:
+        try:
+            resurrect_fn(addr)
+        except Exception as exc:  # noqa: BLE001 — a failed resurrection is a dead node, not a harness crash
+            logger.error(addr, f"FAULT: resurrection failed: {exc!r}")
+
     def hook(node: "Node", stage_name: str) -> None:
-        spec = plan.crashes.get(node.addr)
+        spec = plan.crashes.get(node.addr) or plan.restarts.get(node.addr)
         if spec is None or node.addr in plan._crashed or spec.stage != stage_name:
             return
         if spec.round_no is not None and node.state.round != spec.round_no:
             return
         plan._crashed.add(node.addr)
         if spec.after_s > 0:
-            t = threading.Timer(spec.after_s, kill, args=(node, stage_name, False))
+            t = threading.Timer(spec.after_s, kill, args=(node, spec, stage_name, False))
             t.daemon = True
             t.start()
             return
-        kill(node, stage_name, sync=True)
+        kill(node, spec, stage_name, sync=True)
 
     return hook
 
 
-def install_fault_plan(nodes: Iterable["Node"], plan: FaultPlan) -> None:
+def install_fault_plan(
+    nodes: Iterable["Node"], plan: FaultPlan, resurrect_fn: Optional[Callable[[str], None]] = None
+) -> None:
     """Wire a plan into an in-process federation (or any node set)."""
-    hook = make_stage_hook(plan) if plan.crashes else None
+    hook = make_stage_hook(plan, resurrect_fn) if (plan.crashes or plan.restarts) else None
     for node in nodes:
         node.protocol.fault_injector = FaultInjector(plan, node.addr)
         if hook is not None:
@@ -420,3 +458,24 @@ def remove_fault_plan(nodes: Iterable["Node"]) -> None:
     for node in nodes:
         node.protocol.fault_injector = None
         node.stage_hooks.clear()
+
+
+def schedule_churn(plan: FaultPlan, join_fn, leave_fn) -> list:
+    """Arm a plan's churn on a LIVE fleet (wall-clock timers):
+    ``join_fn(addr)`` at each join's ``at_s`` (the caller builds and
+    connects the joiner), ``leave_fn(addr, graceful)`` at each leave's.
+    Returns the started timers so a test can cancel them. Crash and restart
+    specs stay on the stage-hook seam (:func:`install_fault_plan`)."""
+    timers = []
+    for addr in sorted(plan.joins):
+        t = threading.Timer(plan.joins[addr].at_s, join_fn, args=(addr,))
+        t.daemon = True
+        t.start()
+        timers.append(t)
+    for addr in sorted(plan.leaves):
+        spec = plan.leaves[addr]
+        t = threading.Timer(spec.at_s, leave_fn, args=(addr, spec.graceful))
+        t.daemon = True
+        t.start()
+        timers.append(t)
+    return timers

@@ -388,6 +388,7 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
         list(update.contributors),
         update.num_samples,
         xp=update.xp or env.xp,
+        version=update.version,
         sp=src_ep.handshake(mode),
         anchor=dst_anchor,
         anchor_tag=dst_tag,

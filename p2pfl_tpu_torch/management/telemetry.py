@@ -155,6 +155,49 @@ class LatencyHistogram:
         }
 
 
+class ValueHistogram:
+    """Exact counts over small non-negative integers (thread-safe): the
+    async plane's staleness τ in model versions, where log2 time buckets
+    would blur the distribution and mislabel its units."""
+
+    __slots__ = ("_lock", "counts", "count", "total")
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.counts: Dict[int, int] = {}
+        self.count = 0
+        self.total = 0
+
+    def record(self, value: int) -> None:
+        value = max(int(value), 0)
+        with self._lock:
+            self.counts[value] = self.counts.get(value, 0) + 1
+            self.count += 1
+            self.total += value
+
+    def summary(self) -> dict:
+        with self._lock:
+            if self.count == 0:
+                return {"count": 0}
+            values = sorted(self.counts)
+            cum, p50, p95 = 0, values[-1], values[-1]
+            for v in values:
+                cum += self.counts[v]
+                if p50 == values[-1] and cum >= 0.50 * self.count:
+                    p50 = v
+                if cum >= 0.95 * self.count:
+                    p95 = v
+                    break
+            return {
+                "count": self.count,
+                "mean": round(self.total / self.count, 4),
+                "p50": p50,
+                "p95": p95,
+                "max": values[-1],
+                "counts": {str(v): self.counts[v] for v in values},
+            }
+
+
 class Telemetry:
     """Process-wide registry. Use the module-level :data:`telemetry`."""
 
@@ -164,6 +207,7 @@ class Telemetry:
         # group → node → name → value
         self._counters: Dict[str, Dict[str, Dict[str, float]]] = {}
         self._hists: Dict[Tuple[str, str], LatencyHistogram] = {}
+        self._value_hists: Dict[Tuple[str, str], ValueHistogram] = {}
         self._tls = threading.local()
 
     # ---- spans ----
@@ -308,11 +352,31 @@ class Telemetry:
             return {name: h.summary() for (n, name), h in items if n == node}
         return {f"{n}/{name}": h.summary() for (n, name), h in items}
 
+    def observe_value(self, node: str, name: str, value: int) -> None:
+        """Record a small non-negative integer into a :class:`ValueHistogram`;
+        always on, like the counters (the staleness distribution is read by
+        tests and the card drive)."""
+        key = (node, name)
+        hist = self._value_hists.get(key)
+        if hist is None:
+            with self._lock:
+                hist = self._value_hists.setdefault(key, ValueHistogram())
+        hist.record(value)
+
+    def value_histograms(self, node: Optional[str] = None) -> Dict[str, dict]:
+        """Like :meth:`histograms`, for the raw-value family."""
+        with self._lock:
+            items = list(self._value_hists.items())
+        if node is not None:
+            return {name: h.summary() for (n, name), h in items if n == node}
+        return {f"{n}/{name}": h.summary() for (n, name), h in items}
+
     def reset(self) -> None:
         with self._lock:
             self._rings.clear()
             self._counters.clear()
             self._hists.clear()
+            self._value_hists.clear()
 
 
 #: the process-wide registry

@@ -1,5 +1,4 @@
-"""Per-node mutable learning state (counterpart of ``p2pfl_tpu/node_state.py``,
-without the async fields).
+"""Per-node mutable learning state (counterpart of ``p2pfl_tpu/node_state.py``).
 
 The reference's four lock-latches are real :class:`threading.Event`
 objects here, as in the JAX package.
@@ -66,6 +65,11 @@ class NodeState:
         # the self seed of a node whose pair seeds may have been disclosed
         self.secagg_round_dropped: set = set()
 
+        # async federation: peers that announced their local budget spent
+        # (async_done, TTL-flooded), releasing aggregators' drain waits;
+        # union-merged under status_merge_lock
+        self.async_done_peers: set = set()
+
         # counts experiments entered: tells "never started" from "finished"
         self.experiment_epoch = 0
         self.last_transition: Optional[float] = None
@@ -90,6 +94,10 @@ class NodeState:
         self.total_rounds = total_rounds
         self.round = 0
         self.experiment_epoch += 1
+        # a late async_done of the previous experiment must not mark its
+        # sender done in this one
+        with self.status_merge_lock:
+            self.async_done_peers = set()
 
     def increase_round(self) -> None:
         """Advance the round; clears per-round caches. The round is bumped
@@ -124,5 +132,7 @@ class NodeState:
         self.secagg_early_reveals = {}
         self.secagg_reveal_sent = set()
         self.secagg_round_dropped = set()
+        with self.status_merge_lock:
+            self.async_done_peers = set()
         self.votes_ready_event.clear()
         self.model_initialized_event.clear()

@@ -1,6 +1,8 @@
 """Aggregation kernels as torch ops (counterpart of ``p2pfl_tpu/ops/aggregation.py``).
 
 Plain tensor code, as the JAX package left it to XLA: no hand kernel.
+The async buffer's merge programs (``buffered_robust_merge``,
+``krum_screen_merge``, ``screen_stats``, ``server_merge``) sit at the end.
 Every function works on node-stacked trees (leaves ``[N, ...]``) and
 keeps the device: nothing reads a value back to the host, so a round
 that aggregates stays one queue of launches.
@@ -206,3 +208,86 @@ def fedopt_update(
         return tree_unflatten({p: o[i] for p, o in zip(paths, out)})
 
     return tree(0), tree(1), tree(2)
+
+
+# ---- the async buffer's merge programs (federation/buffer.py) ----
+
+
+def stacked_n(stacked: dict) -> int:
+    """Node-axis length of a stacked tree."""
+    return tree_leaves(stacked)[0].shape[0]
+
+
+def krum_screen_merge(stacked: dict, weights: torch.Tensor, f: int) -> dict:
+    """Krum screening + weighted mean: drop the ``f`` most outlying
+    contributions (Multi-Krum with ``multi = N − f``), then fold the
+    survivors with the caller's weights (for the async buffer the
+    staleness weights ``num_samples × w(τ)``), in the selection's order."""
+    idx = krum_select(stacked, n_byzantine=f, multi=stacked_n(stacked) - f)
+    w = weights.to(device=idx.device, dtype=torch.float32).index_select(0, idx)
+    w = w / w.sum()
+    return tree_map(
+        lambda x: torch.tensordot(w, x.index_select(0, idx).float(), dims=([0], [0])).to(x.dtype), stacked
+    )
+
+
+def buffered_robust_merge(
+    stacked: dict, weights: torch.Tensor, kind: str, *, trim: int = 1, f: int = 1, agg_dtype: str = "float32",
+) -> dict:
+    """The async buffer's flush fold, selected by ``Settings.ASYNC_ROBUST_AGG``:
+    ``"fedavg"`` (the staleness-weighted mean), ``"trimmed-mean"`` /
+    ``"median"`` (per-coordinate rank rules: they ignore the weights, a
+    weighted rank rule loses its breakdown point) or ``"krum-screen"``
+    (Krum drops ``f`` outliers, the weighted mean folds the rest).
+    ``trim`` and ``f`` are clamped so one contribution survives; below
+    that the mean of what there is folds. Every branch folds the same
+    ``(origin, seq)``-sorted stack."""
+    n = stacked_n(stacked)
+    if kind == "fedavg" or n == 1:
+        return fedavg(stacked, weights, agg_dtype=agg_dtype)
+    if kind == "trimmed-mean":
+        t = min(int(trim), (n - 1) // 2)
+        if t <= 0:
+            return fedavg(stacked, weights, agg_dtype=agg_dtype)
+        return trimmed_mean(stacked, t)
+    if kind == "median":
+        return fedmedian(stacked)
+    if kind == "krum-screen":
+        fc = min(int(f), n - 1)
+        # Krum scores against N − f − 2 neighbours: below that the screen
+        # cannot rank and the mean is all there is
+        if fc <= 0 or n - fc - 2 < 1:
+            return fedavg(stacked, weights, agg_dtype=agg_dtype)
+        return krum_screen_merge(stacked, weights, fc)
+    raise ValueError(
+        f"unknown ASYNC_ROBUST_AGG {kind!r} (expected fedavg | trimmed-mean | median | krum-screen)"
+    )
+
+
+def screen_stats(params: dict, ref: dict) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The admission screen's statistics of one contribution against the
+    current global: ``(‖params‖₂, ‖ref‖₂, cos(params, ref))``, fp32 sums
+    accumulated leaf by leaf in leaf order, on the params' device."""
+    dot = p2 = r2 = None
+    for x, y in zip(tree_leaves(params), tree_leaves(ref)):
+        xf = x.float().reshape(-1)
+        yf = y.float().reshape(-1).to(xf.device)
+        terms = (torch.dot(xf, yf), torch.dot(xf, xf), torch.dot(yf, yf))
+        if dot is None:
+            dot, p2, r2 = terms
+        else:
+            dot, p2, r2 = dot + terms[0], p2 + terms[1], r2 + terms[2]
+    pn = torch.sqrt(torch.clamp(p2, min=1e-24))
+    rn = torch.sqrt(torch.clamp(r2, min=1e-24))
+    return pn, rn, dot / (pn * rn)
+
+
+def server_merge(prev: dict, avg: dict, lr: float = 1.0, agg_dtype: str = "float32") -> dict:
+    """FedBuff server step ``new = (1−η)·prev + η·avg`` in ``agg_dtype``;
+    output dtypes and devices follow ``prev``."""
+    acc = getattr(torch, agg_dtype)
+
+    def mix(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        return ((1.0 - lr) * p.to(acc) + lr * a.to(device=p.device, dtype=acc)).to(p.dtype)
+
+    return tree_map(mix, prev, avg)

@@ -181,6 +181,60 @@ class Settings:
     # staying on the transport (communication/ici.py)
     WEIGHTS_PLANE: str = "bytes"
 
+    # --- async bounded-staleness federation (federation/) ---
+    # the control plane of the learning thread: "sync" is the round FSM
+    # (stages/learning_stages.py), "async" the FedBuff buffered plane
+    # (federation/workflow.py: contributions merge as they arrive, weighted
+    # by staleness, no round barrier). Any other value raises at Node.start
+    FEDERATION_MODE: str = "sync"
+    # buffer size K: an aggregator merges once K contributions are buffered
+    # (clamped to the tier's live fan-in)
+    FEDBUFF_K: int = 4
+    # staleness exponent α of w(τ) = 1/(1+τ)^α, τ in global versions
+    FEDBUFF_ALPHA: float = 0.5
+    # server mixing rate η: global ← (1-η)·global + η·buffer mean
+    FEDBUFF_SERVER_LR: float = 1.0
+    # bounded staleness: a contribution older than this many versions is
+    # dropped (async_stale_drop), never merged
+    ASYNC_MAX_STALENESS: int = 16
+    # HierFAVG clusters (federation/topology.py): members chunked into edge
+    # clusters of this size, each with a regional aggregator; 0 = flat
+    HIER_CLUSTER_SIZE: int = 0
+    # how long a node serves after its own budget, waiting for the others'
+    # async_done (an eviction releases it too)
+    ASYNC_DRAIN_TIMEOUT: float = 30.0
+    # how long a joiner waits for its bootstrap pull's global
+    ASYNC_JOIN_TIMEOUT: float = 15.0
+    # the crash-resurrection journal (federation/durability.py): a snapshot
+    # every N own updates (and one at drain), the newest N kept, and a
+    # resumed node's sequence counters restarted this far past the journal
+    JOURNAL_EVERY_N_UPDATES: int = 1
+    JOURNAL_KEEP_N: int = 3
+    JOURNAL_SEQ_MARGIN: int = 16
+    # --- Byzantine robustness (federation/defense.py, ops/aggregation.py) ---
+    # the async buffer's fold: "fedavg" (staleness-weighted mean),
+    # "trimmed-mean" / "median" (per-coordinate rank rules, weight-free) or
+    # "krum-screen" (Krum drops BYZ_F outliers, the weighted mean folds the
+    # rest)
+    ASYNC_ROBUST_AGG: str = "fedavg"
+    # coordinates trimmed from each side by "trimmed-mean" (clamped)
+    ASYNC_TRIM: int = 1
+    # assumed Byzantine contributions f of "krum-screen" (clamped)
+    BYZ_F: int = 1
+    # the admission screen at both aggregator seams (the sync add_model and
+    # the async offer): a norm gate and a cosine gate against the current
+    # global; rejections feed a per-origin suspicion EWMA that quarantines
+    # through the eviction path past BYZ_SUSPICION_THRESHOLD
+    BYZ_SCREEN: bool = False
+    BYZ_NORM_GATE: float = 4.0
+    BYZ_COS_GATE: float = 0.5
+    BYZ_SUSPICION_BETA: float = 0.5
+    BYZ_SUSPICION_THRESHOLD: float = 0.7
+
+
+#: the control planes a Node runs (``Settings.FEDERATION_MODE``)
+FEDERATION_MODES = ("sync", "async")
+
 
 def wire_compression_device(device=None) -> bool:
     """Resolve ``Settings.WIRE_COMPRESSION_DEVICE``: an explicit True or
@@ -246,3 +300,22 @@ def set_test_settings() -> None:
     Settings.SECAGG_RECOVERY_TIMEOUT = 6.0
     Settings.WAIT_HEARTBEATS_CONVERGENCE = 0.4
     Settings.LOG_LEVEL = "DEBUG"
+    Settings.FEDERATION_MODE = "sync"
+    Settings.ASYNC_ROBUST_AGG = "fedavg"
+    Settings.ASYNC_TRIM = 1
+    Settings.BYZ_F = 1
+    Settings.BYZ_SCREEN = False
+    Settings.BYZ_NORM_GATE = 4.0
+    Settings.BYZ_COS_GATE = 0.5
+    Settings.BYZ_SUSPICION_BETA = 0.5
+    Settings.BYZ_SUSPICION_THRESHOLD = 0.7
+    Settings.FEDBUFF_K = 4
+    Settings.FEDBUFF_ALPHA = 0.5
+    Settings.FEDBUFF_SERVER_LR = 1.0
+    Settings.ASYNC_MAX_STALENESS = 16
+    Settings.HIER_CLUSTER_SIZE = 0
+    Settings.ASYNC_DRAIN_TIMEOUT = 15.0
+    Settings.ASYNC_JOIN_TIMEOUT = 5.0
+    Settings.JOURNAL_EVERY_N_UPDATES = 1
+    Settings.JOURNAL_KEEP_N = 3
+    Settings.JOURNAL_SEQ_MARGIN = 16

@@ -3,16 +3,16 @@
 
 N in-process Nodes on a chosen topology, started, connected and ready to
 learn. Gossip mode only: the one-program fast path is
-:class:`p2pfl_tpu_torch.parallel.spmd.SpmdFederation`. The JAX module
-also re-exports ``SimulatedAsyncFleet``, the 1k-node simulated async
-fleet; the port leaves it out until ``federation/simfleet.py`` is ported
-(ROADMAP Queue A item 7).
+:class:`p2pfl_tpu_torch.parallel.spmd.SpmdFederation`. Re-exports
+:class:`SimulatedAsyncFleet`, the 1k-node simulated async fleet, as the
+JAX module does.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+from p2pfl_tpu_torch.federation.simfleet import FleetResult, SimulatedAsyncFleet  # noqa: F401 — re-export
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.node import Node
@@ -72,7 +72,10 @@ class Simulation:
 
     def learn(self, rounds: int = 1, epochs: int = 1, timeout: float = 600.0) -> "Simulation":
         """Run one experiment and wait for every node to finish it (a
-        later call runs the next experiment on the same nodes)."""
+        later call runs the next experiment on the same nodes). Under
+        ``Settings.FEDERATION_MODE="async"`` the same call drives the async
+        control plane: ``rounds`` is then each node's local update budget;
+        for 1k+-node virtual fleets use :class:`SimulatedAsyncFleet`."""
         done = min(n.state.experiment_epoch for n in self.nodes)
         self.nodes[0].set_start_learning(rounds=rounds, epochs=epochs)
         wait_to_finish(self.nodes, timeout=timeout, min_experiments=done + 1)

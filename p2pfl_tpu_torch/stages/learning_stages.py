@@ -1,8 +1,7 @@
 """The six stages of a federated round.
 
-Counterpart of ``p2pfl_tpu/stages/learning_stages.py`` without the
-Byzantine admission screen (ROADMAP item 7). Semantics follow the
-reference, quirks included: voting happens only in round 0 and the
+Counterpart of ``p2pfl_tpu/stages/learning_stages.py``. Semantics follow
+the reference, quirks included: voting happens only in round 0 and the
 elected train set is reused for every round. topk8's delta-coding anchor
 is pinned where every node holds the round's shared model (after the
 init-weights sync, at each round boundary); under
@@ -236,6 +235,9 @@ class TrainStage(Stage):
     @staticmethod
     def execute(node: "Node") -> Optional[Type[Stage]]:
         state = node.state
+        # the Byzantine admission screen compares contributions with the
+        # round-start global every train-set member shares (by reference)
+        node.aggregator.set_screen_reference(node.learner.get_parameters())
         node.aggregator.set_nodes_to_aggregate(state.train_set)
         for gone in list(state.train_set_evicted):
             node.aggregator.discard_member(gone)

@@ -5,7 +5,8 @@ corruptions are drawn from the same seeded ``random.Random`` streams and
 numpy generators in both packages, so 1,000 sends per edge must give the
 same verdicts and bit-equal corrupted payloads. Then the plan on a live
 port federation: partitions, slow peers, a crash at a stage that the
-survivors repair, install/remove, and the churn specs refusing.
+survivors repair, install/remove, and the churn specs (restart, join,
+leave and the live fleet's churn timers).
 """
 
 import threading
@@ -24,9 +25,8 @@ from p2pfl_tpu.learning.weights import named_leaves as jax_named_leaves
 from p2pfl_tpu_torch.communication import faults as tf
 from p2pfl_tpu_torch.communication.memory import MemoryRegistry
 from p2pfl_tpu_torch.communication.message import Message, WeightsEnvelope
-from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
-from p2pfl_tpu_torch.learning.learner import TorchLearner
+from p2pfl_tpu_torch.learning.learner import DummyLearner, TorchLearner
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.models.vision import mlp
@@ -193,9 +193,54 @@ def test_a_duplicated_control_message_comes_back_with_a_fresh_id():
 
 
 @pytest.mark.parametrize("spec", ["RestartSpec", "JoinSpec", "LeaveSpec", "schedule_churn"])
-def test_churn_raises_naming_item_7(spec):
-    with pytest.raises(UnsupportedByPortError, match="item 7"):
-        getattr(tf, spec)(0.5)
+def test_churn_runs_as_in_jax(spec):
+    """The churn half of the plan: each spec has JAX's fields and defaults
+    and drives what it drives there (a restart kills then resurrects, a
+    join and a leave churn a simulated fleet exactly as JAX's does), and
+    schedule_churn fires the live fleet's join and leave callbacks."""
+    import dataclasses
+
+    from p2pfl_tpu.federation.simfleet import SimulatedAsyncFleet as JFleet
+    from p2pfl_tpu_torch.federation.simfleet import SimulatedAsyncFleet
+
+    if spec != "schedule_churn":
+        fields = [(f.name, f.default) for f in dataclasses.fields(getattr(tf, spec))]
+        assert fields == [(f.name, f.default) for f in dataclasses.fields(getattr(jf, spec))]
+    if spec == "RestartSpec":
+        node = Node(learner=DummyLearner(device="cpu"))
+        node.start()
+        node.state.round = 1
+        revived = threading.Event()
+        plan = tf.FaultPlan(0, restarts={node.addr: tf.RestartSpec(round_no=1, resume_after_s=0.05)})
+        hook = tf.make_stage_hook(plan, resurrect_fn=lambda addr: revived.set())
+        hook(node, "TrainStage")  # another stage: nothing
+        assert node.is_running()
+        with pytest.raises(tf.FaultCrash):
+            hook(node, "AsyncTrainStage")
+        assert not node.is_running() and revived.wait(5) and node.addr in plan._crashed
+        hook(node, "AsyncTrainStage")  # fires once
+    elif spec in ("JoinSpec", "LeaveSpec"):
+        def plan(pkg):
+            churn = {"joins": {"sim-j000": pkg.JoinSpec(0.6), "sim-j001": pkg.JoinSpec(1.1)}} if spec == "JoinSpec" \
+                else {"leaves": {"sim-0003": pkg.LeaveSpec(0.5), "sim-0000": pkg.LeaveSpec(0.7, graceful=False)}}
+            return pkg.FaultPlan(seed=5, **churn)
+
+        want = JFleet(40, seed=3, cluster_size=8, updates_per_node=4, plan=plan(jf)).run()
+        got = SimulatedAsyncFleet(40, seed=3, cluster_size=8, updates_per_node=4, plan=plan(tf), device="cpu").run()
+        assert (got.joined, got.left, got.failovers, got.merges) == (want.joined, want.left, want.failovers, want.merges)
+        assert got.joined or got.left
+    else:
+        calls, lock = [], threading.Lock()
+        plan = tf.FaultPlan(0, joins={"j": tf.JoinSpec(0.05)}, leaves={"l": tf.LeaveSpec(0.1, graceful=False)})
+
+        def record(*a):
+            with lock:
+                calls.append(a)
+
+        timers = tf.schedule_churn(plan, record, record)
+        for t in timers:
+            t.join(5)
+        assert len(timers) == 2 and sorted(calls) == [("j",), ("l", False)]
 
 
 def _fleet(n: int):

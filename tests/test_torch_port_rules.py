@@ -57,6 +57,10 @@ def test_import_purity_in_a_fresh_process():
     # FedPer and their example
     assert {"p2pfl_tpu_torch.ops.compression", "p2pfl_tpu_torch.learning.secagg",
             "p2pfl_tpu_torch.learning.personalization", "p2pfl_tpu_torch.examples.secure_mnist"} <= set(mods)
+    # and the async control plane with its durability
+    assert {f"p2pfl_tpu_torch.federation.{m}" for m in (
+        "staleness", "topology", "routing", "buffer", "defense", "durability", "workflow", "simfleet")} | {
+        "p2pfl_tpu_torch.commands.federation"} <= set(mods)
 
 
 @pytest.mark.parametrize(
