@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only kernels config7 moe
     python3 chip_smoke.py --only moe_target          # config 10's 113M MoE federation to 0.60
     python3 chip_smoke.py --only async               # the async control plane and the journal
+    python3 chip_smoke.py --only megafleet           # the megafleet engine and the fleet_chunk kernel
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -228,6 +229,33 @@ Phases, each of which makes the script exit non-zero if it fails (the
    1905), flat and with clusters of 32, on the card against the same fleet
    on the CPU: merge count and version sequence equal, host seconds and
    the virtual makespan;
+17b. [megafleet] the megafleet engine (``drive_megafleet``), each part
+   failing the phase on its own: (a) the JAX tests' ``_pair`` on the
+   card, ``SimulatedAsyncFleet(1000)`` against ``MegaFleet`` on its
+   exported population, flat and with clusters of 32 (merges and versions
+   exact, mint times within 1e-4 flat and one link delay hier, the JAX
+   tests' loss limits); (b) 500 clients, dim 8, K 8: the chunked engine
+   (one ``fleet_chunk`` launch a chunk) at chunks 7, 48 and 256 against
+   the per-event engine, flat and clusters of 32 (integers exact, params
+   within ``MF_PARAM_TOL``); (c) the kernel against its plain twin (the
+   same engine on the CPU) on those streams, on the median and
+   trimmed-mean folds under a 5 % sign-flip attack and on three fault
+   fleets of 300 (chaos knobs, every Byzantine kind, churn): integer and time
+   fields equal, params within ``MF_PARAM_TOL``, two card runs bit-equal;
+   (d) ``bench_async.py``'s megafleet_1m fleet (1M clients, dim 16,
+   clusters of 1024, K 64, 4 updates, 256 events a chunk) through
+   ``MegaFleet.run``: wall s, clients/s, events/s, merges and regional
+   merges equal to ``BENCH_ASYNC.json``'s 976 and 62,500, time to 5 % of
+   the start loss, staleness mean, peak memory, one launch a chunk; the
+   chunk step under ``torch.profiler`` at 64 and 256 events (device
+   operations a step, equal at both), the kernel's device time a launch;
+   the 1M fleet's C 256 engine and its CPU copy (the plain twin) stepped
+   to the same chunk past the first regional and global flushes, their
+   carries compared as in (c), with the twin's time a chunk; the rest of
+   the C 256 run with CUDA events around each launch (the kernel's mean
+   over the run); (e) ``chunk="auto"``
+   on a 20k-client fleet measured once, then replayed from the cache
+   file with no measurement;
 18. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
@@ -236,7 +264,10 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and the compress phase's MLP and LoRA drives, with kernel 9's time on
    the codec tree as ``codec_tree``, and the async phase's drives,
    ``async_<mode>``, ``async_byzantine`` and ``async_resume``; for 1-4 also
-   config 7's drives),
+   config 7's drives; ``fleet_chunk`` the megafleet phase's 1M run, its
+   ``ms`` the kernel's device time a launch there, ``plain_ms`` the twin's
+   on the CPU, ``max_abs_err`` the largest param gap of part (c) and of
+   (d)'s 1M check, no library call),
    ``launches_by_width`` the flash kernels' launches of the whole run by
    head width, and for kernels 1-4 ``widths`` the rows at widths 32 and
    128; then the ``nvidia-smi`` line again, and last ``{"ok": true,
@@ -286,7 +317,7 @@ DQ_SRC = "p2pfl_tpu_torch/csrc/flash_bwd_dq_sm90.cu"
 SOURCES = {"flash_fwd": FWD_SRC, "flash_fwd_offs": FWD_SRC, "flash_bwd_dkvq": BWD_SRC,
            "flash_bwd_dkvq_offs": BWD_SRC, "flash_bwd_dkv": BWD_SRC, "flash_bwd_dkv_offs": BWD_SRC,
            "flash_bwd_dq": DQ_SRC, "flash_bwd_dq_offs": DQ_SRC,
-           "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu"}
+           "ici_exchange": "p2pfl_tpu_torch/csrc/ici_exchange.cu", "fleet_chunk": "p2pfl_tpu_torch/csrc/fleet_chunk.cu"}
 REPLACES = {
     "flash_fwd": "p2pfl_tpu/ops/flash_attention.py:189",
     "flash_bwd_dkvq": "p2pfl_tpu/ops/flash_attention.py:327",
@@ -297,6 +328,8 @@ REPLACES = {
     "flash_bwd_dq_offs": "p2pfl_tpu/ops/flash_attention.py:688",
     "flash_bwd_dkv_offs": "p2pfl_tpu/ops/flash_attention.py:786",
     "ici_exchange": "p2pfl_tpu/parallel/ici_plane.py:162",
+    # no Pallas kernel: passes B-D of the XLA chunk step (_make_chunk_body)
+    "fleet_chunk": "p2pfl_tpu/ops/fleet_kernels.py:787",
 }
 NEG_INF = -1e30
 # tolerances against the plain versions on the same inputs. Both sides
@@ -4869,8 +4902,517 @@ def drive_async(device: str = "cuda", fleet: dict = ASYNC_FLEET, sim: dict = ASY
     return ok, out
 
 
+#: ``bench_async.py``'s megafleet_1m row: FleetSpec.synth(1M, seed 1905,
+#: 10 % slow at 10x), dim 16, clusters of 1024, K 64, 4 updates a client,
+#: the consensus task at local lr 0.7, 256 events a chunk
+MEGAFLEET = dict(n=1_000_000, seed=1905, slow_frac=0.10, cluster=1024, k=64, updates=4, local_lr=0.7, chunk=256)
+#: BENCH_ASYNC.json's integer counts of that fleet (they do not depend on
+#: the device: JAX's engine on a CPU)
+MEGAFLEET_COUNTS = {"events": 4_000_000, "merges": 976, "regional_merges": 62_500}
+#: the JAX tests' chunked-against-per-event fleet
+MF_SMALL = dict(n=500, seed=1905, dim=8, k=8, updates=4, local_lr=0.7)
+#: params of the kernel against its twin and of the chunked engine against
+#: the per-event engine on the card, as a share of the largest |value|:
+#: the fedavg and trimmed-mean sums run in another order (ulps a fold)
+MF_PARAM_TOL = 1e-5
+#: the carry's integer and time fields, which must be equal bit for bit
+MF_EXACT = ("si", "hist_edge", "hist_glob", "mint", "sf", "gkey_hi", "gkey_lo", "rcount", "radopt", "up_seq",
+            "last_acc_r", "rkey_hi", "rkey_lo", "rsamp")
+MF_CLOSE = ("G", "w", "gbuf", "gwt", "rbuf", "rwt", "rparams")
+
+
+def _mf_curves(res):
+    return (np.asarray([x[0] for x in res.loss_curve]), [x[1] for x in res.loss_curve],
+            np.asarray([x[2] for x in res.loss_curve]))
+
+
+def megafleet_pair(cluster: int, device: str = "cuda") -> dict:
+    """The JAX tests' ``_pair``: ``SimulatedAsyncFleet(1000)`` and
+    ``MegaFleet`` on its exported population, both on ``device``: merges
+    and the version sequence exact, mint times within 1e-4, losses within
+    the JAX tests' limits (flat 1e-5 of the largest, hier 0.15 and the
+    final loss within 1e-2), flat params within 1e-5."""
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
+    from p2pfl_tpu_torch.federation.simfleet import SimulatedAsyncFleet
+
+    fleet = SimulatedAsyncFleet(1000, seed=1905, cluster_size=cluster, updates_per_node=4, slow_frac=0.1,
+                                local_lr=0.7, device=device)
+    spec = FleetSpec.from_sim(fleet)
+    heap, heap_s = _timed_s(fleet.run)
+    mega = MegaFleet(spec, cluster_size=cluster, updates_per_node=4, local_lr=0.7, device=device)
+    res, mega_s = _timed_s(mega.run)
+    ht, hv, hl = _mf_curves(heap)
+    mt, mv, ml = _mf_curves(res)
+    same_len = len(mt) == len(ht)
+    loss_gap = float(np.max(np.abs(ml - hl))) if same_len and len(hl) else None
+    final_rel = abs(res.final_loss() - heap.final_loss()) / max(heap.final_loss(), 1e-9)
+    mint_gap = float(np.max(np.abs(mt - ht), initial=0.0)) if same_len else math.inf
+    # hier: an aggregate is offered at its regional's flush, so its mint
+    # time may differ from the heap's by up to one link delay (JAX's own
+    # engine: 0.0099 s at this fleet)
+    mint_tol = fleet.link_delay if cluster else 1e-4
+    checks = {
+        "merges equal": res.merges == heap.merges > 0,
+        "version sequence equal": mv == hv,
+        f"mint times within {mint_tol:g}": mint_gap <= mint_tol,
+    }
+    if cluster:
+        checks["losses within 0.15 of the largest"] = loss_gap is not None and loss_gap <= float(hl.max()) * 0.15
+        checks["final loss within 1e-2"] = final_rel <= 1e-2
+    else:
+        checks["losses within 1e-5 of the largest"] = loss_gap is not None and loss_gap <= float(hl.max()) * 1e-5
+        checks["params within 1e-5"] = float((res.params["w"] - heap.params["w"]).abs().max()) <= 1e-5
+    return {"cluster": cluster, "merges": res.merges, "heap_merges": heap.merges, "heap_s": heap_s,
+            "megafleet_s": mega_s, "mint_max_gap": mint_gap, "loss_max_gap": loss_gap, "final_loss_rel_gap": final_rel,
+            "on_device": res.params["w"].device.type, "checks": checks}
+
+
+def _mf_small(**kw):
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
+
+    spec = FleetSpec.synth(MF_SMALL["n"], seed=MF_SMALL["seed"], dim=MF_SMALL["dim"])
+    return MegaFleet(spec, k=MF_SMALL["k"], updates_per_node=MF_SMALL["updates"], local_lr=MF_SMALL["local_lr"],
+                     **kw)
+
+
+def megafleet_engines(device: str = "cuda") -> dict:
+    """(b) the chunked engine (the kernel) against the per-event engine
+    (torch ops), both on ``device``: 500 clients, dim 8, K 8, chunks 7, 48
+    and 256, flat and clusters of 32. Merges, regional merges, versions,
+    mint times and histograms exact; params within ``MF_PARAM_TOL`` of
+    the largest value (and whether they came out bit-equal)."""
+    rows = {}
+    for cluster in (0, 32):
+        ref = _mf_small(cluster_size=cluster, chunk=1, device=device).run()
+        for chunk in (7, 48, 256):
+            got = _mf_small(cluster_size=cluster, chunk=chunk, device=device).run()
+            gap = float((got.params["w"] - ref.params["w"]).abs().max())
+            scale = float(ref.params["w"].abs().max())
+            rows[f"cluster{cluster}_chunk{chunk}"] = {
+                "merges": got.merges, "regional_merges": got.regional_merges, "params_max_abs_gap": gap,
+                "params_bit_equal": gap == 0.0,
+                "checks": {
+                    "merges, regional merges, versions, mint times exact": (
+                        got.merges, got.regional_merges, [x[:2] for x in got.loss_curve]) == (
+                        ref.merges, ref.regional_merges, [x[:2] for x in ref.loss_curve]),
+                    "staleness histograms exact": (got.staleness_hist_edge, got.staleness_hist_global) == (
+                        ref.staleness_hist_edge, ref.staleness_hist_global),
+                    f"params within {MF_PARAM_TOL:g} of the largest": gap <= MF_PARAM_TOL * scale,
+                }}
+    return rows
+
+
+def _mf_attack(fold: str, cluster: int):
+    """The (c) robust case: 5 % of the 500 clients flip their payloads'
+    sign; the window folds by ``fold``."""
+    from p2pfl_tpu_torch.communication.faults import ByzantineSpec, FaultPlan
+
+    n = MF_SMALL["n"]
+    byz = {f"sim-{i:04d}": ByzantineSpec(kind="sign_flip") for i in range(3, n, 20)}
+    return _mf_small(cluster_size=cluster, chunk=48, fold=fold, plan=FaultPlan(seed=1905, byzantine=byz),
+                     device="cuda")
+
+
+def _mf_faults(kind: str):
+    """(c)'s fault cases on 300 clients: ``chaos`` (drop, jitter,
+    duplicates, slow aggregators, a crash; pace steering, selection and
+    both rate limits), ``byzantine`` (every stateless kind at the edge and
+    at elected regionals' aggregate sends), ``churn`` (joins and a
+    graceful and an abrupt leave)."""
+    from p2pfl_tpu_torch.communication import faults as f
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
+
+    n, seed = 300, MF_SMALL["seed"]
+    spec = FleetSpec.synth(n, seed=seed, dim=MF_SMALL["dim"], slow_frac=0.1)
+    kw = dict(updates_per_node=4, local_lr=0.7, chunk=48, device="cuda")
+    if kind == "chaos":
+        plan = f.FaultPlan(seed=seed, default=f.EdgeFault(drop=0.05, jitter=0.002, duplicate=0.2),
+                           slow_nodes={f"sim-{i:04d}": 0.3 for i in range(1, n, 37)},
+                           crashes={"sim-0007": f.CrashSpec(stage="AsyncTrainStage", round_no=2)})
+        return MegaFleet(spec, cluster_size=16, k=4, plan=plan, pace_window=0.4, select_frac=0.8,
+                         rate_limit_regional=0.02, rate_limit_global=0.01, **kw)
+    if kind == "byzantine":
+        plan = f.FaultPlan(seed=seed, byzantine={
+            f"sim-{i:04d}": f.ByzantineSpec(kind=("sign_flip", "scale", "noise")[i % 3], lam=5.0, noise_std=2.0)
+            for i in range(0, n, 16)})
+        return MegaFleet(spec, cluster_size=16, k=4, plan=plan, **kw)
+    plan = f.FaultPlan(seed=seed, joins={f"sim-{i:04d}": f.JoinSpec(at_s=1.5 + 0.1 * (i - n + 6))
+                                          for i in range(n - 6, n)},
+                       leaves={"sim-0005": f.LeaveSpec(at_s=2.5, graceful=True),
+                               "sim-0033": f.LeaveSpec(at_s=3.0, graceful=False)})
+    return MegaFleet(spec, cluster_size=32, plan=plan, **kw)
+
+
+def _mf_grad(kind: str, cluster: int, device: str = "cuda"):
+    """(c)'s gradient-task fleets: 200 clients each train a tiny ``kind``
+    model (SGD on teacher-labelled clouds), K 4 and 48 events a chunk, so
+    a chunk mints several times and its later lanes adopt those mints: the
+    kernel stops before each such lane, the host runs the task's round
+    from the mint, the kernel resumes there."""
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, GradTask, MegaFleet
+
+    task = GradTask(kind=kind, d_in=6, n_out=3, hidden=8 if kind == "mlp" else 0, batch=4, steps=2, data_seed=5)
+    spec = FleetSpec.synth(200, seed=MF_SMALL["seed"], dim=task.param_dim())
+    return MegaFleet(spec, cluster_size=cluster, k=4, updates_per_node=4, local_lr=0.3, task=task, chunk=48,
+                     device=device)
+
+
+def compare_carries(card, host) -> tuple[bool, float, float]:
+    """(integer and time fields equal, the largest param gap, the largest
+    |param|) of two chunked engines' carries; the client rows' adopted
+    version column is an integer field."""
+    exact, gap, scale = True, 0.0, 0.0
+    for name in MF_EXACT:
+        if name in card.carry:
+            exact &= torch.equal(card.carry[name].cpu(), host.carry[name].cpu())
+    for name in MF_CLOSE:
+        if name in card.carry:
+            a, b = card.carry[name].cpu(), host.carry[name].cpu()
+            if name == "w":
+                exact &= torch.equal(a[:, -1], b[:, -1])
+                a, b = a[:, :-1], b[:, :-1]
+            gap = max(gap, float((a - b).abs().max()))
+            scale = max(scale, float(b.abs().max()))
+    return exact, gap, scale
+
+
+def megafleet_kernel_vs_twin() -> dict:
+    """(c) the kernel against its plain twin on the same inputs: the
+    streams of (b), the median and trimmed-mean folds under a 5 %
+    sign-flip attack (flat and clusters of 32), and the fault fleets of
+    :func:`_mf_faults` (rate limits, duplicates, every Byzantine kind at
+    both seams, churn's per-epoch K) and the gradient-task fleets of
+    :func:`_mf_grad` (linear flat, mlp in clusters of 16). Each fleet's chunked
+    engine runs twice on the card (the kernel) and once on the CPU (the
+    twin): the two card runs bit-equal in every field; the integer and
+    time fields of the carry (counters, histograms, mint times, window
+    keys, regional counters) equal the twin's; params within
+    ``MF_PARAM_TOL`` of the largest."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    cases = {f"cluster{c}_chunk{k}": _mf_small(cluster_size=c, chunk=k, device="cuda")
+             for c in (0, 32) for k in (7, 48, 256)}
+    cases.update({f"{fold}_signflip_cluster{c}": _mf_attack(fold, c)
+                  for fold in ("median", "trimmed-mean") for c in (0, 32)})
+    cases.update({f"{kind}_300": _mf_faults(kind) for kind in ("chaos", "byzantine", "churn")})
+    cases.update({"linear_task_flat": _mf_grad("linear", 0), "mlp_task_cluster16": _mf_grad("mlp", 16)})
+    rows, worst = {}, 0.0
+    for name, mega in cases.items():
+        runs = [mega.chunked_engine() for _ in range(2)]
+        for eng in runs:
+            eng.run()
+        torch.cuda.synchronize()
+        twin = mega.chunked_engine(device="cpu")
+        twin.run()
+        exact, gap, scale = compare_carries(runs[0], twin)
+        repeat = all(torch.equal(runs[0].carry[k], runs[1].carry[k]) for k in runs[0].carry)
+        worst = max(worst, gap)
+        si = runs[0].carry["si"].cpu().tolist()
+        rows[name] = {"merges": si[2], "regional_merges": si[7], "params_max_abs_gap": gap,
+                      "resumes": runs[0].resumes,
+                      "checks": {"integers and times equal the twin's": exact,
+                                 f"params within {MF_PARAM_TOL:g} of the largest": gap <= MF_PARAM_TOL * max(scale, 1.0),
+                                 "two card runs bit-equal": repeat,
+                                 "merged": si[2] > 0}}
+        if mega.task is not None:
+            rows[name]["checks"]["the kernel stopped at retrained lanes and resumed"] = runs[0].resumes > 0
+    return {"cases": rows, "max_abs_err": worst, "launches": _kernels.LAUNCHES["fleet_chunk"]}
+
+
+def megafleet_steps(eng, first: int, n: int) -> dict:
+    """Chunk steps ``first .. first+n`` of an engine on the card under
+    ``torch.profiler``: device operations a step (kernels, copies, fills;
+    each name's count over the steps, rounded, summed: the profiler may
+    drop an event at a window's edge, and the raw count is kept beside),
+    the ``fleet_chunk`` kernel's device time a launch, and the card's busy
+    share of the window (the union of the device intervals over its wall
+    time); then as many more steps with CUDA events around the kernel
+    alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from p2pfl_tpu_torch.ops import fleet_kernels as fk
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(first, first + n):
+            eng.step(s)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    kern = [e.time_range.elapsed_us() / 1e3 for e in events if "fleet_chunk_kernel" in e.name]
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    times = []
+    for s in range(first + n, first + 2 * n):
+        eng.pass_a(s)
+        start, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fk.fleet_chunk(eng, s)
+        end_ev.record()
+        end_ev.synchronize()
+        times.append(start.elapsed_time(end_ev))
+    return {"chunk": eng.cfg.chunk, "steps": n, "device_ops_per_step": sum(round(c / n) for c in by_name.values()),
+            "device_events_per_step_raw": len(events) / n, "kernel_launches_seen": len(kern),
+            "kernel_ms": statistics.median(kern) if kern else None,
+            "kernel_ms_events": statistics.median(times), "window_ms_per_step": wall_ms / n,
+            "busy_share": busy / 1e3 / wall_ms if events else None}
+
+
+def megafleet_bound_bytes(eng, res) -> float:
+    """The bytes a run's chunk steps must move, over its launches: each
+    event's record read once (the grids' columns, pass A's base and row
+    and payload), each admitted payload's window row and its weight, keys
+    and sample written once, each regional fold's window read once and
+    its params written, each global fold's window read and its row and
+    mint written."""
+    cfg = eng.cfg
+    dim = cfg.dim
+    record = sum(t.element_size() for t in eng.ev.values()) + 8 + 8 + 4 * (dim + 1) + 4 * dim + 4
+    insert = 4 * dim + 16
+    rfold = cfg.k_reg_max * (4 * dim + 16) + 4 * dim
+    gfold = cfg.k_global * (4 * dim + 12) + 4 * dim + 4
+    return (res.n_events * record + res.buffered * insert + res.regional_merges * rfold
+            + res.merges * gfold) / max(eng.n_chunks, 1)
+
+
+def megafleet_against_twin(card, host, at: int, max_chunks: int = 4000) -> dict:
+    """(d)'s kernel check at the main path's shapes: the 1M fleet's CPU
+    copy (the plain twin) steps from the first chunk until a regional
+    flush (hier) and a global flush have both happened, eight chunks past
+    that and at least to ``at``, where the card engine (the kernel)
+    stands; the card engine then steps to the same chunk. The twin's chunk
+    times (passes B-D, after its pass A) from chunk 8 on. Then the carries
+    as in (c): integer and time fields equal the twin's, params within
+    ``MF_PARAM_TOL`` of the largest."""
+    from p2pfl_tpu_torch.ops import fleet_kernels as fk
+
+    i_merges, i_rmerges = fk.SCALARS.index("merges"), fk.SCALARS.index("rmerges")
+    plain, s, flushed = [], 0, None
+    while s < min(max_chunks, host.n_chunks):
+        host.pass_a(s)
+        t = time.perf_counter()
+        fk.fleet_chunk_plain(host, s)
+        if s >= 8:
+            plain.append((time.perf_counter() - t) * 1e3)
+        s += 1
+        si = host.carry["si"]
+        if flushed is None and si[i_merges] > 0 and (si[i_rmerges] > 0 or not host.cfg.hier):
+            flushed = s
+        if flushed is not None and s >= max(at, flushed + 8):
+            break
+    for c in range(at, s):
+        card.step(c)
+    exact, gap, scale = compare_carries(card, host)
+    si = host.carry["si"].tolist()
+    return {"chunks": s, "first_global_flush_by_chunk": flushed, "merges": si[i_merges],
+            "regional_merges": si[i_rmerges], "params_max_abs_gap": gap, "params_max_abs": scale,
+            "plain_ms": statistics.median(plain) if plain else None,
+            "checks": {"a regional and a global flush in the compared chunks": flushed is not None,
+                       "integers and times equal the twin's": exact,
+                       f"params within {MF_PARAM_TOL:g} of the largest": gap <= MF_PARAM_TOL * max(scale, 1.0)}}
+
+
+def megafleet_full() -> dict:
+    """(d) the 1M-client fleet through ``MegaFleet.run`` on the card:
+    wall seconds, clients/s, events/s, merges and regional merges beside
+    BENCH_ASYNC.json's, time to 5 % of the start loss, the staleness mean,
+    peak memory and the kernel's launches; then the same fleet's engine
+    stepped under the profiler at 64 and 256 events a chunk (device
+    operations a step, the kernel's device time); the C 256 engine is then
+    held against its plain twin on a CPU copy
+    (:func:`megafleet_against_twin`) and runs the rest of its chunks with
+    CUDA events around each launch. ``init_s`` is ``MegaFleet``'s
+    construction (the router over a million addresses), outside ``run``'s
+    wall time as in JAX;
+    peak memory is this phase's, above what earlier phases still hold."""
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops import fleet_kernels as fk
+
+    cfg = MEGAFLEET
+    spec = FleetSpec.synth(cfg["n"], seed=cfg["seed"], slow_frac=cfg["slow_frac"])
+    start_loss = spec.loss(spec.init)
+
+    def fleet(chunk):
+        return MegaFleet(spec, cluster_size=cfg["cluster"], k=cfg["k"], updates_per_node=cfg["updates"],
+                         local_lr=cfg["local_lr"], chunk=chunk, target_loss=0.05 * start_loss, device="cuda")
+
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    mega, init_s = _timed_s(lambda: fleet(cfg["chunk"]))
+    res, wall = _timed_s(mega.run)
+    launches = _kernels.LAUNCHES["fleet_chunk"]
+    hist = res.staleness_hist_edge
+    tau_mean = sum(i * c for i, c in enumerate(hist)) / max(sum(hist), 1)
+    losses = np.asarray([x[2] for x in res.loss_curve])
+    mints = np.asarray([x[0] for x in res.loss_curve])
+    out = {"clients": cfg["n"], "events": res.n_events, "wall_s": wall, "engine_wall_s": res.wall_s,
+           "clients_per_s": cfg["n"] / wall, "events_per_s": res.n_events / wall, "merges": res.merges,
+           "regional_merges": res.regional_merges, "bench_async_counts": MEGAFLEET_COUNTS,
+           "time_to_target_virtual_s": res.time_to_target, "start_loss": start_loss,
+           "final_loss": res.final_loss(), "staleness_mean": tau_mean,
+           "peak_memory_gb": (torch.cuda.max_memory_allocated() - held) / 1e9, "launches_fleet_chunk": launches,
+           "init_s": init_s}
+    out["checks"] = {
+        "events, merges and regional merges equal BENCH_ASYNC.json's": (
+            res.n_events, res.merges, res.regional_merges) == tuple(MEGAFLEET_COUNTS.values()),
+        "one launch a chunk": launches == -(-res.n_events // cfg["chunk"]),
+        "version == merges, mint times monotone": res.version == res.merges and bool(np.all(np.diff(mints) >= 0)),
+        "finite losses, 5 % of the start loss reached": bool(np.all(np.isfinite(losses)))
+        and res.time_to_target is not None,
+    }
+    out["checks"]["final loss below the target"] = res.final_loss() <= 0.05 * start_loss
+    # the chunk step under the profiler at C 64 and C 256, each on an
+    # engine of its own; the main chunk's engine build is the run's host
+    # preparation, timed alone. After its profiled steps the C 256 engine
+    # is held against its plain twin on a CPU copy (the kernel at the main
+    # path's shapes), then runs the rest of its chunks with CUDA events
+    # around each launch (the loop's time a step, the kernel's mean over
+    # the run); it must end where MegaFleet.run ended
+    steps = {}
+    for chunk in (64, cfg["chunk"]):
+        eng, prep_s = _timed_s(lambda: fleet(chunk).chunked_engine())  # noqa: B023
+        for s in range(8):  # warm-up (the first launch builds the table)
+            eng.step(s)
+        steps[chunk] = megafleet_steps(eng, 8, 40)
+        if chunk == cfg["chunk"]:
+            out["twin_1m"] = twin = megafleet_against_twin(eng, fleet(chunk).chunked_engine(device="cpu"), 88)
+            bound_bytes = megafleet_bound_bytes(eng, res)
+            rest, marks = range(twin["chunks"], eng.n_chunks), []
+            t0 = time.perf_counter()
+            for s in rest:
+                eng.pass_a(s)
+                marks.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+                marks[-1][0].record()
+                fk.fleet_chunk(eng, s)
+                marks[-1][1].record()
+            torch.cuda.synchronize()
+            rest_s = time.perf_counter() - t0
+            run_mean = statistics.fmean(a.elapsed_time(b) for a, b in marks)
+            end = eng.result()
+            out.update({"host_prep_s": prep_s, "loop_ms_per_step": rest_s / len(rest) * 1e3,
+                        "loop_s_estimate": rest_s / len(rest) * eng.n_chunks,
+                        "kernel_ms_run_mean_events": run_mean, "kernel_s_total": launches * run_mean / 1e3})
+            out["checks"]["the stepped engine ends where MegaFleet.run ended"] = (
+                end["merges"] == res.merges and torch.equal(end["G"][res.version], res.params["w"]))
+        del eng
+    out["steps"] = steps
+    out["checks"]["device operations a step the same at C 64 and 256"] = (
+        steps[64]["device_ops_per_step"] == steps[cfg["chunk"]]["device_ops_per_step"])
+    out["checks"].update({f"1M against the twin: {k}": v for k, v in twin["checks"].items()})
+    kernel_ms = steps[cfg["chunk"]]["kernel_ms"] or steps[cfg["chunk"]]["kernel_ms_events"]
+    out["kernel_row"] = {"ms": kernel_ms, "ms_run_mean_events": run_mean, "plain_ms": twin["plain_ms"],
+                         "bound_ms": bound_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+                         "bound_bytes_per_launch": bound_bytes, "library_ms": None}
+    return out
+
+
+def megafleet_autotune() -> dict:
+    """(e) ``chunk="auto"`` on a 20k-client fleet of the same shape: the
+    first run measures every candidate (two engine runs each) and writes
+    the fleet-tune cache; a second fleet, with the in-process cache
+    cleared, replays the winner from the file with no measurement."""
+    from pathlib import Path
+
+    from p2pfl_tpu_torch.federation import megafleet as mf
+    from p2pfl_tpu_torch.ops import fleet_autotune as ft
+    from p2pfl_tpu_torch.settings import Settings
+
+    cfg = MEGAFLEET
+    cache = Path("build") / "fleet_tune.json"
+    cache.unlink(missing_ok=True)
+    calls = []
+    real = mf.MegaFleet._run_chunked
+
+    def counted(self, *a):
+        calls.append(a[0].chunk)
+        return real(self, *a)
+
+    spec = mf.FleetSpec.synth(20_000, seed=cfg["seed"], slow_frac=cfg["slow_frac"])
+    old = Settings.FLEET_TUNE_CACHE
+    Settings.FLEET_TUNE_CACHE = str(cache)
+    mf.MegaFleet._run_chunked = counted
+    try:
+        ft.clear_memory_cache()
+        runs = []
+        for _ in range(2):
+            mega = mf.MegaFleet(spec, cluster_size=cfg["cluster"], k=cfg["k"], updates_per_node=cfg["updates"],
+                                local_lr=cfg["local_lr"], chunk="auto", device="cuda")
+            res, wall = _timed_s(mega.run)
+            runs.append({"chunk": mega.chunk, "engine_runs": len(calls), "wall_s": wall, "merges": res.merges})
+            calls.clear()
+            ft.clear_memory_cache()  # the replay reads the file
+        entry = json.loads(cache.read_text()) if cache.exists() else {}
+    finally:
+        mf.MegaFleet._run_chunked = real
+        Settings.FLEET_TUNE_CACHE = old
+        ft.clear_memory_cache()
+    key = next(iter(entry), "")
+    n_cands = len(ft.DEFAULT_CANDIDATES)
+    return {"runs": runs, "cache_key": key, "timings_s": entry.get(key, {}).get("timings"), "checks": {
+        f"first run measured {n_cands} candidates twice, then ran": runs[0]["engine_runs"] == 2 * n_cands + 1,
+        "replay ran once, no measurement": runs[1]["engine_runs"] == 1,
+        "replay took the cached winner": runs[1]["chunk"] == runs[0]["chunk"] == entry.get(key, {}).get("chunk"),
+        "cache keyed by the card": key.startswith(torch.cuda.get_device_name(0)),
+        "same merges": runs[0]["merges"] == runs[1]["merges"] > 0,
+    }}
+
+
+def drive_megafleet() -> tuple[bool, dict]:
+    """The megafleet engine on the card, parts (a)-(e) (see the module
+    docs); each part fails the phase on its own."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    set_test_settings()  # the JAX tests' knobs: 48 events a chunk unless a part says otherwise
+    ok = True
+    out: dict = {}
+
+    def part(tag: str, row: dict) -> None:
+        nonlocal ok
+        checks = row.get("checks", {})
+        good = all(checks.values())
+        ok &= good
+        log(f"[megafleet] {tag}: {json.dumps(row, default=str)} {'OK' if good else 'FAIL'}")
+
+    for cluster in (0, 32):
+        out[f"pair_{cluster}"] = row = megafleet_pair(cluster)
+        part(f"(a) 1k pair, clusters of {cluster or 'all (flat)'}", row)
+    out["engines"] = megafleet_engines()
+    for name, row in out["engines"].items():
+        part(f"(b) chunked against per-event, {name}", row)
+    _kernels.reset_launches()
+    out["twin"] = megafleet_kernel_vs_twin()
+    for name, row in out["twin"]["cases"].items():
+        part(f"(c) kernel against twin, {name}", row)
+    out["full"] = full = megafleet_full()
+    part("(d) 1M clients", {k: v for k, v in full.items() if k != "kernel_row"})
+    log(f"[megafleet] (d) {full['wall_s']:.2f} s wall, {full['clients_per_s']:.0f} clients/s, "
+        f"{full['events_per_s']:.0f} events/s, merges {full['merges']} (BENCH_ASYNC.json "
+        f"{MEGAFLEET_COUNTS['merges']}), regional merges {full['regional_merges']} "
+        f"({MEGAFLEET_COUNTS['regional_merges']}), device ops a step "
+        f"{ {c: r['device_ops_per_step'] for c, r in full['steps'].items()} }, kernel "
+        f"{full['kernel_row']['ms']:.4f} ms a launch (the run's mean by CUDA events "
+        f"{full['kernel_row']['ms_run_mean_events']:.4f}; plain twin {full['kernel_row']['plain_ms']:.3f} ms, "
+        f"bound {full['kernel_row']['bound_ms']:.5f} ms)")
+    out["autotune"] = megafleet_autotune()
+    part("(e) chunk='auto' and its replay", out["autotune"])
+    out["kernel_row"] = dict(full["kernel_row"],
+                             max_abs_err=max(out["twin"]["max_abs_err"], full["twin_1m"]["params_max_abs_gap"]),
+                             launches=full["launches_fleet_chunk"])
+    return ok, out
+
+
 PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "compress", "mnist",
-          "cifar", "chunked", "nameplate", "config7", "moe", "async")
+          "cifar", "chunked", "nameplate", "config7", "moe", "async", "megafleet")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 #: the runs to a target accuracy (minutes each) and the control of the
@@ -5010,6 +5552,11 @@ def main(argv=None) -> int:
         for part in ("byzantine", "resume"):
             if part in async_out:
                 count(f"async_{part}", {"ici_exchange": async_out[part]["launches_ici_exchange"]}, ("ici_exchange",))
+    megafleet: dict = {}
+    if "megafleet" in args.only:
+        good, megafleet = timed("megafleet", drive_megafleet)
+        ok &= good
+        count("megafleet", {"fleet_chunk": megafleet["kernel_row"]["launches"]}, ("fleet_chunk",))
     if "moe_target" in args.only:
         good, _ = timed("moe_target", drive_moe_target)
         ok &= good
@@ -5035,6 +5582,9 @@ def main(argv=None) -> int:
             # the same kernel on the codec tree (int32 idx, int8 q, fp32
             # scales and the raw leaves of one update)
             rows["ici_exchange"]["codec_tree"] = compress["ici"]["kernel9_codec_tree"]
+    if megafleet:
+        rows["fleet_chunk"] = {k: megafleet["kernel_row"][k] for k in (
+            "max_abs_err", "ms", "ms_run_mean_events", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     if rows:
         for d in WIDTH_SHAPES:
             for name, row in timings.get(f"D{d}", {}).items():

@@ -373,6 +373,42 @@ def byz_corrupt_update(plan: FaultPlan, src: str, dst: str, update, cmd: str):
 # ---- crash machinery ----
 
 
+#: ByzantineSpec kinds with an elementwise payload transform: the ones the
+#: megafleet engine applies as masked array transforms. ``stale_replay`` and
+#: ``equivocate`` keep state per edge and need the heap engine.
+BYZ_VECTOR_KINDS = ("sign_flip", "scale", "noise")
+_BYZ_KIND_CODE = {"sign_flip": 1, "scale": 2, "noise": 3}
+
+
+def byz_payload_grid(plan: FaultPlan, addrs: list) -> tuple:
+    """Dense per-node corruption codes of a plan's Byzantine specs:
+    ``(kind_code [N] int32, lam [N] f32, std [N] f32)`` over ``addrs`` in
+    index order, code 0 honest, 1 ``−a``, 2 ``lam·a``, 3 ``a + N(0, std)``
+    (the caller draws the noise rows from its own seeded stream). A spec
+    whose ``cmds`` excludes ``"async_update"`` maps to 0; a kind outside
+    :data:`BYZ_VECTOR_KINDS` raises toward the heap engine."""
+    n = len(addrs)
+    code = np.zeros(n, np.int32)
+    lam = np.ones(n, np.float32)
+    std = np.zeros(n, np.float32)
+    idx = {a: j for j, a in enumerate(addrs)}
+    for addr, spec in plan.byzantine.items():
+        j = idx.get(addr)
+        if j is None:
+            continue
+        if spec.kind not in BYZ_VECTOR_KINDS:
+            raise ValueError(
+                f"ByzantineSpec kind {spec.kind!r} is stateful per edge and needs the heap "
+                f"engine; vectorized kinds: {'/'.join(BYZ_VECTOR_KINDS)}"
+            )
+        if "async_update" not in spec.cmds:
+            continue
+        code[j] = _BYZ_KIND_CODE[spec.kind]
+        lam[j] = np.float32(spec.lam)
+        std[j] = np.float32(spec.noise_std)
+    return code, lam, std
+
+
 def hard_crash(node: "Node") -> None:
     """Kill a node the way a dead process dies: no goodbyes. The server
     unregisters, heartbeats and gossip stop, the learner is interrupted,

@@ -20,15 +20,16 @@ of the slowest (the sync round FSM is ``stages/learning_stages.py``):
 - :mod:`~p2pfl_tpu_torch.federation.defense` — the Byzantine admission
   screen, suspicion EWMA and quarantine;
 - :mod:`~p2pfl_tpu_torch.federation.durability` — the crash-consistent
-  :class:`NodeJournal` behind ``Node.enable_journal`` / ``Node.resume``.
-
-The JAX package's vectorized megafleet engine is not ported (ROADMAP Queue
-A, A8).
+  :class:`NodeJournal` behind ``Node.enable_journal`` / ``Node.resume``;
+- :mod:`~p2pfl_tpu_torch.federation.megafleet` — the vectorized fleet
+  (:class:`MegaFleet` over a :class:`FleetSpec`, up to millions of
+  clients; its chunk step is the ``fleet_chunk`` CUDA kernel on the card).
 """
 
 from p2pfl_tpu_torch.federation.buffer import BufferedAggregator
 from p2pfl_tpu_torch.federation.defense import ByzantineDefense
 from p2pfl_tpu_torch.federation.durability import JournalSnapshot, NodeJournal, SeqCounter
+from p2pfl_tpu_torch.federation.megafleet import FleetSpec, GradTask, MegaFleet, MegaFleetResult
 from p2pfl_tpu_torch.federation.routing import BufferPlan, TierRouter, VersionHighWater
 from p2pfl_tpu_torch.federation.simfleet import FleetResult, SimulatedAsyncFleet
 from p2pfl_tpu_torch.federation.staleness import UpdateVersion, VersionVector, staleness_weight
@@ -41,8 +42,12 @@ __all__ = [
     "BufferedAggregator",
     "ByzantineDefense",
     "FleetResult",
+    "FleetSpec",
+    "GradTask",
     "HierarchicalTopology",
     "JournalSnapshot",
+    "MegaFleet",
+    "MegaFleetResult",
     "NodeJournal",
     "SeqCounter",
     "SimulatedAsyncFleet",

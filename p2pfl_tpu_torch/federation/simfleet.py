@@ -290,30 +290,58 @@ class SimulatedAsyncFleet:
         return next(c)
 
     def export_spec(self, extra: int = 0, allow_custom: bool = False) -> Dict[str, Any]:
-        """Not ported: the dense export feeds the vectorized megafleet
-        engine, which waits for ROADMAP Queue A, A8 (megafleet).
-
-        In the JAX package: dense-array export of this fleet's population — the megafleet
+        """Dense-array export of this fleet's population, the megafleet
         parity hook: :meth:`p2pfl_tpu_torch.federation.megafleet.FleetSpec.
         from_sim` builds the vectorized engine's population from exactly
         these arrays (sorted-address order == index order, so the two
-        engines' fold keys agree), which is what lets the 1k parity
-        tests drive the SAME fleet through both engines.
+        engines' fold keys agree), which lets the 1k parity tests drive the
+        same fleet through both engines.
 
-        ``extra`` appends that many PENDING-JOINER rows past the current
-        population — drawn from the same per-idx counter streams a later
-        :meth:`inject_join` would use, so a churn plan's joiners carry
-        identical durations/samples/targets in both engines before they
-        exist in the heap. ``allow_custom`` skips only the
-        train_fn/loss_fn check: the gradient-task parity pin drives the
-        heap with a vectorized-twin closure and exports the same
-        population shape."""
-        from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
-
-        raise UnsupportedByPortError(
-            "SimulatedAsyncFleet.export_spec feeds the megafleet engine, which is not "
-            "ported (ROADMAP Queue A, A8: megafleet)"
-        )
+        ``extra`` appends that many pending-joiner rows past the current
+        population, drawn from the per-idx streams a later join would use,
+        so a churn plan's joiners carry the same durations, samples and
+        targets in both engines before they exist in the heap.
+        ``allow_custom`` skips only the train_fn/loss_fn check: the
+        gradient-task parity pin drives the heap with a vectorized-twin
+        closure and exports the same population shape."""
+        if set(self._init) != {"w"}:
+            raise ValueError(
+                "export_spec supports the consensus-task layout ({'w': [dim]}): custom workloads have no "
+                "vectorized twin")
+        if not allow_custom and (
+            getattr(self.train_fn, "__func__", None) is not SimulatedAsyncFleet._default_train
+            or getattr(self.loss_fn, "__func__", None) is not SimulatedAsyncFleet._default_loss
+        ):
+            raise ValueError(
+                "export_spec supports the default consensus workload: a custom train_fn/loss_fn has no "
+                "vectorized twin")
+        if self.n + extra > 10_000:
+            # 4-digit addresses: past 10k their sorted order is no longer
+            # index order (use FleetSpec.synth for larger populations)
+            raise ValueError(
+                "export_spec is the <=10k parity hook (4-digit address regime); use FleetSpec.synth for "
+                "larger populations")
+        nodes = [self.nodes[a] for a in sorted(self.nodes)]
+        # (idx, addr, samples, duration): live nodes, then pending joiners
+        # continuing the idx sequence
+        table = [(n.idx, n.addr, n.num_samples, n.duration) for n in nodes]
+        for idx in range(self._next_idx, self._next_idx + extra):
+            table.append((idx, f"sim-{idx:04d}", 1 + idx % 3, self._draw_duration(idx)))
+        slow = np.zeros(len(table), np.float64)
+        if self.plan is not None:
+            for j, t in enumerate(table):
+                slow[j] = float(self.plan.slow_nodes.get(t[1], 0.0))
+        init = self._init["w"]
+        return {
+            "durations": np.asarray([t[3] for t in table], np.float64),
+            "num_samples": np.asarray([t[2] for t in table], np.float32),
+            "targets": np.stack([self._target(t[0]) for t in table]).astype(np.float32),
+            "slow": slow,
+            "init": (init.detach().cpu().numpy() if isinstance(init, torch.Tensor) else np.asarray(init)
+                     ).astype(np.float32),
+            "seed": self.seed,
+            "link_delay": self.link_delay,
+        }
 
     # ---- default workload ----
 

@@ -5,7 +5,8 @@
 ``wgmma``, dQ by bulk reductions; and kernels 4 and 8, the split
 backward's dK/dV pass, the same template without dQ),
 ``csrc/flash_bwd_dq_sm90.cu`` (kernels 3 and 7, the split backward's dQ
-pass: TMA, ``wgmma``) and ``csrc/ici_exchange.cu`` (kernel 9) are
+pass: TMA, ``wgmma``), ``csrc/ici_exchange.cu`` (kernel 9) and
+``csrc/fleet_chunk.cu`` (the megafleet chunk step, a port-only kernel) are
 compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
 all started together, and linked
 into one shared library under ``build/p2pfl_tpu_torch/`` (beside the
@@ -34,6 +35,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -45,7 +47,7 @@ from p2pfl_tpu_torch.exceptions import KernelBuildError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = tuple(CSRC / name for name in (
-    "flash_bwd_dq_sm90.cu", "flash_bwd_sm90.cu", "flash_fwd_sm90.cu", "ici_exchange.cu"))
+    "flash_bwd_dq_sm90.cu", "flash_bwd_sm90.cu", "flash_fwd_sm90.cu", "fleet_chunk.cu", "ici_exchange.cu"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "p2pfl_tpu_torch"
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (``-c``); the link adds ``-shared``
@@ -57,7 +59,7 @@ TILE = 64  # the kernels' q/k tile: T must be a multiple
 LAUNCHES: dict[str, int] = {
     "flash_fwd": 0, "flash_bwd_dkvq": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
     "flash_fwd_offs": 0, "flash_bwd_dkvq_offs": 0, "flash_bwd_dq_offs": 0,
-    "flash_bwd_dkv_offs": 0, "ici_exchange": 0,
+    "flash_bwd_dkv_offs": 0, "ici_exchange": 0, "fleet_chunk": 0,
 }
 
 #: the flash kernels' launches by head width since the last :func:`reset_launches`
@@ -84,6 +86,7 @@ SIGNATURES = {
     "p2p_ici_exchange": [_P, _I, _P],
     "p2p_ici_max_entries": [],
     "p2p_enable_peer_access": [_I, _I],
+    "p2p_fleet_chunk": [_P, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -466,3 +469,68 @@ def ici_exchange(srcs: list, dsts: list) -> None:
         # the receiver's stream sees the stores complete (the TPU kernel's
         # recv semaphore)
         torch.cuda.current_stream(dst_dev).wait_stream(stream)
+
+
+# ---- the megafleet chunk step (csrc/fleet_chunk.cu) ----
+
+_i32, _i64, _f32, _u8 = torch.int32, torch.int64, torch.float32, torch.bool
+#: the kernel's argument table, word for word ``FleetArgs`` in the source:
+#: a tensor's address (a dtype), an int ("int") or a float ("float", sent
+#: as a double)
+FLEET_ARGS = (
+    ("client", _i64), ("key_hi", _i32), ("key_lo", _i32), ("t_adopt", _f32), ("t_arr", _f32),
+    ("send_ok", _u8), ("live", _u8), ("r", _i32), ("k_r", _i32), ("t_radopt", _f32), ("prev_r", _i32),
+    ("last_r", _u8), ("bkind", _i32), ("blam", _f32), ("bnoise", _i32),
+    ("base0", _i64), ("rv0", _i64), ("rows0", _f32), ("payload", _f32),
+    ("targets", _f32), ("samples", _f32), ("noise", _f32),
+    ("w", _f32), ("G", _f32), ("mint", _f32), ("gbuf", _f32), ("gwt", _f32), ("gkey_hi", _i32),
+    ("gkey_lo", _i32), ("hist_edge", _i32), ("hist_glob", _i32), ("si", _i32), ("sf", _f32),
+    ("rbuf", _f32), ("rwt", _f32), ("rsamp", _f32), ("rkey_hi", _i32), ("rkey_lo", _i32), ("rcount", _i32),
+    ("radopt", _i32), ("up_seq", _i32), ("last_acc_r", _f32), ("rparams", _f32),
+    ("stop", _i32),
+    ("reg_send_ok", _u8), ("reg_jit", _f32), ("agg_delay", _f32), ("reg_dup", _u8), ("akind", _i32),
+    ("alam", _f32), ("agg_noise_idx", _i32), ("agg_noise", _f32), ("wtab", _f32),
+    *((name, "int") for name in ("chunk", "n_chunks", "dim", "k_glob", "k_max", "stride", "hist_bins",
+                                 "max_staleness", "hier", "fold", "trim", "byz", "dup", "gf_cap",
+                                 "task")),
+    *((name, "float") for name in ("local_lr", "merge_keep", "merge_lr", "gap_reg", "gap_glob")),
+)
+
+
+class FleetChunkArgs:
+    """The argument table of one chunked engine, built once: every tensor
+    checked (CUDA device, dtype, contiguity) and kept alive here; a
+    tensor the configuration does not use is a null pointer."""
+
+    def __init__(self, values: dict) -> None:
+        device = values["w"].device
+        words = []
+        self.tensors = []
+        for name, kind in FLEET_ARGS:
+            v = values.get(name)
+            if kind == "int":
+                words.append(int(v) & 0xFFFFFFFFFFFFFFFF)
+            elif kind == "float":
+                words.append(int.from_bytes(struct.pack("<d", float(v)), "little"))
+            elif v is None:
+                words.append(0)
+            else:
+                if v.device != device or not v.is_contiguous() or v.dtype != kind:
+                    raise ValueError(f"fleet_chunk: {name} must be a contiguous {kind} tensor on {device}, "
+                                     f"got {v.dtype} on {v.device}")
+                self.tensors.append(v)
+                words.append(v.data_ptr())
+        if device.type != "cuda":
+            raise ValueError("fleet_chunk: the carry must lie on a CUDA device")
+        self.device = device
+        self.n_words = len(words)
+        self.table = (ctypes.c_uint64 * len(words))(*words)
+
+
+def fleet_chunk(args: FleetChunkArgs, chunk: int, j_start: int = 0, v0: int = -1) -> None:
+    """Passes B-D of chunk ``chunk`` from lane ``j_start``: one block, on
+    the current stream (a resumed chunk passes the lane and ``v0`` the last
+    launch wrote to ``stop``)."""
+    rc = _load().p2p_fleet_chunk(ctypes.cast(args.table, ctypes.c_void_p), args.n_words, int(chunk), int(j_start),
+                                 int(v0), _stream())
+    _check("fleet_chunk", rc)

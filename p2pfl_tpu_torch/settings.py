@@ -211,6 +211,27 @@ class Settings:
     JOURNAL_EVERY_N_UPDATES: int = 1
     JOURNAL_KEEP_N: int = 3
     JOURNAL_SEQ_MARGIN: int = 16
+    # --- megafleet (federation/megafleet.py, ops/fleet_kernels.py) ---
+    # defaults of MegaFleet's fleet knobs, read once at construction. Pace
+    # steering: each client's schedule is offset by a seeded uniform draw in
+    # [0, PACE_WINDOW) virtual seconds (0 disables)
+    MEGAFLEET_PACE_WINDOW: float = 0.0
+    # selection: each (client, update) slot runs with this probability
+    MEGAFLEET_SELECT_FRAC: float = 1.0
+    # per-tier rate limits: virtual seconds between accepted offers at a
+    # regional / the global window (0 disables)
+    MEGAFLEET_REGIONAL_RATE_S: float = 0.0
+    MEGAFLEET_GLOBAL_RATE_S: float = 0.0
+    # events per chunk step of the chunked engine (1 = the per-event
+    # reference engine; 0 = measure the candidates once on the device and
+    # replay the winner from the fleet-tune cache, ops/fleet_autotune.py)
+    MEGAFLEET_CHUNK: int = 256
+    # device shards of the JAX package's sharded engine: the port refuses
+    # more than one (ROADMAP Queue A item 5)
+    MEGAFLEET_SHARDS: int = 0
+    # path of the fleet-tune cache (chunk winners by device kind); empty =
+    # ~/.cache/p2pfl_tpu_torch/fleet_tune.json
+    FLEET_TUNE_CACHE: str = ""
     # --- Byzantine robustness (federation/defense.py, ops/aggregation.py) ---
     # the async buffer's fold: "fedavg" (staleness-weighted mean),
     # "trimmed-mean" / "median" (per-coordinate rank rules, weight-free) or
@@ -319,3 +340,11 @@ def set_test_settings() -> None:
     Settings.JOURNAL_EVERY_N_UPDATES = 1
     Settings.JOURNAL_KEEP_N = 3
     Settings.JOURNAL_SEQ_MARGIN = 16
+    Settings.MEGAFLEET_PACE_WINDOW = 0.0
+    Settings.MEGAFLEET_SELECT_FRAC = 1.0
+    Settings.MEGAFLEET_REGIONAL_RATE_S = 0.0
+    Settings.MEGAFLEET_GLOBAL_RATE_S = 0.0
+    # a small odd chunk: every parity test crosses chunk boundaries
+    Settings.MEGAFLEET_CHUNK = 48
+    Settings.MEGAFLEET_SHARDS = 0
+    Settings.FLEET_TUNE_CACHE = ""

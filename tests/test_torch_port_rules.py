@@ -57,10 +57,12 @@ def test_import_purity_in_a_fresh_process():
     # FedPer and their example
     assert {"p2pfl_tpu_torch.ops.compression", "p2pfl_tpu_torch.learning.secagg",
             "p2pfl_tpu_torch.learning.personalization", "p2pfl_tpu_torch.examples.secure_mnist"} <= set(mods)
-    # and the async control plane with its durability
+    # and the async control plane with its durability, and the megafleet engine
     assert {f"p2pfl_tpu_torch.federation.{m}" for m in (
         "staleness", "topology", "routing", "buffer", "defense", "durability", "workflow", "simfleet")} | {
         "p2pfl_tpu_torch.commands.federation"} <= set(mods)
+    assert {"p2pfl_tpu_torch.federation.megafleet", "p2pfl_tpu_torch.ops.fleet_kernels",
+            "p2pfl_tpu_torch.ops.fleet_autotune"} <= set(mods)
 
 
 @pytest.mark.parametrize(
@@ -145,6 +147,7 @@ def test_kernel_sources_and_bindings_agree():
         },
         "flash_fwd_sm90.cu": {"p2p_flash_fwd": 10, "p2p_flash_fwd_offs": 11, "p2p_flash_fwd_smem_bytes": 1},
         "ici_exchange.cu": {"p2p_ici_exchange": 3, "p2p_ici_max_entries": 0, "p2p_enable_peer_access": 2},
+        "fleet_chunk.cu": {"p2p_fleet_chunk": 6},
     }
     assert sorted(sources) == sorted(argcs)
     bindings = (PKG / "ops" / "_kernels.py").read_text()
@@ -170,11 +173,23 @@ def test_kernel_sources_and_bindings_agree():
     assert set(_kernels.LAUNCHES) == {
         "flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv",
         "flash_fwd_offs", "flash_bwd_dkvq_offs", "flash_bwd_dq_offs", "flash_bwd_dkv_offs",
-        "ici_exchange",
+        "ici_exchange", "fleet_chunk",
     }
     assert [s.name for s in _kernels.SOURCES] == [p.name for p in sorted((PKG / "csrc").glob("*.cu"))]
     # kernel 9 stores every payload byte itself: no copy call in its source
     assert "cudaMemcpy" not in sources["ici_exchange.cu"]
+    # the fleet kernel's argument table: the source's FleetArgs fields, in
+    # order, are the binding's FLEET_ARGS, every one a 64-bit word
+    body = re.search(r"struct FleetArgs \{(.*?)\n\};", sources["fleet_chunk.cu"], re.S).group(1)
+    decls = [d.strip() for d in re.sub(r"//[^\n]*", "", body).split(";") if d.strip()]
+    fields = []
+    for d in decls:
+        m = re.fullmatch(r"(?:const )?(unsigned char|long long|int|float|double)\s*(\*?)\s*(.*)", d, re.S)
+        fields += [(n.strip(), m.group(1) + m.group(2)) for n in m.group(3).split(",")]
+    assert [n for n, _ in fields] == [n for n, _ in _kernels.FLEET_ARGS]
+    for (name, ctype), (_, kind) in zip(fields, _kernels.FLEET_ARGS):
+        want = {"int": "long long", "float": "double"}.get(kind, "*")
+        assert ctype.endswith(want), (name, ctype, kind)
 
 
 def test_forward_ablations_apply_to_the_source():

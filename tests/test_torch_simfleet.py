@@ -128,6 +128,10 @@ def test_simfleet_same_seed_replays_bit_for_bit_in_the_port():
 
 
 def test_simfleet_defaults_to_the_card_and_export_spec_waits_for_a8():
+    """The fleet defaults to the card; ``export_spec`` (the megafleet
+    engine's population hook, ROADMAP A8) equals JAX's export array for
+    array, pending joiners and slow nodes included, and refuses what JAX's
+    refuses."""
     if not torch.cuda.is_available():
         from p2pfl_tpu_torch import DeviceUnavailableError
 
@@ -135,5 +139,20 @@ def test_simfleet_defaults_to_the_card_and_export_spec_waits_for_a8():
             SimulatedAsyncFleet(8)
     fleet = SimulatedAsyncFleet(8, device="cpu")
     assert fleet.result.params["w"].device.type == "cpu"
-    with pytest.raises(UnsupportedByPortError, match="A8"):
-        fleet.export_spec()
+    n, cluster, plan, kw = SCENARIOS["flat"]
+    jfleet = JFleet(n, seed=11, cluster_size=cluster, updates_per_node=5, plan=plan(jf, n), **kw)
+    tfleet = SimulatedAsyncFleet(n, seed=11, cluster_size=cluster, updates_per_node=5, plan=plan(tf, n),
+                                 device="cpu", **kw)
+    want, got = jfleet.export_spec(extra=4), tfleet.export_spec(extra=4)
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        if isinstance(v, np.ndarray):
+            assert v.dtype == got[k].dtype and np.array_equal(v, got[k]), k
+        else:
+            assert v == got[k], k
+    assert got["durations"].shape == (n + 4,) and got["slow"].max() == 0.5
+    with pytest.raises(ValueError, match="no vectorized twin"):
+        SimulatedAsyncFleet(8, train_fn=lambda i, p, r: p, device="cpu").export_spec()
+    with pytest.raises(ValueError, match="4-digit address"):
+        SimulatedAsyncFleet(10_001, cluster_size=32, device="cpu").export_spec()
+    assert not issubclass(ValueError, UnsupportedByPortError)
