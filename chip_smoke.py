@@ -235,25 +235,30 @@ Phases, each of which makes the script exit non-zero if it fails (the
    exported population, flat and with clusters of 32 (merges and versions
    exact, mint times within 1e-4 flat and one link delay hier, the JAX
    tests' loss limits); (b) 500 clients, dim 8, K 8: the chunked engine
-   (one ``fleet_chunk`` launch a chunk) at chunks 7, 48 and 256 against
+   (one ``fleet_chunk`` launch a run) at chunks 7, 48 and 256 against
    the per-event engine, flat and clusters of 32 (integers exact, params
    within ``MF_PARAM_TOL``); (c) the kernel against its plain twin (the
    same engine on the CPU) on those streams, on the median and
-   trimmed-mean folds under a 5 % sign-flip attack and on three fault
-   fleets of 300 (chaos knobs, every Byzantine kind, churn): integer and time
-   fields equal, params within ``MF_PARAM_TOL``, two card runs bit-equal;
-   (d) ``bench_async.py``'s megafleet_1m fleet (1M clients, dim 16,
+   trimmed-mean folds under a 5 % sign-flip attack, on three fault
+   fleets of 300 (chaos knobs, every Byzantine kind, churn) and on two
+   gradient-task fleets: integer and time fields equal, params within
+   ``MF_PARAM_TOL``, two card runs bit-equal, launches exact; a consensus
+   fleet also chunk by chunk with the counters and fold rows in device
+   memory, and with PyTorch's pass A, both bit-equal to the one-launch
+   run; (d) ``bench_async.py``'s megafleet_1m fleet (1M clients, dim 16,
    clusters of 1024, K 64, 4 updates, 256 events a chunk) through
    ``MegaFleet.run``: wall s, clients/s, events/s, merges and regional
    merges equal to ``BENCH_ASYNC.json``'s 976 and 62,500, time to 5 % of
-   the start loss, staleness mean, peak memory, one launch a chunk; the
-   chunk step under ``torch.profiler`` at 64 and 256 events (device
-   operations a step, equal at both), the kernel's device time a launch;
-   the 1M fleet's C 256 engine and its CPU copy (the plain twin) stepped
-   to the same chunk past the first regional and global flushes, their
-   carries compared as in (c), with the twin's time a chunk; the rest of
-   the C 256 run with CUDA events around each launch (the kernel's mean
-   over the run); (e) ``chunk="auto"``
+   the start loss, staleness mean, peak memory, one launch for the run,
+   the final model's sha256; the chunk step under ``torch.profiler`` at
+   64 and 256 events (device operations a step: the kernel alone, equal
+   at both), a span's device time; the 1M fleet's C 256 engine and its
+   CPU copy (the plain twin) stepped to the same chunk past the first
+   regional and global flushes, their carries compared as in (c), with
+   the twin's time a chunk; 2,000 chunks under the kernel's own section
+   timing; the rest of the run in one launch between CUDA events (the
+   chunk loop's s, µs a chunk); the card's latencies and the latency
+   bound; (e) ``chunk="auto"``
    on a 20k-client fleet measured once, then replayed from the cache
    file with no measurement;
 18. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
@@ -264,10 +269,12 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and the compress phase's MLP and LoRA drives, with kernel 9's time on
    the codec tree as ``codec_tree``, and the async phase's drives,
    ``async_<mode>``, ``async_byzantine`` and ``async_resume``; for 1-4 also
-   config 7's drives; ``fleet_chunk`` the megafleet phase's 1M run, its
-   ``ms`` the kernel's device time a launch there, ``plain_ms`` the twin's
-   on the CPU, ``max_abs_err`` the largest param gap of part (c) and of
-   (d)'s 1M check, no library call),
+   config 7's drives; ``fleet_chunk`` the megafleet phase's 1M run (one
+   launch), its ``ms`` the kernel's time a chunk inside a span there,
+   ``plain_ms`` the twin's a chunk on the CPU, ``bound_ms`` the bytes
+   bound and ``latency_bound_ms`` the latency bound a chunk,
+   ``max_abs_err`` the largest param gap of part (c) and of (d)'s 1M
+   check, no library call),
    ``launches_by_width`` the flash kernels' launches of the whole run by
    head width, and for kernels 1-4 ``widths`` the rows at widths 32 and
    128; then the ``nvidia-smi`` line again, and last ``{"ok": true,
@@ -294,6 +301,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import math
 import re
@@ -5083,11 +5091,15 @@ def megafleet_kernel_vs_twin() -> dict:
     :func:`_mf_faults` (rate limits, duplicates, every Byzantine kind at
     both seams, churn's per-epoch K) and the gradient-task fleets of
     :func:`_mf_grad` (linear flat, mlp in clusters of 16). Each fleet's chunked
-    engine runs twice on the card (the kernel) and once on the CPU (the
-    twin): the two card runs bit-equal in every field; the integer and
-    time fields of the carry (counters, histograms, mint times, window
-    keys, regional counters) equal the twin's; params within
-    ``MF_PARAM_TOL`` of the largest."""
+    engine runs twice on the card as :meth:`ChunkedFleet.run` runs it (a
+    consensus fleet in one launch) and once on the CPU (the twin): the two
+    card runs bit-equal in every field; the integer and time fields of the
+    carry (counters, histograms, mint times, window keys, regional
+    counters) equal the twin's; params within ``MF_PARAM_TOL`` of the
+    largest. A consensus fleet also runs chunk by chunk with the
+    regionals' counters in device memory, and with PyTorch's pass A
+    (the kernel stopping at each lane an in-chunk mint moved): both
+    bit-equal to the one-launch run."""
     from p2pfl_tpu_torch.ops import _kernels
 
     cases = {f"cluster{c}_chunk{k}": _mf_small(cluster_size=c, chunk=k, device="cuda")
@@ -5096,90 +5108,216 @@ def megafleet_kernel_vs_twin() -> dict:
                   for fold in ("median", "trimmed-mean") for c in (0, 32)})
     cases.update({f"{kind}_300": _mf_faults(kind) for kind in ("chaos", "byzantine", "churn")})
     cases.update({"linear_task_flat": _mf_grad("linear", 0), "mlp_task_cluster16": _mf_grad("mlp", 16)})
-    rows, worst = {}, 0.0
+    rows, worst, launches = {}, 0.0, 0
     for name, mega in cases.items():
+        _kernels.reset_launches()
         runs = [mega.chunked_engine() for _ in range(2)]
         for eng in runs:
             eng.run()
         torch.cuda.synchronize()
+        n_launches = _kernels.LAUNCHES["fleet_chunk"]
+        launches += n_launches
         twin = mega.chunked_engine(device="cpu")
         twin.run()
         exact, gap, scale = compare_carries(runs[0], twin)
         repeat = all(torch.equal(runs[0].carry[k], runs[1].carry[k]) for k in runs[0].carry)
         worst = max(worst, gap)
         si = runs[0].carry["si"].cpu().tolist()
+        consensus = mega.task is None
+        want = 2 * (1 if consensus else runs[0].n_chunks) + runs[0].resumes + runs[1].resumes
         rows[name] = {"merges": si[2], "regional_merges": si[7], "params_max_abs_gap": gap,
-                      "resumes": runs[0].resumes,
+                      "resumes": runs[0].resumes, "launches": n_launches,
                       "checks": {"integers and times equal the twin's": exact,
                                  f"params within {MF_PARAM_TOL:g} of the largest": gap <= MF_PARAM_TOL * max(scale, 1.0),
                                  "two card runs bit-equal": repeat,
+                                 "launches exact": n_launches == want,
                                  "merged": si[2] > 0}}
-        if mega.task is not None:
+        if not consensus:
             rows[name]["checks"]["the kernel stopped at retrained lanes and resumed"] = runs[0].resumes > 0
-    return {"cases": rows, "max_abs_err": worst, "launches": _kernels.LAUNCHES["fleet_chunk"]}
+            continue
+        stepped = mega.chunked_engine()
+        stepped.reg_layout = "device"
+        for s in range(stepped.n_chunks):
+            stepped.step(s)
+        staged = mega.chunked_engine()
+        staged.torch_pass_a = True
+        staged.run()
+        rows[name]["checks"].update({
+            "chunk by chunk, counters in device memory: bit-equal": all(
+                torch.equal(runs[0].carry[k], stepped.carry[k]) for k in runs[0].carry),
+            "PyTorch's pass A (the kernel stopping at moved lanes): bit-equal": all(
+                torch.equal(runs[0].carry[k], staged.carry[k]) for k in runs[0].carry)})
+    return {"cases": rows, "max_abs_err": worst, "launches": launches}
 
 
-def megafleet_steps(eng, first: int, n: int) -> dict:
-    """Chunk steps ``first .. first+n`` of an engine on the card under
-    ``torch.profiler``: device operations a step (kernels, copies, fills;
-    each name's count over the steps, rounded, summed: the profiler may
-    drop an event at a window's edge, and the raw count is kept beside),
-    the ``fleet_chunk`` kernel's device time a launch, and the card's busy
-    share of the window (the union of the device intervals over its wall
-    time); then as many more steps with CUDA events around the kernel
-    alone."""
+def _profiled(fn) -> tuple[list, float]:
+    """``fn()`` under ``torch.profiler``: its device events and wall ms."""
     from torch.profiler import ProfilerActivity, profile
-
-    from p2pfl_tpu_torch.ops import fleet_kernels as fk
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for s in range(first, first + n):
-            eng.step(s)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0) + 1
-    kern = [e.time_range.elapsed_us() / 1e3 for e in events if "fleet_chunk_kernel" in e.name]
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA], wall_ms
+
+
+def _busy_ms(events) -> float:
+    """The union of the device intervals, in ms."""
     busy, end = 0.0, -math.inf
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in events):
         if stop > end:
             busy += stop - max(start, end)
             end = stop
-    times = []
-    for s in range(first + n, first + 2 * n):
-        eng.pass_a(s)
-        start, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fk.fleet_chunk(eng, s)
-        end_ev.record()
-        end_ev.synchronize()
-        times.append(start.elapsed_time(end_ev))
+    return busy / 1e3
+
+
+def _cuda_ops():
+    """A dispatch mode that counts, by name, every PyTorch operation that
+    takes or makes a CUDA tensor while it is active: the host's own record
+    of the device work PyTorch issues (the hand kernels launch through
+    ``ctypes`` and are not among them). Unlike the profiler's device
+    events, which a window may lose whole (PERF.md §7), it drops nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class CudaOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in tree_leaves((args, kwargs, out))):
+                self.ops[str(func)] = self.ops.get(str(func), 0) + 1
+            return out
+
+    return CudaOps()
+
+
+def megafleet_steps(eng, first: int, n: int) -> dict:
+    """Chunks ``first .. first + 3n`` of a consensus engine on the card.
+    Under ``torch.profiler``, ``n`` chunk steps of one launch each: device
+    operations a step (kernels, copies, fills; each name's count over the
+    steps, rounded, summed: the profiler may drop an event at a window's
+    edge, the raw count is kept beside), the ``fleet_chunk`` kernel's
+    device time a launch and the card's busy share of the window (the
+    union of the device intervals over its wall time); then one launch of
+    the next ``n`` chunks (a span), its device time a chunk and busy
+    share; then one more span of ``n`` chunks between CUDA events. Each
+    profiled window also records on the host the PyTorch operations on
+    CUDA tensors (:func:`_cuda_ops`) and the kernel's launches
+    (``_kernels.LAUNCHES``): the record the phase's checks read, since the
+    profiler may lose a window's device events whole."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    def recorded(fn):
+        ops = _cuda_ops()
+        before = _kernels.LAUNCHES["fleet_chunk"]
+
+        def run():
+            with ops:
+                fn()
+
+        events, wall_ms = _profiled(run)
+        return events, wall_ms, ops.ops, _kernels.LAUNCHES["fleet_chunk"] - before
+
+    by_name: dict = {}
+    events, wall_ms, ops, launched = recorded(lambda: [eng.step(s) for s in range(first, first + n)])
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    kern = [e.time_range.elapsed_us() / 1e3 for e in events if "fleet_chunk_kernel" in e.name]
+    span_events, span_wall_ms, span_ops, span_launched = recorded(lambda: eng.step(first + n, n))
+    span_by_name: dict = {}
+    for e in span_events:
+        span_by_name[e.name] = span_by_name.get(e.name, 0) + 1
+    span_kern = [e.time_range.elapsed_us() / 1e3 for e in span_events if "fleet_chunk_kernel" in e.name]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    eng.step(first + 2 * n, n)
+    end.record()
+    end.synchronize()
     return {"chunk": eng.cfg.chunk, "steps": n, "device_ops_per_step": sum(round(c / n) for c in by_name.values()),
-            "device_events_per_step_raw": len(events) / n, "kernel_launches_seen": len(kern),
-            "kernel_ms": statistics.median(kern) if kern else None,
-            "kernel_ms_events": statistics.median(times), "window_ms_per_step": wall_ms / n,
-            "busy_share": busy / 1e3 / wall_ms if events else None}
+            "device_ops_by_name": by_name, "device_events_per_step_raw": len(events) / n,
+            "torch_cuda_ops": ops, "launches": launched,
+            "kernel_launches_seen": len(kern), "kernel_ms": statistics.median(kern) if kern else None,
+            "window_ms_per_step": wall_ms / n, "busy_share": _busy_ms(events) / wall_ms if events else None,
+            "span_ops_by_name": span_by_name, "span_torch_cuda_ops": span_ops, "span_launches": span_launched,
+            "span_kernel_ms_per_chunk": sum(span_kern) / n if span_kern else None,
+            "span_busy_share": _busy_ms(span_events) / span_wall_ms if span_events else None,
+            "span_ms_per_chunk_events": start.elapsed_time(end) / n}
 
 
 def megafleet_bound_bytes(eng, res) -> float:
-    """The bytes a run's chunk steps must move, over its launches: each
-    event's record read once (the grids' columns, pass A's base and row
-    and payload), each admitted payload's window row and its weight, keys
-    and sample written once, each regional fold's window read once and
-    its params written, each global fold's window read and its row and
-    mint written."""
+    """The bytes a run's chunk steps must move, a chunk: each event's
+    record read once (the grid columns the kernel reads, its client's
+    sample), pass A's rows (the client row read and written, its target
+    read), each admitted payload's window row and its weight, keys and
+    sample written once, each regional fold's window read once and its
+    params written, each global fold's window read and its row and mint
+    written (the global rows pass A starts from are among those)."""
     cfg = eng.cfg
     dim = cfg.dim
-    record = sum(t.element_size() for t in eng.ev.values()) + 8 + 8 + 4 * (dim + 1) + 4 * dim + 4
+    record = sum(t.element_size() for t in eng.ev.values()) + 4
+    pass_a = 4 * (dim + 1) * 2 + 4 * dim
     insert = 4 * dim + 16
     rfold = cfg.k_reg_max * (4 * dim + 16) + 4 * dim
     gfold = cfg.k_global * (4 * dim + 12) + 4 * dim + 4
-    return (res.n_events * record + res.buffered * insert + res.regional_merges * rfold
+    return (res.n_events * (record + pass_a) + res.buffered * insert + res.regional_merges * rfold
             + res.merges * gfold) / max(eng.n_chunks, 1)
+
+
+def megafleet_latency_bound(eng, res, lat: dict) -> dict:
+    """The least time a chunk's dependent chain could take on this card,
+    from its own latencies (``_kernels.fleet_latency_probe``, ns) and the
+    run's counts: each event two dependent shared-memory loads (its
+    regional, then that regional's counter) and one fp32 add (the rate
+    gate's difference); each fedavg fold of K slots 3K dependent fp32
+    operations (the key-order total's K adds, then a coordinate's K
+    multiply-adds as two roundings each); each chunk three block
+    barriers, one device-memory round trip (pass A's gather) and the
+    binary search's ceil(log2(v_cap + 1)) dependent shared loads."""
+    cfg = eng.cfg
+    S = max(eng.n_chunks, 1)
+    search = math.ceil(math.log2(cfg.v_cap + 1))
+    terms = {
+        "events_ns": res.n_events * (2 * lat["smem"] + lat["fadd"]),
+        "folds_ns": (res.regional_merges * cfg.k_reg_max + res.merges * cfg.k_global) * 3 * lat["fadd"],
+        "chunks_ns": S * (3 * lat["barrier"] + lat["dram"] + search * lat["smem"]),
+    }
+    total = sum(terms.values())
+    return {"latency_bound_ms_per_chunk": total / S / 1e6, "latency_bound_s_run": total / 1e9,
+            "terms_s": {k: v / 1e9 for k, v in terms.items()}, "latencies_ns": lat, "search_steps": search,
+            "formula": "E(2 smem + fadd) + (F_r K_r + F_g K_g) 3 fadd + S(3 barrier + dram + ceil(log2(v_cap+1)) smem)"}
+
+
+def megafleet_sections(eng, first: int, n: int, clock_ghz: float) -> dict:
+    """The kernel's own section timing (``ChunkedFleet.prof``: thread 0's
+    clock64 around each section) over one span launch of chunks ``first ..
+    first + n`` of a consensus engine that stands at ``first`` (its
+    argument table rebuilt with the timing buffer): µs a chunk in the
+    records' staging, pass A, the events' chain and warp 0's part of the
+    regional and global folds (staging a window, posting it), warp 1's
+    busy time folding beside them, and the counts."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    eng.prof = torch.zeros(len(_kernels.FLEET_PROF), dtype=torch.int64, device="cuda")
+    eng.kernel_args = None
+    eng.step(first, n)
+    vals = dict(zip(_kernels.FLEET_PROF, eng.prof.tolist()))
+    chunks = max(vals["chunks"], 1)
+
+    def us(k):
+        return vals[k] / clock_ghz / 1e3
+
+    warp0 = ("stage", "pass_a", "events", "regional_folds", "global_folds")
+    return {"chunks": vals["chunks"], "us_per_chunk": {k: us(k) / chunks for k in warp0},
+            "us_per_chunk_total": sum(us(k) for k in warp0) / chunks,
+            "folder_busy_us_per_chunk": us("folder") / chunks,
+            "regional_folds": vals["n_regional_folds"], "global_folds": vals["n_global_folds"],
+            "folder_us_per_fold": us("folder") / max(vals["n_regional_folds"] + vals["n_global_folds"], 1),
+            "warp0_us_per_regional_fold": us("regional_folds") / max(vals["n_regional_folds"], 1)}
 
 
 def megafleet_against_twin(card, host, at: int, max_chunks: int = 4000) -> dict:
@@ -5223,18 +5361,20 @@ def megafleet_full() -> dict:
     """(d) the 1M-client fleet through ``MegaFleet.run`` on the card:
     wall seconds, clients/s, events/s, merges and regional merges beside
     BENCH_ASYNC.json's, time to 5 % of the start loss, the staleness mean,
-    peak memory and the kernel's launches; then the same fleet's engine
-    stepped under the profiler at 64 and 256 events a chunk (device
-    operations a step, the kernel's device time); the C 256 engine is then
-    held against its plain twin on a CPU copy
-    (:func:`megafleet_against_twin`) and runs the rest of its chunks with
-    CUDA events around each launch. ``init_s`` is ``MegaFleet``'s
+    peak memory, the kernel's launches (the run is one span: one launch)
+    and the final global model's sha256 (``megafleet_digest.py`` prints
+    another tree's to compare with); then the same fleet's
+    engine at 64 and 256 events a chunk (:func:`megafleet_steps`); the C
+    256 engine is then held against its plain twin on a CPU copy
+    (:func:`megafleet_against_twin`) and runs the rest of its chunks in
+    one launch between CUDA events (the chunk loop's seconds, µs a
+    chunk); the latency bound from the card's own latencies
+    (:func:`megafleet_latency_bound`). ``init_s`` is ``MegaFleet``'s
     construction (the router over a million addresses), outside ``run``'s
-    wall time as in JAX;
-    peak memory is this phase's, above what earlier phases still hold."""
+    wall time as in JAX; peak memory is this phase's, above what earlier
+    phases still hold."""
     from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
     from p2pfl_tpu_torch.ops import _kernels
-    from p2pfl_tpu_torch.ops import fleet_kernels as fk
 
     cfg = MEGAFLEET
     spec = FleetSpec.synth(cfg["n"], seed=cfg["seed"], slow_frac=cfg["slow_frac"])
@@ -5260,58 +5400,81 @@ def megafleet_full() -> dict:
            "time_to_target_virtual_s": res.time_to_target, "start_loss": start_loss,
            "final_loss": res.final_loss(), "staleness_mean": tau_mean,
            "peak_memory_gb": (torch.cuda.max_memory_allocated() - held) / 1e9, "launches_fleet_chunk": launches,
+           "final_global_sha256": hashlib.sha256(res.params["w"].cpu().numpy().tobytes()).hexdigest(),
            "init_s": init_s}
     out["checks"] = {
         "events, merges and regional merges equal BENCH_ASYNC.json's": (
             res.n_events, res.merges, res.regional_merges) == tuple(MEGAFLEET_COUNTS.values()),
-        "one launch a chunk": launches == -(-res.n_events // cfg["chunk"]),
+        "one launch for the run (chunks / span rounded up, the span the whole run)": launches == 1,
         "version == merges, mint times monotone": res.version == res.merges and bool(np.all(np.diff(mints) >= 0)),
         "finite losses, 5 % of the start loss reached": bool(np.all(np.isfinite(losses)))
         and res.time_to_target is not None,
     }
     out["checks"]["final loss below the target"] = res.final_loss() <= 0.05 * start_loss
-    # the chunk step under the profiler at C 64 and C 256, each on an
-    # engine of its own; the main chunk's engine build is the run's host
-    # preparation, timed alone. After its profiled steps the C 256 engine
-    # is held against its plain twin on a CPU copy (the kernel at the main
-    # path's shapes), then runs the rest of its chunks with CUDA events
-    # around each launch (the loop's time a step, the kernel's mean over
-    # the run); it must end where MegaFleet.run ended
-    steps = {}
+    # the chunk step at C 64 and C 256, each on an engine of its own; the
+    # main chunk's engine build is the run's host preparation, timed alone.
+    # After its measured steps the C 256 engine is held against its plain
+    # twin on a CPU copy (the kernel at the main path's shapes), then runs
+    # the rest of its chunks in one launch; it must end where
+    # MegaFleet.run ended
+    steps, first, n = {}, 8, 40
     for chunk in (64, cfg["chunk"]):
         eng, prep_s = _timed_s(lambda: fleet(chunk).chunked_engine())  # noqa: B023
-        for s in range(8):  # warm-up (the first launch builds the table)
+        for s in range(first):  # warm-up (the first launch builds the table)
             eng.step(s)
-        steps[chunk] = megafleet_steps(eng, 8, 40)
+        steps[chunk] = megafleet_steps(eng, first, n)
         if chunk == cfg["chunk"]:
-            out["twin_1m"] = twin = megafleet_against_twin(eng, fleet(chunk).chunked_engine(device="cpu"), 88)
+            out["place"] = _kernels.fleet_chunk_place(eng.kernel_args)
+            out["twin_1m"] = twin = megafleet_against_twin(eng, fleet(chunk).chunked_engine(device="cpu"),
+                                                           first + 3 * n)
             bound_bytes = megafleet_bound_bytes(eng, res)
-            rest, marks = range(twin["chunks"], eng.n_chunks), []
+            probe = _kernels.fleet_latency_probe()
+            out["sections"] = megafleet_sections(eng, twin["chunks"], 2000, probe["clock_ghz"])
+            eng.prof, eng.kernel_args = None, None
+            done = twin["chunks"] + 2000
+            rest = eng.n_chunks - done
+            _kernels.reset_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for s in rest:
-                eng.pass_a(s)
-                marks.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
-                marks[-1][0].record()
-                fk.fleet_chunk(eng, s)
-                marks[-1][1].record()
+            start.record()
+            eng.step(done, rest)
+            end.record()
             torch.cuda.synchronize()
             rest_s = time.perf_counter() - t0
-            run_mean = statistics.fmean(a.elapsed_time(b) for a, b in marks)
-            end = eng.result()
-            out.update({"host_prep_s": prep_s, "loop_ms_per_step": rest_s / len(rest) * 1e3,
-                        "loop_s_estimate": rest_s / len(rest) * eng.n_chunks,
-                        "kernel_ms_run_mean_events": run_mean, "kernel_s_total": launches * run_mean / 1e3})
+            span_ms = start.elapsed_time(end)
+            end_state = eng.result()
+            out.update({"host_prep_s": prep_s, "rest_chunks": rest, "rest_launches": _kernels.LAUNCHES["fleet_chunk"],
+                        "loop_ms_per_chunk": rest_s / rest * 1e3, "loop_s_estimate": rest_s / rest * eng.n_chunks,
+                        "kernel_us_per_chunk_events": span_ms / rest * 1e3,
+                        "kernel_s_estimate": span_ms / rest * eng.n_chunks / 1e3})
+            out["checks"]["the rest of the run in one launch"] = out["rest_launches"] == 1
             out["checks"]["the stepped engine ends where MegaFleet.run ended"] = (
-                end["merges"] == res.merges and torch.equal(end["G"][res.version], res.params["w"]))
+                end_state["merges"] == res.merges and torch.equal(end_state["G"][res.version], res.params["w"]))
+            out["latency"] = megafleet_latency_bound(eng, res, probe)
         del eng
     out["steps"] = steps
+    # the host's record decides: in each chunk size's two windows no
+    # PyTorch operation on a CUDA tensor, one kernel launch a step and one
+    # a span. The profiler may lose a window's device events whole (PERF.md
+    # §7: in a run of every phase it has lost the per-step windows, and
+    # both); what device events it did record must be the kernel's alone
+    host = {c: (r["torch_cuda_ops"], r["span_torch_cuda_ops"], r["launches"] / n, r["span_launches"])
+            for c, r in steps.items()}
+    seen = {c: set(r["device_ops_by_name"]) | set(r["span_ops_by_name"]) for c, r in steps.items()}
+    out["profiler_recorded_device_events"] = {c: bool(names) for c, names in seen.items()}
     out["checks"]["device operations a step the same at C 64 and 256"] = (
-        steps[64]["device_ops_per_step"] == steps[cfg["chunk"]]["device_ops_per_step"])
+        host[64] == host[cfg["chunk"]] and (not seen[64] or not seen[cfg["chunk"]] or seen[64] == seen[cfg["chunk"]]))
+    out["checks"]["no device operation but the kernel in a chunk step (pass A inside)"] = all(
+        h == ({}, {}, 1.0, 1) and all("fleet_chunk_kernel" in name for name in seen[c]) for c, h in host.items())
     out["checks"].update({f"1M against the twin: {k}": v for k, v in twin["checks"].items()})
-    kernel_ms = steps[cfg["chunk"]]["kernel_ms"] or steps[cfg["chunk"]]["kernel_ms_events"]
-    out["kernel_row"] = {"ms": kernel_ms, "ms_run_mean_events": run_mean, "plain_ms": twin["plain_ms"],
+    row = steps[cfg["chunk"]]
+    out["kernel_row"] = {"ms": out["kernel_us_per_chunk_events"] / 1e3, "ms_per": "chunk (one launch of a span)",
+                         "ms_profiler_span_per_chunk": row["span_kernel_ms_per_chunk"],
+                         "ms_one_chunk_launch": row["kernel_ms"], "plain_ms": twin["plain_ms"],
                          "bound_ms": bound_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-                         "bound_bytes_per_launch": bound_bytes, "library_ms": None}
+                         "bound_bytes_per_chunk": bound_bytes,
+                         "latency_bound_ms": out["latency"]["latency_bound_ms_per_chunk"], "library_ms": None}
     return out
 
 
@@ -5400,9 +5563,10 @@ def drive_megafleet() -> tuple[bool, dict]:
         f"{MEGAFLEET_COUNTS['merges']}), regional merges {full['regional_merges']} "
         f"({MEGAFLEET_COUNTS['regional_merges']}), device ops a step "
         f"{ {c: r['device_ops_per_step'] for c, r in full['steps'].items()} }, kernel "
-        f"{full['kernel_row']['ms']:.4f} ms a launch (the run's mean by CUDA events "
-        f"{full['kernel_row']['ms_run_mean_events']:.4f}; plain twin {full['kernel_row']['plain_ms']:.3f} ms, "
-        f"bound {full['kernel_row']['bound_ms']:.5f} ms)")
+        f"{full['kernel_row']['ms'] * 1e3:.2f} us a chunk in a span (one-chunk launch "
+        f"{full['kernel_row']['ms_one_chunk_launch']}; chunk loop {full['loop_s_estimate']:.3f} s; plain twin "
+        f"{full['kernel_row']['plain_ms']:.3f} ms; bounds {full['kernel_row']['bound_ms']:.6f} ms bytes, "
+        f"{full['kernel_row']['latency_bound_ms']:.5f} ms latency), final G sha256 {full['final_global_sha256']}")
     out["autotune"] = megafleet_autotune()
     part("(e) chunk='auto' and its replay", out["autotune"])
     out["kernel_row"] = dict(full["kernel_row"],
@@ -5584,7 +5748,8 @@ def main(argv=None) -> int:
             rows["ici_exchange"]["codec_tree"] = compress["ici"]["kernel9_codec_tree"]
     if megafleet:
         rows["fleet_chunk"] = {k: megafleet["kernel_row"][k] for k in (
-            "max_abs_err", "ms", "ms_run_mean_events", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "max_abs_err", "ms", "ms_per", "ms_one_chunk_launch", "plain_ms", "bound_ms", "bound_by",
+            "latency_bound_ms", "library_ms")}
     if rows:
         for d in WIDTH_SHAPES:
             for name, row in timings.get(f"D{d}", {}).items():

@@ -608,26 +608,6 @@ class MegaFleet:
             out.extend(cur + [-1] * (C - len(cur)))
         return np.asarray(out, np.int64).reshape(-1, C)
 
-    @staticmethod
-    def _chain_cols(rows: np.ndarray, r_e: np.ndarray, R: int):
-        """Per-event regional chains inside a chunk: ``prev_r`` links an
-        event to the previous same-regional event's offset (−1: read the
-        carry), ``last_r`` marks each regional's last event of the chunk."""
-        S, C = rows.shape
-        flat = rows.ravel()
-        valid = flat >= 0
-        rcol = np.where(valid, r_e[np.clip(flat, 0, None)], R)
-        cid = np.repeat(np.arange(S), C)
-        off = np.tile(np.arange(C), S)
-        o = np.lexsort((off, rcol, cid))
-        vv = valid[o]
-        same = (cid[o][1:] == cid[o][:-1]) & (rcol[o][1:] == rcol[o][:-1]) & vv[1:] & vv[:-1]
-        prev = np.full(S * C, -1, np.int32)
-        prev[o[1:][same]] = off[o[:-1][same]].astype(np.int32)
-        last = valid.copy()
-        last[o[:-1][same]] = False
-        return prev.reshape(S, C), last.reshape(S, C)
-
     def _task_arrays(self):
         if self._task_cache is None:
             self._task_cache = self.task.arrays(self.n)
@@ -675,7 +655,6 @@ class MegaFleet:
             events["r"] = col(r_e, R, np.int32)
             events["k_r"] = col(k_e, 1, np.int32)
             events["t_radopt"] = col(t_rad, -np.inf, np.float32)
-            events["prev_r"], events["last_r"] = self._chain_cols(rows, r_e, R)
         if cfg.byz:
             events["bkind"] = col(ev["bkind"], 0, np.int32)
             events["blam"] = col(ev["blam"], 1.0, np.float32)

@@ -6,7 +6,8 @@
 backward's dK/dV pass, the same template without dQ),
 ``csrc/flash_bwd_dq_sm90.cu`` (kernels 3 and 7, the split backward's dQ
 pass: TMA, ``wgmma``), ``csrc/ici_exchange.cu`` (kernel 9) and
-``csrc/fleet_chunk.cu`` (the megafleet chunk step, a port-only kernel) are
+``csrc/fleet_chunk.cu`` (the megafleet chunk step, a span of chunks a
+launch: a port-only kernel) are
 compiled with ``nvcc`` for ``sm_90a``, one ``nvcc`` per source,
 all started together, and linked
 into one shared library under ``build/p2pfl_tpu_torch/`` (beside the
@@ -86,7 +87,9 @@ SIGNATURES = {
     "p2p_ici_exchange": [_P, _I, _P],
     "p2p_ici_max_entries": [],
     "p2p_enable_peer_access": [_I, _I],
-    "p2p_fleet_chunk": [_P, _I, _I, _I, _I, _P],
+    "p2p_fleet_chunk": [_P, _I, _I, _I, _I, _I, _P],
+    "p2p_fleet_chunk_place": [_P, _I],
+    "p2p_fleet_latency_probe": [_P, _P, _I, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -479,22 +482,34 @@ _i32, _i64, _f32, _u8 = torch.int32, torch.int64, torch.float32, torch.bool
 #: as a double)
 FLEET_ARGS = (
     ("client", _i64), ("key_hi", _i32), ("key_lo", _i32), ("t_adopt", _f32), ("t_arr", _f32),
-    ("send_ok", _u8), ("live", _u8), ("r", _i32), ("k_r", _i32), ("t_radopt", _f32), ("prev_r", _i32),
-    ("last_r", _u8), ("bkind", _i32), ("blam", _f32), ("bnoise", _i32),
+    ("send_ok", _u8), ("live", _u8), ("r", _i32), ("k_r", _i32), ("t_radopt", _f32),
+    ("bkind", _i32), ("blam", _f32), ("bnoise", _i32),
     ("base0", _i64), ("rv0", _i64), ("rows0", _f32), ("payload", _f32),
     ("targets", _f32), ("samples", _f32), ("noise", _f32),
     ("w", _f32), ("G", _f32), ("mint", _f32), ("gbuf", _f32), ("gwt", _f32), ("gkey_hi", _i32),
     ("gkey_lo", _i32), ("hist_edge", _i32), ("hist_glob", _i32), ("si", _i32), ("sf", _f32),
     ("rbuf", _f32), ("rwt", _f32), ("rsamp", _f32), ("rkey_hi", _i32), ("rkey_lo", _i32), ("rcount", _i32),
-    ("radopt", _i32), ("up_seq", _i32), ("last_acc_r", _f32), ("rparams", _f32),
-    ("stop", _i32),
+    ("radopt", _i32), ("up_seq", _i32), ("last_acc_r", _f32), ("rparams", _f32), ("rraw", _f32),
+    ("stop", _i32), ("prof", _i64),
     ("reg_send_ok", _u8), ("reg_jit", _f32), ("agg_delay", _f32), ("reg_dup", _u8), ("akind", _i32),
     ("alam", _f32), ("agg_noise_idx", _i32), ("agg_noise", _f32), ("wtab", _f32),
-    *((name, "int") for name in ("chunk", "n_chunks", "dim", "k_glob", "k_max", "stride", "hist_bins",
-                                 "max_staleness", "hier", "fold", "trim", "byz", "dup", "gf_cap",
-                                 "task")),
+    *((name, "int") for name in ("chunk", "n_chunks", "dim", "n_reg", "k_glob", "k_max", "v_cap", "stride",
+                                 "hist_bins", "max_staleness", "hier", "fold", "trim", "byz", "dup", "gf_cap",
+                                 "staged", "reg_layout")),
     *((name, "float") for name in ("local_lr", "merge_keep", "merge_lr", "gap_reg", "gap_glob")),
 )
+#: where the regionals' counters and the folds' window rows live
+#: (``reg_layout``): shared memory when they fit ("auto"), or device
+#: memory ("device": the layout of a fleet too large for shared memory)
+REG_LAYOUTS = {"auto": 0, "device": 1}
+#: what a launch keeps in shared memory beyond its fixed part (bits of
+#: :func:`fleet_chunk_place`)
+FLEET_PLACE = {"payload": 1, "regionals": 2, "mint": 4, "fold_rows": 8}
+#: the kernel's timed sections (``prof``: clock64 cycles of thread 0 in
+#: warp 0's stretches; ``folder`` warp 1's busy cycles, beside them; then
+#: counts), in the order of ``PROF_*`` in the source
+FLEET_PROF = ("stage", "pass_a", "events", "regional_folds", "global_folds", "folder", "chunks", "n_regional_folds",
+              "n_global_folds")
 
 
 class FleetChunkArgs:
@@ -527,10 +542,52 @@ class FleetChunkArgs:
         self.table = (ctypes.c_uint64 * len(words))(*words)
 
 
-def fleet_chunk(args: FleetChunkArgs, chunk: int, j_start: int = 0, v0: int = -1) -> None:
-    """Passes B-D of chunk ``chunk`` from lane ``j_start``: one block, on
-    the current stream (a resumed chunk passes the lane and ``v0`` the last
-    launch wrote to ``stop``)."""
-    rc = _load().p2p_fleet_chunk(ctypes.cast(args.table, ctypes.c_void_p), args.n_words, int(chunk), int(j_start),
-                                 int(v0), _stream())
+def fleet_chunk(args: FleetChunkArgs, chunk: int, n_span: int = 1, j_start: int = 0, v0: int = -1) -> None:
+    """Chunks ``chunk .. chunk + n_span - 1`` in one launch of one block,
+    on the current stream: the consensus task's pass A and passes B-D of
+    each; a gradient task's launch walks one chunk (pass A staged by
+    PyTorch) from lane ``j_start`` (a resumed chunk passes the lane and
+    ``v0`` the last launch wrote to ``stop``)."""
+    rc = _load().p2p_fleet_chunk(ctypes.cast(args.table, ctypes.c_void_p), args.n_words, int(chunk), int(n_span),
+                                 int(j_start), int(v0), _stream())
     _check("fleet_chunk", rc)
+
+
+def fleet_chunk_place(args: FleetChunkArgs) -> dict:
+    """What a launch of ``args`` keeps in shared memory (the payloads, the
+    regionals' counters, the mint history), each True or False; raises if
+    the kernel would refuse the table."""
+    place = _load().p2p_fleet_chunk_place(ctypes.cast(args.table, ctypes.c_void_p), args.n_words)
+    if place < 0:
+        raise ValueError("fleet_chunk: shape not supported by the kernel")
+    return {name: bool(place & bit) for name, bit in FLEET_PLACE.items()}
+
+
+def fleet_latency_probe(steps: int = 4096, device=None) -> dict:
+    """The card's latencies behind the chunk step's latency bound, each in
+    ns a dependent step (cycles over the clock the probe itself ran at):
+    ``smem`` a shared-memory pointer chase, ``fadd`` a ``__fadd_rn``
+    chain, ``barrier`` a block barrier of 256 threads, ``l2`` and ``dram``
+    pointer chases through a 4 MB and a 128 MB index table; ``clock_ghz``
+    beside. A measuring tool, not a kernel of the port: it counts no
+    launch."""
+    device = torch.device(device or "cuda")
+    tables = []
+    for n in (1 << 20, 1 << 25):
+        perm = torch.randperm(n, generator=torch.Generator().manual_seed(n), dtype=torch.int64)
+        nxt = torch.empty(n, dtype=torch.int64)
+        nxt[perm] = perm.roll(-1)  # one cycle through every index
+        tables.append(nxt.to(device=device, dtype=torch.int32))
+    out = torch.zeros(8, dtype=torch.int64, device=device)
+    lib = _load()
+    # the first run warms the L2 table; the second walks the large table
+    # from a stretch of its cycle the first did not touch
+    for start in (0, int(tables[1][12345])):
+        rc = lib.p2p_fleet_latency_probe(tables[0].data_ptr(), tables[1].data_ptr(), start, int(steps),
+                                         out.data_ptr(), _stream())
+        if rc != 0:
+            raise RuntimeError(f"fleet_latency_probe: cudaError {rc}")
+    vals = out.tolist()
+    ghz = vals[6] / max(vals[5], 1)
+    names = ("smem", "fadd", "barrier", "l2", "dram")
+    return {**{name: vals[i] / steps / ghz for i, name in enumerate(names)}, "clock_ghz": ghz}

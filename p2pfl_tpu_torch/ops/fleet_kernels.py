@@ -18,18 +18,24 @@ Two engines, bit-identical on flat topologies:
 - :func:`run_fleet_program`, the per-event reference: a host loop over the
   events, scalars on the host, rows on the device (the parity anchor; for
   1k-20k clients).
-- :class:`ChunkedFleet`, ``cfg.chunk`` events a step. Pass A is PyTorch on
+- :class:`ChunkedFleet`, ``cfg.chunk`` events a step. Pass A works on
   the chunk's ``[C]`` lanes: gather the rows, adopt against the pre-chunk
   mint history (``searchsorted``), one batched local round, scatter back.
-  Passes B, C and D, the sequential admission, the window folds and their
-  writebacks, are one launch of the hand-written kernel
-  ``csrc/fleet_chunk.cu`` on the card (:func:`fleet_chunk`), or its plain
-  twin :func:`fleet_chunk_plain` (a loop on host scalars plus the torch
-  fold) on the CPU. A lane whose adoption an in-chunk mint moves is
-  retrained from that mint before its offer, so the result is the
-  per-event engine's: in the kernel for the consensus task; for a
-  gradient task the launch stops at the lane, :meth:`ChunkedFleet.retrain`
-  runs the task's round in PyTorch, and a second launch resumes there.
+  Passes B, C and D are the sequential admission, the window folds and
+  their writebacks. On the card, the hand-written kernel
+  ``csrc/fleet_chunk.cu`` (:func:`fleet_chunk`) runs a span of chunks in
+  one launch, pass A included, for the consensus task
+  (:meth:`ChunkedFleet.run` makes one launch for the whole run); a
+  gradient task's pass A is PyTorch's (:meth:`ChunkedFleet.pass_a`) and
+  a launch walks one chunk. On the CPU the plain twin runs
+  :meth:`ChunkedFleet.pass_a`, then :func:`fleet_chunk_plain` (a loop on
+  host scalars plus the torch fold), chunk by chunk
+  (:func:`fleet_span_plain`). A lane whose adoption an in-chunk mint
+  moves is retrained from that mint before its offer, so the result is
+  the per-event engine's: in the kernel for the consensus task; for a
+  gradient task the launch stops at the lane,
+  :meth:`ChunkedFleet.retrain` runs the task's round in PyTorch, and a
+  second launch resumes there.
 
 JAX runs both as one ``lax.scan``; it has no Pallas kernel here. Times are
 fp32, versions and keys int32 as in JAX (x64 off); the staleness weights
@@ -40,7 +46,7 @@ bits.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -432,7 +438,7 @@ def run_fleet_program(cfg: FleetConfig, events: dict, clients: dict, reg: dict, 
         # newer than its last adoption; fold; push the aggregate up
         cur = G[rv] if rv > radopt[r] else rparams[r]
         rparams[r] = fold(rbuf[r], rwt[r], rkl[r], rkh[r], cur)
-        raw = np.float32(rsamp[r].sum(dtype=np.float32))
+        raw = slot_sum(rsamp[r])
         radopt[r] = max(radopt[r], rv)
         st["rmerges"] += 1
         up_seq[r] += 1
@@ -459,8 +465,10 @@ class ChunkedFleet:
     ``live`` False), ``clients`` the per-client arrays (``targets``,
     ``samples``; ``mu``/``tw``/``tb`` for the gradient task, ``noise`` for
     the Byzantine noise rows), ``reg`` the per-regional grids (hier), all
-    numpy. Everything moves to ``device`` once; :meth:`step` runs pass A
-    and then :func:`fleet_chunk`."""
+    numpy. Everything moves to ``device`` once; :meth:`step` runs a span
+    of chunks through :func:`fleet_chunk`. ``reg_layout`` says where the
+    kernel keeps the regionals' counters and the folds' window rows
+    (``_kernels.REG_LAYOUTS``: shared memory when they fit, by default)."""
 
     def __init__(self, cfg: FleetConfig, events: dict, clients: dict, reg: dict, init_params, device) -> None:
         self.cfg, self.device = cfg, torch.device(device)
@@ -515,8 +523,18 @@ class ChunkedFleet:
         self.rv0 = torch.zeros(C, dtype=torch.int64, device=dev)
         self.rows0 = torch.zeros((C, dim + 1), **f32)
         self.payload = torch.zeros((C, dim), **f32)
+        # the kernel's running sample sums of the regional windows, when
+        # their counters stay in device memory (scratch, not carry)
+        self.rraw = torch.zeros(cfg.n_regionals, **f32) if cfg.hier else None
+        self.reg_layout = "auto"
+        # on the card, a consensus fleet's pass A runs inside the kernel
+        # unless this is set (then PyTorch's, as a gradient task's)
+        self.torch_pass_a = cfg.task != "consensus"
         # the kernel's stop record: lane, adj, v0 (a gradient task's resume)
         self.stop = torch.zeros(3, **i32)
+        # set to an int64 tensor of ``len(_kernels.FLEET_PROF)`` on the card
+        # before the first launch to time the kernel's sections
+        self.prof = None
         self.resumes = 0  # launches that resumed a chunk at a retrained lane
         self.n_chunks = int(self.ev["client"].shape[0])
         self.kernel_args = None  # built at the first launch
@@ -575,27 +593,33 @@ class ChunkedFleet:
         if self.cfg.hier:
             torch.searchsorted(c["mint"], self.ev["t_radopt"][s], out=self.rv0)
 
-    def step(self, s: int) -> None:
-        self.pass_a(s)
-        fleet_chunk(self, s)
+    def step(self, s: int, span: int = 1) -> None:
+        """Chunks ``s .. s + span - 1``: pass A and passes B-D of each."""
+        fleet_chunk(self, s, span)
 
-    def run(self) -> Dict[str, Any]:
-        for s in range(self.n_chunks):
-            self.step(s)
+    def run(self, span: Optional[int] = None) -> Dict[str, Any]:
+        """Every chunk, ``span`` a step (all of them by default: on the
+        card, one launch for a consensus fleet)."""
+        span = self.n_chunks if span is None else max(int(span), 1)
+        for s in range(0, self.n_chunks, span):
+            self.step(s, min(span, self.n_chunks - s))
         return self.result()
 
     def kernel_values(self) -> dict:
         """What the kernel's argument table holds (``_kernels.FLEET_ARGS``)."""
+        from p2pfl_tpu_torch.ops._kernels import REG_LAYOUTS
+
         cfg = self.cfg
         reg = {f"reg_{k}" if k in ("send_ok", "jit", "dup") else k: v for k, v in self.reg.items()}
         return {
             **self.ev, **self.carry, **reg, "base0": self.base0, "rv0": self.rv0, "rows0": self.rows0,
             "payload": self.payload, "targets": self.targets, "samples": self.samples, "noise": self.noise,
-            "wtab": self.wtab, "chunk": cfg.chunk, "n_chunks": self.n_chunks, "dim": cfg.dim,
-            "k_glob": cfg.k_global, "k_max": cfg.k_reg_max, "stride": cfg.agg_key_stride,
+            "rraw": self.rraw, "wtab": self.wtab, "chunk": cfg.chunk, "n_chunks": self.n_chunks, "dim": cfg.dim,
+            "n_reg": cfg.n_regionals, "k_glob": cfg.k_global, "k_max": cfg.k_reg_max, "v_cap": cfg.v_cap,
+            "stride": cfg.agg_key_stride, "reg_layout": REG_LAYOUTS[self.reg_layout],
             "hist_bins": cfg.hist_bins, "max_staleness": cfg.max_staleness, "hier": int(cfg.hier),
             "fold": FOLD_CODES[cfg.fold_kind], "trim": cfg.trim, "byz": int(cfg.byz), "dup": int(cfg.dup),
-            "gf_cap": max(cfg.gf_cap, 1), "stop": self.stop, "task": int(self.task is not None),
+            "gf_cap": max(cfg.gf_cap, 1), "stop": self.stop, "prof": self.prof, "staged": int(self.torch_pass_a),
             # the twin's scalars as torch rounds them: fp32
             **{k: float(np.float32(v)) for k, v in (
                 ("local_lr", cfg.local_lr), ("merge_keep", 1.0 - cfg.server_lr), ("merge_lr", cfg.server_lr),
@@ -610,29 +634,52 @@ class ChunkedFleet:
                        c["hist_glob"].cpu().numpy())
 
 
-def fleet_chunk(eng: ChunkedFleet, s: int) -> None:
-    """Passes B-D of chunk ``s`` on ``eng``'s carry, in place: the
-    ``fleet_chunk`` kernel (one launch) for a carry on a CUDA device, its
-    plain twin :func:`fleet_chunk_plain` for one on the CPU."""
+def fleet_chunk(eng: ChunkedFleet, s: int, span: int = 1) -> None:
+    """Chunks ``s .. s + span - 1`` on ``eng``'s carry, in place: pass A
+    and passes B-D of each. On a CUDA carry, the ``fleet_chunk`` kernel:
+    one launch for a consensus fleet (pass A inside); for a gradient task
+    (or ``eng.torch_pass_a``) PyTorch's pass A, then one launch a chunk and
+    one more for each lane an in-chunk mint moved. On a CPU carry, its
+    plain twin :func:`fleet_span_plain`."""
     if eng.device.type != "cuda":
-        fleet_chunk_plain(eng, s)
+        fleet_span_plain(eng, s, span)
         return
     from p2pfl_tpu_torch.ops import _kernels
 
     if eng.kernel_args is None:
         eng.kernel_args = _kernels.FleetChunkArgs(eng.kernel_values())
-    _kernels.fleet_chunk(eng.kernel_args, s)
-    if eng.task is None:
+    if not eng.torch_pass_a:
+        _kernels.fleet_chunk(eng.kernel_args, s, span)
         return
-    # a gradient task: each launch stops before a lane an in-chunk mint
-    # moved; retrain it here, stage its payload, resume at it
-    while True:
-        j, adj, v0 = eng.stop.tolist()
-        if j >= eng.cfg.chunk:
-            return
-        eng.payload[j] = eng.retrain(s, j, v0 + adj)
-        eng.resumes += 1
-        _kernels.fleet_chunk(eng.kernel_args, s, j, v0)
+    for c in range(s, s + span):
+        eng.pass_a(c)
+        _kernels.fleet_chunk(eng.kernel_args, c)
+        # each launch stops before a lane an in-chunk mint moved; retrain
+        # it here, stage its payload, resume at it
+        while True:
+            j, adj, v0 = eng.stop.tolist()
+            if j >= eng.cfg.chunk:
+                break
+            eng.payload[j] = eng.retrain(c, j, v0 + adj)
+            eng.resumes += 1
+            _kernels.fleet_chunk(eng.kernel_args, c, 1, j, v0)
+
+
+def fleet_span_plain(eng: ChunkedFleet, s: int, span: int = 1) -> None:
+    """The plain twin of a ``fleet_chunk`` launch: chunk by chunk,
+    :meth:`ChunkedFleet.pass_a` then :func:`fleet_chunk_plain`."""
+    for c in range(s, s + span):
+        eng.pass_a(c)
+        fleet_chunk_plain(eng, c)
+
+
+def slot_sum(values: np.ndarray) -> np.float32:
+    """A window's samples summed in slot order, one fp32 rounding a slot:
+    the kernel's running sum (slots fill in order, pads add +0)."""
+    total = np.float32(0.0)
+    for v in np.asarray(values, np.float32):
+        total = np.float32(total + v)
+    return total
 
 
 def fleet_chunk_plain(eng: ChunkedFleet, s: int) -> None:
@@ -728,7 +775,7 @@ def fleet_chunk_plain(eng: ChunkedFleet, s: int) -> None:
         cur = c["G"][rv] if rv > h["radopt"][r] else c["rparams"][r]
         merged = fold(c["rbuf"][r], h["rwt"][r], h["rkey_lo"][r], h["rkey_hi"][r], cur)
         c["rparams"][r] = merged
-        raw = np.float32(h["rsamp"][r].sum(dtype=np.float32))
+        raw = slot_sum(h["rsamp"][r])
         h["radopt"][r] = max(int(h["radopt"][r]), rv)
         si[_S["rmerges"]] += 1
         h["up_seq"][r] += 1

@@ -1,4 +1,5 @@
-"""The megafleet chunk step's kernel (``csrc/fleet_chunk.cu``) on the card.
+"""The megafleet chunk step's kernel (``csrc/fleet_chunk.cu``: a span of
+chunks a launch, pass A inside for the consensus task) on the card.
 
 Marked ``cuda``: they need an NVIDIA GPU with ``nvcc`` and skip elsewhere
 (the kernel has no CPU mode; on the CPU the engine runs its plain twin,
@@ -29,36 +30,124 @@ def cuda():
     yield torch.device("cuda")
 
 
-@pytest.mark.parametrize("case", ["flat", "hier", "median", "trimmed", "chaos", "byzantine", "churn", "linear_task",
-                                  "mlp_task"])
-def test_kernel_matches_its_twin_and_repeats_bit_for_bit(cuda, case):
-    """The chunked engine on the card (one kernel launch a chunk, and one
-    more for each lane a gradient task retrains mid-chunk) against the
-    same engine on the CPU (the plain twin): counters, histograms, mint
-    times and window keys equal, params within ``MF_PARAM_TOL`` of the
-    largest; a second card run equals the first bit for bit."""
+CASES = ["flat", "hier", "median", "trimmed", "chaos", "byzantine", "churn", "linear_task", "mlp_task"]
+CONSENSUS = [c for c in CASES if not c.endswith("_task")]
+
+
+def _fleet(case):
     if case.endswith("_task"):
-        mega = chip_smoke._mf_grad(case.split("_")[0], 0 if case == "linear_task" else 16)
-    elif case in ("median", "trimmed"):
-        mega = chip_smoke._mf_attack("median" if case == "median" else "trimmed-mean", 32)
-    elif case in ("chaos", "byzantine", "churn"):
-        mega = chip_smoke._mf_faults(case)
-    else:
-        mega = chip_smoke._mf_small(cluster_size=0 if case == "flat" else 32, chunk=48, device="cuda")
+        return chip_smoke._mf_grad(case.split("_")[0], 0 if case == "linear_task" else 16)
+    if case in ("median", "trimmed"):
+        return chip_smoke._mf_attack("median" if case == "median" else "trimmed-mean", 32)
+    if case in ("chaos", "byzantine", "churn"):
+        return chip_smoke._mf_faults(case)
+    return chip_smoke._mf_small(cluster_size=0 if case == "flat" else 32, chunk=48, device="cuda")
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(a.carry[k], b.carry[k]) for k in a.carry)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_matches_its_twin_and_repeats_bit_for_bit(cuda, case):
+    """The chunked engine on the card (a consensus fleet in one launch; a
+    gradient task one launch a chunk and one more for each lane it
+    retrains mid-chunk) against the same engine on the CPU (the plain
+    twin): counters, histograms, mint times and window keys equal, params
+    within ``MF_PARAM_TOL`` of the largest; a second card run equals the
+    first bit for bit."""
+    mega = _fleet(case)
     _kernels.reset_launches()
     card = [mega.chunked_engine() for _ in range(2)]
     for eng in card:
         eng.run()
     torch.cuda.synchronize()
-    assert _kernels.LAUNCHES["fleet_chunk"] == 2 * card[0].n_chunks + card[0].resumes + card[1].resumes
+    per_run = card[0].n_chunks if mega.task is not None else 1
+    assert _kernels.LAUNCHES["fleet_chunk"] == 2 * per_run + card[0].resumes + card[1].resumes
     assert (card[0].resumes > 0) == (mega.task is not None)
     twin = mega.chunked_engine(device="cpu")
     twin.run()
     exact, gap, scale = chip_smoke.compare_carries(card[0], twin)
     assert exact
     assert gap <= chip_smoke.MF_PARAM_TOL * max(scale, 1.0)
-    assert all(torch.equal(card[0].carry[k], card[1].carry[k]) for k in card[0].carry)
+    assert _same(card[0], card[1])
     assert int(card[0].carry["si"][2]) > 0  # merged
+
+
+@pytest.mark.parametrize("case", CONSENSUS)
+@pytest.mark.parametrize("span", [1, 5])
+def test_span_launches_equal_the_one_launch_run(cuda, case, span):
+    """Launches of ``span`` chunks (``ceil(chunks / span)`` of them) give
+    the one-launch run's carry bit for bit."""
+    mega = _fleet(case)
+    whole = mega.chunked_engine()
+    whole.run()
+    _kernels.reset_launches()
+    spans = mega.chunked_engine()
+    spans.run(span)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["fleet_chunk"] == -(-spans.n_chunks // span)
+    assert _same(whole, spans)
+
+
+@pytest.mark.parametrize("case", ["flat", "hier", "chaos", "byzantine", "churn", "median"])
+def test_regional_counters_in_device_memory_equal_shared_memory(cuda, case):
+    """The regionals' counters and the folds' window rows kept in device
+    memory (the layout of a fleet too large for shared memory: each fold
+    then reads its rows there and the window waits for it) give the
+    shared-memory run's carry bit for bit, in one launch and chunk by
+    chunk."""
+    mega = _fleet(case)
+    shared = mega.chunked_engine()
+    shared.run()
+    place = _kernels.fleet_chunk_place(shared.kernel_args)
+    assert place["fold_rows"] and place["regionals"] == (case != "flat")
+    for span in (None, 1):
+        dev = mega.chunked_engine()
+        dev.reg_layout = "device"
+        dev.run(span)
+        place = _kernels.fleet_chunk_place(dev.kernel_args)
+        assert not place["regionals"] and not place["fold_rows"]
+        assert _same(shared, dev)
+
+
+@pytest.mark.parametrize("case", CONSENSUS)
+def test_fused_pass_a_equals_pytorch_pass_a(cuda, case):
+    """Pass A inside the kernel against PyTorch's pass A (the kernel then
+    stopping at each lane an in-chunk mint moved, the host retraining it):
+    the same carry bit for bit, and PyTorch's flow resumes exactly as
+    often as the twin retrains."""
+    mega = _fleet(case)
+    fused = mega.chunked_engine()
+    fused.run()
+    staged = mega.chunked_engine()
+    staged.torch_pass_a = True
+    staged.run()
+    assert _same(fused, staged)
+    assert staged.resumes == _twin_retrains(mega)
+
+
+def _twin_retrains(mega) -> int:
+    """How many lanes the plain twin retrains mid-chunk."""
+    twin = mega.chunked_engine(device="cpu")
+    count = [0]
+    real = twin.retrain
+
+    def counted(*a):
+        count[0] += 1
+        return real(*a)
+
+    twin.retrain = counted
+    twin.run()
+    return count[0]
+
+
+@pytest.mark.parametrize("case", ["linear_task", "mlp_task"])
+def test_gradient_task_stops_as_often_as_the_twin_retrains(cuda, case):
+    mega = _fleet(case)
+    card = mega.chunked_engine()
+    card.run()
+    assert card.resumes == _twin_retrains(mega) > 0
 
 
 def test_chunked_engine_on_the_card_follows_the_per_event_engine(cuda):

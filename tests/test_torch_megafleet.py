@@ -5,7 +5,7 @@ port's (``device="cpu"``: the chunk step's plain twin and the per-event
 engine's torch rows):
 
 - the host arrays (tiers, aggregate grids, sorted events, chunk layout,
-  regional chains, the chunk grids) equal JAX's bit for bit;
+  the chunk grids) equal JAX's bit for bit;
 - merge counts, version sequences, mint times, staleness histograms and
   the fault counters equal JAX's exactly; losses and params within
   ``REL`` of the largest value (fp32 folds summed in another order; the
@@ -112,10 +112,6 @@ def test_host_arrays_equal_jax_bit_for_bit(name):
     for C in (7, 48):
         rows = jmf._chunk_layout(jev["client"], C)
         _equal(rows, tmf._chunk_layout(tev["client"], C), "layout")
-        if cluster:
-            r_e = jt["regional_of"][jev["client"]]
-            R = jt["k_reg"].shape[1]
-            _equal(jm.MegaFleet._chain_cols(rows, r_e, R), tm.MegaFleet._chain_cols(rows, r_e, R), "chains")
     # the grids the engines read: JAX's jnp arrays against the port's numpy
     import jax.numpy as jnp
 
@@ -128,8 +124,11 @@ def test_host_arrays_equal_jax_bit_for_bit(name):
     jgrid, jreg = jp._chunk_grids(jfk, jnp, jcfg, jt, jev, jclients, jagg, rows)
     tgrid, treg = tmf._chunk_grids(cfg, tt, {k: v for k, v in tev.items() if not k.startswith("_")}, tclients,
                                    tp["agg"], rows)
-    for k, v in jgrid.items():
-        assert np.array_equal(np.asarray(v), tgrid[k]), k
+    # JAX's per-regional chain links (prev_r, last_r) have no counterpart:
+    # the port's kernel keeps a span's regional counters itself
+    assert set(jgrid) - set(tgrid) == ({"prev_r", "last_r"} if cluster else set())
+    for k, v in tgrid.items():
+        assert np.array_equal(np.asarray(jgrid[k]), v), k
     for k, v in jreg.items():
         # JAX pads one trash row the port does not need
         assert np.array_equal(np.asarray(v)[: treg[k].shape[0]], treg[k]), k

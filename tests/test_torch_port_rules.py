@@ -147,7 +147,7 @@ def test_kernel_sources_and_bindings_agree():
         },
         "flash_fwd_sm90.cu": {"p2p_flash_fwd": 10, "p2p_flash_fwd_offs": 11, "p2p_flash_fwd_smem_bytes": 1},
         "ici_exchange.cu": {"p2p_ici_exchange": 3, "p2p_ici_max_entries": 0, "p2p_enable_peer_access": 2},
-        "fleet_chunk.cu": {"p2p_fleet_chunk": 6},
+        "fleet_chunk.cu": {"p2p_fleet_chunk": 7, "p2p_fleet_chunk_place": 2, "p2p_fleet_latency_probe": 6},
     }
     assert sorted(sources) == sorted(argcs)
     bindings = (PKG / "ops" / "_kernels.py").read_text()
