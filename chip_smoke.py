@@ -61,6 +61,13 @@ Phases, each of which makes the script exit non-zero if it fails (the
    ``run_fused(1)`` → ``evaluate``, once with the default (fused) backward
    and once with ``bwd_mode="split"``; launch counts are zeroed before and
    read after each drive, and every kernel of that drive must have run;
+   then one warm round of the fused drive under ``profiling.trace``
+   (``round_kernels``): its device time by kind (kernels 1-2, GEMMs,
+   elementwise and reductions, copies), the card's idle share and the
+   host's time in ``p2pfl:`` ranges, a lost profiler window profiled
+   again up to ``PROFILE_TRIES`` rounds; and a round's FLOPs by
+   ``profiling.compiled_flops`` beside the dense-attention count
+   (``lora_step_flops``): what the count leaves out is attention's;
 5b. [node_lora] the same model on the gossip Node: 4 Nodes with
    ``LoRALearner`` through ``Simulation`` (full topology, memory
    transport), 8 training sequences a node in batches of 2, 2 rounds of 1
@@ -102,7 +109,17 @@ Phases, each of which makes the script exit non-zero if it fails (the
    CUDA graph in round 0 and replayed for every batch) but in two staged
    bytes drives (2 and 4 nodes): the
    staged pair must end bit-equal to the fused pair, with no fused round
-   degraded; logs TrainStage and ``fused_round`` seconds a node;
+   degraded; logs TrainStage and ``fused_round`` seconds a node. Then the
+   operations surface (``gossip_observed``): one more 4-Node ICI round,
+   half the Nodes in the train set, under ``profiling.trace`` with a
+   ``NodeMonitor`` a Node and the flight record dumped after it: the
+   record's Chrome trace validates, its round report names every Node's
+   stages and a critical node and stage, kernel 9's launches equal the
+   shard sends, its device events are in the profile (a lost window
+   retried, up to ``PROFILE_TRIES``), every Node reported
+   ``device0_mem_mb`` above 0; and the CLI (``cli.main(["experiment",
+   "run", "mnist", "--nodes", "2", "--rounds", "1"])``) runs on the card
+   by default;
 10. [wire] the byte codec, gRPC and the streaming plane (``drive_wire``):
    (a) the native codec library loaded and equal to its numpy twins on
    64 MB, and ``encode_params`` of the MLP and of the config-5 bf16 tree
@@ -304,10 +321,12 @@ import contextlib
 import hashlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -362,6 +381,46 @@ LSE_TOL = 1e-4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the prefix of the host ranges ``profiling.dispatch_span`` opens; the
+#: profiler lists each also as a device-side annotation that spans the
+#: range's kernels, which is not device work of its own
+RANGE = "p2pfl:"
+#: a profiled window the profiler lost whole is profiled again, up to this
+#: many windows in all
+PROFILE_TRIES = 3
+
+
+def device_events(prof) -> list:
+    """A profile's device work: kernels, copies and fills, without the
+    ``p2pfl:`` annotations."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(RANGE)]
+
+
+def release_profile() -> None:
+    """Collect a profile's objects now. A profiled round leaves about a
+    million of them in reference cycles (events, ranges); left to the
+    collector, they postpone its full passes, which then free the cyclic
+    garbage of earlier drives (CUDA graphs and their memory pools among
+    it) late and at an arbitrary moment. Call once the profile is read."""
+    import gc
+
+    gc.collect()
+
+
+def range_host_ms(prof) -> float:
+    """The host's milliseconds inside ``p2pfl:`` ranges (outermost ranges
+    only: a range inside another adds nothing)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(RANGE))
+    total, end = 0.0, -math.inf
+    for start, stop in spans:
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
 
 
 def smi_line() -> str:
@@ -1004,6 +1063,29 @@ def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "steps_per_round": fed._nb,
     }
+    if bwd_mode == "auto":
+        # the warm flash round's device time by kind (after the counts
+        # were read: its launches count on no path)
+        summary["round_profile"] = prof = round_kernels(fed, FLASH_SPLIT)
+        ok &= prof["kernels"] is not None
+        # compiled_flops counts the aten products alone: the flash kernels
+        # launch through ctypes, so attention's products are what it
+        # leaves out against the dense-attention count
+        from p2pfl_tpu_torch.management.profiling import compiled_flops
+
+        counted = compiled_flops(fed.run_round)
+        analytic = fed._nb * lora_step_flops(cfg, n_nodes * seq, seq)
+        summary["round_flops"] = {"compiled_flops": counted, "analytic_with_attention": analytic,
+                                  "left_out": analytic - counted if counted is not None else None}
+        ok &= bool(counted)
+        if counted:
+            log(f"[main] a round's FLOPs: compiled_flops {counted:.4g} (no flash kernel in it), the "
+                f"dense-attention count {analytic:.4g}: {analytic - counted:.4g} left out "
+                f"({(analytic - counted) / analytic:.1%})")
+        log(f"[main] flash round profile (warm run_round, fused backward, {smi_line()}): device ms by kind "
+            f"{json.dumps(prof.get('by_kind_ms'))}, busy {prof.get('busy_ms')} of {prof['profiled_wall_ms']:.1f} "
+            f"ms wall (idle share {prof.get('idle_share')}), host in p2pfl: ranges {prof['p2pfl_range_host_ms']:.1f} "
+            f"ms, {prof.get('kernels')} kernels, windows lost {prof['lost_windows']} of {PROFILE_TRIES}")
     log(f"[main] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
     del fed, model
     torch.cuda.empty_cache()
@@ -1138,8 +1220,9 @@ def _lora_node_alone(learner) -> dict:
            "steps": learner.data.num_samples // learner.batch_size}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = timed(learner.fit)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
-    kernels = sum(e.count for e in prof.key_averages() if e.self_device_time_total > 0)
+    rows = [e for e in prof.key_averages() if not e.key.startswith(RANGE)]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    kernels = sum(e.count for e in rows if e.self_device_time_total > 0)
     out.update(profiled_fit_s=wall, device_busy_s=busy if busy > 0 else "not measured",
                device_idle_share=1 - busy / wall if busy > 0 else "not measured",
                kernels_a_step=kernels / out["steps"])
@@ -1580,6 +1663,156 @@ def span_breakdown(nodes: int, by_round: bool = False) -> dict:
     return {k: {r: round(v, 4) for r, v in sorted(d.items())} for k, d in sorted(per.items())}
 
 
+#: the observed round's train set on 4 Nodes: half train and half wait for
+#: the aggregate, so the round runs every stage of the FSM
+OBSERVED_TRAIN_SET = 2
+#: the NodeMonitor's period in the observed round, seconds
+MONITOR_PERIOD = 0.2
+
+
+def gossip_observed(kw: dict = GOSSIP_KW, nodes: int = 4) -> tuple[dict, dict]:
+    """One more round of ``examples/mnist.py``'s Nodes on the ICI plane with
+    the operations surface on: ``profiling.trace`` around it (its Chrome
+    trace into a temporary directory), a ``NodeMonitor`` a Node reporting
+    into a list, and the flight record (``dump_flight_record``) written
+    after it. ``OBSERVED_TRAIN_SET`` of the Nodes train, the rest wait for
+    the aggregate. Checks on the host's record: the flight record's trace
+    validates (``validate_chrome_trace``); the round report has every
+    Node, each with the vote, gossip and finish stages and one of train
+    and wait, both kinds in the round, a start stage span a Node
+    (recorded before the round counter is set, so outside the report),
+    and a critical node and stage; kernel 9's launches equal the plane's
+    shard sends; the profiler holds ``p2pfl:`` ranges; every Node
+    reported ``device0_mem_mb`` above 0. ``torch.profiler`` records host
+    ranges on the thread that profiles (here the main thread's
+    ``evaluate`` calls) and the card's work from every thread (kernel 9
+    launches on the gossip threads); the flight record holds every
+    thread's spans. Kernel 9's device events need the profiler's window:
+    a round whose window lost them is run again, up to ``PROFILE_TRIES``
+    rounds (``lost_windows``)."""
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.examples import mnist as example
+    from p2pfl_tpu_torch.management import profiling
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.management.node_monitor import NodeMonitor
+    from p2pfl_tpu_torch.management.telemetry import FSM_STAGES, dump_flight_record, telemetry, validate_chrome_trace
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.settings import Settings
+
+    prev = Settings.TRAIN_SET_SIZE, Settings.RESOURCE_MONITOR_PERIOD
+    Settings.TRAIN_SET_SIZE, Settings.RESOURCE_MONITOR_PERIOD = OBSERVED_TRAIN_SET, MONITOR_PERIOD
+    rounds, lost, k9_us = [], 0, []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for attempt in range(PROFILE_TRIES):
+                ici_mod.reset_ici_stats()
+                telemetry.reset_spans()
+                _kernels.reset_launches()
+                logger.reset_comm_metrics()
+                samples: list = []
+                monitors: list = []
+
+                def start_monitors(fleet):
+                    for node in fleet:
+                        monitors.append(NodeMonitor(node.addr, report_fn=lambda n, m, v: samples.append((n, m, v))))
+                        monitors[-1].start()
+
+                t0 = time.perf_counter()
+                try:
+                    with profiling.trace(tmp) as prof:
+                        out = example.run(nodes=nodes, weights_plane="ici", on_start=start_monitors,
+                                          **{**kw, "rounds": 1})
+                finally:
+                    for monitor in monitors:
+                        monitor.stop()
+                wall = time.perf_counter() - t0
+                launches, stats = _kernels.LAUNCHES["ici_exchange"], ici_mod.ici_stats()
+                trace_path, report_path = dump_flight_record(os.path.join(tmp, f"flight{attempt}"))[:2]
+                with open(trace_path) as f:
+                    n_events = validate_chrome_trace(json.load(f))
+                with open(report_path) as f:
+                    report = next((r for r in json.load(f) if r["round"] == 0), None)
+                per_node = report["per_node"] if report else {}
+                stages = {n: set(info["stages_s"]) for n, info in per_node.items()}
+                starts = {s.node for s in telemetry.spans() if s.kind == "stage" and s.name == FSM_STAGES[0]}
+                mem = {}
+                for n, metric, v in samples:
+                    if metric == "device0_mem_mb":
+                        mem[n] = max(mem.get(n, 0.0), v)
+                device = device_events(prof)
+                k9_events = [e for e in device if "ici_exchange" in e.name]
+                ranges = sorted({e.name for e in prof.events() if e.name.startswith(RANGE)})
+                rounds.append({
+                    "wall_s": wall, "trace_events": n_events, "report": report and {
+                        "wall_s": report["wall_s"], "critical_path": report["critical_path"],
+                        "stages_s": {n: info["stages_s"] for n, info in per_node.items()}},
+                    "nodes_with_start_stage": len(starts & set(out["addrs"])),
+                    "launches_ici_exchange": launches, "shard_sends": stats["shard_sends"],
+                    "fallback_bytes": stats["fallback_bytes"], "p2pfl_ranges": ranges,
+                    "device_events": len(device), "ici_exchange_device_events": len(k9_events),
+                    "device0_mem_mb": mem, "monitor_samples": len(samples),
+                    "profile_trace_mb": os.path.getsize(prof.trace_path) / 1e6,
+                    "test_acc": [m["test_acc"] for m in out["metrics"]],
+                    "host_checks": {
+                        "trace validates": n_events > 0,
+                        "report has every Node": set(per_node) == set(out["addrs"]),
+                        "every Node: vote, gossip, finish and one of train / wait": all(
+                            {"VoteTrainSetStage", "GossipModelStage", "RoundFinishedStage"} <= st
+                            and len(st & {"TrainStage", "WaitAggregatedModelsStage"}) == 1 for st in stages.values()),
+                        "every FSM stage ran": set(FSM_STAGES[1:]) <= set().union(*stages.values())
+                        and starts >= set(out["addrs"]),
+                        "critical node and stage named": bool(report) and report["critical_path"]["node"] in per_node
+                        and report["critical_path"]["stage"] in FSM_STAGES,
+                        "kernel 9 launches == shard sends > 0": launches == stats["shard_sends"] > 0,
+                        "no fallback": stats["fallback_bytes"] == 0,
+                        "p2pfl: dispatch ranges in the profile": bool(ranges),
+                        "every Node's device0_mem_mb > 0": set(mem) == set(out["addrs"]) and min(mem.values()) > 0,
+                        "accuracy finite": all(math.isfinite(m["test_loss"]) for m in out["metrics"]),
+                    },
+                })
+                k9_us = [e.time_range.elapsed_us() for e in k9_events][:8]
+                del prof, device, k9_events, out
+                release_profile()
+                if k9_us:
+                    break
+                lost += 1
+    finally:
+        Settings.TRAIN_SET_SIZE, Settings.RESOURCE_MONITOR_PERIOD = prev
+    checks = {f"observed round: {k}": all(r["host_checks"][k] for r in rounds) for k in rounds[0]["host_checks"]}
+    checks["observed round: kernel 9's device events in a profiled window"] = bool(k9_us)
+    summary = {"rounds": rounds, "lost_windows": lost, "ici_exchange_device_us": k9_us}
+    last = rounds[-1]
+    log(f"[gossip] observed round ({nodes} Nodes, ici, train set {OBSERVED_TRAIN_SET}): flight-record trace "
+        f"{last['trace_events']} events, critical path {json.dumps(last['report'] and last['report']['critical_path'])}; "
+        f"kernel 9 {last['launches_ici_exchange']} launches, {last['shard_sends']} shard sends, "
+        f"{last['ici_exchange_device_events']} device events in the profile, windows lost {lost} of {PROFILE_TRIES}; "
+        f"p2pfl: ranges {last['p2pfl_ranges']}; device0_mem_mb by Node {json.dumps(last['device0_mem_mb'])}")
+    return checks, summary
+
+
+def cli_on_card() -> tuple[dict, dict]:
+    """``python -m p2pfl_tpu_torch experiment run mnist --nodes 2 --rounds 1``
+    in this process, with no ``--device``: it must return 0 and run on the
+    card (each Node captures its train step as a CUDA graph, which happens
+    on a CUDA device alone)."""
+    from p2pfl_tpu_torch import cli
+    from p2pfl_tpu_torch.management.logger import logger
+
+    logger.reset_comm_metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(["experiment", "run", "mnist", "--nodes", "2", "--rounds", "1"])
+    torch.cuda.synchronize()
+    captures = sum(c.get("fused_graph_capture", 0) for c in logger.get_comm_metrics().values())
+    summary = {"rc": rc, "s": time.perf_counter() - t0, "fused_graph_captures": captures,
+               "peak_mem_mb": torch.cuda.max_memory_allocated() / 1e6}
+    checks = {"cli: experiment run mnist returned 0": rc == 0,
+              "cli: its 2 Nodes trained on the card (2 graph captures)": captures == 2 and summary["peak_mem_mb"] > 0}
+    log(f"[gossip] cli: experiment run mnist --nodes 2 --rounds 1 (default device) {json.dumps(summary)}")
+    return checks, summary
+
+
 def drive_gossip() -> tuple[bool, dict]:
     """``examples/mnist.py``'s path at full MLP width.
 
@@ -1659,6 +1892,8 @@ def drive_gossip() -> tuple[bool, dict]:
             ici_mod.shard_transfer = real
         runs = {plane: drive(plane, 4) for plane in ("bytes", "ici")}
         staged = drive("bytes", 4, fused=False)
+        observed_checks, observed = gossip_observed(kw)
+        cli_checks, cli_run = cli_on_card()
     finally:
         logger._logger.removeHandler(handler)
     pair_gap = _gaps(pair["bytes"]["leaves"], pair["ici"]["leaves"])
@@ -1688,6 +1923,7 @@ def drive_gossip() -> tuple[bool, dict]:
         "fused drives ran the graph path every round": all(r["graph_rounds_per_node_round"] == 1 for r in fused_runs),
         "staged drives took no fused round": all(
             sum(r["fused_counts"].values()) == 0 for r in (staged, staged_pair)),
+        **observed_checks, **cli_checks,
     }
     ok = all(checks.values())
     for r in (*runs.values(), *pair.values(), control, staged, staged_pair):
@@ -1697,7 +1933,8 @@ def drive_gossip() -> tuple[bool, dict]:
                "pair_ici": {k: pair["ici"][k] for k in ("ici_stats", "launches_ici_exchange", "within_run_max_diff")},
                "control_vs_bytes_max_mean": control_gap, "control_within_run": control["within_run_max_diff"],
                "failed_transfer_logs": failures[:3], "checks": checks,
-               "staged_bytes": staged, "pair_fused_vs_staged_max_mean": fused_gap, "fused_degraded": degraded}
+               "staged_bytes": staged, "pair_fused_vs_staged_max_mean": fused_gap, "fused_degraded": degraded,
+               "observed": observed, "cli": cli_run}
     log(f"[gossip] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
     log(f"[gossip] fused degradations {degraded}; rounds through the step graph a node a round (one "
         f"replay a batch) {[r['graph_rounds_per_node_round'] for r in fused_runs]}; of them, rounds "
@@ -2081,32 +2318,48 @@ def mnist_parity() -> tuple[bool, dict]:
     return all(checks.values()), summary
 
 
-def round_kernels(fed) -> dict:
-    """Kernels one ``run_round`` (no eval) launches on the card and their
-    device time, from ``torch.profiler``'s CUDA activity, after a warm
-    round; ``None`` where the profiler saw no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+def round_kernels(fed, split=None) -> dict:
+    """Kernels one warm ``run_round`` (no eval) launches on the card, from
+    ``profiling.trace`` (``torch.profiler``, its Chrome trace into a
+    temporary directory): their count and device time, the busy time (the
+    union of their intervals) and the card's idle share of the round's
+    wall time, the host's time in ``p2pfl:`` dispatch ranges, and with
+    ``split`` the device time by kind (``kernel_split``). A window the
+    profiler lost whole (no device event) is profiled again on the next
+    round, up to ``PROFILE_TRIES`` rounds: ``lost_windows`` counts them;
+    ``kernels`` is None when all were lost."""
+    from p2pfl_tpu_torch.management import profiling
 
     fed.run_round()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fed.run_round()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    lost = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(PROFILE_TRIES):
+            with profiling.trace(tmp) as prof:
+                t0 = time.perf_counter()
+                fed.run_round()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            device = device_events(prof)
+            if device:
+                break
+            lost += 1
+        trace_mb = os.path.getsize(prof.trace_path) / 1e6
     launch_calls = sum(1 for e in prof.events() if e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    out = {"source": "torch.profiler (profiling.trace)", "lost_windows": lost, "profiled_wall_ms": wall * 1e3,
+           "p2pfl_range_host_ms": range_host_ms(prof), "launch_calls": launch_calls or None,
+           "trace_mb": trace_mb}
     if not device:
-        return {"source": "torch.profiler (no device activity seen)", "kernels": None, "device_ms": None,
-                "launch_calls": launch_calls or None, "profiled_wall_ms": wall * 1e3}
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    top: dict = {}
-    for e in kernels:
-        top[e.name[:60]] = top.get(e.name[:60], 0.0) + e.time_range.elapsed_us() / 1e3
-    return {"source": "torch.profiler", "kernels": len(kernels), "copies_and_fills": len(device) - len(kernels),
-            "launch_calls": launch_calls, "device_ms": busy, "profiled_wall_ms": wall * 1e3,
-            "top_kernels_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:8])}
+        return {**out, "kernels": None, "device_ms": None}
+    by, total, busy, _, top = kernel_split(prof, split or SPLIT)
+    kernels = [e for e in device if not e.name.startswith(("Memcpy", "Memset"))]
+    out.update(kernels=len(kernels), copies_and_fills=len(device) - len(kernels),
+               device_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3, busy_ms=busy,
+               idle_share=1 - busy / (wall * 1e3), top_kernels_ms=top)
+    if split is not None:
+        out["by_kind_ms"] = dict(sorted(by.items(), key=lambda kv: -kv[1]))
+    release_profile()
+    return out
 
 
 def graph_vs_eager(fed, rounds: int) -> tuple[bool, dict]:
@@ -2431,18 +2684,27 @@ SPLIT = (
     ("gemm", ("gemm", "gemv", "cutlass", "sm90_")),
     ("elementwise", ("elementwise_kernel", "reduce_kernel", "index_elementwise")),
 )
+#: the kinds of a config-5 flash round's device work (``round_kernels``):
+#: the hand kernels, cuBLAS's GEMMs, PyTorch's elementwise and reduction
+#: kernels; copies and fills are ``copies_fills``, the rest ``other``
+FLASH_SPLIT = (
+    ("flash_kernels_1_2", ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "sm90_")),
+    ("elementwise_reductions", ("elementwise", "reduce_kernel", "index_", "softmax", "Norm", "norm", "foreach",
+                                "multi_tensor", "cat_", "Cat", "scatter", "gather", "embedding", "fill")),
+)
 
 
-def kernel_split(prof) -> tuple[dict, float, float, int, dict]:
-    """A profile's device kernels: (ms by kind of ``SPLIT``, the sum of the
-    kernels' times, the time the card was busy (the union of their
-    intervals: kernels may overlap), the count, the six costliest
-    kernels' ms)."""
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+def kernel_split(prof, split=SPLIT) -> tuple[dict, float, float, int, dict]:
+    """A profile's device kernels: (ms by kind of ``split``, the first
+    kind whose keys the name holds; the sum of the kernels' times, the
+    time the card was busy (the union of their intervals: kernels may
+    overlap), the count, the six costliest kernels' ms)."""
+    events = device_events(prof)
     by: dict = {}
     top: dict = {}
     for e in events:
-        kind = next((k for k, keys in SPLIT if any(s in e.name for s in keys)), None)
+        kind = next((k for k, keys in split if any(s in e.name for s in keys)), None)
         if kind is None:
             kind = "copies_fills" if e.name.startswith(("Memcpy", "Memset")) else "other"
         ms = e.time_range.elapsed_us() / 1e3
@@ -5160,7 +5422,7 @@ def _profiled(fn) -> tuple[list, float]:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA], wall_ms
+    return device_events(prof), wall_ms
 
 
 def _busy_ms(events) -> float:
@@ -5593,6 +5855,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     smi = smi_line()
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -5736,6 +5999,7 @@ def main(argv=None) -> int:
     if "exchange_peer" in args.only:
         ok &= timed("exchange_peer", check_exchange_peer, {})
     log(f"[time] seconds per phase: {json.dumps(phase_s)}")
+    log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")
 
     # kernels 1-4 report the causal case, the offset kernels the diagonal
     # hop, kernel 9 the gossip path's tree (the MLP's six fp32 leaves)

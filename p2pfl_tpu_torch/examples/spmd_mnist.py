@@ -31,11 +31,9 @@ def main(argv=None) -> None:
     parser.add_argument("--dp-clip", type=float, default=0.0, help="DP-SGD clip norm (0 = off)")
     parser.add_argument("--dp-noise", type=float, default=0.0, help="DP-SGD noise multiplier")
     parser.add_argument("--plot", nargs="?", const="spmd_mnist_metrics.png", default=None, metavar="PNG",
-                        help="render the per-round curves (needs management/plotting: not ported)")
+                        help="render the per-round loss/accuracy curves to PNG (needs matplotlib)")
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = parser.parse_args(argv)
-    if args.plot:
-        parser.error("--plot needs management/plotting, not ported yet (ROADMAP Queue A item 10)")
 
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.vision import mlp
@@ -55,10 +53,17 @@ def main(argv=None) -> None:
         device=args.device,
     )
     t0 = time.monotonic()
+    history = []
     for _ in range(args.rounds):
         entry = fed.run_round(epochs=args.epochs)
         metrics = fed.evaluate()
         print(f"round {entry['round']}: loss={float(entry['train_loss']):.4f} acc={metrics['test_acc']:.4f}")
+        history.append({**entry, "test_acc": float(metrics["test_acc"])})
+    if args.plot:
+        from p2pfl_tpu_torch.management.plotting import plot_history
+
+        path = plot_history(history, args.plot, title=f"spmd {args.nodes} nodes")
+        print(f"metric curves: {path or 'nothing to plot'}")
     if args.measure_time:
         print(f"elapsed: {time.monotonic() - t0:.2f}s ({args.nodes} nodes)")
     if fed.accountant is not None:

@@ -55,3 +55,11 @@ class UnsupportedByPortError(ValueError):
     (the DCN plane, churn, ...):
     raised at ``Node.start`` or where it is configured, never in the
     middle of a round."""
+
+
+class LearnerNotSetException(Exception):
+    """A learning operation ran before the node had a learner."""
+
+
+class CommunicationError(Exception):
+    """A transport-level send failed."""

@@ -12,14 +12,24 @@ One process-wide registry, :data:`telemetry`:
   ``"comm"``) and ``profiling.dispatch_span`` (group ``"dispatch"``);
   counters are always on. Span durations feed log2-bucket latency
   histograms.
+- **Exports**: :meth:`Telemetry.export_chrome_trace` writes Chrome
+  trace-event JSON (one ``pid`` a node, one ``tid`` a plane of
+  :data:`PLANES`), loadable in Perfetto; :meth:`Telemetry.round_report`
+  walks one round's spans and attributes its wall clock to stages and
+  waits, edges (send time plus retry backoff), faults and the critical
+  path. A ``torch.profiler`` trace of the same run (``profiling.trace``)
+  holds the device side: ``profiling.dispatch_span`` opens a
+  ``p2pfl:<site>`` range there.
 
-Records stay in the process: the Chrome-trace export and the per-round
-report of the JAX package are not ported.
+``P2PFL_TELEMETRY_DUMP=<dir>`` writes ``trace.json`` and
+``round_reports.json`` (and ``value_histograms.json`` after an async run)
+into ``<dir>`` when the process exits (:func:`dump_flight_record`).
 """
 
 from __future__ import annotations
 
 import itertools
+import json
 import os
 import threading
 import time
@@ -29,6 +39,28 @@ from typing import Dict, List, Optional, Tuple
 from p2pfl_tpu_torch.settings import Settings
 
 TraceCtx = Tuple[str, str]  # (trace_id, span_id)
+
+#: span kinds → Chrome trace ``tid`` (one timeline lane a plane)
+PLANES: Dict[str, int] = {
+    "stage": 1,
+    "gossip": 2,
+    "heartbeat": 3,
+    "dispatch": 4,
+    "retry": 5,
+    "fault": 6,
+}
+_OTHER_PLANE = 9
+
+#: the round FSM's top-level stages: a round report splits stage time over
+#: these alone, so nested spans (aggregation_wait, diffusion) count as waits
+FSM_STAGES = (
+    "StartLearningStage",
+    "VoteTrainSetStage",
+    "TrainStage",
+    "WaitAggregatedModelsStage",
+    "GossipModelStage",
+    "RoundFinishedStage",
+)
 
 _seq = itertools.count(1)
 # per-process entropy in every id: a round's trace id is the same on every
@@ -66,6 +98,19 @@ class Span:
     @property
     def ctx(self) -> TraceCtx:
         return (self.trace_id, self.span_id)
+
+    def to_dict(self) -> dict:
+        return {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "node": self.node,
+            "name": self.name,
+            "kind": self.kind,
+            "t0_ns": self.t0_ns,
+            "t1_ns": self.t1_ns,
+            "attrs": dict(self.attrs),
+        }
 
 
 class _SpanHandle:
@@ -151,6 +196,7 @@ class LatencyHistogram:
             "mean_ms": round(sum_ns / count / 1e6, 4),
             "p50_ms": round(self.percentile(50) / 1e6, 4),
             "p95_ms": round(self.percentile(95) / 1e6, 4),
+            "p99_ms": round(self.percentile(99) / 1e6, 4),
             "max_ms": round(self.max_ns / 1e6, 4),
         }
 
@@ -371,6 +417,11 @@ class Telemetry:
             return {name: h.summary() for (n, name), h in items if n == node}
         return {f"{n}/{name}": h.summary() for (n, name), h in items}
 
+    def reset_histograms(self) -> None:
+        with self._lock:
+            self._hists.clear()
+            self._value_hists.clear()
+
     def reset(self) -> None:
         with self._lock:
             self._rings.clear()
@@ -378,6 +429,293 @@ class Telemetry:
             self._hists.clear()
             self._value_hists.clear()
 
+    # ---- Chrome trace-event export ----
+
+    def export_chrome_trace(self, path: Optional[str] = None, nodes: Optional[List[str]] = None) -> dict:
+        """Chrome trace-event JSON: one ``pid`` a node, one ``tid`` a plane,
+        ``X`` complete events for spans and ``i`` instants for events
+        (timestamps in µs of the monotonic clock). Returns the document and
+        writes it to ``path`` when given."""
+        spans = self.spans()
+        if nodes is not None:
+            wanted = set(nodes)
+            spans = [s for s in spans if s.node in wanted]
+        pid_of = {n: i + 1 for i, n in enumerate(sorted({s.node for s in spans}))}
+        events: List[dict] = [
+            {"ph": "M", "name": "process_name", "pid": pid, "tid": 0, "args": {"name": node}}
+            for node, pid in pid_of.items()
+        ]
+        named_lanes = set()
+        for s in spans:
+            pid = pid_of[s.node]
+            tid = PLANES.get(s.kind, _OTHER_PLANE)
+            if (pid, tid) not in named_lanes:
+                named_lanes.add((pid, tid))
+                events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid, "args": {"name": s.kind}})
+            args = {k: v for k, v in s.attrs.items() if v is not None}
+            args["trace_id"] = s.trace_id
+            args["span_id"] = s.span_id
+            if s.parent_id:
+                args["parent_span_id"] = s.parent_id
+            event = {"name": s.name, "pid": pid, "tid": tid, "ts": s.t0_ns / 1000.0, "args": args, "cat": s.kind}
+            if s.duration_ns > 0:
+                event["ph"] = "X"
+                event["dur"] = s.duration_ns / 1000.0
+            else:
+                event["ph"] = "i"
+                event["s"] = "t"  # thread-scoped instant
+            events.append(event)
+        doc = {"traceEvents": events, "displayTimeUnit": "ms"}
+        if path is not None:
+            with open(path, "w") as f:
+                json.dump(doc, f)
+        return doc
+
+    # ---- per-round attribution ----
+
+    def round_report(self, round_no: int, experiment: Optional[str] = None) -> "RoundReport":
+        """What gated one round. Stage spans carry ``attrs={"round",
+        "experiment"}`` (the workflow stamps them); sends, retries and
+        faults count when they fall inside the round's window. The
+        critical path names the node with the longest round, its longest
+        stage, the edge that burned the most send plus retry time, and
+        the peer most sends failed to (a crashed peer fails fast but
+        often)."""
+        spans = self.spans()
+        stage_spans = [
+            s for s in spans
+            if s.kind == "stage" and s.attrs.get("round") == round_no
+            and (experiment is None or s.attrs.get("experiment") == experiment)
+        ]
+        per_node: Dict[str, dict] = {}
+        for s in stage_spans:
+            info = per_node.setdefault(s.node, {"t0_ns": s.t0_ns, "t1_ns": s.t1_ns, "stages": {}, "waits": {}})
+            info["t0_ns"] = min(info["t0_ns"], s.t0_ns)
+            info["t1_ns"] = max(info["t1_ns"], s.t1_ns)
+            bucket = "stages" if s.name in FSM_STAGES else "waits"
+            info[bucket][s.name] = info[bucket].get(s.name, 0) + s.duration_ns
+        if not per_node:
+            return RoundReport(round_no=round_no, experiment=experiment)
+        if experiment is None:
+            experiment = next((s.attrs.get("experiment") for s in stage_spans if s.attrs.get("experiment")), None)
+
+        w0 = min(i["t0_ns"] for i in per_node.values())
+        w1 = max(i["t1_ns"] for i in per_node.values())
+        edges: Dict[Tuple[str, str], dict] = {}
+        retry_wait: Dict[str, float] = {}
+        faults: Dict[str, int] = {}
+        for s in spans:
+            if s.t0_ns > w1 or s.t1_ns < w0:
+                continue
+            if s.kind == "gossip" and s.name.startswith("send:"):
+                peer = s.attrs.get("peer")
+                if peer is None:
+                    continue
+                e = edges.setdefault((s.node, peer), {"busy_ns": 0, "sends": 0, "failures": 0})
+                e["busy_ns"] += s.duration_ns
+                e["sends"] += 1
+                if s.attrs.get("ok") is False:
+                    e["failures"] += 1
+            elif s.kind == "retry":
+                peer = s.attrs.get("peer")
+                if peer is not None:
+                    retry_wait[peer] = retry_wait.get(peer, 0.0) + float(s.attrs.get("delay_s", 0.0))
+            elif s.kind == "fault":
+                faults[s.name] = faults.get(s.name, 0) + 1
+
+        critical_node = max(per_node, key=lambda n: per_node[n]["t1_ns"] - per_node[n]["t0_ns"])
+        crit = per_node[critical_node]
+        critical_stage = max(crit["stages"], key=crit["stages"].get) if crit["stages"] else None
+        critical_edge = None
+        if edges:
+            src, dst = max(edges, key=lambda e: edges[e]["busy_ns"] + retry_wait.get(e[1], 0.0) * 1e9)
+            e = edges[(src, dst)]
+            critical_edge = {
+                "src": src, "dst": dst, "busy_s": round(e["busy_ns"] / 1e9, 4), "sends": e["sends"],
+                "failures": e["failures"], "retry_wait_s": round(retry_wait.get(dst, 0.0), 4),
+            }
+        fail_by_dst: Dict[str, int] = {}
+        for (_src, dst), e in edges.items():
+            fail_by_dst[dst] = fail_by_dst.get(dst, 0) + e["failures"]
+        for peer in retry_wait:
+            fail_by_dst.setdefault(peer, 0)
+        most_failed_peer = None
+        if fail_by_dst and max(fail_by_dst.values()) > 0:
+            most_failed_peer = max(fail_by_dst, key=fail_by_dst.get)
+
+        return RoundReport(
+            round_no=round_no,
+            experiment=experiment,
+            wall_s=round((w1 - w0) / 1e9, 4),
+            per_node={
+                n: {
+                    "wall_s": round((i["t1_ns"] - i["t0_ns"]) / 1e9, 4),
+                    "stages_s": {k: round(v / 1e9, 4) for k, v in i["stages"].items()},
+                    "waits_s": {k: round(v / 1e9, 4) for k, v in i["waits"].items()},
+                }
+                for n, i in per_node.items()
+            },
+            edges={
+                f"{src}->{dst}": {"busy_s": round(e["busy_ns"] / 1e9, 4), "sends": e["sends"], "failures": e["failures"]}
+                for (src, dst), e in edges.items()
+            },
+            retry_wait_s={k: round(v, 4) for k, v in retry_wait.items()},
+            faults=faults,
+            critical_node=critical_node,
+            critical_stage=critical_stage,
+            critical_edge=critical_edge,
+            most_failed_peer=most_failed_peer,
+        )
+
+    def observed_rounds(self) -> List[Tuple[Optional[str], int]]:
+        """Distinct ``(experiment, round)`` pairs that have stage spans."""
+        seen = set()
+        for s in self.spans():
+            if s.kind == "stage" and isinstance(s.attrs.get("round"), int):
+                seen.add((s.attrs.get("experiment"), s.attrs["round"]))
+        return sorted(seen, key=lambda er: (er[0] or "", er[1]))
+
+
+class RoundReport:
+    """One round's wall-clock attribution (:meth:`Telemetry.round_report`)."""
+
+    def __init__(
+        self,
+        round_no: int,
+        experiment: Optional[str] = None,
+        wall_s: float = 0.0,
+        per_node: Optional[dict] = None,
+        edges: Optional[dict] = None,
+        retry_wait_s: Optional[dict] = None,
+        faults: Optional[dict] = None,
+        critical_node: Optional[str] = None,
+        critical_stage: Optional[str] = None,
+        critical_edge: Optional[dict] = None,
+        most_failed_peer: Optional[str] = None,
+    ) -> None:
+        self.round_no = round_no
+        self.experiment = experiment
+        self.wall_s = wall_s
+        self.per_node = per_node or {}
+        self.edges = edges or {}
+        self.retry_wait_s = retry_wait_s or {}
+        self.faults = faults or {}
+        self.critical_node = critical_node
+        self.critical_stage = critical_stage
+        self.critical_edge = critical_edge
+        self.most_failed_peer = most_failed_peer
+
+    def to_dict(self) -> dict:
+        return {
+            "round": self.round_no,
+            "experiment": self.experiment,
+            "wall_s": self.wall_s,
+            "per_node": self.per_node,
+            "edges": self.edges,
+            "retry_wait_s": self.retry_wait_s,
+            "faults": self.faults,
+            "critical_path": {
+                "node": self.critical_node,
+                "stage": self.critical_stage,
+                "edge": self.critical_edge,
+                "most_failed_peer": self.most_failed_peer,
+            },
+        }
+
+    def describe(self) -> str:
+        """A short human summary."""
+        if not self.per_node:
+            return f"round {self.round_no}: no spans recorded"
+        lines = [
+            f"round {self.round_no} ({self.experiment or 'unknown-exp'}): "
+            f"wall {self.wall_s:.2f}s across {len(self.per_node)} node(s)"
+        ]
+        if self.critical_node is not None:
+            node = self.per_node[self.critical_node]
+            lines.append(
+                f"  critical node: {self.critical_node} ({node['wall_s']:.2f}s, longest stage: {self.critical_stage})"
+            )
+        if self.critical_edge is not None:
+            e = self.critical_edge
+            lines.append(
+                f"  critical edge: {e['src']}->{e['dst']} ({e['busy_s']:.2f}s busy, {e['failures']} failure(s))"
+            )
+        if self.most_failed_peer is not None:
+            lines.append(f"  most-failed peer: {self.most_failed_peer}")
+        if self.faults:
+            lines.append(f"  injected faults: {self.faults}")
+        return "\n".join(lines)
+
+
+def validate_chrome_trace(doc: dict) -> int:
+    """Check a document against the Chrome trace-event schema; returns the
+    event count or raises ``ValueError``."""
+    if not isinstance(doc, dict) or "traceEvents" not in doc:
+        raise ValueError("missing traceEvents")
+    events = doc["traceEvents"]
+    if not isinstance(events, list):
+        raise ValueError("traceEvents must be a list")
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        ph = ev.get("ph")
+        if ph not in ("X", "i", "M", "B", "E"):
+            raise ValueError(f"event {i}: unknown ph {ph!r}")
+        for key in ("name", "pid", "tid"):
+            if key not in ev:
+                raise ValueError(f"event {i}: missing {key}")
+        if ph == "X":
+            if not isinstance(ev.get("ts"), (int, float)) or not isinstance(ev.get("dur"), (int, float)):
+                raise ValueError(f"event {i}: X event needs numeric ts/dur")
+            if ev["dur"] < 0:
+                raise ValueError(f"event {i}: negative dur")
+        elif ph == "i":
+            if not isinstance(ev.get("ts"), (int, float)):
+                raise ValueError(f"event {i}: instant needs numeric ts")
+    json.dumps(doc)  # must serialise as it is
+    return len(events)
+
 
 #: the process-wide registry
 telemetry = Telemetry()
+
+
+def dump_flight_record(out_dir: str) -> List[str]:
+    """Write ``trace.json`` and ``round_reports.json`` (and, when an async
+    run recorded any, ``value_histograms.json``) under ``out_dir``; returns
+    the paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    trace_path = os.path.join(out_dir, "trace.json")
+    telemetry.export_chrome_trace(path=trace_path)
+    reports = [telemetry.round_report(rnd, experiment=exp).to_dict() for exp, rnd in telemetry.observed_rounds()]
+    report_path = os.path.join(out_dir, "round_reports.json")
+    with open(report_path, "w") as f:
+        json.dump(reports, f, indent=1)
+    paths = [trace_path, report_path]
+    value_hists = telemetry.value_histograms()
+    if value_hists:
+        vh_path = os.path.join(out_dir, "value_histograms.json")
+        with open(vh_path, "w") as f:
+            json.dump(value_hists, f, indent=1)
+        paths.append(vh_path)
+    return paths
+
+
+def _install_exit_dump() -> None:
+    """With ``P2PFL_TELEMETRY_DUMP`` set, dump the flight record at exit."""
+    import atexit
+
+    out_dir = os.environ.get("P2PFL_TELEMETRY_DUMP")
+    if not out_dir:
+        return
+
+    def _dump() -> None:
+        try:
+            dump_flight_record(out_dir)
+        except Exception:  # noqa: BLE001 — an exit dump never masks the exit code
+            pass
+
+    atexit.register(_dump)
+
+
+_install_exit_dump()

@@ -212,6 +212,9 @@ class Node:
             raise NodeRunningException(f"Node {self.addr} already running")
         _check_supported()
         logger.register_node(self.addr, self.state, self.state.simulation)
+        from p2pfl_tpu_torch.management.watchdog import StallWatchdog
+
+        StallWatchdog.ensure_started()  # a no-op unless Settings.STALL_WATCHDOG_S > 0
         self.protocol.start()
         if self.learner is not None:
             # shard-plane presence: registration is unconditional and cheap,

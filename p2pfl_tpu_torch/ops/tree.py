@@ -44,9 +44,59 @@ def tree_structure(tree: Tree) -> tuple:
     return tuple(path for path, _ in tree_items(tree)) if isinstance(tree, dict) else ("",)
 
 
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: Tree, s) -> Tree:
+    """Every leaf times ``s``, taken in the leaf's dtype (as JAX casts it)."""
+    return tree_map(lambda x: x * torch.as_tensor(s, dtype=x.dtype, device=x.device), tree)
+
+
 def tree_stack(trees: list) -> Tree:
     """Stack same-structure trees leafwise on a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(stacked: Tree, n: int) -> list:
+    """Inverse of :func:`tree_stack`."""
+    return [tree_map(lambda x, i=i: x[i], stacked) for i in range(n)]
+
+
+def tree_weighted_mean(trees: list, weights, agg_dtype: str = "float32") -> Tree:
+    """Sample-weighted mean of N trees (the FedAvg core): ``weights`` are
+    normalized, the sum is taken in ``agg_dtype`` and cast back to each
+    leaf's dtype."""
+    from p2pfl_tpu_torch.ops.aggregation import fedavg
+
+    return fedavg(tree_stack(trees), torch.as_tensor(list(weights)), agg_dtype)
+
+
+def tree_bytes(tree: Tree) -> int:
+    """Total payload size in bytes."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def tree_num_params(tree: Tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_allclose(a: Tree, b: Tree, atol: float = 1e-1) -> bool:
+    """Equal structure, and every leaf pair close within ``atol`` in fp32."""
+    if tree_structure(a) != tree_structure(b):
+        return False
+    return all(
+        torch.allclose(x.detach().float().cpu(), y.detach().float().cpu(), atol=atol)
+        for x, y in zip(tree_leaves(a), tree_leaves(b))
+    )
 
 
 #: per-THREAD count of leaves :func:`tree_align_devices` had to move (a

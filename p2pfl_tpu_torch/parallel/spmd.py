@@ -914,12 +914,15 @@ class SpmdFederation:
             self.profile_round(epochs)
         perm = self._make_perm(epochs)
         mask, sel_idx = self._mask_inputs(self._effective_mask())
-        result = spmd_round(
-            self.params, self.opt_state, self.x_all, self.y_all, perm, mask, self._samples, sel_idx,
-            x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
-            dp_gen=self._dp_round_keys(), **self._round_kwargs(),
-            **self._algo_kwargs(self._server_t + 1 if self.server_opt else 0),
-        )
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+
+        with dispatch_span("spmd_round", "spmd", device=self.device, nodes=self.n, epochs=epochs):
+            result = spmd_round(
+                self.params, self.opt_state, self.x_all, self.y_all, perm, mask, self._samples, sel_idx,
+                x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
+                dp_gen=self._dp_round_keys(), **self._round_kwargs(),
+                **self._algo_kwargs(self._server_t + 1 if self.server_opt else 0),
+            )
         self._take_state(result)
         if self.server_opt:
             self._server_t += 1
@@ -1047,17 +1050,20 @@ class SpmdFederation:
         CPU, run eagerly."""
         perms, mask, sel_idx = self._fused_inputs(rounds, epochs)
         dp_gen = self._dp_round_keys()
-        if self._capturable():
-            key = (tuple(perms.shape), eval, sel_idx.numel())
-            if key not in self._spans:
-                self._spans[key] = _CapturedSpan(self, perms, mask, sel_idx, eval)
-            result = self._spans[key].run(self, perms, mask, sel_idx)
-        else:
-            result = spmd_rounds_fused(
-                self.params, self.opt_state, self.x_all, self.y_all, perms, mask, self._samples, sel_idx,
-                x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
-                dp_gen=dp_gen, **self._round_kwargs(), **self._algo_kwargs(self._server_t),
-            )
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+
+        with dispatch_span("spmd_rounds_fused", "spmd", device=self.device, nodes=self.n, rounds=rounds):
+            if self._capturable():
+                key = (tuple(perms.shape), eval, sel_idx.numel())
+                if key not in self._spans:
+                    self._spans[key] = _CapturedSpan(self, perms, mask, sel_idx, eval)
+                result = self._spans[key].run(self, perms, mask, sel_idx)
+            else:
+                result = spmd_rounds_fused(
+                    self.params, self.opt_state, self.x_all, self.y_all, perms, mask, self._samples, sel_idx,
+                    x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
+                    dp_gen=dp_gen, **self._round_kwargs(), **self._algo_kwargs(self._server_t),
+                )
         i = self._take_state(result)
         if self.server_opt:
             self._server_t += rounds

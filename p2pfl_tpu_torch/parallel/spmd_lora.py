@@ -168,12 +168,15 @@ class SpmdLoraFederation(SpmdFederation):
 
         if self._vote and (self.round == 0 or Settings.VOTE_EVERY_ROUND):
             self.train_mask = self.elect_train_set()
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+
         perm = self._make_perm(epochs)
         mask, sel_idx = self._mask_inputs(self._effective_mask())
-        self.params, self.opt_state, loss = spmd_lora_round(
-            self.params, self.opt_state, self.base, self.x_all, self.y_all, perm, mask,
-            self._samples, sel_idx, **self._round_kwargs(),
-        )
+        with dispatch_span("spmd_round", "spmd", device=self.device, nodes=self.n, epochs=epochs):
+            self.params, self.opt_state, loss = spmd_lora_round(
+                self.params, self.opt_state, self.base, self.x_all, self.y_all, perm, mask,
+                self._samples, sel_idx, **self._round_kwargs(),
+            )
         self.round += 1
         entry = {"round": self.round, "train_loss": loss}
         self.history.append(entry)
@@ -185,11 +188,14 @@ class SpmdLoraFederation(SpmdFederation):
         :meth:`evaluate`."""
         if eval:
             raise ValueError("SpmdLoraFederation.run_fused has no fused eval; call evaluate()")
+        from p2pfl_tpu_torch.management.profiling import dispatch_span
+
         perms, mask, sel_idx = self._fused_inputs(rounds, epochs)
-        self.params, self.opt_state, losses = spmd_lora_rounds_fused(
-            self.params, self.opt_state, self.base, self.x_all, self.y_all, perms, mask,
-            self._samples, sel_idx, **self._round_kwargs(),
-        )
+        with dispatch_span("spmd_rounds_fused", "spmd", device=self.device, nodes=self.n, rounds=rounds):
+            self.params, self.opt_state, losses = spmd_lora_rounds_fused(
+                self.params, self.opt_state, self.base, self.x_all, self.y_all, perms, mask,
+                self._samples, sel_idx, **self._round_kwargs(),
+            )
         entries = []
         for r in range(rounds):
             self.round += 1

@@ -21,6 +21,8 @@ class Settings:
     # seconds; the gRPC transport's per-call deadline
     GRPC_TIMEOUT: float = 10.0
     LOG_LEVEL: str = "INFO"
+    # directory of ``logger.enable_file_logging``'s rotating file
+    LOG_DIR: str = "logs"
     EXCLUDE_BEAT_LOGS: bool = True
 
     # --- heartbeat (membership / failure detection) ---
@@ -128,6 +130,17 @@ class Settings:
     TELEMETRY_ENABLED: bool = True
     TELEMETRY_RING_SPANS: int = 4096
     TELEMETRY_BEAT_SPANS: bool = False
+    # wrap each dispatch span's body in torch.profiler.record_function
+    # ("p2pfl:<site>"), so a profiler trace holds the host dispatch ranges
+    # beside the device kernels. None = on where the work runs on a CUDA
+    # device (read through telemetry_annotations())
+    TELEMETRY_ANNOTATIONS: Optional[bool] = None
+    # seconds between NodeMonitor samples (management/node_monitor.py)
+    RESOURCE_MONITOR_PERIOD: float = 1.0
+    # stall watchdog (management/watchdog.py): when > 0, a daemon thread
+    # dumps every thread's stack if a learning node makes no stage
+    # transition for this many seconds. Detection only; 0 disables
+    STALL_WATCHDOG_S: float = 0.0
 
     # --- mesh ---
     # ``nodes`` indexes federated nodes (mesh slots); ``data`` is
@@ -268,6 +281,41 @@ def wire_compression_device(device=None) -> bool:
     if explicit is not None:
         return bool(explicit)
     return device is not None and getattr(device, "type", str(device).split(":")[0]) == "cuda"
+
+
+def telemetry_annotations(device=None) -> bool:
+    """Resolve ``Settings.TELEMETRY_ANNOTATIONS``: an explicit True or
+    False stands; None is on for work on a CUDA ``device`` (with no device
+    given: once this process has initialised CUDA) and off on the CPU,
+    where no device timeline exists to line the ranges up with."""
+    explicit = Settings.TELEMETRY_ANNOTATIONS
+    if explicit is not None:
+        return bool(explicit)
+    if device is not None:
+        return getattr(device, "type", str(device).split(":")[0]) == "cuda"
+    import torch
+
+    return torch.cuda.is_initialized()
+
+
+def set_low_latency_settings() -> None:
+    """The low-latency profile for reliable local networks (the JAX
+    package's): every verb, stall and timeout exit and the vote stay; only
+    the clocks shrink, so rounds are not quantised to whole seconds of
+    model-gossip ticks and heartbeats. Fan-out and capacity knobs are
+    untouched."""
+    Settings.GRPC_TIMEOUT = 2.0
+    Settings.HEARTBEAT_PERIOD = 0.3
+    Settings.HEARTBEAT_TIMEOUT = 1.5
+    Settings.GOSSIP_PERIOD = 0.02
+    Settings.GOSSIP_MODELS_PERIOD = 0.05
+    Settings.VOTE_TIMEOUT = 15.0
+    Settings.AGGREGATION_TIMEOUT = 60.0
+    Settings.SECAGG_RECOVERY_TIMEOUT = 10.0
+    Settings.WAIT_HEARTBEATS_CONVERGENCE = 0.4
+    Settings.MESSAGE_RETRY_BASE = 0.1
+    Settings.MESSAGE_RETRY_CAP = 0.8
+    Settings.BREAKER_SUSPECT_TIMEOUT = 0.8
 
 
 def set_test_settings() -> None:

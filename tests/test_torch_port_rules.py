@@ -63,6 +63,38 @@ def test_import_purity_in_a_fresh_process():
         "p2pfl_tpu_torch.commands.federation"} <= set(mods)
     assert {"p2pfl_tpu_torch.federation.megafleet", "p2pfl_tpu_torch.ops.fleet_kernels",
             "p2pfl_tpu_torch.ops.fleet_autotune"} <= set(mods)
+    # and the operations surface: the CLI, the analyzer and every management module
+    assert {"p2pfl_tpu_torch.cli", "p2pfl_tpu_torch.__main__", "p2pfl_tpu_torch.analysis",
+            "p2pfl_tpu_torch.analysis.__main__", "p2pfl_tpu_torch.analysis.rules.hostgather"} | {
+        f"p2pfl_tpu_torch.management.{m}" for m in (
+            "telemetry", "profiling", "logger", "node_monitor", "watchdog", "web_services", "plotting",
+            "metric_storage")} <= set(mods)
+
+
+@pytest.mark.parametrize("argv", [["p2pfl_tpu_torch", "--help"], ["p2pfl_tpu_torch", "experiment", "list"],
+                                  ["p2pfl_tpu_torch.analysis", "--list-rules"]], ids=" ".join)
+def test_entry_points_run_without_jax(argv):
+    """``python -m p2pfl_tpu_torch --help`` (and the list commands, which
+    import every example and rule) leave neither jax nor p2pfl_tpu in
+    ``sys.modules``."""
+    code = (
+        "import runpy, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"sys.argv = {argv!r}\n"
+        "try:\n"
+        f"    runpy.run_module({argv[0]!r}, run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code in (0, None), exc.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'p2pfl_tpu' or m.startswith('p2pfl_tpu.'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=300, cwd=str(REPO)
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "BAD []" in proc.stdout
 
 
 @pytest.mark.parametrize(
