@@ -17,6 +17,7 @@
     python3 chip_smoke.py --only moe_target          # config 10's 113M MoE federation to 0.60
     python3 chip_smoke.py --only async               # the async control plane and the journal
     python3 chip_smoke.py --only megafleet           # the megafleet engine and the fleet_chunk kernel
+    python3 chip_smoke.py --only round_flops         # compiled_flops over a flash round
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -65,9 +66,9 @@ Phases, each of which makes the script exit non-zero if it fails (the
    (``round_kernels``): its device time by kind (kernels 1-2, GEMMs,
    elementwise and reductions, copies), the card's idle share and the
    host's time in ``p2pfl:`` ranges, a lost profiler window profiled
-   again up to ``PROFILE_TRIES`` rounds; and a round's FLOPs by
-   ``profiling.compiled_flops`` beside the dense-attention count
-   (``lora_step_flops``): what the count leaves out is attention's;
+   again up to ``PROFILE_TRIES`` rounds (``--only round_flops``: a round's
+   FLOPs by ``profiling.compiled_flops`` beside the dense-attention count,
+   ``lora_step_flops``; what the count leaves out is attention's);
 5b. [node_lora] the same model on the gossip Node: 4 Nodes with
    ``LoRALearner`` through ``Simulation`` (full topology, memory
    transport), 8 training sequences a node in batches of 2, 2 rounds of 1
@@ -397,17 +398,6 @@ def device_events(prof) -> list:
     ``p2pfl:`` annotations."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(RANGE)]
-
-
-def release_profile() -> None:
-    """Collect a profile's objects now. A profiled round leaves about a
-    million of them in reference cycles (events, ranges); left to the
-    collector, they postpone its full passes, which then free the cyclic
-    garbage of earlier drives (CUDA graphs and their memory pools among
-    it) late and at an arbitrary moment. Call once the profile is read."""
-    import gc
-
-    gc.collect()
 
 
 def range_host_ms(prof) -> float:
@@ -1015,23 +1005,35 @@ def time_ring(results: dict) -> bool:
 # ---- phase 5: the flash path ----
 
 
-def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
+#: the main phase's federation: the 22-layer LoRA model at seq 1024 on 4
+#: nodes, 2 training sequences a node
+MAIN = dict(nodes=4, seq=1024, depth=22)
+
+
+def _main_model(bwd_mode: str) -> tuple:
+    """The main phase's (config, data, model) with the flash backward
+    ``bwd_mode``."""
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
-    from p2pfl_tpu_torch.ops import _kernels
     from p2pfl_tpu_torch.ops.flash_attention import FlashConfig
-    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
 
-    n_nodes, seq, depth = 4, 1024, 22
     cfg = TransformerConfig(
-        vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=depth,
+        vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=MAIN["depth"],
         ffn_hidden=5632, lora_rank=8, lora_mlp=True, scan_layers=True,
         flash_config=None if bwd_mode == "auto" else FlashConfig(bwd_mode=bwd_mode),
     )
     data = FederatedDataset.synthetic_lm(
-        vocab_size=4096, seq_len=seq, n_train=n_nodes * 2, n_test=n_nodes * 2, shift_frac=0.15
+        vocab_size=4096, seq_len=MAIN["seq"], n_train=MAIN["nodes"] * 2, n_test=MAIN["nodes"] * 2, shift_frac=0.15
     )
-    model = tiny_transformer(seq_len=seq, seed=0, cfg=cfg, attn="flash")
+    return cfg, data, tiny_transformer(seq_len=MAIN["seq"], seed=0, cfg=cfg, attn="flash")
+
+
+def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    n_nodes, depth = MAIN["nodes"], MAIN["depth"]
+    _, data, model = _main_model(bwd_mode)
     n_params = model.param_count
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1068,25 +1070,36 @@ def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
         # were read: its launches count on no path)
         summary["round_profile"] = prof = round_kernels(fed, FLASH_SPLIT)
         ok &= prof["kernels"] is not None
-        # compiled_flops counts the aten products alone: the flash kernels
-        # launch through ctypes, so attention's products are what it
-        # leaves out against the dense-attention count
-        from p2pfl_tpu_torch.management.profiling import compiled_flops
-
-        counted = compiled_flops(fed.run_round)
-        analytic = fed._nb * lora_step_flops(cfg, n_nodes * seq, seq)
-        summary["round_flops"] = {"compiled_flops": counted, "analytic_with_attention": analytic,
-                                  "left_out": analytic - counted if counted is not None else None}
-        ok &= bool(counted)
-        if counted:
-            log(f"[main] a round's FLOPs: compiled_flops {counted:.4g} (no flash kernel in it), the "
-                f"dense-attention count {analytic:.4g}: {analytic - counted:.4g} left out "
-                f"({(analytic - counted) / analytic:.1%})")
         log(f"[main] flash round profile (warm run_round, fused backward, {smi_line()}): device ms by kind "
             f"{json.dumps(prof.get('by_kind_ms'))}, busy {prof.get('busy_ms')} of {prof['profiled_wall_ms']:.1f} "
             f"ms wall (idle share {prof.get('idle_share')}), host in p2pfl: ranges {prof['p2pfl_range_host_ms']:.1f} "
             f"ms, {prof.get('kernels')} kernels, windows lost {prof['lost_windows']} of {PROFILE_TRIES}")
     log(f"[main] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
+    del fed, model
+    torch.cuda.empty_cache()
+    return ok, summary
+
+
+def drive_round_flops() -> tuple[bool, dict]:
+    """``profiling.compiled_flops`` over one warm round of the main phase's
+    federation (fused backward) beside the dense-attention count
+    (``lora_step_flops``). The count runs the round; it sums the aten
+    products alone, and the flash kernels launch through ``ctypes``, so
+    attention's products are what it leaves out."""
+    from p2pfl_tpu_torch.management.profiling import compiled_flops
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    cfg, data, model = _main_model("auto")
+    fed = SpmdLoraFederation.from_dataset(model, data, n_nodes=MAIN["nodes"], batch_size=1, vote=False, seed=3)
+    fed.run_round()  # warm
+    counted = compiled_flops(fed.run_round)
+    analytic = fed._nb * lora_step_flops(cfg, MAIN["nodes"] * MAIN["seq"], MAIN["seq"])
+    ok = counted is not None and 0 < counted < analytic
+    summary = {"compiled_flops": counted, "analytic_with_attention": analytic,
+               "left_out": analytic - counted if counted is not None else None}
+    log(f"[round_flops] a round's FLOPs: compiled_flops {counted} (no flash kernel in it), the dense-attention "
+        f"count {analytic}: {summary['left_out']} left out "
+        f"({summary['left_out'] / analytic if counted is not None else float('nan'):.4f}) {'OK' if ok else 'FAIL'}")
     del fed, model
     torch.cuda.empty_cache()
     return ok, summary
@@ -1772,7 +1785,6 @@ def gossip_observed(kw: dict = GOSSIP_KW, nodes: int = 4) -> tuple[dict, dict]:
                 })
                 k9_us = [e.time_range.elapsed_us() for e in k9_events][:8]
                 del prof, device, k9_events, out
-                release_profile()
                 if k9_us:
                     break
                 lost += 1
@@ -2358,7 +2370,6 @@ def round_kernels(fed, split=None) -> dict:
                idle_share=1 - busy / (wall * 1e3), top_kernels_ms=top)
     if split is not None:
         out["by_kind_ms"] = dict(sorted(by.items(), key=lambda kv: -kv[1]))
-    release_profile()
     return out
 
 
@@ -5843,7 +5854,7 @@ PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", 
 MULTI_CARD_PHASES = ("exchange_peer",)
 #: the runs to a target accuracy (minutes each) and the control of the
 #: lossy codecs' spread limit: run only when named in --only
-TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target")
+TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target", "round_flops")
 
 
 def main(argv=None) -> int:
@@ -5986,6 +5997,9 @@ def main(argv=None) -> int:
         count("megafleet", {"fleet_chunk": megafleet["kernel_row"]["launches"]}, ("fleet_chunk",))
     if "moe_target" in args.only:
         good, _ = timed("moe_target", drive_moe_target)
+        ok &= good
+    if "round_flops" in args.only:
+        good, _ = timed("round_flops", drive_round_flops)
         ok &= good
     if "chunked_target" in args.only:
         good, _ = timed("chunked_target", drive_chunked_target)

@@ -34,7 +34,7 @@ from typing import Optional
 
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
-from p2pfl_tpu_torch.ops.tree import tree_align_devices, tree_stack
+from p2pfl_tpu_torch.ops.tree import tree_align_devices, tree_leaves, tree_stack
 from p2pfl_tpu_torch.settings import Settings
 
 
@@ -42,6 +42,13 @@ def stack_models(models: list[ModelUpdate]) -> dict:
     """The contributions' params stacked on a leading node axis, each
     moved to the first one's devices where a zero-copy peer's differ."""
     return tree_stack([tree_align_devices(m.params, models[0].params) for m in models])
+
+
+def _params_device(models: list[ModelUpdate]):
+    """The device an aggregation runs on: the first contribution's
+    (``stack_models`` moves the others there); None for host params."""
+    leaves = tree_leaves(models[0].params)
+    return getattr(leaves[0], "device", None) if leaves else None
 
 
 class Aggregator:
@@ -294,7 +301,7 @@ class Aggregator:
             return self.on_result(models[0])
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
-        with dispatch_span("aggregate", self.node_name, n_models=len(models)):
+        with dispatch_span("aggregate", self.node_name, device=_params_device(models), n_models=len(models)):
             result = self.aggregate(models)
         return self._inherit_anchor(result, models)
 
@@ -343,7 +350,7 @@ class Aggregator:
             return hit
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
-        with dispatch_span("aggregate", self.node_name, n_models=len(todo)):
+        with dispatch_span("aggregate", self.node_name, device=_params_device(todo), n_models=len(todo)):
             result = self._inherit_anchor(self.aggregate(todo), todo)
         with self._lock:
             if self._memo_gen == gen:  # collected set unchanged since read

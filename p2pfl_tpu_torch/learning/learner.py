@@ -527,7 +527,7 @@ class TorchLearner(NodeLearner):
                 # one draw of the learner's rng seeds the epoch's noise, as
                 # JAX draws its PRNG key (the noise matches in distribution)
                 gen = torch.Generator(device=self.device).manual_seed(int(self._rng.integers(2**31)))
-                with dispatch_span("train_epoch", self.addr, dp=True):
+                with dispatch_span("train_epoch", self.addr, device=self.device, dp=True):
                     self.params, self.opt_state, loss = dp_train_epoch(
                         self.params, self.opt_state, xs_t, ys_t, gen, self.module, self.tx,
                         self.dp_clip, self.dp_noise, prox_mu=self.prox_mu, anchor=anchor,
@@ -535,7 +535,7 @@ class TorchLearner(NodeLearner):
                 if self.accountant is not None:
                     self.accountant.step(xs.shape[0])
             else:
-                with dispatch_span("train_epoch", self.addr):
+                with dispatch_span("train_epoch", self.addr, device=self.device):
                     self.params, self.opt_state, loss = train_epoch(
                         self.params, self.opt_state, xs_t, ys_t, self.module, self.tx,
                         prox_mu=self.prox_mu, anchor=anchor,
@@ -583,7 +583,7 @@ class TorchLearner(NodeLearner):
         with_acc = not Settings.SECURE_AGGREGATION
         inputs = (np.stack(xs_eps), np.stack(ys_eps), float(self.get_num_samples()), *test)
         try:
-            with dispatch_span("fused_round", self.addr, epochs=self.epochs):
+            with dispatch_span("fused_round", self.addr, device=self.device, epochs=self.epochs):
                 out = self._fused_call(inputs, with_acc, Settings.AGG_DTYPE)
         except Exception as exc:  # noqa: BLE001 — degrade to staged, counted and logged
             self._rng.bit_generator.state = rng_state
@@ -652,7 +652,7 @@ class TorchLearner(NodeLearner):
             return {}
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
-        with dispatch_span("eval_step", self.addr):
+        with dispatch_span("eval_step", self.addr, device=self.device):
             loss, acc = eval_step(self.params, x, y, self.module)
         return {"test_loss": float(loss), "test_acc": float(acc)}
 

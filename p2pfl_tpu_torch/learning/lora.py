@@ -172,7 +172,7 @@ class LoRALearner(NodeLearner):
                 logger.info(self.addr, "Training interrupted")
                 return
             xs, ys = self.data.epoch_batches(self.batch_size, self._rng)
-            with dispatch_span("train_epoch", self.addr):
+            with dispatch_span("train_epoch", self.addr, device=self.device):
                 self.lora, self.opt_state, loss = lora_train_epoch(
                     self.lora, self.opt_state, self.base, torch.from_numpy(xs).to(self.device),
                     torch.from_numpy(ys).to(self.device), self.module, self.tx,
@@ -191,7 +191,7 @@ class LoRALearner(NodeLearner):
         x, y = self._test_tensors()
         if len(y) == 0:
             return {}
-        with dispatch_span("eval_step", self.addr):
+        with dispatch_span("eval_step", self.addr, device=self.device):
             loss, acc = lora_eval(self.lora, self.base, x, y, self.module)
         return {"test_loss": float(loss), "test_acc": float(acc)}
 

@@ -109,34 +109,39 @@ def force_execution(tree) -> float:
 
 
 def compiled_flops(fn, *args, **kwargs) -> Optional[float]:
-    """FLOPs of one call of ``fn(*args, **kwargs)``, counted while the call
-    runs (it runs once) from the formulas of
-    ``torch.utils.flop_counter.flop_registry``: matmuls, convolutions,
-    SDPA, forward and backward. The hand-written kernels, which launch
-    through ``ctypes`` (the flash kernels), and elementwise work count
-    nothing. A plain dispatch mode, not ``FlopCounterMode``: that one's
-    module tracker raises inside ``torch.autograd.grad`` over leaves,
-    which the LoRA rounds use. None if the call fails."""
+    """FLOPs of one call of ``fn(*args, **kwargs)``, counted while the
+    call RUNS: ``fn`` is called once, for real, and what it does stands
+    (``compiled_flops(fed.run_round)`` trains one more round). Unlike the
+    JAX package's, which lowers and compiles without running, PyTorch has
+    no program to read a cost from before it runs. The count sums the
+    formulas of ``torch.utils.flop_counter.flop_registry``: matmuls,
+    convolutions, SDPA, forward and backward. The hand-written kernels,
+    which launch through ``ctypes`` (the flash kernels), and elementwise
+    work count nothing. A plain dispatch mode, not ``FlopCounterMode``:
+    that one's module tracker raises inside ``torch.autograd.grad`` over
+    leaves, which the LoRA rounds use. An error of ``fn`` propagates; None
+    if a formula failed (the count would be short)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.flop_counter import flop_registry
 
     class _Count(TorchDispatchMode):
         flops = 0
+        failed = False
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
             out = func(*args, **kwargs)
             formula = flop_registry.get(func._overloadpacket)
-            if formula is not None:
-                self.flops += formula(*args, **kwargs, out_val=out)
+            if formula is not None and not self.failed:
+                try:
+                    self.flops += formula(*args, **kwargs, out_val=out)
+                except Exception:  # noqa: BLE001 — a formula's own fault: the count is lost, the call is not
+                    self.failed = True
             return out
 
-    try:
-        with _Count() as counter:
-            fn(*args, **kwargs)
-    except Exception:  # noqa: BLE001 — a FLOP count is best-effort, as JAX's cost analysis
-        return None
-    return float(counter.flops)
+    with _Count() as counter:
+        fn(*args, **kwargs)
+    return None if counter.failed else float(counter.flops)
 
 
 def mfu(flops: Optional[float], seconds: float, n_devices: int = 1, device=None) -> Optional[float]:

@@ -54,7 +54,7 @@ from p2pfl_tpu_torch.learning.learner import GradientTransformation, adam, softm
 from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.ops.tree import tree_map
 from p2pfl_tpu_torch.parallel.spmd import (
-    _copy_tree, _local_epoch, _model_step_flops, draw_node_perms, elect_train_set_mask,
+    _copy_tree, _local_epoch, _model_step_flops, capture_guard, draw_node_perms, elect_train_set_mask,
     stage_node_shards,
 )
 from p2pfl_tpu_torch.settings import Settings
@@ -196,7 +196,7 @@ class _CapturedChunk:
             body()
         torch.cuda.current_stream(fed.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with capture_guard(), torch.cuda.graph(self.graph):
             body()
 
     def start_round(self, params, opt_state) -> None:

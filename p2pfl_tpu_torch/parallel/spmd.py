@@ -34,6 +34,8 @@ through the device in chunks where their state does not fit.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import random
 import threading
@@ -397,7 +399,7 @@ class _CapturedSpan:
             body()
         torch.cuda.current_stream(fed.device).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+        with capture_guard(), torch.cuda.graph(self.graph):
             self.outs = body()
 
     def run(self, fed: "SpmdFederation", perms, mask, sel_idx) -> tuple:
@@ -467,6 +469,38 @@ def tree_has_deleted(tree) -> bool:
 _CAPTURE_LOCK = threading.Lock()
 
 
+@contextlib.contextmanager
+def capture_guard():
+    """Hold the process's one CUDA graph capture, with Python's cyclic
+    garbage collected before it and the collector off across it. Two
+    faults come from garbage that only reference cycles keep (a dropped
+    Node's learner and graphs, an earlier drive's tensors). A collection
+    inside a capture that frees a dead CUDA graph fails the capture (the
+    graph's destruction is a call a capture forbids), and automatic
+    collections run inside captures routinely, on the capturing thread
+    and on the Nodes' others. And card memory such garbage holds is lost
+    to a capture: a capture allocates from a private pool, which blocks
+    cached for the default pool cannot serve, and the allocator returns
+    no memory to the card while a capture runs. So the garbage is
+    collected and the cache emptied first, as ``torch.cuda.graph`` did
+    itself before its collection became opt-in
+    (``torch.compiler.config.force_cudagraph_gc``) and as a capture begun
+    by hand never did. Every capture site of the port enters this; the
+    lock keeps captures one at a time (the Nodes' threads capture their
+    steps on a shared card), so the collector is switched once."""
+    with _CAPTURE_LOCK:
+        gc.collect()
+        if torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if enabled:
+                gc.enable()
+
+
 class CapturedTrainStep:
     """One optimizer step of a Node's fused round (``train_step``)
     captured as a CUDA graph for one batch shape, replayed for every
@@ -503,7 +537,7 @@ class CapturedTrainStep:
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             body()
-        with _CAPTURE_LOCK, torch.cuda.stream(side):
+        with capture_guard(), torch.cuda.stream(side):
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.loss = body()
@@ -1052,12 +1086,15 @@ class SpmdFederation:
         dp_gen = self._dp_round_keys()
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
+        span = None
+        if self._capturable():
+            key = (tuple(perms.shape), eval, sel_idx.numel())
+            if key not in self._spans:
+                self._spans[key] = _CapturedSpan(self, perms, mask, sel_idx, eval)
+            span = self._spans[key]
         with dispatch_span("spmd_rounds_fused", "spmd", device=self.device, nodes=self.n, rounds=rounds):
-            if self._capturable():
-                key = (tuple(perms.shape), eval, sel_idx.numel())
-                if key not in self._spans:
-                    self._spans[key] = _CapturedSpan(self, perms, mask, sel_idx, eval)
-                result = self._spans[key].run(self, perms, mask, sel_idx)
+            if span is not None:
+                result = span.run(self, perms, mask, sel_idx)
             else:
                 result = spmd_rounds_fused(
                     self.params, self.opt_state, self.x_all, self.y_all, perms, mask, self._samples, sel_idx,

@@ -284,18 +284,14 @@ def wire_compression_device(device=None) -> bool:
 
 
 def telemetry_annotations(device=None) -> bool:
-    """Resolve ``Settings.TELEMETRY_ANNOTATIONS``: an explicit True or
-    False stands; None is on for work on a CUDA ``device`` (with no device
-    given: once this process has initialised CUDA) and off on the CPU,
-    where no device timeline exists to line the ranges up with."""
+    """Resolve ``Settings.TELEMETRY_ANNOTATIONS`` for work on ``device``:
+    an explicit True or False stands; None is on for a CUDA device and off
+    for the CPU or no device, where no device timeline exists to line the
+    ranges up with."""
     explicit = Settings.TELEMETRY_ANNOTATIONS
     if explicit is not None:
         return bool(explicit)
-    if device is not None:
-        return getattr(device, "type", str(device).split(":")[0]) == "cuda"
-    import torch
-
-    return torch.cuda.is_initialized()
+    return device is not None and getattr(device, "type", str(device).split(":")[0]) == "cuda"
 
 
 def set_low_latency_settings() -> None:

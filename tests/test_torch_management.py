@@ -511,7 +511,7 @@ def test_telemetry_annotations_switch():
         assert telemetry_annotations(torch.device("cuda", 0)) is True
         assert telemetry_annotations("cuda:1") is True
         assert telemetry_annotations("cpu") is False
-        assert telemetry_annotations() is torch.cuda.is_initialized()
+        assert telemetry_annotations() is False
         Settings.TELEMETRY_ANNOTATIONS = False
         assert telemetry_annotations("cuda") is False
         Settings.TELEMETRY_ANNOTATIONS = True
@@ -559,10 +559,67 @@ def test_compiled_flops_against_round_flops_on_the_mlp_round(optimizer, per_para
     analytic = fed.round_flops()
     _fwd, step = _model_step_flops(fed.module, fed.model.params, fed.x_all, fed.y_all, fed.batch_size)
     counted = compiled_flops(fed.run_round)
+    assert fed.round == 1  # the counted call ran
     n, steps, p = fed.n, fed._nb, fed.model.param_count
     assert counted == n * steps * step + 2 * n * p
     assert analytic - counted == n * steps * per_param * p + 3 * n * p
-    assert compiled_flops(lambda: 1 / 0) is None
+    with pytest.raises(ZeroDivisionError):
+        compiled_flops(lambda: 1 / 0)
+
+
+def test_compiled_flops_is_none_when_a_formula_fails(monkeypatch):
+    """A formula's own failure loses the count, not the call: the call
+    still runs to its end."""
+    from torch.utils import flop_counter
+
+    from p2pfl_tpu_torch.management.profiling import compiled_flops
+
+    def broken(*args, **kwargs):
+        raise ValueError("no formula")
+
+    monkeypatch.setitem(flop_counter.flop_registry, torch.ops.aten.mm, broken)
+    x, ran = torch.ones(2, 2), []
+    assert compiled_flops(lambda: ran.append(x @ x)) is None
+    assert len(ran) == 1 and torch.equal(ran[0], torch.full((2, 2), 2.0))
+
+
+def test_capture_guard_collects_first_and_quiets_the_collector():
+    """Every capture site enters ``capture_guard``: cyclic garbage is
+    collected before the capture, which holds the process's capture lock
+    with automatic collection off until it ends, an error included."""
+    import gc
+    import weakref
+
+    from p2pfl_tpu_torch.parallel import spmd
+
+    class Cycle:
+        pass
+
+    def garbage():
+        c = Cycle()
+        c.me = c
+        return weakref.ref(c)
+
+    thresholds = gc.get_threshold()
+    gc.disable()  # keep the garbage until the guard collects it
+    try:
+        ref = garbage()
+        assert ref() is not None
+        gc.set_threshold(1_000_000)
+        gc.enable()
+        with spmd.capture_guard():
+            assert ref() is None and spmd._CAPTURE_LOCK.locked() and not gc.isenabled()
+        assert not spmd._CAPTURE_LOCK.locked() and gc.isenabled()
+        with pytest.raises(RuntimeError), spmd.capture_guard():
+            raise RuntimeError("capture failed")
+        assert not spmd._CAPTURE_LOCK.locked() and gc.isenabled()
+        gc.disable()
+        with spmd.capture_guard():
+            pass
+        assert not gc.isenabled()  # a caller's disabled collector stays so
+    finally:
+        gc.set_threshold(*thresholds)
+        gc.enable()
 
 
 def test_compiled_flops_counts_a_lora_round_where_flop_counter_mode_raises():
