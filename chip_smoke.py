@@ -18,6 +18,9 @@
     python3 chip_smoke.py --only async               # the async control plane and the journal
     python3 chip_smoke.py --only megafleet           # the megafleet engine and the fleet_chunk kernel
     python3 chip_smoke.py --only round_flops         # compiled_flops over a flash round
+    python3 chip_smoke.py --only trace_flash         # a flash round's device time by kind (torch.profiler)
+    python3 chip_smoke.py --only trace_cifar         # config 2's round: vmapped against looped, its profiler split
+    python3 chip_smoke.py --only sharded             # sharded nodes: config 5 over 4 slots a node, sharded Nodes
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -61,15 +64,17 @@ Phases, each of which makes the script exit non-zero if it fails (the
    "flash")`` → ``SpmdLoraFederation.from_dataset`` → ``run_round`` →
    ``run_fused(1)`` → ``evaluate``, once with the default (fused) backward
    and once with ``bwd_mode="split"``; launch counts are zeroed before and
-   read after each drive, and every kernel of that drive must have run;
-   then one warm round of the fused drive under ``profiling.trace``
-   (``round_kernels``): its device time by kind (kernels 1-2, GEMMs,
-   elementwise and reductions, copies), the card's idle share and the
-   host's time in ``p2pfl:`` ranges, a lost profiler window profiled
-   again up to ``PROFILE_TRIES`` rounds (``--only round_flops``: a round's
-   FLOPs by ``profiling.compiled_flops`` beside the dense-attention count,
-   ``lora_step_flops``; what the count leaves out is attention's);
-5b. [node_lora] the same model on the gossip Node: 4 Nodes with
+   read after each drive, and every kernel of that drive must have run
+   (``--only trace_flash``: one warm round of the fused drive under
+   ``profiling.trace`` (``round_kernels``): its device time by kind
+   (kernels 1-2, GEMMs, elementwise and reductions, copies), the card's
+   idle share and the host's time in ``p2pfl:`` ranges, a lost profiler
+   window profiled again up to ``PROFILE_TRIES`` rounds; ``--only
+   round_flops``: a round's FLOPs by ``profiling.compiled_flops`` beside
+   the dense-attention count, ``lora_step_flops``; what the count leaves
+   out is attention's);
+5b. [node_lora] the same model on the gossip Node (``NODE_LORA_DEPTH``
+   of its 22 layers): 4 Nodes with
    ``LoRALearner`` through ``Simulation`` (full topology, memory
    transport), 8 training sequences a node in batches of 2, 2 rounds of 1
    epoch with the default backward (kernels 1 and 2), then one round with
@@ -121,6 +126,28 @@ Phases, each of which makes the script exit non-zero if it fails (the
    ``device0_mem_mb`` above 0; and the CLI (``cli.main(["experiment",
    "run", "mnist", "--nodes", "2", "--rounds", "1"])``) runs on the card
    by default;
+9b. [sharded] sharded nodes (``drive_sharded``): (a)
+   ``ShardedNodeFederation`` at config 5's width, full-parameter (22L/
+   2048d/32h/kv4, SwiGLU 5632, vocab 4096, seq 1024, ``attn="flash"``,
+   ``DEFAULT_TRANSFORMER_RULES``), 2 nodes x ``model_parallel=4`` on 8
+   slots of ``cuda:0``, synthetic LM data (``bench_suite.py:1165``'s
+   task at this width), 2 sequences a node in batches of 1: two timed
+   rounds with the fused backward (kernels 1 and 2, counts zeroed before
+   and read after, held to nodes x steps x layers each), s/round, the
+   per-slot resident bytes of params + Adam (equal to the port's
+   ``shard_shape`` accounting and at most the full tree's / 4 x
+   ``SHARDED_SLOT_SLACK``), ``max_memory_allocated``; kernel 9 timed on a
+   node's sharded tree (its slot blocks, bit-exact against the plain
+   version); then with ``FlashConfig(bwd_mode="split")`` (kernels 1, 3, 4)
+   one round at ``model_parallel=4`` and one at 1 from the same seed,
+   one after the other: bit-equal params; (b) two gossip Nodes
+   (``examples/mnist.py``, config 1's MLP, full topology, 8192 samples,
+   2 rounds) whose ``TorchLearner``s sit on ``(1, 2)`` slices of one
+   ``submesh_federation_mesh`` over ``cuda:0`` with the MLP rules, on the
+   ICI plane: kernel 9's launches equal the shard sends, no fallback,
+   every delivered block bit-equal to ``exchange_plain``'s, no fused
+   round degraded, and the final model bit-equal to the same two Nodes on
+   one-slot learners;
 10. [wire] the byte codec, gRPC and the streaming plane (``drive_wire``):
    (a) the native codec library loaded and equal to its numpy twins on
    64 MB, and ``encode_params`` of the MLP and of the config-5 bf16 tree
@@ -149,7 +176,7 @@ Phases, each of which makes the script exit non-zero if it fails (the
    timed; (c) config 5's whole tree (0.98B fp32 params) through
    ``encode_device`` under topk8 and int8 and ``decode_tk8_device``:
    seconds, GB/s, peak memory, two layers bit-equal to the CPU's run (ties
-   included); (d) ``drive_node_lora``'s federation under topk8 on the ICI
+   included); (d) ``drive_node_lora``'s federation (its depth) under topk8 on the ICI
    plane, each node on its own slot: launches of kernels 1, 2 and 9,
    adapters within ``LOSSY_REL_SPREAD``, one adapter update through the
    plane equal to the byte path bit for bit, bases bit-unchanged; (e)
@@ -179,10 +206,11 @@ Phases, each of which makes the script exit non-zero if it fails (the
    warmup-cosine schedule with kept moments) to 70 % within 25 rounds,
    each a captured ``run_fused(1, eval=True)``; config 2's throughput
    point (2048 samples a node, batch 256: s/round, MFU from
-   ``round_flops``); the vmapped round (grouped convolutions) against a
-   loop over the nodes, eager and captured; a ``torch.profiler`` split of
-   an eager round (convolutions, GroupNorm, Adam's foreach passes, the
-   aggregation, the card's idle share); config 2's recipe captured against
+   ``round_flops``) (``--only trace_cifar``: the vmapped round (grouped
+   convolutions) against a loop over the nodes, eager and captured; a
+   ``torch.profiler`` split of an eager round (convolutions, GroupNorm,
+   Adam's foreach passes, the aggregation, the card's idle share));
+   config 2's recipe captured against
    eager, and a checkpoint saved after round 1 and restored into a fresh
    federation, each bit-equal; config 4 (10 nodes, remat, 2 Byzantine
    slots overwritten with N(0, 1)·10 each round; Krum, TrimmedMean,
@@ -201,7 +229,7 @@ Phases, each of which makes the script exit non-zero if it fails (the
    rounds, MFU of model and executed FLOPs, peak memory, the serial path
    against the overlapped one, ``torch.profiler``'s split of one chunk;
 14. [nameplate] BASELINE config 5 at its 32 nodes (``drive_nameplate``):
-   the 0.98B LM with ``remat_policy="mlp_qkv"``, ``node_chunk=4``, batch
+   the LM at full width, 11 of its 22 layers (``C5["smoke_depth"]``), with ``remat_policy="mlp_qkv"``, ``node_chunk=4``, batch
    1, 8 steps a round, a random base: a warm-up round and 2 timed rounds,
    then ``evaluate``; kernels 1 and 2 launched exactly as the code counts
    (every other kernel at 0) and held against their plain versions on one
@@ -287,7 +315,9 @@ Phases, each of which makes the script exit non-zero if it fails (the
    and the compress phase's MLP and LoRA drives, with kernel 9's time on
    the codec tree as ``codec_tree``, and the async phase's drives,
    ``async_<mode>``, ``async_byzantine`` and ``async_resume``; for 1-4 also
-   config 7's drives; ``fleet_chunk`` the megafleet phase's 1M run (one
+   config 7's drives; for 1-4 and 9 the sharded phase's drives, and
+   kernel 9's time on a sharded node's slot blocks as ``sharded_tree``;
+   ``fleet_chunk`` the megafleet phase's 1M run (one
    launch), its ``ms`` the kernel's time a chunk inside a span there,
    ``plain_ms`` the twin's a chunk on the CPU, ``bound_ms`` the bytes
    bound and ``latency_bound_ms`` the latency bound a chunk,
@@ -1065,19 +1095,33 @@ def drive_main_path(bwd_mode: str) -> tuple[bool, dict]:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "steps_per_round": fed._nb,
     }
-    if bwd_mode == "auto":
-        # the warm flash round's device time by kind (after the counts
-        # were read: its launches count on no path)
-        summary["round_profile"] = prof = round_kernels(fed, FLASH_SPLIT)
-        ok &= prof["kernels"] is not None
-        log(f"[main] flash round profile (warm run_round, fused backward, {smi_line()}): device ms by kind "
-            f"{json.dumps(prof.get('by_kind_ms'))}, busy {prof.get('busy_ms')} of {prof['profiled_wall_ms']:.1f} "
-            f"ms wall (idle share {prof.get('idle_share')}), host in p2pfl: ranges {prof['p2pfl_range_host_ms']:.1f} "
-            f"ms, {prof.get('kernels')} kernels, windows lost {prof['lost_windows']} of {PROFILE_TRIES}")
     log(f"[main] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
     del fed, model
     torch.cuda.empty_cache()
     return ok, summary
+
+
+def drive_trace_flash() -> tuple[bool, dict]:
+    """The main phase's fused drive, then one warm round of it under
+    ``profiling.trace`` (``round_kernels``): device time by kind, idle
+    share, host time in ``p2pfl:`` ranges (``--only trace_flash``; out of
+    the default run for the call's time limit)."""
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    _, data, model = _main_model("auto")
+    fed = SpmdLoraFederation.from_dataset(model, data, n_nodes=MAIN["nodes"], batch_size=1, vote=False, seed=3)
+    fed.run_round()  # warm
+    torch.cuda.synchronize()
+    prof = round_kernels(fed, FLASH_SPLIT)
+    ok = prof["kernels"] is not None
+    log(f"[trace_flash] flash round profile (warm run_round, fused backward, {smi_line()}): device ms by kind "
+        f"{json.dumps(prof.get('by_kind_ms'))}, busy {prof.get('busy_ms')} of {prof['profiled_wall_ms']:.1f} "
+        f"ms wall (idle share {prof.get('idle_share')}), host in p2pfl: ranges {prof['p2pfl_range_host_ms']:.1f} "
+        f"ms, {prof.get('kernels')} kernels, windows lost {prof['lost_windows']} of {PROFILE_TRIES} "
+        f"{'OK' if ok else 'FAIL'}")
+    del fed, model
+    torch.cuda.empty_cache()
+    return ok, {"round_profile": prof}
 
 
 def drive_round_flops() -> tuple[bool, dict]:
@@ -1111,6 +1155,9 @@ def drive_round_flops() -> tuple[bool, dict]:
 #: the node_lora phase's federation: BASELINE config 5 at full width and
 #: depth, 4 Nodes, 8 training sequences a node in batches of 2
 NODE_LORA = dict(nodes=4, seq=1024, batch=2, n_train=32, n_test=8, lr=1e-3)
+#: the Node phases' depth (of config 5's 22 layers) in the default run: the
+#: layers repeat one block, and the run's time limit binds
+NODE_LORA_DEPTH = 8
 
 
 def _config5(depth: int, bwd_mode: str = "auto", vocab: int = 4096):
@@ -1242,8 +1289,9 @@ def _lora_node_alone(learner) -> dict:
     return out
 
 
-def drive_node_lora(depth: int = 22) -> tuple[bool, dict]:
-    """``LoRALearner`` on gossip Nodes at full width and depth, the flash
+def drive_node_lora(depth: int = NODE_LORA_DEPTH) -> tuple[bool, dict]:
+    """``LoRALearner`` on gossip Nodes at full width (``depth`` of config
+    5's 22 layers: :data:`NODE_LORA_DEPTH` in the default run), the flash
     path: 4 Nodes through ``Simulation`` (full topology, memory
     transport), 2 rounds of 1 epoch with the default backward, then a
     second experiment of 1 round with the split backward (the Nodes'
@@ -2939,11 +2987,12 @@ def config6() -> tuple[bool, dict]:
 
 def drive_cifar() -> tuple[bool, dict]:
     """The vision federation on the card (``cifar``): the CPU-vs-card pair;
-    config 2 to 70 % (captured rounds), its throughput point, the vmapped
-    against the looped conv round and the profiler split of an eager
-    round; the captured span and a resumed checkpoint bit-equal; config 4's
-    four rules under attack; ResNet-50 and the ViT; config 6. The path
-    launches no hand kernel: every count of ``_kernels.LAUNCHES`` must read 0."""
+    config 2 to 70 % (captured rounds), its throughput point; the captured
+    span and a resumed checkpoint bit-equal; config 4's four rules under
+    attack; ResNet-50 and the ViT; config 6. The path launches no hand
+    kernel: every count of ``_kernels.LAUNCHES`` must read 0. The vmapped
+    against the looped conv round and the profiler split of an eager round
+    are ``--only trace_cifar`` (:func:`drive_trace_cifar`)."""
     from p2pfl_tpu_torch.ops import _kernels
 
     _kernels.reset_launches()
@@ -2961,10 +3010,6 @@ def drive_cifar() -> tuple[bool, dict]:
     part("pair", cifar_pair)
     part("config2", config2_target)
     part("config2_throughput", lambda: (True, config2_throughput()))
-    fed = _config2_fed()
-    part("conv_vmapped_vs_looped", lambda: (True, conv_ways(fed)))
-    part("split", lambda: (True, round_split(fed)))
-    del fed
     part("graph_and_resume", config2_graph_and_resume)
     part("config4", config4)
     part("resnet50", resnet50_rounds)
@@ -2976,6 +3021,20 @@ def drive_cifar() -> tuple[bool, dict]:
     ok = all(checks.values())
     log(f"[cifar] {json.dumps(summary)} {'OK' if ok else 'FAIL'}")
     return ok, {"parts": parts, **summary}
+
+
+def drive_trace_cifar() -> tuple[bool, dict]:
+    """Config 2's round measured two ways (``--only trace_cifar``, out of
+    the default run for the call's time limit): the vmapped round against
+    a loop over the nodes, eager and captured (``conv_ways``), and the
+    profiler split of an eager round (``round_split``)."""
+    fed = _config2_fed()
+    out = {"conv_vmapped_vs_looped": conv_ways(fed), "split": round_split(fed)}
+    for name, row in out.items():
+        log(f"[trace_cifar] {name}: {json.dumps(row)}")
+    del fed
+    torch.cuda.empty_cache()
+    return True, out
 
 
 # ---- [chunked] BASELINE config 3: 64 ResNet-50 nodes time-sharing the card ----
@@ -3237,7 +3296,7 @@ def drive_chunked_target() -> tuple[bool, dict]:
 #: next-token accuracy of 0.65 on the 15 %-shifted domain
 C5 = dict(nodes=32, node_chunk=4, seq=1024, per_node=8, batch=1, n_test=32, seed=3, timed_rounds=2,
           pre_steps=400, pre_batch=8, pre_lr=3e-3, pre_train=512, pre_test=64, target=0.65, max_rounds=16,
-          check_layers=2)
+          check_layers=2, smoke_depth=11)
 
 
 def _nameplate_cfg(depth: int = 22, policy="mlp_qkv", remat: bool = True):
@@ -3361,7 +3420,9 @@ def nameplate_remat_check() -> tuple[bool, dict]:
 
 
 def drive_nameplate() -> tuple[bool, dict]:
-    """Config 5 at 32 nodes (``nameplate``): 22L/2048d/32h/kv4 (0.98B),
+    """Config 5 at 32 nodes (``nameplate``): 2048d/32h/kv4 at
+    ``C5["smoke_depth"]`` of its 22 layers (the default run's time limit;
+    ``nameplate_target`` runs all 22),
     seq 1024, LoRA rank 8 with ``lora_mlp``, ``remat_policy="mlp_qkv"``,
     flash attention, ``node_chunk=4``, batch 1, 8 steps a round, seed 3,
     a random base from seed 0: a warm-up round and 2 timed rounds, then
@@ -3378,7 +3439,7 @@ def drive_nameplate() -> tuple[bool, dict]:
     from p2pfl_tpu_torch.ops.autotune import default_flash_config
 
     t = time.perf_counter()
-    cfg = _nameplate_cfg()
+    cfg = _nameplate_cfg(C5["smoke_depth"])
     model = tiny_transformer(seq_len=C5["seq"], seed=0, cfg=cfg, attn="flash")
     fed = _nameplate_fed(model, _nameplate_data())
     recorded: list = []
@@ -3948,7 +4009,7 @@ def compress_full_width(device: str = "cuda", depth: int = 22) -> tuple[bool, di
     return ok, summary
 
 
-def compress_lora(depth: int = 22, rounds: int = 2, device: str = "cuda") -> tuple[bool, dict]:
+def compress_lora(depth: int = NODE_LORA_DEPTH, rounds: int = 2, device: str = "cuda") -> tuple[bool, dict]:
     """(d) ``drive_node_lora``'s config-5 federation (4 Nodes, seq 1024,
     batch 2) under topk8 on the ICI plane, each node on its own slot of
     the card; launches of kernels 1, 2 and 9 zeroed before and read after.
@@ -5848,13 +5909,239 @@ def drive_megafleet() -> tuple[bool, dict]:
     return ok, out
 
 
-PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "wire", "compress", "mnist",
-          "cifar", "chunked", "nameplate", "config7", "moe", "async", "megafleet")
+# ---- phase 9b: sharded nodes ----
+
+
+#: part (a): config 5 full-parameter at full width and depth, 2 nodes x 4
+#: slots of the card, 2 sequences a node in batches of 1 (2 steps a round)
+SHARDED = dict(nodes=2, model_parallel=4, seq=1024, per_node=2, batch=1, timed_rounds=2, lr=1e-4)
+SHARDED_CFG = dict(vocab_size=4096, dim=2048, n_heads=32, n_kv_heads=4, n_layers=22, ffn_hidden=5632, lora_rank=0)
+#: a slot holds at most the full params + Adam / model_parallel times this
+#: (the replicated norms)
+SHARDED_SLOT_SLACK = 1.2
+
+
+def _sharded_fed(model_parallel: int, bwd_mode: str):
+    """(config, federation) of part (a); the dense init it was placed
+    from is dropped (the federation holds the nodes' slot shards)."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.ops.flash_attention import FlashConfig
+    from p2pfl_tpu_torch.parallel import ShardedNodeFederation
+
+    cfg = TransformerConfig(**SHARDED_CFG, flash_config=None if bwd_mode == "auto" else FlashConfig(bwd_mode=bwd_mode))
+    n = SHARDED["nodes"]
+    data = FederatedDataset.synthetic_lm(vocab_size=cfg.vocab_size, seq_len=SHARDED["seq"],
+                                         n_train=n * SHARDED["per_node"], n_test=n, seed=7)
+    model = tiny_transformer(seq_len=SHARDED["seq"], seed=0, cfg=cfg, attn="flash")
+    fed = ShardedNodeFederation.from_dataset(
+        model, data, n_nodes=n, model_parallel=model_parallel, batch_size=SHARDED["batch"], vote=False, seed=3,
+        learning_rate=SHARDED["lr"],
+    )
+    return cfg, fed
+
+
+def sharded_federation(results: dict) -> tuple[bool, dict]:
+    """Part (a): the timed rounds, the per-slot bytes, kernel 9 on a
+    sharded tree, and the split-backward bit-equality of m 4 against m 1."""
+    from p2pfl_tpu_torch.learning.learner import adam
+    from p2pfl_tpu_torch.models.transformer import init_params
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves
+    from p2pfl_tpu_torch.parallel.ici_plane import _blocks, exchange_plain
+    from p2pfl_tpu_torch.parallel.sharding import gather_tree, shard_bytes_accounting
+
+    n, mp, depth = SHARDED["nodes"], SHARDED["model_parallel"], SHARDED_CFG["n_layers"]
+    flash = ("flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, fed = _sharded_fed(mp, "auto")
+    steps = fed._nb
+    # per-slot resident params + Adam against the shard_shape accounting
+    meta = init_params(cfg, device="meta")
+    acct = shard_bytes_accounting(fed.slices[0], meta) + shard_bytes_accounting(fed.slices[0], adam().init(meta))
+    full = sum(x.numel() * 4 for x in tree_leaves(meta)) * 3  # fp32 params, mu, nu
+    fed.model.params = meta  # the dense init: the nodes hold their slot shards
+    torch.cuda.empty_cache()
+    per_slot = fed.per_device_bytes()
+    ok = len(per_slot) == n * mp and set(per_slot.values()) == {acct} and acct <= full / mp * SHARDED_SLOT_SLACK
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    secs, losses = [], []
+    for _ in range(SHARDED["timed_rounds"]):
+        t = time.perf_counter()
+        entry = fed.run_round(epochs=1)  # reads the loss back: the round has ended
+        secs.append(time.perf_counter() - t)
+        losses.append(entry["train_loss"])
+    torch.cuda.synchronize()
+    launches_fused = {k: _kernels.LAUNCHES[k] for k in flash}
+    implied = SHARDED["timed_rounds"] * n * steps * depth
+    ok &= launches_fused == {"flash_fwd": implied, "flash_bwd_dkvq": implied, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    ok &= all(math.isfinite(x) for x in losses)
+    # the fold's inputs were slot-shard stacks (the federation checks it
+    # every round) and the diffused params are slot shards
+    wq = fed.node_params(0)["layer_0"]["attn"]["wq"]["kernel"]
+    ok &= [tuple(s.shape) for s in wq.shards] == [(cfg.dim, cfg.dim // mp)] * mp
+    peak = torch.cuda.max_memory_allocated()
+    # kernel 9 on node 0's slot blocks (its whole params), as phase exchange times trees
+    srcs = [b for _, leaf in tree_items(fed.params[0]) for b in _blocks(leaf)]
+    dsts, refs = [torch.empty_like(x) for x in srcs], [torch.empty_like(x) for x in srcs]
+    _kernels.ici_exchange(srcs, dsts)
+    exchange_plain(srcs, refs)
+    torch.cuda.synchronize()
+    exact = all(bits_equal(d, r) for d, r in zip(dsts, refs))
+    err = max((d.float() - r.float()).abs().max().item() for d, r in zip(dsts, refs))
+    n_bytes = sum(x.numel() * x.element_size() for x in srcs)
+    bms, by = bound(2 * n_bytes, 0)
+    row = dict(blocks=len(srcs), bytes=n_bytes, max_abs_err=err,
+               ms=time_ms(lambda: _kernels.ici_exchange(srcs, dsts)),
+               plain_ms=time_ms(lambda: exchange_plain(srcs, refs)), bound_ms=bms, bound_by=by,
+               library_ms=time_ms(lambda: torch._foreach_copy_(refs, srcs)))
+    row.update(device_times(lambda: _kernels.ici_exchange(srcs, dsts), lambda: torch._foreach_copy_(refs, srcs)))
+    ok &= exact and err == 0.0
+    results["sharded_tree"] = row
+    del srcs, dsts, refs, wq
+    metrics = fed.evaluate()
+    ok &= math.isfinite(metrics["test_loss"])
+    summary = {
+        "nodes": n, "model_parallel": mp, "layers": depth, "steps_per_round": steps,
+        "s_round": secs, "train_losses": losses, "test_loss": metrics["test_loss"],
+        "per_slot_bytes": acct, "per_slot_bytes_measured": sorted(set(per_slot.values())),
+        "full_params_adam_bytes": full, "per_slot_share": acct / full, "peak_mem_gb": peak / 1e9,
+        "launches_fused": launches_fused, "launches_implied": implied,
+    }
+    log(f"[sharded] (a) {n} nodes x model_parallel {mp} on {n * mp} slots of cuda:0, {depth}L full-parameter, "
+        f"{steps} steps a round: s/round {secs}, per-slot params + Adam {acct} bytes (accounting {acct}, "
+        f"{acct / full:.4f} of the full {full}), peak {peak / 1e9:.2f} GB, kernel launches {launches_fused} "
+        f"(implied {implied} each of 1-2); kernel 9 on node 0's {row['blocks']} slot blocks bit-exact {exact}: "
+        f"{json.dumps(row)} {'OK' if ok else 'FAIL'}")
+    del fed
+    torch.cuda.empty_cache()
+
+    # split backward (deterministic): m 4 against m 1, one round each
+    outs, split_counts = {}, {}
+    for m in (mp, 1):
+        _, f = _sharded_fed(m, "split")
+        f.model.params = meta
+        torch.cuda.empty_cache()
+        _kernels.reset_launches()
+        f.run_round(epochs=1)
+        torch.cuda.synchronize()
+        split_counts[m] = {k: _kernels.LAUNCHES[k] for k in flash}
+        one = n * f._nb * depth
+        ok &= split_counts[m] == {"flash_fwd": one, "flash_bwd_dkvq": 0, "flash_bwd_dq": one, "flash_bwd_dkv": one}
+        nodes = [tree_leaves(gather_tree(f.node_params(i))) for i in range(n)]
+        ok &= all(torch.equal(a, b) for a, b in zip(nodes[0], nodes[1]))
+        outs[m] = [x.cpu() for x in nodes[0]]
+        del f, nodes
+        torch.cuda.empty_cache()
+    same = all(torch.equal(a, b) for a, b in zip(outs[mp], outs[1]))
+    gap = max((a - b).abs().max().item() for a, b in zip(outs[mp], outs[1]))
+    ok &= same
+    summary.update(split_bit_equal=same, split_gap=gap, launches_split=split_counts[mp], launches_split_m1=split_counts[1])
+    log(f"[sharded] (a) split backward, one round at model_parallel {mp} against 1 from seed 3: bit-equal {same} "
+        f"(max gap {gap:.3e}); launches {split_counts} {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def sharded_gossip() -> tuple[bool, dict]:
+    """Part (b): two gossip Nodes on (1, 2) slices of ``cuda:0``, ICI plane;
+    every exchange's destinations are compared, after the run, with the
+    plain version's copy of the same sources (no host read inside a
+    Node's thread)."""
+    from p2pfl_tpu_torch.communication import ici as ici_mod
+    from p2pfl_tpu_torch.examples import mnist as example
+    from p2pfl_tpu_torch.management.logger import logger
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel import ici_plane
+    from p2pfl_tpu_torch.parallel.sharding import SlotSharded, gather_tree
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    set_test_settings()
+    logger.set_level("WARNING")
+    kw = dict(nodes=2, rounds=2, epochs=1, samples=8192, batch_size=128, device="cuda", topology="full",
+              weights_plane="ici")
+    real, records = ici_plane.exchange, []
+
+    def spy(srcs, dsts):
+        real(srcs, dsts)
+        want = [torch.empty_like(d) for d in dsts]
+        ici_plane.exchange_plain(srcs, want)
+        records.append((list(dsts), want))
+
+    def drive(model_parallel: int) -> dict:
+        ici_mod.reset_ici_stats()
+        logger.reset_comm_metrics()
+        records.clear()
+        _kernels.reset_launches()
+        ici_plane.exchange = spy
+        try:
+            t = time.perf_counter()
+            out = example.run(model_parallel=model_parallel, **kw)
+            wall = time.perf_counter() - t
+        finally:
+            ici_plane.exchange = real
+        torch.cuda.synchronize()
+        comm = logger.get_comm_metrics()
+        return {
+            "params": out["params"], "wall_s": wall, "stats": ici_mod.ici_stats(),
+            "launches_ici_exchange": _kernels.LAUNCHES["ici_exchange"], "exchanges": len(records),
+            "blocks": sum(len(d) for d, _ in records),
+            "blocks_exact": all(bits_equal(a, b) for d, w in records for a, b in zip(d, w)),
+            "degraded": sum(c.get("fused_round_degraded", 0) for c in comm.values()),
+            "captures": sum(c.get("fused_graph_capture", 0) for c in comm.values()),
+        }
+
+    runs = {m: drive(m) for m in (2, 1)}
+    sharded, one = runs[2], runs[1]
+    placed = isinstance(sharded["params"][0]["Dense_0"]["kernel"], SlotSharded)
+    final = [tree_leaves(gather_tree(p)) for p in sharded["params"]]
+    ref = [tree_leaves(gather_tree(p)) for p in one["params"]]
+    equal_nodes = all(torch.equal(a, b) for a, b in zip(final[0], final[1]))
+    equal_one_slot = all(torch.equal(a, b) for a, b in zip(final[0], ref[0]))
+    gap = max((a.float() - b.float()).abs().max().item() for a, b in zip(final[0], ref[0]))
+    st = sharded["stats"]
+    ok = placed and equal_nodes and equal_one_slot
+    for r in (sharded, one):
+        ok &= r["launches_ici_exchange"] == r["stats"]["shard_sends"] == r["exchanges"] > 0
+        ok &= r["stats"]["fallback_bytes"] == 0 and r["stats"]["align_violations"] == 0
+        ok &= r["blocks_exact"] and r["degraded"] == 0
+    summary = {m: {k: v for k, v in r.items() if k != "params"} for m, r in runs.items()}
+    summary.update(bit_equal_one_slot=equal_one_slot, gap_one_slot=gap, launches_ici_exchange=sharded[
+        "launches_ici_exchange"])
+    log(f"[sharded] (b) 2 gossip Nodes on (1, 2) slices of cuda:0, ICI plane: kernel 9 launches "
+        f"{sharded['launches_ici_exchange']} = shard sends {st['shard_sends']} = exchanges {sharded['exchanges']} "
+        f"({sharded['blocks']} slot blocks, each bit-equal to exchange_plain: {sharded['blocks_exact']}), "
+        f"fallbacks {st['fallback_bytes']}, bytes moved {st['bytes_moved']}, degraded rounds {sharded['degraded']}, "
+        f"captures {sharded['captures']}; nodes equal {equal_nodes}; final model against one-slot learners "
+        f"bit-equal {equal_one_slot} (max gap {gap:.3e}); wall {sharded['wall_s']:.2f} s (one-slot "
+        f"{one['wall_s']:.2f}) {'OK' if ok else 'FAIL'}")
+    return ok, summary
+
+
+def drive_sharded() -> tuple[bool, dict]:
+    import gc
+
+    # part (a) peaks near 70 GB: what earlier phases left unreferenced goes first
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[sharded] card memory allocated before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    results: dict = {}
+    good_a, fed = sharded_federation(results)
+    good_b, nodes = sharded_gossip()
+    return good_a and good_b, {"federation": fed, "nodes": nodes, "exchange": results}
+
+
+PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "sharded", "wire",
+          "compress", "mnist", "cifar", "chunked", "nameplate", "config7", "moe", "async", "megafleet")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 #: the runs to a target accuracy (minutes each) and the control of the
 #: lossy codecs' spread limit: run only when named in --only
-TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target", "round_flops")
+TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target", "round_flops", "trace_flash",
+                 "trace_cifar")
 
 
 def main(argv=None) -> int:
@@ -5944,6 +6231,16 @@ def main(argv=None) -> int:
         good, gossip = timed("gossip", drive_gossip)
         ok &= good
         count("gossip", {"ici_exchange": gossip["ici"]["launches_ici_exchange"]}, ("ici_exchange",))
+    sharded: dict = {}
+    if "sharded" in args.only:
+        good, sharded = timed("sharded", drive_sharded)
+        ok &= good
+        # kernels 1-2 the timed rounds, 1, 3, 4 the split check at
+        # model_parallel 4; kernel 9 the sharded Nodes' shard sends
+        fed = sharded["federation"]
+        count("sharded", fed["launches_fused"], ("flash_fwd", "flash_bwd_dkvq"))
+        count("sharded_split", fed["launches_split"], ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        count("sharded_nodes", {"ici_exchange": sharded["nodes"]["launches_ici_exchange"]}, ("ici_exchange",))
     if "wire" in args.only:
         good, wire = timed("wire", drive_wire)
         ok &= good
@@ -6001,6 +6298,12 @@ def main(argv=None) -> int:
     if "round_flops" in args.only:
         good, _ = timed("round_flops", drive_round_flops)
         ok &= good
+    if "trace_flash" in args.only:
+        good, _ = timed("trace_flash", drive_trace_flash)
+        ok &= good
+    if "trace_cifar" in args.only:
+        good, _ = timed("trace_cifar", drive_trace_cifar)
+        ok &= good
     if "chunked_target" in args.only:
         good, _ = timed("chunked_target", drive_chunked_target)
         ok &= good
@@ -6024,6 +6327,9 @@ def main(argv=None) -> int:
             # the same kernel on the codec tree (int32 idx, int8 q, fp32
             # scales and the raw leaves of one update)
             rows["ici_exchange"]["codec_tree"] = compress["ici"]["kernel9_codec_tree"]
+    if "ici_exchange" in rows and sharded:
+        # the same kernel on a sharded node's slot blocks (config 5, 4 slots)
+        rows["ici_exchange"]["sharded_tree"] = sharded["exchange"]["sharded_tree"]
     if megafleet:
         rows["fleet_chunk"] = {k: megafleet["kernel_row"][k] for k in (
             "max_abs_err", "ms", "ms_per", "ms_one_chunk_launch", "plain_ms", "bound_ms", "bound_by",

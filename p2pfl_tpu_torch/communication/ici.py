@@ -17,12 +17,18 @@ receiver's anchor where it lives; nothing crosses to the host.
   the fault-injection continuation, so they wrap an ICI transfer exactly
   as they wrap a reference send.
 - **Failure semantics.** An ineligible peer (unregistered, no learner,
-  mismatched architecture or slice topology, overlapping slices, leaves
-  off the learner's slice) falls back loudly to the transport's path for
+  mismatched architecture, slice topology or per-leaf specs, overlapping
+  slices, leaves off the learner's slice) falls back loudly to the transport's path for
   that peer only (``ici_fallback_bytes``, one log line per edge and
   reason). A dead peer fails the send as the transport would. A transfer
   that raises (a kernel that does not build or launch) is logged as
   "ICI shard transfer to <peer> failed" and fails the send.
+- **Sharded learners** (a slice of several slots, ``TorchLearner(mesh=,
+  partition_rules=)``): the specs come from the sender's placed leaves on
+  its learner's slice, and :func:`shard_transfer` moves each (leaf, slot)
+  block to the same slot of the receiver's slice in the one exchange of
+  the tree. Under a codec the encode reads the gathered tensors and the
+  decode is placed by the receiver's layout.
 - **Co-resident slices** (the same slots: learners without a mesh on one
   device, the way single-chip JAX learners on one device are) get a
   zero-copy handoff, the reference path's read-only contract, and count
@@ -61,6 +67,7 @@ from p2pfl_tpu_torch.parallel.ici_plane import (
     transfer_buffers,
     tree_device_bytes,
 )
+from p2pfl_tpu_torch.parallel.sharding import gather, place_like, tree_is_placed
 
 # ---- process-wide accounting (tests and chip_smoke read these) ----
 
@@ -215,8 +222,11 @@ def _move_codec(
     from p2pfl_tpu_torch.ops.compression import build_topk_plan, decode_shard_device, encode_shard_device
     from p2pfl_tpu_torch.settings import Settings
 
-    named = dict(named_leaves(update.params)[1])
-    anchor_named = dict(named_leaves(update.anchor)[1]) if update.anchor is not None else None
+    # the codec runs on whole tensors: a sharded learner's placed leaves
+    # are gathered on their slice's device (the decode is placed again by
+    # the receiver's layout below)
+    named = _gathered(update.params)
+    anchor_named = _gathered(update.anchor) if update.anchor is not None else None
     topk_plan = build_topk_plan(named, anchor_named, Settings.TOPK_FRACTION if mode == "topk8" else 0.0)
     dst_anchor_named = None
     if topk_plan:
@@ -226,7 +236,7 @@ def _move_codec(
         dst_anchor, dst_tag = dst_learner.wire_anchor()
         if dst_anchor is None or dst_tag != update.anchor_tag:
             return None
-        dst_anchor_named = dict(named_leaves(dst_anchor)[1])
+        dst_anchor_named = _gathered(dst_anchor)
 
     # encode once per content: repeat sends reuse the device buffers, and
     # the residual folds once per content across both planes (whichever
@@ -271,7 +281,15 @@ def _move_codec(
     )
     for k in raw_keys:
         out[k] = by_name[f"r/{k}"]
-    return tree_unflatten(out), moved
+    restored = tree_unflatten(out)
+    if tree_is_placed(template):
+        restored = place_like(restored, template)
+    return restored, moved
+
+
+def _gathered(tree) -> dict:
+    """``{path: whole tensor}`` of a tree (a placed leaf gathered)."""
+    return {k: gather(v) for k, v in named_leaves(tree)[1]}
 
 
 def move_codec_against_bytes(
@@ -350,6 +368,11 @@ def try_shard_send(proto, nei: str, env) -> Optional[bool]:
         return None
     if src_info.shape != dst_info.shape or src_info.mesh.axis_names != dst_info.mesh.axis_names:
         _fallback(src, nei, "slice_topology_mismatch")
+        return None
+    if src_info.specs != dst_info.specs:
+        # the payload's layout differs from the receiver's placement (a
+        # tree laid out by other rules): slot p would not hold block p
+        _fallback(src, nei, "spec_mismatch")
         return None
     co_resident = src_info.device_ids == dst_info.device_ids
     if not co_resident and (src_info.device_ids & dst_info.device_ids):

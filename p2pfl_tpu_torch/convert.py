@@ -15,6 +15,8 @@ init loads into ``p2pfl_tpu_torch.models.vision`` unchanged.
 
 The JAX side is plain nested dicts of numpy arrays
 (``jax.tree.map(np.asarray, params)``); nothing here imports JAX.
+:func:`placed_params_from_jax` places such a tree on a node slice by
+partition rules, as a sharded JAX node holds it.
 """
 
 from __future__ import annotations
@@ -59,10 +61,26 @@ def params_from_jax(tree: dict, device=None) -> dict:
     return tree_map(lambda a: _to_torch(a, device), out)
 
 
+def placed_params_from_jax(tree: dict, mesh, rules=None) -> dict:
+    """A JAX node's parameter tree (numpy, either layout) → the port's
+    tree placed on the slice ``mesh`` by partition ``rules``
+    (``parallel/sharding.py``; None: the transformer defaults): each leaf
+    the rules shard as one shard a slot, the rest whole on the slice's
+    first device. The same rules on JAX's slice give each device the
+    block the port gives the slot at its position."""
+    from p2pfl_tpu_torch.parallel.sharding import DEFAULT_TRANSFORMER_RULES, shard_tree
+
+    params = params_from_jax(tree, device=mesh.devices.flat[0])
+    return shard_tree(mesh, params, DEFAULT_TRANSFORMER_RULES if rules is None else rules)
+
+
 def params_to_jax(params: dict, scan_layers: bool = False) -> dict:
-    """The port's tree → nested dicts of numpy arrays in the JAX layout
-    (``scan_layers=True``: stacked under ``layers/block``)."""
-    out = tree_map(_to_numpy, params)
+    """The port's tree (placed leaves gathered) → nested dicts of numpy
+    arrays in the JAX layout (``scan_layers=True``: stacked under
+    ``layers/block``)."""
+    from p2pfl_tpu_torch.parallel.sharding import gather_tree
+
+    out = tree_map(_to_numpy, gather_tree(params))
     if not scan_layers:
         return out
     names = sorted((k for k in out if k.startswith("layer_")), key=lambda k: int(k[6:]))

@@ -9,12 +9,16 @@ and ``evaluate()``. ``--protocol memory`` (the in-memory transport) or
 ``--weights-plane ici`` moves model payloads slot to slot (kernel 9 on a
 card, its plain version on the CPU) while control rides the transport;
 ``bytes`` hands the sender's tensors over by reference on the memory
-transport and ships the P2TW codec over gRPC. Data is
+transport and ships the P2TW codec over gRPC. ``--model-parallel m``
+gives each node a ``(1, m)`` slice and shards its learner by
+:data:`MLP_RULES` (sharded learners, ``parallel/sharding.py``): the ICI
+plane then moves each leaf's per-slot shards. Data is
 ``FederatedDataset.synthetic_mnist``: nothing is downloaded.
 
     python -m p2pfl_tpu_torch.examples.mnist --weights-plane ici
     python -m p2pfl_tpu_torch.examples.mnist --device cpu --nodes 2 --rounds 1 --weights-plane ici
     python -m p2pfl_tpu_torch.examples.mnist --device cpu --protocol grpc
+    python -m p2pfl_tpu_torch.examples.mnist --device cpu --model-parallel 2 --weights-plane ici
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ from __future__ import annotations
 import argparse
 import time
 from typing import Callable, Optional
+
+#: the MLP's Megatron-style rule set: the hidden dims column-, then
+#: row-parallel (JAX's ``tests/test_submesh.py``)
+MLP_RULES = (
+    (r"Dense_0/kernel", (None, "model")),
+    (r"Dense_1/kernel", ("model", None)),
+    (r"Dense_2/kernel", (None, "model")),
+    (r".*", ()),
+)
 
 
 def run(
@@ -38,6 +51,8 @@ def run(
     protocol: str = "memory",
     on_start: Optional[Callable] = None,
     n_test: Optional[int] = None,
+    model_parallel: int = 1,
+    partition_rules=None,
 ) -> dict:
     """Build, connect and run the federation; stop every node; return
     ``{"addrs", "params", "metrics", "round_s", "elapsed_s"}``: each
@@ -49,7 +64,10 @@ def run(
     per node) places the nodes' slots on several cards instead of all on
     ``device``. ``on_start(fleet)``, when given, runs once the nodes are
     connected, before learning starts (a caller's probes and faults).
-    ``n_test`` test samples (default ``max(samples // 8, 256)``)."""
+    ``n_test`` test samples (default ``max(samples // 8, 256)``).
+    ``model_parallel > 1`` gives each node a ``(1, model_parallel)`` slice
+    on its device and places its learner by ``partition_rules`` (None:
+    :data:`MLP_RULES`)."""
     from p2pfl_tpu_torch import resolve_device
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.learning.learner import TorchLearner
@@ -61,14 +79,16 @@ def run(
 
     devs = [resolve_device(d) for d in devices] if devices is not None else [resolve_device(device)] * nodes
     data = FederatedDataset.synthetic_mnist(n_train=samples, n_test=n_test or max(samples // 8, 256))
-    slices = node_slices(submesh_federation_mesh(nodes, devices=devs))
+    slices = node_slices(submesh_federation_mesh(
+        nodes, model_parallel, devices=[d for d in devs for _ in range(model_parallel)]))
+    rules = None if model_parallel == 1 else (MLP_RULES if partition_rules is None else partition_rules)
     prev_plane, Settings.WEIGHTS_PLANE = Settings.WEIGHTS_PLANE, weights_plane
     fleet = []
     try:
         for i in range(nodes):
             learner = TorchLearner(
                 mlp(seed=i, device=devs[i]), data.partition(i, nodes), batch_size=batch_size,
-                seed=i, mesh=slices[i],
+                seed=i, mesh=slices[i], partition_rules=rules,
             )
             if protocol == "grpc":
                 from p2pfl_tpu_torch.communication.grpc_transport import GrpcProtocol
@@ -130,13 +150,14 @@ def main(argv=None) -> None:
     parser.add_argument("--protocol", choices=("memory", "grpc"), default="memory")
     parser.add_argument("--weights-plane", choices=("bytes", "ici"), default="bytes")
     parser.add_argument("--device", default="cuda", help="cuda (kernels) or cpu (plain versions)")
+    parser.add_argument("--model-parallel", type=int, default=1, help="slots a node (sharded learners)")
     parser.add_argument("--measure_time", action="store_true")
     args = parser.parse_args(argv)
 
     out = run(
         nodes=args.nodes, rounds=args.rounds, epochs=args.epochs, samples=args.samples,
         batch_size=args.batch_size, device=args.device, weights_plane=args.weights_plane,
-        topology=args.topology, protocol=args.protocol,
+        topology=args.topology, protocol=args.protocol, model_parallel=args.model_parallel,
     )
     for addr, metrics in zip(out["addrs"], out["metrics"]):
         print(f"{addr}: {metrics}")

@@ -16,7 +16,8 @@ from p2pfl_tpu_torch.learning.aggregators.aggregator import Aggregator, stack_mo
 from p2pfl_tpu_torch.learning.weights import ModelUpdate
 from p2pfl_tpu_torch.management.logger import logger
 from p2pfl_tpu_torch.ops.aggregation import fedavg, fedavg_fold_acc
-from p2pfl_tpu_torch.ops.tree import tree_align_copy_count, tree_align_devices
+from p2pfl_tpu_torch.ops.tree import tree_align_copy_count, tree_align_devices, tree_stack
+from p2pfl_tpu_torch.parallel.sharding import from_shard_flat, place_like, shard_flat, tree_is_placed
 from p2pfl_tpu_torch.settings import Settings
 
 
@@ -48,6 +49,14 @@ class FedAvg(Aggregator):
                 torch.tensor([float(m.num_samples) for m in others]),
                 own.params, Settings.AGG_DTYPE,
             )
+        elif tree_is_placed(models[0].params):
+            # contributions of a sharded learner fold shard by shard, each
+            # conformed to the first one's layout
+            like = models[0].params
+            weights = torch.tensor([float(m.num_samples) for m in models])
+            flat = fedavg(tree_stack([shard_flat(place_like(m.params, like)) for m in models]), weights,
+                          Settings.AGG_DTYPE)
+            params = from_shard_flat(flat, like)
         else:
             weights = torch.tensor([float(m.num_samples) for m in models])
             params = fedavg(stack_models(models), weights, Settings.AGG_DTYPE)

@@ -4,7 +4,8 @@ The JAX package checkpoints through orbax; the port writes ``torch.save``
 files, which orbax does not read. Covers both run modes:
 
 - :func:`save_learner` / :func:`restore_learner`: one node's params and
-  optimizer state;
+  optimizer state (a sharded learner's gathered, and placed again by the
+  learner's layout on restore);
 - :func:`save_federation` / :func:`restore_federation` (behind
   ``SpmdFederation.save`` / ``.restore``): the node-stacked federation
   state with SCAFFOLD's control variates and FedOpt's server moments,
@@ -102,19 +103,36 @@ def restore_state(directory: str, template: Any, step: Optional[int] = None) -> 
     return _into(template, payload["leaves"])
 
 
+def _learner_state(learner) -> dict:
+    """A learner's params and optimizer state as whole tensors: a sharded
+    learner's placed leaves are gathered, so a checkpoint does not depend
+    on the slice it was taken on."""
+    from p2pfl_tpu_torch.parallel.sharding import gather_tree, map_state
+
+    return {"params": gather_tree(learner.params), "opt_state": map_state(gather_tree, learner.opt_state)}
+
+
 def save_learner(
     directory: str,
     learner,
     round: Optional[int] = None,  # noqa: A002
     keep_n: Optional[int] = None,
 ) -> None:
-    save_state(directory, {"params": learner.params, "opt_state": learner.opt_state}, step=round or 0, keep_n=keep_n)
+    save_state(directory, _learner_state(learner), step=round or 0, keep_n=keep_n)
 
 
 def restore_learner(directory: str, learner, step: Optional[int] = None) -> None:
-    state = restore_state(directory, {"params": learner.params, "opt_state": learner.opt_state}, step)
-    learner.params = state["params"]
-    learner.opt_state = state["opt_state"]
+    """Restore a learner's params and optimizer state, placed again in
+    the learner's layout (the moments like the params)."""
+    from p2pfl_tpu_torch.parallel.sharding import map_state, place_like, tree_is_placed
+
+    state = restore_state(directory, _learner_state(learner), step)
+    params, opt_state = state["params"], state["opt_state"]
+    if tree_is_placed(learner.params):
+        params = place_like(params, learner.params)
+        opt_state = map_state(lambda d: place_like(d, params) if d else d, opt_state)
+    learner.params = params
+    learner.opt_state = opt_state
 
 
 def _federation_state(fed) -> dict:

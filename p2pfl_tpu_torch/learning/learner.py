@@ -218,11 +218,45 @@ def loss_and_grads(params: dict, module, x: torch.Tensor, y: torch.Tensor,
     return loss.detach(), tree_unflatten({k: g for (k, _), g in zip(items, grads)})
 
 
+def init_opt_state(tx: GradientTransformation, params: dict):
+    """``tx.init(params)``; for a placed tree (``parallel/sharding.py``)
+    the moments of a placed leaf are placed like it, shard by shard."""
+    from p2pfl_tpu_torch.parallel.sharding import from_shard_flat, map_state, shard_flat, tree_is_placed
+
+    if not tree_is_placed(params):
+        return tx.init(params)
+    return map_state(lambda d: from_shard_flat(d, params) if d else d, tx.init(shard_flat(params)))
+
+
+def _placed_train_step(params: dict, opt_state, x, y, module, tx, prox_mu: float, anchor):
+    """:func:`train_step` on a placed tree: the forward and backward on
+    the gathered tensors, the gradients split into the params' slot
+    shards (views), the optimizer stepped over the shard-flat trees. An
+    elementwise optimizer gives each shard the bits it gives the whole
+    tensor."""
+    from p2pfl_tpu_torch.parallel.sharding import (
+        from_shard_flat, gather_tree, map_state, shard_flat, split_like,
+    )
+
+    loss, grads = loss_and_grads(
+        gather_tree(params), module, x, y, prox_mu, None if anchor is None else gather_tree(anchor)
+    )
+    flat = shard_flat(params)
+    updates, opt_state = tx.update(shard_flat(split_like(grads, params)), map_state(shard_flat, opt_state), flat)
+    new = from_shard_flat(apply_updates(flat, updates), params)
+    return new, map_state(lambda d: from_shard_flat(d, params) if d else d, opt_state), loss
+
+
 def train_step(params: dict, opt_state, x: torch.Tensor, y: torch.Tensor, module, tx,
                prox_mu: float = 0.0, anchor: Optional[dict] = None):
     """One optimizer step on one batch → ``(params, opt_state, loss)`` as
     new tensors: the step of :func:`train_epoch` and of the fused round's
-    captured graph (``parallel/spmd.py::CapturedTrainStep``)."""
+    captured graph (``parallel/spmd.py::CapturedTrainStep``). A placed
+    tree (a learner on a slice of several slots) steps shard by shard."""
+    from p2pfl_tpu_torch.parallel.sharding import tree_is_placed
+
+    if tree_is_placed(params):
+        return _placed_train_step(params, opt_state, x, y, module, tx, prox_mu, anchor)
     loss, grads = loss_and_grads(params, module, x, y, prox_mu, anchor)
     updates, opt_state = tx.update(grads, opt_state, params)
     return apply_updates(params, updates), opt_state, loss
@@ -246,7 +280,9 @@ def train_epoch(params: dict, opt_state, xs: torch.Tensor, ys: torch.Tensor, mod
 
 @torch.no_grad()
 def eval_step(params: dict, x: torch.Tensor, y: torch.Tensor, module):
-    loss, logits = ce_eval(params, module, x, y)
+    from p2pfl_tpu_torch.parallel.sharding import gather_tree
+
+    loss, logits = ce_eval(gather_tree(params), module, x, y)
     acc = (logits.argmax(-1) == y).float().mean()
     return loss, acc
 
@@ -419,10 +455,16 @@ def _check_structure(params, current) -> None:
 class TorchLearner(NodeLearner):
     """The gossip Node's learner: Adam epochs over the node's shard.
 
-    The learner runs on one device: that of ``mesh``, a node's slice from
-    :func:`~p2pfl_tpu_torch.parallel.mesh.node_slices` with one slot, or
-    else that of the model's parameters. A slice of more than one slot
-    raises (sharded learners are ROADMAP A5). As in the reference, every
+    The learner runs on ``mesh``, a node's slice from
+    :func:`~p2pfl_tpu_torch.parallel.mesh.node_slices`, or else on the
+    device of the model's parameters. On a slice of several slots the
+    params and the optimizer moments are placed by ``partition_rules``
+    (``parallel/sharding.py``; None: ``DEFAULT_TRANSFORMER_RULES``), linted
+    here against the model and the slice, so a typo'd rule set fails at
+    construction: every leaf the rules shard is held as per-slot shards
+    (``SlotSharded``), a step computes on the gathered tensors on the
+    slice's first device and steps the optimizer shard by shard, and the
+    fused round's ``partial_acc`` keeps the params' layout. As in the reference, every
     round starts a fresh optimizer (``set_parameters``) unless
     ``keep_opt_state``. ``prox_mu > 0`` adds FedProx's pull toward the
     round's incoming model; ``dp_clip > 0`` trains by DP-SGD
@@ -446,6 +488,7 @@ class TorchLearner(NodeLearner):
         dp_clip: float = 0.0,
         dp_noise: float = 0.0,
         mesh=None,
+        partition_rules=None,
     ) -> None:
         self.model = model
         self.module = model.module
@@ -468,18 +511,24 @@ class TorchLearner(NodeLearner):
 
             self.accountant = PrivacyAccountant(self.dp_noise, min(1.0, batch_size / max(1, data.num_samples)))
         self.mesh = mesh
+        #: the params' placement on a slice of several slots, else None
+        self._param_shardings = None
         if mesh is not None:
-            slots = list(mesh.devices.flat)
-            if len(slots) != 1:
-                raise NotImplementedError(
-                    f"a learner slice of {len(slots)} slots: sharded learners are not "
-                    "ported yet (ROADMAP A5, with parallel/sharding.py); use one slot per node"
+            self.device = resolve_device(mesh.devices.flat[0])
+            if mesh.devices.size > 1:
+                from p2pfl_tpu_torch.parallel.sharding import (
+                    DEFAULT_TRANSFORMER_RULES, check_partition_rules, tree_shardings,
                 )
-            self.device = resolve_device(slots[0])
+
+                rules = tuple(partition_rules) if partition_rules is not None else DEFAULT_TRANSFORMER_RULES
+                # loud at construction: unmatched paths, dead rules and
+                # unknown axes are a startup error
+                check_partition_rules(rules, model.params, mesh, allow_dead=partition_rules is None)
+                self._param_shardings = tree_shardings(mesh, model.params, rules)
         else:
             self.device = tree_leaves(model.params)[0].device
-        self.params = tree_map(lambda p: p.to(self.device), model.params)
-        self.opt_state = self.tx.init(self.params)
+        self.params = self._place(tree_map(lambda p: p.to(self.device), model.params))
+        self.opt_state = init_opt_state(self.tx, self.params)
         self._rng = np.random.default_rng(seed)
         self._interrupt = threading.Event()
         self._steps_done = 0
@@ -489,14 +538,24 @@ class TorchLearner(NodeLearner):
 
     # ---- params ----
 
+    def _place(self, params):
+        """Incoming params in the learner's layout: placed by the rules on
+        a slice of several slots (a tree already in that layout is kept as
+        it is), else whole (a placed tree gathered)."""
+        from p2pfl_tpu_torch.parallel.sharding import gather_tree, place_tree
+
+        if self._param_shardings is None:
+            return gather_tree(params)
+        return place_tree(params, self._param_shardings)
+
     def set_parameters(self, params) -> None:
         _check_structure(params, self.params)
-        self.params = params
+        self.params = self._place(params)
         self.bump_model_version()
         if not self.keep_opt_state:
             # the reference's fresh optimizer a round; keep_opt_state
             # carries the Adam moments across rounds instead
-            self.opt_state = self.tx.init(self.params)
+            self.opt_state = init_opt_state(self.tx, self.params)
 
     def get_parameters(self):
         return self.params
@@ -588,7 +647,7 @@ class TorchLearner(NodeLearner):
         except Exception as exc:  # noqa: BLE001 — degrade to staged, counted and logged
             self._rng.bit_generator.state = rng_state
             if tree_has_deleted(self.opt_state):
-                self.opt_state = self.tx.init(self.params)
+                self.opt_state = init_opt_state(self.tx, self.params)
             logger.log_comm_metric(self.addr, "fused_round_degraded")
             logger.error(
                 self.addr, f"Fused round failed ({exc!r}): rng rewound, the round takes the staged path"

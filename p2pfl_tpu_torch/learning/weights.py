@@ -563,9 +563,12 @@ def _encode_plans(
         compression = Settings.WIRE_COMPRESSION
     if compression not in ("none", "int8", "topk8"):
         raise ValueError(f"unknown wire compression {compression!r}")
+    from p2pfl_tpu_torch.parallel.sharding import gather_tree
+
     topk_frac = Settings.TOPK_FRACTION if compression == "topk8" else 0.0
-    named = dict(named_leaves(tree)[1])
-    anchor_named = dict(named_leaves(anchor)[1]) if anchor is not None else None
+    # a sharded learner's placed leaves go on the wire whole
+    named = dict(named_leaves(gather_tree(tree))[1])
+    anchor_named = dict(named_leaves(gather_tree(anchor))[1]) if anchor is not None else None
     topk_plan = build_topk_plan(named, anchor_named, topk_frac)
     _validate_residual(residual, {key: leaf_size(named[key]) for key in topk_plan})
     device = _leaves_device(named)
@@ -695,7 +698,10 @@ def decode_params(
                     f"{header['anchor_tag']!r}) — sender delta-coded against a "
                     "different round's model"
                 )
-            anchor_flat = dict(named_leaves(anchor)[1])
+            from p2pfl_tpu_torch.parallel.sharding import gather_tree
+
+            # a sharded learner's anchor: its placed leaves whole
+            anchor_flat = dict(named_leaves(gather_tree(anchor))[1])
 
         off = 8 + hlen
         crc = 0

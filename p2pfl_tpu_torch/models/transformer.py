@@ -472,9 +472,11 @@ def _lecun_normal(shape, gen, device):
 def init_params(cfg: TransformerConfig, seed: int = 0, device=None) -> dict:
     """Fresh parameters in the unrolled layout, drawn from one seeded
     ``torch.Generator`` on ``device``. Adapters start as identity
-    (``lora_b`` zero)."""
+    (``lora_b`` zero). ``device="meta"`` gives the tree's shapes and
+    dtypes without allocating."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device draws nothing: its tree is the shapes alone
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     hd = cfg.head_dim
 
     def dense(fan_in, fan_out, rank):

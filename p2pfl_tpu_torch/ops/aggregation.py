@@ -48,6 +48,17 @@ def fedavg_fold_acc(
     :func:`fedavg` normalizes first, so the two agree to summation-order
     ulps in ``agg_dtype``, and bit for bit where every weight is the same
     power of two."""
+    from p2pfl_tpu_torch.parallel.sharding import from_shard_flat, place_like, shard_flat, tree_is_placed
+
+    if tree_is_placed(psum):
+        # a placed accumulator folds shard by shard: shard k of every
+        # contribution (each conformed to the accumulator's layout first)
+        # makes shard k of the aggregate, and no leaf is gathered whole
+        flat = fedavg_fold_acc(
+            shard_flat(psum), wsum, tuple(shard_flat(place_like(o, psum)) for o in others), weights,
+            shard_flat(place_like(ref, psum)), agg_dtype,
+        )
+        return from_shard_flat(flat, place_like(ref, psum))
     acc = getattr(torch, agg_dtype)
     if others:
         w = weights.to(device=wsum.device, dtype=acc)
@@ -59,13 +70,53 @@ def fedavg_fold_acc(
     return tree_map(lambda s, r: (s / wsum).to(r.dtype), psum, ref)
 
 
+def sum_nodes(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the leading node axis, node by node in order: one
+    elementwise add a node, so an element's sum does not depend on the
+    shape of the tensor it sits in (a reduction kernel's order may), and
+    a stack of slot shards sums to the bits of the whole."""
+    out = x[0]
+    for i in range(1, x.shape[0]):
+        out = out + x[i]
+    return out
+
+
 def fedavg_fold_stacked(stacked_psum: dict, stacked_wsum: torch.Tensor, ref: dict) -> dict:
     """Finish a FedAvg from node-stacked accumulators: ``[N, ...]`` leaves
-    of per-node ``weight × params`` and their ``[N]`` weights. Reduce the
-    node axis, then divide (the :func:`fedavg_fold_acc` algebra as one
-    axis reduction); ``ref`` gives the output dtypes."""
+    of per-node ``weight × params`` and their ``[N]`` weights. Sum the
+    node axis (:func:`sum_nodes`), then divide (the
+    :func:`fedavg_fold_acc` algebra); ``ref`` gives the output dtypes.
+    Elementwise, so shard k of the stacked accumulators folds into
+    shard k of the aggregate (``parallel/submesh.py``)."""
     wtot = stacked_wsum.sum()
-    return tree_map(lambda s, r: (s.sum(dim=0) / wtot).to(r.dtype), stacked_psum, ref)
+    return tree_map(lambda s, r: (sum_nodes(s) / wtot).to(r.dtype), stacked_psum, ref)
+
+
+def robust_fold_stacked(stacked: dict, ref: dict, kind: str, *, trim: int = 1) -> dict:
+    """Robust per-coordinate fold over node-stacked params, the robust
+    twin of :func:`fedavg_fold_stacked`: ``stacked`` leaves are ``[N, ...]``
+    stacks of per-node PARAMS (raw models: a median of ``weight × params``
+    terms is not a median of models), ``kind`` ``"median"`` or
+    ``"trimmed-mean"`` (``trim`` lowest and highest dropped a coordinate,
+    clamped so one survives; none left to drop is the plain mean), the
+    rank statistics in fp32 (the means summed node by node,
+    :func:`sum_nodes`), the output in ``ref``'s dtypes. Per coordinate,
+    so a stack of slot shards folds into the aggregate's shards
+    (``parallel/submesh.py``)."""
+    n = stacked_n(stacked)
+    if kind == "median":
+        return tree_map(lambda x, r: median0(x).to(r.dtype), stacked, ref)
+    if kind == "trimmed-mean":
+        t = min(int(trim), (n - 1) // 2)
+        if t <= 0:
+            return tree_map(lambda x, r: (sum_nodes(x.float()) / n).to(r.dtype), stacked, ref)
+
+        def tm(x, r):
+            xs = x.float().sort(dim=0).values
+            return (sum_nodes(xs[t:n - t]) / (n - 2 * t)).to(r.dtype)
+
+        return tree_map(tm, stacked, ref)
+    raise ValueError(f"unknown robust fold kind {kind!r} (expected median | trimmed-mean)")
 
 
 def median0(x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """parallel of the PyTorch port (see the JAX package's module of the same path).
 
 ``ChunkedFederation``, ``SpmdFederation``, ``SpmdLoraFederation``,
-``SpmdLmFederation`` and ``PipelineFederation`` (which raises: not
-ported) are importable from here; each loads its module on first use.
+``SpmdLmFederation``, ``ShardedNodeFederation`` and
+``PipelineFederation`` (which raises: not ported) are importable from
+here; each loads its module on first use.
 """
 
 _EXPORTS = {
@@ -11,6 +12,7 @@ _EXPORTS = {
     "SpmdLoraFederation": "p2pfl_tpu_torch.parallel.spmd_lora",
     "SpmdLmFederation": "p2pfl_tpu_torch.parallel.spmd_lm",
     "PipelineFederation": "p2pfl_tpu_torch.parallel.spmd_lm",
+    "ShardedNodeFederation": "p2pfl_tpu_torch.parallel.submesh",
 }
 
 __all__ = list(_EXPORTS)

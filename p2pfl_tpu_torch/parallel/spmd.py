@@ -448,9 +448,12 @@ def fused_node_round(
     out["params"], out["opt_state"] = params, opt_state
     out["train_losses"] = torch.stack(losses)
     if with_acc:
+        from p2pfl_tpu_torch.parallel.sharding import tree_map_shards
+
         acc = getattr(torch, agg_dtype)
         w = weight.to(acc)
-        out["psum"] = tree_map(lambda p: p.to(acc) * w, params)
+        # a placed tree's accumulator keeps its layout, shard by shard
+        out["psum"] = tree_map_shards(lambda p: p.to(acc) * w, params)
         out["wsum"] = w
     return out
 

@@ -146,7 +146,11 @@ def test_slice_identity_is_by_slot_not_device():
     assert ici_plane.same_devices(ia, ici_plane.slice_info_of(_tree(2), a))
     assert ici_plane.same_devices(ici_plane.slice_info_of(tree), ici_plane.slice_info_of(_tree(3)))
     wide = node_slices(submesh_federation_mesh(1, model_parallel=2, devices=["cpu", "cpu"]))[0]
-    assert ici_plane.slice_info_of(tree, wide) is None  # one-slot slices only
+    # a slice of two slots takes whole leaves too (every spec replicated),
+    # and a one-slot slice's tree cannot move onto it slot for slot
+    iw = ici_plane.slice_info_of(tree, wide)
+    assert iw.shape == (1, 2) and set(iw.specs) == {()}
+    assert not ici_plane.transfer_compatible(ia, iw)
     three = node_slices(submesh_federation_mesh(3, devices=["cpu"] * 3))
     assert ici_plane.transfer_compatible(ia, ici_plane.slice_info_of(tree, three[2]))
 

@@ -221,10 +221,17 @@ def test_fedavg_matches_jax():
 def test_learner_refuses_a_slice_of_several_slots():
     from p2pfl_tpu_torch.parallel.mesh import node_slices, submesh_federation_mesh
 
+    # a slice of several slots places the learner by its partition rules
+    # (sharded learners, tests/test_torch_submesh.py); what it refuses is a
+    # rule set that fails lint, at construction
     slices = node_slices(submesh_federation_mesh(2, model_parallel=2, devices=["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match="A5"):
-        TorchLearner(mlp(seed=0, device="cpu"), FederatedDataset.synthetic_mnist(n_train=64, n_test=16),
-                     mesh=slices[0])
+    data = FederatedDataset.synthetic_mnist(n_train=64, n_test=16)
+    with pytest.raises(ValueError, match="fails lint"):
+        TorchLearner(mlp(seed=0, device="cpu"), data, mesh=slices[0],
+                     partition_rules=((r"Dnse_0/kernel", (None, "model")), (r".*", ())))
+    placed = TorchLearner(mlp(seed=0, device="cpu"), data, mesh=slices[0],
+                          partition_rules=((r"Dense_0/kernel", (None, "model")), (r".*", ())))
+    assert placed.params["Dense_0"]["kernel"].spec == (None, "model")
 
 
 # ---- federations ----
