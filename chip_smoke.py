@@ -21,6 +21,8 @@
     python3 chip_smoke.py --only trace_flash         # a flash round's device time by kind (torch.profiler)
     python3 chip_smoke.py --only trace_cifar         # config 2's round: vmapped against looped, its profiler split
     python3 chip_smoke.py --only sharded             # sharded nodes: config 5 over 4 slots a node, sharded Nodes
+    python3 chip_smoke.py --only meshes              # the SPMD federations' meshes and GPipe
+    python3 chip_smoke.py --only gpipe_target        # config 10's GPipe row to 0.60
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -229,7 +231,7 @@ Phases, each of which makes the script exit non-zero if it fails (the
    rounds, MFU of model and executed FLOPs, peak memory, the serial path
    against the overlapped one, ``torch.profiler``'s split of one chunk;
 14. [nameplate] BASELINE config 5 at its 32 nodes (``drive_nameplate``):
-   the LM at full width, 11 of its 22 layers (``C5["smoke_depth"]``), with ``remat_policy="mlp_qkv"``, ``node_chunk=4``, batch
+   the LM at full width, 6 of its 22 layers (``C5["smoke_depth"]``), with ``remat_policy="mlp_qkv"``, ``node_chunk=4``, batch
    1, 8 steps a round, a random base: a warm-up round and 2 timed rounds,
    then ``evaluate``; kernels 1 and 2 launched exactly as the code counts
    (every other kernel at 0) and held against their plain versions on one
@@ -307,6 +309,26 @@ Phases, each of which makes the script exit non-zero if it fails (the
    bound; (e) ``chunk="auto"``
    on a 20k-client fleet measured once, then replayed from the cache
    file with no measurement;
+17c. [meshes] the SPMD federations' meshes on slots of ``cuda:0``
+   (``drive_meshes``): (a) config 10's GPipe row (``GPIPE10``: 2 nodes on
+   ``pipeline_mesh(4)``, 4L/128d, batch 32 in 16 microbatches, bf16): two
+   profiled rounds (accuracy, s/round, ``last_profile``), then one
+   pipelined value-and-grad step against the monolithic one on the same
+   batch (loss gap, the grads' relative L2 within ``GPIPE_GRAD_RTOL``,
+   the pipe tax ms/ms), no hand kernel (dense attention at seq 128); (b)
+   the same comparison at config 5's full width, full-parameter, flash
+   at seq 1024, 2 stages of 11 layers, batch 2 in 2 microbatches: kernels
+   1 and 2 launched 44 times for the pipelined step, 22 for the
+   monolithic; (c) config 10's MoE row at ``expert_parallel=2`` on a
+   (4, 2) mesh: each slot's expert-stack bytes equal to the
+   ``shard_shape`` accounting (half the experts a slot), two rounds
+   bit-equal (params and losses) to ``expert_parallel=1`` on a (4, 1)
+   mesh; (d) ``main``'s LoRA federation on a (4, 4) mesh with
+   ``model_parallel_base``: each slot's base bytes equal to the
+   accounting, one split-backward round bit-equal to the replicated base,
+   kernels 1, 3, 4 at rows x steps x layers; (e) ``bench.py``'s 64 MLP
+   nodes over 8 slots against one slot: a round and a fused span
+   bit-equal or within ``mnist_parity``'s limits, s/round of each;
 18. a ``{"kernels": [...]}`` line: ``launches`` counts each kernel's main
    drive (kernels 1-4 the main drives, 5-8 the ring drives, 9 the gossip
    phase's ICI drive), ``launches_by_path`` every drive apart (for 1-4
@@ -317,6 +339,8 @@ Phases, each of which makes the script exit non-zero if it fails (the
    ``async_<mode>``, ``async_byzantine`` and ``async_resume``; for 1-4 also
    config 7's drives; for 1-4 and 9 the sharded phase's drives, and
    kernel 9's time on a sharded node's slot blocks as ``sharded_tree``;
+   for 1-4 the meshes phase's pipelined step (``meshes_gpipe5``) and its
+   LoRA round with the base split (``meshes_lora_tp``);
    ``fleet_chunk`` the megafleet phase's 1M run (one
    launch), its ``ms`` the kernel's time a chunk inside a span there,
    ``plain_ms`` the twin's a chunk on the CPU, ``bound_ms`` the bytes
@@ -336,6 +360,9 @@ moe_target`` config 10's 113M MoE federation to 0.60 (at most 15 rounds of
 parts (b) and (d) under two broken codecs (peers' deltas dropped; deltas
 decoded onto the receiver's own params) and reads what their checks see:
 the control of ``LOSSY_REL_SPREAD`` (a few minutes, never by default).
+
+``--only gpipe_target`` runs config 10's GPipe row to 0.60 next-token
+accuracy (at least 5, at most 10 profiled rounds), never by default.
 
 ``--only exchange_peer`` (never run by default: it needs two cards) times
 kernel 9 storing from cuda:0 into cuda:1's memory over NVLink.
@@ -1156,8 +1183,10 @@ def drive_round_flops() -> tuple[bool, dict]:
 #: depth, 4 Nodes, 8 training sequences a node in batches of 2
 NODE_LORA = dict(nodes=4, seq=1024, batch=2, n_train=32, n_test=8, lr=1e-3)
 #: the Node phases' depth (of config 5's 22 layers) in the default run: the
-#: layers repeat one block, and the run's time limit binds
-NODE_LORA_DEPTH = 8
+#: layers repeat one block, and the run's time limit binds (node_lora 4
+#: since the meshes phase joined the run, compress's LoRA Nodes 8)
+NODE_LORA_DEPTH = 4
+COMPRESS_LORA_DEPTH = 8
 
 
 def _config5(depth: int, bwd_mode: str = "auto", vocab: int = 4096):
@@ -3296,7 +3325,7 @@ def drive_chunked_target() -> tuple[bool, dict]:
 #: next-token accuracy of 0.65 on the 15 %-shifted domain
 C5 = dict(nodes=32, node_chunk=4, seq=1024, per_node=8, batch=1, n_test=32, seed=3, timed_rounds=2,
           pre_steps=400, pre_batch=8, pre_lr=3e-3, pre_train=512, pre_test=64, target=0.65, max_rounds=16,
-          check_layers=2, smoke_depth=11)
+          check_layers=2, smoke_depth=6)
 
 
 def _nameplate_cfg(depth: int = 22, policy="mlp_qkv", remat: bool = True):
@@ -4009,7 +4038,7 @@ def compress_full_width(device: str = "cuda", depth: int = 22) -> tuple[bool, di
     return ok, summary
 
 
-def compress_lora(depth: int = NODE_LORA_DEPTH, rounds: int = 2, device: str = "cuda") -> tuple[bool, dict]:
+def compress_lora(depth: int = COMPRESS_LORA_DEPTH, rounds: int = 2, device: str = "cuda") -> tuple[bool, dict]:
     """(d) ``drive_node_lora``'s config-5 federation (4 Nodes, seq 1024,
     batch 2) under topk8 on the ICI plane, each node on its own slot of
     the card; launches of kernels 1, 2 and 9 zeroed before and read after.
@@ -6134,14 +6163,414 @@ def drive_sharded() -> tuple[bool, dict]:
     return good_a and good_b, {"federation": fed, "nodes": nodes, "exchange": results}
 
 
+# ---- [meshes] the SPMD federations' meshes and GPipe (every slot on the card) ----
+
+#: config 10's GPipe row at its stated size (``bench_suite.py:1847-1960``):
+#: 2 nodes, 4 stages, 4L/128d, 8 heads, kv 8, ffn 344, vocab 512, seq 128,
+#: batch 32 in 16 microbatches, seed 3, 512 sequences a node; bf16 on the
+#: card (the row's f32 is its CPU stand-in)
+GPIPE10 = dict(nodes=2, stages=4, n_micro=16, batch=32, seed=3, per_node=512, n_test=256, rounds=2,
+               cfg=dict(vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=8, ffn_hidden=344, lora_rank=0))
+#: the curve to 0.60 (``gpipe_target``): at most 10 rounds, at least 5
+GPIPE10_TARGET = dict(target=0.60, max_rounds=10, min_rounds=5)
+#: config 5 full-parameter (``SHARDED_CFG``) in 2 stages of 11 layers,
+#: batch 2 in 2 microbatches, flash at seq 1024
+GPIPE5 = dict(stages=2, batch=2, n_micro=2, seq=1024)
+#: pipelined against monolithic value-and-grad in bf16 (microbatching
+#: changes the GEMMs' shapes, so not bit-equal): the grads' relative L2
+#: and the loss's relative gap
+GPIPE_GRAD_RTOL = 2e-2
+GPIPE_LOSS_RTOL = 1e-2
+#: config 10's MoE row (``bench_suite.py:1776-1790``): 8 nodes, 4L/128d, 8
+#: experts top-2, vocab 512, seq 128, batch 16, seed 3, 256 sequences a
+#: node; expert_parallel 2 on a (4, 2) mesh of the card
+EP10 = dict(nodes=8, rows=4, ep=2, batch=16, seed=3, per_node=256, n_test=512, rounds=2,
+            cfg=dict(vocab_size=512, dim=128, n_layers=4, n_heads=8, n_kv_heads=8, ffn_hidden=256, lora_rank=0,
+                     n_experts=8, moe_top_k=2))
+#: ``main``'s LoRA federation on a (4, 4) mesh, the base split over the model axis
+LORA_TP = dict(rows=4, model=4)
+#: ``bench.py``'s 64 MLP nodes over 8 slots; a fused span of 2 rounds (the
+#: 8-slot span's capture costs about a second a round)
+MNIST_MESH = dict(slots=8, timed=2, span=2)
+
+
+def _free_card() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _tree_bits_equal(a, b) -> bool:
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(bits_equal(x, y) for x, y in zip(la, lb))
+
+
+def _lm_value_and_grad(params: dict, logits_and_aux, x, y) -> tuple:
+    """(loss, grads) of ``CE(logits) + aux`` with ``logits_and_aux(params,
+    x)`` the forward: the step both GPipe parts time and compare."""
+    from p2pfl_tpu_torch.learning.learner import softmax_cross_entropy
+    from p2pfl_tpu_torch.ops.tree import tree_items, tree_unflatten
+
+    paths = [p for p, _ in tree_items(params)]
+    leaves = [v.detach().requires_grad_(True) for _, v in tree_items(params)]
+    with torch.enable_grad():
+        logits, aux = logits_and_aux(tree_unflatten(dict(zip(paths, leaves))), x)
+        loss = softmax_cross_entropy(logits, y).mean() + aux
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(dict(zip(paths, grads)))
+
+
+def _pipe_against_mono(model, mesh, n_micro: int, x, y, iters: int = 3) -> dict:
+    """One pipelined value-and-grad step against the monolithic one on the
+    same batch: the loss gap, the grads' relative L2, each step's median ms
+    (CUDA-synchronized host clock) and the launches of kernels 1 and 2 in
+    one step of each."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel.pipeline import pipelined_lm_apply
+
+    cfg = model.extra["config"]
+    attn_fn = model.module.attn_fn
+
+    def pipe(p, xb):
+        return pipelined_lm_apply(p, xb, cfg, mesh, mesh.axis_names[0], n_micro=n_micro, attn_fn=attn_fn,
+                                  return_aux=True)
+
+    def mono(p, xb):
+        return model.module.forward_with_aux(p, xb)
+
+    out = {}
+    for name, fn in (("pipe", pipe), ("mono", mono)):
+        _kernels.reset_launches()
+        loss, grads = _lm_value_and_grad(model.params, fn, x, y)
+        torch.cuda.synchronize()
+        launches = {k: _kernels.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dkvq", "flash_bwd_dq", "flash_bwd_dkv")}
+        ts = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _lm_value_and_grad(model.params, fn, x, y)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        out[name] = (loss, grads, sorted(ts)[len(ts) // 2] * 1e3, launches)
+        del grads
+    (lp, gp, tp, kp), (lm, gm, tm, km) = out["pipe"], out["mono"]
+    return {"loss_pipe": float(lp), "loss_mono": float(lm), "loss_rel_gap": abs(float(lp) - float(lm)) / abs(float(lm)),
+            "grad_rel_l2": _rel_l2(tree_leaves(gm), tree_leaves(gp)), "pipe_ms": tp, "mono_ms": tm, "pipe_tax": tp / tm,
+            "launches_pipe": kp, "launches_mono": km}
+
+
+def _gpipe10_fed():
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.parallel.pipeline import pipeline_mesh
+    from p2pfl_tpu_torch.parallel.spmd_lm import PipelineFederation
+
+    g = GPIPE10
+    model = tiny_transformer(seq_len=128, cfg=TransformerConfig(**g["cfg"]))
+    data = FederatedDataset.synthetic_lm(vocab_size=512, n_train=g["nodes"] * g["per_node"], n_test=g["n_test"])
+    shards = [data.partition(i, g["nodes"]) for i in range(g["nodes"])]
+    mesh = pipeline_mesh(g["stages"], devices=["cuda:0"] * g["stages"])
+    fed = PipelineFederation(model, shards, mesh=mesh, batch_size=g["batch"], n_micro=g["n_micro"], seed=g["seed"])
+    return model, shards, fed
+
+
+def meshes_gpipe10() -> tuple[bool, dict]:
+    """(a) config 10's GPipe row: two profiled rounds (accuracy, s/round,
+    the per-node epoch and FedAvg seconds), then one pipelined step
+    against the monolithic one (the pipe tax). Seq 128 takes dense
+    attention: no hand kernel launches."""
+    from p2pfl_tpu_torch.ops import _kernels
+
+    _free_card()
+    _kernels.reset_launches()
+    model, shards, fed = _gpipe10_fed()
+    rounds = []
+    for _ in range(GPIPE10["rounds"]):
+        t = time.perf_counter()
+        entry = fed.run_round(profile=True)
+        s = time.perf_counter() - t
+        rounds.append({"train_loss": entry["train_loss"], "s_round": s, "profile": fed.last_profile,
+                       "test_acc": fed.evaluate()["test_acc"]})
+    hand = sum(_kernels.LAUNCHES.values())
+    b = GPIPE10["batch"]
+    x = torch.from_numpy(shards[0].x_train[:b]).cuda()
+    y = torch.from_numpy(shards[0].y_train[:b]).cuda()
+    tax = _pipe_against_mono(model, fed.mesh, GPIPE10["n_micro"], x, y)
+    hand += sum(tax["launches_pipe"].values()) + sum(tax["launches_mono"].values())
+    checks = {
+        "losses and accuracies finite": all(math.isfinite(r["train_loss"]) and 0 <= r["test_acc"] <= 1 for r in rounds),
+        "profile filled on every profiled round": all(len(r["profile"]["node_epoch_s"]) == GPIPE10["nodes"] for r in rounds),
+        f"grads' relative L2 <= {GPIPE_GRAD_RTOL}": tax["grad_rel_l2"] <= GPIPE_GRAD_RTOL,
+        f"loss relative gap <= {GPIPE_LOSS_RTOL}": tax["loss_rel_gap"] <= GPIPE_LOSS_RTOL,
+        "no hand kernel launched (dense attention)": hand == 0,
+    }
+    steps = GPIPE10["per_node"] // GPIPE10["batch"]
+    out = {"rounds": rounds, "pipe_vs_mono": tax, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "captured_step_ms": 1e3 * sum(rounds[-1]["profile"]["node_epoch_s"]) / (GPIPE10["nodes"] * steps),
+           "checks": checks}
+    del fed, model
+    return all(checks.values()), out
+
+
+def meshes_gpipe5() -> tuple[bool, dict]:
+    """(b) GPipe at config 5's full width with flash: 2 stages of 11
+    layers, batch 2 in 2 microbatches; one pipelined value-and-grad step
+    against the monolithic one. Kernels 1 and 2 launch once a layer a
+    microbatch: 44 for the pipelined step, 22 for the monolithic one."""
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.parallel.pipeline import pipeline_mesh
+
+    _free_card()
+    g = GPIPE5
+    cfg = TransformerConfig(**SHARDED_CFG)
+    model = tiny_transformer(seq_len=g["seq"], seed=0, cfg=cfg, attn="flash")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (g["batch"], g["seq"] + 1), device="cuda", generator=gen)
+    mesh = pipeline_mesh(g["stages"], devices=["cuda:0"] * g["stages"])
+    tax = _pipe_against_mono(model, mesh, g["n_micro"], tokens[:, :-1], tokens[:, 1:], iters=2)
+    layers = cfg.n_layers
+    want_pipe = {"flash_fwd": layers * g["n_micro"], "flash_bwd_dkvq": layers * g["n_micro"]}
+    want_mono = {"flash_fwd": layers, "flash_bwd_dkvq": layers}
+    checks = {
+        f"grads' relative L2 <= {GPIPE_GRAD_RTOL}": tax["grad_rel_l2"] <= GPIPE_GRAD_RTOL,
+        f"loss relative gap <= {GPIPE_LOSS_RTOL}": tax["loss_rel_gap"] <= GPIPE_LOSS_RTOL,
+        f"kernels 1, 2 at {want_pipe['flash_fwd']} pipelined": all(tax["launches_pipe"][k] == n for k, n in want_pipe.items()),
+        f"kernels 1, 2 at {layers} monolithic": all(tax["launches_mono"][k] == n for k, n in want_mono.items()),
+    }
+    out = {"layers": layers, "params": model.param_count, **tax,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "checks": checks}
+    del model
+    return all(checks.values()), out
+
+
+def _expert_bytes(tree, mesh) -> tuple[dict, int]:
+    """Each slot's bytes of the expert stacks (``mlp/w[123]``) of a
+    node-stacked tree, and one slot's by ``SlotSharding.shard_shape``."""
+    import re
+
+    from p2pfl_tpu_torch.parallel.sharding import named_paths, slot_bytes
+
+    experts = {p: x for p, x in named_paths(tree) if re.search(r"mlp/w[123]$", p)}
+    per_slot = slot_bytes(experts, mesh=mesh)
+    want = sum(math.prod(x.sharding.shard_shape(tuple(x.shape))) * x.element_size() for x in experts.values())
+    return per_slot, want
+
+
+def meshes_ep10() -> tuple[bool, dict]:
+    """(c) expert parallelism on config 10's MoE row: 8 nodes on a (4, 2)
+    mesh, half the experts a slot; two rounds against expert_parallel 1 on
+    the same nodes axis (a (4, 1) mesh): params and losses bit-equal."""
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.transformer import TransformerConfig, tiny_transformer
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+    from p2pfl_tpu_torch.parallel.spmd_lm import SpmdLmFederation
+
+    _free_card()
+    g = EP10
+    cfg = TransformerConfig(**g["cfg"])
+    data = FederatedDataset.synthetic_lm(vocab_size=512, n_train=g["nodes"] * g["per_node"], n_test=g["n_test"])
+    runs = {}
+    for ep in (g["ep"], 1):
+        model = tiny_transformer(seq_len=128, cfg=cfg)
+        mesh = federation_mesh(g["rows"], model_parallel=ep, devices=["cuda:0"] * (g["rows"] * ep))
+        fed = SpmdLmFederation.from_dataset(model, data, n_nodes=g["nodes"], batch_size=g["batch"], vote=False,
+                                            seed=g["seed"], mesh=mesh, expert_parallel=ep)
+        per_slot, want = _expert_bytes(fed.params, mesh)
+        losses, secs = [], []
+        for _ in range(g["rounds"]):
+            t = time.perf_counter()
+            losses.append(float(fed.run_round()["train_loss"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        runs[ep] = {"fed": fed, "losses": losses, "s_round": secs, "slot_expert_bytes": sorted(set(per_slot.values())),
+                    "accounting": want, "test_acc": fed.evaluate()["test_acc"]}
+    a, b = runs[g["ep"]], runs[1]
+    full_experts = b["accounting"]  # one slot of a (4, 1) mesh holds its nodes' whole stacks
+    checks = {
+        "every slot's expert bytes equal the shard_shape accounting": a["slot_expert_bytes"] == [a["accounting"]],
+        "half the experts a slot": a["accounting"] * g["ep"] == full_experts,
+        "params bit-equal to expert_parallel 1": all(
+            _tree_bits_equal(a["fed"].node_params(i), b["fed"].node_params(i)) for i in range(g["nodes"])),
+        "losses bit-equal": a["losses"] == b["losses"],
+        "losses finite": all(math.isfinite(x) for x in a["losses"]),
+    }
+    out = {ep: {k: v for k, v in r.items() if k != "fed"} for ep, r in runs.items()}
+    out.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, checks=checks)
+    del runs, a, b
+    return all(checks.values()), out
+
+
+def meshes_lora_tp() -> tuple[bool, dict]:
+    """(d) ``main``'s LoRA federation on a (4, 4) mesh with the frozen base
+    split over the model axis: each slot's base bytes against the
+    accounting, one split-backward round bit-equal to the replicated base
+    on the same mesh. Each row of one node launches kernels 1, 3 and 4 once
+    a layer a step."""
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.ops.tree import tree_map
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+    from p2pfl_tpu_torch.parallel.sharding import shard_bytes_accounting, slot_bytes
+    from p2pfl_tpu_torch.parallel.spmd_lora import SpmdLoraFederation
+
+    _free_card()
+    g = LORA_TP
+    cfg, data, model = _main_model("split")
+    mesh = federation_mesh(g["rows"], model_parallel=g["model"], devices=["cuda:0"] * (g["rows"] * g["model"]))
+    runs = {}
+    for mp in (True, False):
+        fed = SpmdLoraFederation.from_dataset(model, data, n_nodes=MAIN["nodes"], batch_size=1, vote=False, seed=3,
+                                              mesh=mesh, model_parallel_base=mp)
+        base_bytes = sorted(set(slot_bytes(fed.base, mesh=mesh).values()))
+        meta = tree_map(lambda x: torch.empty(tuple(x.shape), dtype=x.dtype, device="meta"), fed.base)
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(fed.run_round()["train_loss"])
+        torch.cuda.synchronize()
+        runs[mp] = {"fed": fed, "loss": loss, "s_round": time.perf_counter() - t, "slot_base_bytes": base_bytes,
+                    "accounting": shard_bytes_accounting(mesh, meta),
+                    "launches": {k: _kernels.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}}
+    a, b = runs[True], runs[False]
+    steps = a["fed"]._nb
+    want = g["rows"] * steps * cfg.n_layers
+    checks = {
+        "every slot's base bytes equal the accounting": a["slot_base_bytes"] == [a["accounting"]],
+        f"a slot of the split base holds at most 1/{g['model']} of the whole + 1 %":
+            a["slot_base_bytes"][0] <= (1 / g["model"] + 0.01) * b["slot_base_bytes"][0],
+        "round bit-equal to the replicated base": a["loss"] == b["loss"] and all(
+            _tree_bits_equal(a["fed"].node_params(i), b["fed"].node_params(i)) for i in range(MAIN["nodes"])),
+        f"kernels 1, 3, 4 at {want} (rows x steps x layers)": all(n == want for n in a["launches"].values()),
+        "loss finite": math.isfinite(a["loss"]),
+    }
+    out = {("split_base" if mp else "replicated_base"): {k: v for k, v in r.items() if k != "fed"}
+           for mp, r in runs.items()}
+    out.update(steps=steps, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, checks=checks)
+    del runs, a, b, model
+    return all(checks.values()), out
+
+
+def meshes_mnist() -> tuple[bool, dict]:
+    """(e) ``bench.py``'s 64 MLP nodes over 8 slots of the card against
+    the one-slot federation: one ``run_round`` and one ``run_fused`` span
+    each, then timed rounds. Bit-equal, or within ``mnist_parity``'s limits
+    (another batch count of the vmapped GEMMs may take another cuBLAS
+    algorithm)."""
+    from p2pfl_tpu_torch.examples import bench_mnist
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    _free_card()
+    data = FederatedDataset.mnist(None, **bench_mnist.HARD_TASK)
+    k = MNIST_MESH["slots"]
+    runs = {}
+    for slots in (1, k):
+        mesh = federation_mesh(slots, devices=["cuda:0"] * slots)
+        fed = SpmdFederation.from_dataset(
+            mlp(), data, n_nodes=bench_mnist.N_NODES, batch_size=bench_mnist.BATCH, vote=False, seed=3,
+            keep_opt_state=True, mesh=mesh,
+        )
+        first = fed.run_round(eval=True)
+        after_round = fed.node_params(0)
+        t = time.perf_counter()
+        span = fed.run_fused(MNIST_MESH["span"], eval=True)  # captured, then replayed once
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        secs = []
+        for _ in range(MNIST_MESH["timed"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fed.run_round()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        fed.run_fused(MNIST_MESH["span"], eval=True)  # the captured span replayed
+        torch.cuda.synchronize()
+        runs[slots] = {"fed": fed, "after_round": after_round, "span_losses": [float(e["train_loss"]) for e in span],
+                       "first_loss": float(first["train_loss"]), "first_acc": float(first["test_acc"]),
+                       "s_round_eager": secs, "span_capture_s": capture_s,
+                       "s_round_replayed": (time.perf_counter() - t) / MNIST_MESH["span"]}
+    one, many = runs[1], runs[k]
+    lr, steps = MNIST_LR, one["fed"]._nb * (1 + MNIST_MESH["timed"] + 2 * MNIST_MESH["span"])
+    round_gap = _gaps([tree_leaves(one["after_round"])], [tree_leaves(many["after_round"])])
+    final_gap = _gaps([tree_leaves(one["fed"].node_params(0))], [tree_leaves(many["fed"].node_params(0))])
+    bits = round_gap == (0.0, 0.0) and final_gap == (0.0, 0.0)
+    checks = {
+        "round and span bit-equal, or within 2·lr·steps max and 0.1·lr mean": bits or (
+            final_gap[0] <= 2 * lr * steps and final_gap[1] <= 0.1 * lr),
+        "losses finite": all(math.isfinite(x) for x in many["span_losses"]),
+    }
+    out = {slots: {k_: v for k_, v in r.items() if k_ not in ("fed", "after_round")} for slots, r in runs.items()}
+    out.update(bit_equal=bits, round_gap=round_gap, final_gap=final_gap,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, checks=checks)
+    del runs, one, many
+    return all(checks.values()), out
+
+
+def drive_meshes() -> tuple[bool, dict]:
+    """The SPMD federations' meshes and GPipe on slots of one card: (a)
+    config 10's GPipe row, (b) GPipe at config 5's width with flash, (c)
+    expert parallelism on config 10's MoE row, (d) ``main``'s LoRA
+    federation with the base split, (e) ``bench.py``'s federation over a
+    nodes axis of 8 slots."""
+    log(f"[meshes] card memory allocated before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ok, out = True, {}
+    for part, fn in (("gpipe10", meshes_gpipe10), ("gpipe5", meshes_gpipe5), ("ep10", meshes_ep10),
+                     ("lora_tp", meshes_lora_tp), ("mnist", meshes_mnist)):
+        t = time.perf_counter()
+        good, res = fn()
+        res["s"] = time.perf_counter() - t
+        log(f"[meshes] ({part}) {json.dumps(res, default=str)} {'OK' if good else 'FAIL'}")
+        ok &= good
+        out[part] = res
+    _free_card()
+    return ok, out
+
+
+def drive_gpipe_target() -> tuple[bool, dict]:
+    """Config 10's GPipe row to 0.60 next-token accuracy: profiled rounds
+    until the target, at least 5 and at most 10 (``bench_suite.py``'s
+    loop), then two unprofiled rounds for s/round."""
+    _free_card()
+    _, _, fed = _gpipe10_fed()
+    t0 = time.perf_counter()
+    curve, reached, time_to = [], None, None
+    for r in range(GPIPE10_TARGET["max_rounds"]):
+        fed.run_round(profile=True)
+        curve.append(fed.evaluate()["test_acc"])
+        if reached is None and curve[-1] >= GPIPE10_TARGET["target"]:
+            reached, time_to = r + 1, time.perf_counter() - t0
+        if reached is not None and r + 1 >= GPIPE10_TARGET["min_rounds"]:
+            break
+    profile = fed.last_profile
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2):
+        fed.run_round()
+    torch.cuda.synchronize()
+    out = {"curve": curve, "rounds_to_target": reached, "time_to_target_s": time_to,
+           "s_round": (time.perf_counter() - t) / 2, "profile": profile}
+    ok = reached is not None
+    log(f"[gpipe_target] {json.dumps(out)} {'OK' if ok else 'FAIL'}")
+    return ok, out
+
+
 PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "sharded", "wire",
-          "compress", "mnist", "cifar", "chunked", "nameplate", "config7", "moe", "async", "megafleet")
+          "compress", "mnist", "cifar", "chunked", "nameplate", "config7", "moe", "async", "megafleet", "meshes")
 #: phases that need more than one card: run only when named in --only
 MULTI_CARD_PHASES = ("exchange_peer",)
 #: the runs to a target accuracy (minutes each) and the control of the
 #: lossy codecs' spread limit: run only when named in --only
 TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target", "round_flops", "trace_flash",
-                 "trace_cifar")
+                 "trace_cifar", "gpipe_target")
 
 
 def main(argv=None) -> int:
@@ -6292,6 +6721,13 @@ def main(argv=None) -> int:
         good, megafleet = timed("megafleet", drive_megafleet)
         ok &= good
         count("megafleet", {"fleet_chunk": megafleet["kernel_row"]["launches"]}, ("fleet_chunk",))
+    if "meshes" in args.only:
+        good, meshes = timed("meshes", drive_meshes)
+        ok &= good
+        # kernels 1-2 in the pipelined step at config 5 (b), 1, 3, 4 in the
+        # LoRA round on the (4, 4) mesh with the base split (d)
+        count("meshes_gpipe5", meshes["gpipe5"]["launches_pipe"], ("flash_fwd", "flash_bwd_dkvq"))
+        count("meshes_lora_tp", meshes["lora_tp"]["split_base"]["launches"], ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
     if "moe_target" in args.only:
         good, _ = timed("moe_target", drive_moe_target)
         ok &= good
@@ -6303,6 +6739,9 @@ def main(argv=None) -> int:
         ok &= good
     if "trace_cifar" in args.only:
         good, _ = timed("trace_cifar", drive_trace_cifar)
+        ok &= good
+    if "gpipe_target" in args.only:
+        good, _ = timed("gpipe_target", drive_gpipe_target)
         ok &= good
     if "chunked_target" in args.only:
         good, _ = timed("chunked_target", drive_chunked_target)

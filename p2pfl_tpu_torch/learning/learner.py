@@ -63,12 +63,15 @@ class GradientTransformation(NamedTuple):
     graph. The port's constructors set it; a caller's pair defaults to
     False. ``node_stacked``: the same transform over node-stacked trees
     ``[N, ...]`` where it differs (a global norm is taken per node), None
-    for an elementwise transform, which steps a stacked tree as it is."""
+    where it steps a stacked tree as it is. ``elementwise``: every element
+    steps on its own values alone (Adam, SGD), so a leaf split into slot
+    shards steps shard by shard to the whole's bits."""
 
     init: Callable
     update: Callable
     capturable: bool = False
     node_stacked: Optional["GradientTransformation"] = None
+    elementwise: bool = False
 
 
 #: a learning rate: a float, or a schedule, a function of the int32 step
@@ -127,7 +130,7 @@ def adam(
 
         return tree(updates), AdamState(count, tree(mu), tree(nu))
 
-    return GradientTransformation(init, update, capturable=True)
+    return GradientTransformation(init, update, capturable=True, elementwise=True)
 
 
 def sgd(lr: LearningRate = 1e-3, momentum: Optional[float] = None, nesterov: bool = False) -> GradientTransformation:
@@ -157,7 +160,7 @@ def sgd(lr: LearningRate = 1e-3, momentum: Optional[float] = None, nesterov: boo
         updates = torch._foreach_mul(g, _step_size(lr, state.count))
         return tree_unflatten(dict(zip(paths, updates))), SgdState(state.count + 1, trace)
 
-    return GradientTransformation(init, update, capturable=True)
+    return GradientTransformation(init, update, capturable=True, elementwise=True)
 
 
 def apply_updates(params: dict, updates: dict) -> dict:
@@ -228,6 +231,44 @@ def init_opt_state(tx: GradientTransformation, params: dict):
     return map_state(lambda d: from_shard_flat(d, params) if d else d, tx.init(shard_flat(params)))
 
 
+def update_by_device(tx: GradientTransformation, grads: dict, opt_state, params: dict):
+    """``tx.update`` over a shard-flat tree whose shards lie on several
+    devices: one update a device, each over that device's leaves with the
+    shared 0-d state (the step count) moved there, the results merged.
+    An elementwise transform gives every leaf what one update over the
+    whole tree would; a tree on one device takes one update."""
+    from p2pfl_tpu_torch.parallel.sharding import map_state
+
+    groups: dict = {}
+    for path, leaf in tree_items(params):
+        groups.setdefault(leaf.device, set()).add(path)
+    if len(groups) == 1:
+        return tx.update(grads, opt_state, params)
+
+    def pick(tree: dict, paths: set) -> dict:
+        return tree_unflatten({p: v for p, v in tree_items(tree) if p in paths})
+
+    parts = []
+    for dev, paths in groups.items():
+        state = torch.utils._pytree.tree_map(
+            lambda t, dev=dev: t.to(dev) if t.dim() == 0 else t,
+            map_state(lambda d, paths=paths: pick(d, paths) if d else d, opt_state),
+        )
+        parts.append(tx.update(pick(grads, paths), state, pick(params, paths)))
+    first = next(iter(groups))
+
+    def merge(states):
+        head = states[0]
+        if isinstance(head, dict):
+            return tree_unflatten({p: v for s_ in states for p, v in tree_items(s_)})
+        if isinstance(head, tuple):
+            out = [merge([s_[i] for s_ in states]) for i in range(len(head))]
+            return type(head)(*out) if hasattr(head, "_fields") else type(head)(out)
+        return head.to(first) if isinstance(head, torch.Tensor) else head
+
+    return merge([u for u, _ in parts]), merge([st for _, st in parts])
+
+
 def _placed_train_step(params: dict, opt_state, x, y, module, tx, prox_mu: float, anchor):
     """:func:`train_step` on a placed tree: the forward and backward on
     the gathered tensors, the gradients split into the params' slot
@@ -242,7 +283,7 @@ def _placed_train_step(params: dict, opt_state, x, y, module, tx, prox_mu: float
         gather_tree(params), module, x, y, prox_mu, None if anchor is None else gather_tree(anchor)
     )
     flat = shard_flat(params)
-    updates, opt_state = tx.update(shard_flat(split_like(grads, params)), map_state(shard_flat, opt_state), flat)
+    updates, opt_state = update_by_device(tx, shard_flat(split_like(grads, params)), map_state(shard_flat, opt_state), flat)
     new = from_shard_flat(apply_updates(flat, updates), params)
     return new, map_state(lambda d: from_shard_flat(d, params) if d else d, opt_state), loss
 

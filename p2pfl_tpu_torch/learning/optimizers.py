@@ -136,7 +136,8 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     stacked = None
     if any(tx.node_stacked is not None for tx in txs):
         stacked = chain(*(tx.node_stacked or tx for tx in txs))
-    return GradientTransformation(init, update, all(tx.capturable for tx in txs), stacked)
+    return GradientTransformation(init, update, all(tx.capturable for tx in txs), stacked,
+                                  elementwise=all(tx.elementwise for tx in txs))
 
 
 def clipped(name: str = "adam", lr: LearningRate = 1e-3, max_norm: float = 1.0) -> GradientTransformation:

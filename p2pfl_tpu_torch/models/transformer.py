@@ -380,6 +380,8 @@ class CausalLM(nn.Module):
             # does not thread the sown router losses)
             raise NotImplementedError("scan_layers with MoE: use unrolled layers for MoE")
         self.cfg = cfg
+        # the attention the blocks were built with (a pipeline's stages build theirs from it)
+        self.attn_fn = attn_fn
         self.layers = nn.ModuleList(Block(cfg, attn_fn) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dtype)
 

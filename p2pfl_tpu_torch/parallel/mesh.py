@@ -23,6 +23,12 @@ Two layouts ship:
   node owns a ``(data, model)`` slice (:func:`node_slices`), and the ICI
   weights plane moves model payloads between slices
   (``parallel/ici_plane.py``).
+- :func:`pipeline_mesh` — ``(pipe,)``: GPipe stage s runs on position s
+  (``parallel/pipeline.py``).
+
+A node-stacked federation (``parallel/spmd.py``) places ``[N, ...]``
+state along the first (nodes) axis; :meth:`Mesh.node_rows` gives the
+slice at each index of that axis, the slots one row of nodes computes on.
 """
 
 from __future__ import annotations
@@ -60,11 +66,19 @@ class Mesh:
         self.slots = np.arange(devices.size).reshape(devices.shape) if slots is None else slots
         if self.slots.shape != devices.shape:
             raise ValueError(f"slots {self.slots.shape} do not match devices {devices.shape}")
+        self._rows: Optional[list] = None
 
     @property
     def slot_keys(self) -> frozenset:
         """The global identity of every position: ``(uid, slot)`` pairs."""
         return frozenset((self.uid, int(s)) for s in self.slots.flat)
+
+    def node_rows(self) -> list["Mesh"]:
+        """:func:`node_slices` of this mesh, made once, so a row keeps one
+        identity (its shardings compare equal from call to call)."""
+        if self._rows is None:
+            self._rows = node_slices(self)
+        return self._rows
 
     def axis_devices(self, axis_name: str) -> list[torch.device]:
         """The devices along ``axis_name`` at index 0 of every other axis."""
@@ -168,10 +182,23 @@ def node_slices(mesh: Mesh) -> list[Mesh]:
     node_dim = mesh.axis_names.index(nodes_axis)
     return [
         Mesh(
-            np.take(mesh.devices, i, axis=node_dim),
+            np.take(mesh.devices, [i], axis=node_dim).squeeze(node_dim),
             axis_names,
-            slots=np.take(mesh.slots, i, axis=node_dim),
+            slots=np.take(mesh.slots, [i], axis=node_dim).squeeze(node_dim),
             uid=mesh.uid,
         )
         for i in range(mesh.shape[nodes_axis])
     ]
+
+
+def pipeline_mesh(
+    n_stages: int, devices: Optional[Sequence[Union[str, torch.device]]] = None, axis: str = "pipe"
+) -> Mesh:
+    """A 1-axis mesh of ``n_stages`` positions for a GPipe pipeline (JAX's
+    ``pipeline_mesh``): the first ``n_stages`` of ``devices``, which may
+    repeat (``["cuda:0"] * 4`` runs four stages in turn on one card);
+    ``None`` takes the visible CUDA devices. Too few devices raise."""
+    devs = _devices(devices)[:n_stages]
+    if len(devs) < n_stages:
+        raise ValueError(f"need {n_stages} devices, have {len(devs)}")
+    return Mesh(_object_array(devs, (n_stages,)), (axis,))

@@ -44,6 +44,15 @@ each placed leaf becomes ``{"#k": shard k}``), which an elementwise
 optimizer (Adam, SGD) steps exactly as it steps the whole tensor.
 Optimizer state needs no separate rules: its paths embed the param path
 (``mu/layer_0/attn/wq/kernel``), and the rules use ``re.search``.
+
+**Node-stacked state.** A federation of N nodes on a ``(nodes, ...)``
+mesh places its ``[N, ...]`` leaves by the node-shifted spec
+``(nodes, *spec)`` (:func:`node_stacked_shardings`): N/k nodes a row of
+the nodes axis, the rules' axes one dimension to the right.
+:func:`split_rows` cuts such a tree into its rows (each row's block on the
+row's slots: a plain tensor where the row holds it whole, a
+:class:`SlotSharded` on the row's slice where the rules split it) and
+:func:`join_rows` puts rows back into the mesh's layout.
 """
 
 from __future__ import annotations
@@ -634,3 +643,114 @@ def transformer_shardings(mesh: Mesh, params: Tree) -> Tree:
     """:class:`SlotSharding` tree for a transformer param tree on ``mesh``."""
     return tree_shardings(mesh, params, DEFAULT_TRANSFORMER_RULES)
 
+
+
+def shard_transformer(mesh: Mesh, params: Tree) -> Tree:
+    """Place a transformer param tree onto ``mesh`` per the tensor-parallel
+    rules (JAX's ``shard_transformer``)."""
+    return place_tree(params, transformer_shardings(mesh, params))
+
+
+# ---- node-stacked trees on a (nodes, ...) mesh ----
+
+
+def node_shifted_spec(mesh: Mesh, spec: Sequence[AxisSpec], shape: Sequence[int]) -> tuple:
+    """``(nodes, *spec)`` for a node-stacked leaf whose one-node shape is
+    ``shape``: an axis whose mesh size does not divide its dimension falls
+    back to ``None`` (JAX's ``SpmdLmFederation._node_stacked_shardings``)."""
+    fixed: list = [Settings.MESH_NODES_AXIS]
+    for i, axis in enumerate(spec):
+        if axis is None:
+            fixed.append(None)
+            continue
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        size = math.prod(mesh.shape[a] for a in axes)
+        fixed.append(axis if i < len(shape) and shape[i] % size == 0 else None)
+    return tuple(fixed)
+
+
+def node_stacked_shardings(mesh: Mesh, tree: Tree, rules: Optional[PartitionRules] = None) -> Tree:
+    """:class:`SlotSharding` tree for the node-stacked form of ``tree`` (a
+    one-node tree): every leaf split over the nodes axis, and with
+    ``rules`` each leaf's rule spec shifted one dimension right
+    (:func:`node_shifted_spec`)."""
+    unmatched: list[str] = []
+
+    def one(path, leaf):
+        spec = _rule_spec(rules, path, leaf, unmatched) if rules is not None else ()
+        return SlotSharding(mesh, node_shifted_spec(mesh, spec, tuple(leaf.shape)))
+
+    out = map_with_path(one, tree)
+    if unmatched:
+        _raise_unmatched(unmatched)
+    return out
+
+
+def n_rows(leaf) -> int:
+    """The nodes-axis size of the mesh a node-stacked leaf is placed on (1
+    for a plain tensor)."""
+    return leaf.mesh.shape[Settings.MESH_NODES_AXIS] if is_placed(leaf) else 1
+
+
+def row_block(leaf, i: int, k: int):
+    """Row ``i`` (of ``k``) of a leaf placed on a ``(nodes, ...)`` mesh:
+    its block on the row's slots, a plain tensor where the row holds it
+    whole (its first slot's copy), else a :class:`SlotSharded` on the
+    row's slice. A plain leaf is its own row (one row, or a global kept
+    whole on the first device)."""
+    if not is_placed(leaf):
+        return leaf
+    nodes = Settings.MESH_NODES_AXIS
+    m = len(leaf.shards) // k
+    stacked = bool(leaf.spec) and leaf.spec[0] == nodes
+    shape = (leaf.shape[0] // k, *leaf.shape[1:]) if stacked else tuple(leaf.shape)
+    sharding = SlotSharding(leaf.mesh.node_rows()[i], tuple(None if a == nodes else a for a in leaf.spec))
+    shards = leaf.shards[i * m:(i + 1) * m]
+    return shards[0] if sharding.is_fully_replicated else SlotSharded(sharding, shape, leaf.dtype, shards)
+
+
+def _leaf_map(fn: Callable, tree):
+    """``fn`` over the leaves of a named tree, a placed leaf one leaf."""
+    return map_with_path(lambda _, x: fn(x), tree)
+
+
+def split_rows(tree: Tree, k: int) -> list:
+    """The ``k`` rows of a tree placed along a mesh's nodes axis
+    (:func:`row_block` leaf by leaf); a ``None`` tree gives ``None`` rows."""
+    if tree is None:
+        return [None] * k
+    return [_leaf_map(lambda x, i=i: row_block(x, i, k), tree) for i in range(k)]
+
+
+def join_rows(rows: list, like: Tree) -> Tree:
+    """Rows back into ``like``'s layout, the inverse of :func:`split_rows`:
+    a placed leaf's shards are its rows' shards (a row's whole block
+    serves every slot of the row, moved to each slot's device), a plain
+    leaf is row 0's (one row, or a count every row stepped alike)."""
+    flat = [dict(named_paths(r)) for r in rows]
+
+    def one(path, ref):
+        blocks = [f[path] for f in flat]
+        if not is_placed(ref):
+            b = blocks[0]
+            return b.to(ref.device) if isinstance(b, torch.Tensor) and b.device != ref.device else b
+        shards = []
+        for i, b in enumerate(blocks):
+            if is_placed(b):
+                shards += b.shards
+            else:
+                shards += [b if b.device == d else b.to(d) for d in ref.mesh.node_rows()[i].devices.flat]
+        return SlotSharded(ref.sharding, ref.shape, blocks[0].dtype, shards)
+
+    return map_with_path(one, like)
+
+
+def select0(leaf, r: int):
+    """Index ``r`` of a leaf's leading dimension, which no axis splits
+    (a fused span's round axis ``[R, N, ...]``)."""
+    if not is_placed(leaf):
+        return leaf[r]
+    if leaf.spec and leaf.spec[0] is not None:
+        raise ValueError(f"select0: the leading dimension is split ({leaf.spec})")
+    sharding = SlotSharding(leaf.mesh, tuple(leaf.spec[1:]))
+    return SlotSharded(sharding, leaf.shape[1:], leaf.dtype, [s[r] for s in leaf.shards])

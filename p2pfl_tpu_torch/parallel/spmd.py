@@ -27,9 +27,24 @@ one replayed CUDA graph a node on the card). Every model of the port's
 zoo runs here: the MLP's and ViT's GEMMs become batched GEMMs, and the
 CNN's and ResNet's convolutions grouped convolutions (``groups = N``)
 under the vmap. Checkpoints go through ``learning/checkpoint.py``;
-``profile_round`` times a round's phases. Not ported: the device mesh
-(ROADMAP Queue A item 5). ``parallel/chunked.py`` streams the nodes
-through the device in chunks where their state does not fit.
+``profile_round`` times a round's phases. ``parallel/chunked.py`` streams
+the nodes through the device in chunks where their state does not fit.
+
+**The mesh.** ``mesh=`` (a :class:`~p2pfl_tpu_torch.parallel.mesh.Mesh`
+whose first axis is ``nodes``) places the node-stacked params, optimizer
+state, data, shuffles, masks and sample weights along the nodes axis, N/k
+nodes a row (``parallel/sharding.py::split_rows``), and each row's nodes
+step on that row's device. The default mesh is JAX's: as many rows as
+divide N, capped at the visible devices (one card: one row, every tensor
+plain). The aggregation folds across rows: FedAvg sums ``w_i · x_i``
+node by node in node order (:func:`_node_sum`, ``ops.sum_nodes``'
+order), so k rows fold to one row's bits; the robust rules and the clip
+center take the selected rows to the first row's device and run there;
+the diffusion writes every row. A model axis wider than one is for the
+subclasses that place a node's tensors over it (``spmd_lm.py``'s tensor
+and expert parallelism, ``spmd_lora.py``'s ``model_parallel_base``): a
+row's model-sharded step computes on the gathered tensors and steps the
+optimizer shard by shard (``learning/learner.py::_placed_train_step``'s design).
 """
 
 from __future__ import annotations
@@ -49,13 +64,18 @@ from torch.utils.checkpoint import checkpoint
 from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.learning.dataset import FederatedDataset
 from p2pfl_tpu_torch.learning.learner import (
-    GradientTransformation, _loss, _prox_term, adam, apply_updates, eval_step, sgd,
-    softmax_cross_entropy, train_epoch, train_step,
+    GradientTransformation, _loss, _prox_term, adam, apply_updates, eval_step, init_opt_state, sgd,
+    softmax_cross_entropy, train_epoch, train_step, update_by_device,
 )
 from p2pfl_tpu_torch.learning.privacy import PrivacyAccountant, dp_grads
 from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.ops import aggregation as ops
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_unflatten
+from p2pfl_tpu_torch.parallel.mesh import Mesh, federation_mesh
+from p2pfl_tpu_torch.parallel.sharding import (
+    SlotSharded, SlotSharding, from_shard_flat, gather, gather_tree, join_rows, map_state, n_rows, node_stacked_shardings,
+    place, row_block, select0, shard_flat, split_like, split_rows, tree_is_placed,
+)
 from p2pfl_tpu_torch.settings import Settings
 
 _AGGREGATORS = ("fedavg", "median", "trimmed_mean", "krum", "bulyan", "clip")
@@ -75,6 +95,15 @@ def _node_loss(module, prox_mu: float):
         return out
 
     return loss
+
+
+def _steps_mean(losses: list) -> torch.Tensor:
+    """The mean of per-step ``[n]`` losses, summed step by step: elementwise,
+    so a node's mean does not depend on how many nodes share the tensor."""
+    acc = losses[0]
+    for x in losses[1:]:
+        acc = acc + x
+    return acc / len(losses)
 
 
 def _value_and_grad(node_loss, params: dict, x, y, anchor=None, remat: bool = False):
@@ -117,6 +146,11 @@ def _local_epoch(
     mean loss [N][, gsum])``.
     """
     node_loss = _node_loss(module, prox_mu)
+    # a row of a model-sharded mesh: the step on the gathered tensors, the
+    # optimizer shard by shard (``learning/learner.py::_placed_train_step``)
+    placed = tree_is_placed(params)
+    if placed and (dp_clip > 0.0 or corr is not None or accumulate_grads):
+        raise ValueError("DP-SGD and SCAFFOLD do not run on a mesh whose model axis splits a node's tensors")
 
     def loss_one(p, xi, yi, anchor_):
         return node_loss(p, xi[None], yi[None], anchor_)
@@ -131,39 +165,95 @@ def _local_epoch(
                 loss_one, params, x, y, dp_clip, dp_noise, dp_gen, remat=remat, anchor=anchor,
                 node_axis=True,
             )
+        elif placed:
+            loss, grads = _value_and_grad(
+                node_loss, gather_tree(params), x, y, None if anchor is None else gather_tree(anchor), remat
+            )
         else:
             loss, grads = _value_and_grad(node_loss, params, x, y, anchor, remat)
         if accumulate_grads:
             gsum = tree_map(lambda s_, g: s_ + g.float(), gsum, grads)
         if corr is not None:
             grads = tree_map(lambda g, c: g + c.to(g.dtype), grads, corr)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
+        if placed:
+            flat = shard_flat(params)
+            updates, opt_state = update_by_device(
+                tx, shard_flat(split_like(grads, params)), map_state(shard_flat, opt_state), flat
+            )
+            params = from_shard_flat(apply_updates(flat, updates), params)
+            opt_state = map_state(lambda d, like=params: from_shard_flat(d, like) if d else d, opt_state)
+        else:
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = apply_updates(params, updates)
         losses.append(loss)
-    mean = torch.stack(losses).mean(dim=0)
+    mean = _steps_mean(losses)
     if accumulate_grads:
         return params, opt_state, mean, gsum
     return params, opt_state, mean
 
 
-def _aggregate(p_used, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
-    """Combine node-stacked params [N, ...] into one model (fp32 accumulate).
+def _node_sum(blocks: list) -> torch.Tensor:
+    """The sum over the node axis of a tensor held as row blocks ``[n_i,
+    ...]`` (one block: the whole stack), node by node in node order: one
+    elementwise add a node, ``ops.sum_nodes``' order carried from row to
+    row, so an element's sum depends neither on the shape it sits in nor
+    on how many rows hold the nodes. The sum lies on the last row's
+    device."""
+    acc = None
+    for b in blocks:
+        for i in range(b.shape[0]):
+            acc = b[i] if acc is None else acc.to(b.device) + b[i]
+    return acc
 
-    ``sel_idx`` is the [K] tensor of train-set ∩ active node indices. The
-    robust aggregators see only those K rows: the other slots hold stale
-    copies of the previous aggregate, which would dominate the median and
-    win Krum's score (host Node mode likewise aggregates train-set models
-    only). ``center`` is the clip aggregator's starting point.
+
+def _fedavg_rows(rows: list, weights: torch.Tensor) -> dict:
+    """FedAvg over node-stacked row trees: the weights [N] normalized over
+    all nodes, each node's ``w_i · x_i`` in fp32, summed by
+    :func:`_node_sum`, cast back to the leaf's dtype."""
+    w = weights.float()
+    w = w / w.sum()
+
+    def leaf(*blocks):
+        terms, lo = [], 0
+        for b in blocks:
+            wb = w[lo:lo + b.shape[0]].to(b.device).reshape(-1, *([1] * (b.dim() - 1)))
+            terms.append(wb * b.float())
+            lo += b.shape[0]
+        return _node_sum(terms).to(blocks[0].dtype)
+
+    return tree_map(leaf, *rows)
+
+
+def _whole(rows: list, device) -> dict:
+    """Row trees as one node-stacked tree on ``device`` (the rows in
+    order; one row as it is)."""
+    if len(rows) == 1:
+        return rows[0]
+    return tree_map(lambda *bs: torch.cat([b.to(device) for b in bs]), *rows)
+
+
+def _aggregate_rows(rows: list, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
+    """Combine node-stacked params, held as row trees of whole tensors
+    (one row: the ``[N, ...]`` stack), into one model (fp32 accumulate).
+    ``mask`` and ``weights`` are the whole ``[N]`` vectors.
+
+    FedAvg folds row by row (:func:`_fedavg_rows`). ``sel_idx`` is the
+    [K] tensor of train-set ∩ active node indices: the robust aggregators
+    see only those K rows, gathered to ``sel_idx``'s device. The other
+    slots hold stale copies of the previous aggregate, which would
+    dominate the median and win Krum's score (host Node mode likewise
+    aggregates train-set models only). ``center`` is the clip
+    aggregator's starting point.
     """
     if agg == "fedavg":
-        return ops.fedavg(p_used, mask * weights)
+        return _fedavg_rows(rows, mask * weights)
     k = sel_idx.shape[0]
-    p_sel = tree_map(lambda x: x.index_select(0, sel_idx), p_used)
+    p_sel = tree_map(lambda x: x.index_select(0, sel_idx), _whole(rows, sel_idx.device))
     if agg == "median":
-        return ops.fedmedian(p_sel)
+        return ops.robust_fold_stacked(p_sel, p_sel, "median")
     if agg == "trimmed_mean":
         # clamp like the host-side TrimmedMean class: 2*trim must leave >=1 row
-        return ops.trimmed_mean(p_sel, min(trim, (k - 1) // 2))
+        return ops.robust_fold_stacked(p_sel, p_sel, "trimmed-mean", trim=min(trim, (k - 1) // 2))
     if agg == "krum":
         return ops.krum(p_sel, n_byzantine=trim, multi=1)
     if agg == "bulyan":
@@ -173,6 +263,95 @@ def _aggregate(p_used, mask, weights, sel_idx, agg: str, trim: int, center=None,
             raise ValueError("the clip aggregator needs the round's center")
         return ops.centered_clip(p_sel, center, clip_tau)
     raise ValueError(f"unknown aggregator {agg}")
+
+
+def _aggregate(p_used, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
+    """:func:`_aggregate_rows` of one node-stacked tree ``[N, ...]``."""
+    return _aggregate_rows([p_used], mask, weights, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
+
+
+def _on_row(state, device):
+    """A row's optimizer state with its shared 0-d leaves (the step
+    count, kept on the first slot) on the row's device."""
+    return torch.utils._pytree.tree_map(lambda t: t.to(device) if t.dim() == 0 else t, state)
+
+
+def _node_round(
+    stacked_params, opt_states, x_all, y_all, perm, mask, c_local, *,
+    module, tx, remat, prox_mu, scaffold, scaffold_fused_ci, local_lr, c_global, dp_clip, dp_noise, dp_gen,
+):
+    """One row's nodes through the round's local part (the whole stack on
+    one row): SCAFFOLD's correction, the local epochs, the new variates and
+    the train-set select. Returns ``(p_used, opt, losses [n], ci_new,
+    c_local')``, ``p_used`` as whole tensors on the row's device."""
+    n = mask.shape[0]
+    fused_ci = scaffold and scaffold_fused_ci
+    opt_states = _on_row(opt_states, mask.device)
+    if scaffold:
+        c_global = tree_map(lambda c: c.to(mask.device), c_global)
+    # SCAFFOLD correction c − c_i, once for every node and step
+    corr = tree_map(
+        lambda c, cl, p: (c[None] - cl).to(p.dtype), c_global, c_local, stacked_params
+    ) if scaffold else None
+    # the round-start params, kept only where something reads them later
+    anchor = stacked_params if (prox_mu > 0.0 or (scaffold and not fused_ci)) else None
+    nodes = torch.arange(n, device=perm.device)[:, None, None]
+    p, o = stacked_params, opt_states
+    gsum = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), p) \
+        if fused_ci else None
+    epoch_losses = []
+    for e in range(perm.shape[1]):
+        idx = perm[:, e].long()  # [n, nb, bs]
+        out = _local_epoch(
+            p, o, x_all[nodes, idx], y_all[nodes, idx], module, tx, remat,
+            prox_mu=prox_mu, anchor=anchor, corr=corr,
+            dp_clip=dp_clip, dp_noise=dp_noise, dp_gen=dp_gen, accumulate_grads=fused_ci,
+        )
+        if fused_ci:
+            p, o, loss, g_ep = out
+            gsum = tree_map(torch.add, gsum, g_ep)
+        else:
+            p, o, loss = out
+        epoch_losses.append(loss)
+    losses = _steps_mean(epoch_losses)  # [n]
+    k_steps = perm.shape[1] * perm.shape[2]
+    ci_new = None
+    if fused_ci:
+        # under plain SGD option II's c_i⁺ reduces exactly to the mean
+        # step gradient: no round-start params, no cancellation
+        ci_new = tree_map(lambda g: g / k_steps, gsum)
+    elif scaffold:
+        # c_i⁺ = c_i − c + (x_global − y_i)/(K·η)  (SCAFFOLD option II)
+        ci_new = tree_map(
+            lambda cl, c, a, y_: cl - c + (a.float() - y_.float()) / (k_steps * local_lr),
+            c_local, c_global, anchor, p,
+        )
+
+    def sel(new, old):
+        # non-train-set nodes contribute their previous params
+        m = mask.reshape((n,) + (1,) * (new.dim() - 1)).to(new.dtype)
+        return new * m + old * (1 - m)
+
+    p_used = tree_map(sel, gather_tree(p), gather_tree(stacked_params))
+    c_local_out = tree_map(sel, ci_new, c_local) if scaffold else None
+    return p_used, o, losses, ci_new, c_local_out
+
+
+def _diffuse(agg_params: dict, like: dict) -> dict:
+    """The diffusion: every node of ``like`` (node-stacked, plain or placed
+    along a mesh's nodes axis) receives ``agg_params``, in ``like``'s
+    layout."""
+    k = n_rows(tree_leaves(like)[0])
+
+    def row(r):
+        return tree_map(
+            lambda a, ref: place(a.to(ref.device)[None].expand(ref.shape[0], *a.shape), ref.sharding)
+            if isinstance(ref, SlotSharded) else a.to(ref.device)[None].expand(ref.shape[0], *a.shape).clone(),
+            agg_params, r,
+        )
+
+    rows = [row(r) for r in split_rows(like, k)]
+    return join_rows(rows, like) if tree_is_placed(like) else rows[0]
 
 
 def _round_core(
@@ -204,99 +383,86 @@ def _round_core(
     dp_noise: float = 0.0,
     dp_gen: Optional[torch.Generator] = None,
 ):
-    """One federated round (train → aggregate → diffuse). Returns
-    ``(out_params, out_opt, mean_loss, scaffold_state, fedopt_state,
-    agg_params)``; the state tuples are ``()`` when the feature is off."""
+    """One federated round (train → aggregate → diffuse). The node-stacked
+    inputs are plain tensors or placed along a mesh's nodes axis; each row
+    of that axis trains on its device (:func:`_node_round`), then the rows
+    fold into one aggregate on ``sel_idx``'s device (the first row's).
+    Returns ``(out_params, out_opt, mean_loss, scaffold_state,
+    fedopt_state, agg_params)``; the state tuples are ``()`` when the
+    feature is off."""
     n = mask.shape[0]
-    fused_ci = scaffold and scaffold_fused_ci
-    # SCAFFOLD correction c − c_i, once for every node and step
-    corr = tree_map(
-        lambda c, cl, p: (c[None] - cl).to(p.dtype), c_global, c_local, stacked_params
-    ) if scaffold else None
-    # the round-start params, kept only where something reads them later
-    anchor = stacked_params if (prox_mu > 0.0 or (scaffold and not fused_ci)) else None
-    nodes = torch.arange(n, device=perm.device)[:, None, None]
-    p, o = stacked_params, opt_states
-    gsum = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), p) \
-        if fused_ci else None
-    epoch_losses = []
-    for e in range(perm.shape[1]):
-        idx = perm[:, e].long()  # [N, nb, bs]
-        out = _local_epoch(
-            p, o, x_all[nodes, idx], y_all[nodes, idx], module, tx, remat,
-            prox_mu=prox_mu, anchor=anchor, corr=corr,
-            dp_clip=dp_clip, dp_noise=dp_noise, dp_gen=dp_gen, accumulate_grads=fused_ci,
-        )
-        if fused_ci:
-            p, o, loss, g_ep = out
-            gsum = tree_map(torch.add, gsum, g_ep)
-        else:
-            p, o, loss = out
-        epoch_losses.append(loss)
-    losses = torch.stack(epoch_losses).mean(dim=0)  # [N]
-    k_steps = perm.shape[1] * perm.shape[2]
-    if fused_ci:
-        # under plain SGD option II's c_i⁺ reduces exactly to the mean
-        # step gradient: no round-start params, no cancellation
-        ci_new = tree_map(lambda g: g / k_steps, gsum)
-    elif scaffold:
-        # c_i⁺ = c_i − c + (x_global − y_i)/(K·η)  (SCAFFOLD option II)
-        ci_new = tree_map(
-            lambda cl, c, a, y_: cl - c + (a.float() - y_.float()) / (k_steps * local_lr),
-            c_local, c_global, anchor, p,
-        )
+    k = n_rows(mask)
+    first = sel_idx.device
+    placed = tree_is_placed(stacked_params)
+    node_kw = dict(
+        module=module, tx=tx, remat=remat, prox_mu=prox_mu, scaffold=scaffold,
+        scaffold_fused_ci=scaffold_fused_ci, local_lr=local_lr, c_global=c_global,
+        dp_clip=dp_clip, dp_noise=dp_noise, dp_gen=dp_gen,
+    )
+    inputs = (stacked_params, opt_states, x_all, y_all, perm, mask, c_local)
+    rows = [_node_round(*parts, **node_kw) for parts in zip(*(split_rows(t, k) for t in inputs))]
+    mask_all, w_all = gather(mask), gather(weights)
+    losses = _whole([r[2] for r in rows], first)  # [N]
 
-    def sel(new, old):
-        # non-train-set nodes contribute their previous params
-        m = mask.reshape((n,) + (1,) * (new.dim() - 1)).to(new.dtype)
-        return new * m + old * (1 - m)
-
-    p_used = tree_map(sel, p, stacked_params)
     # clip center: the coordinate-wise median of the elected rows of the
     # round's incoming params (every slot holds the shared model after a
     # diffusion; a tampered slot cannot choose the center)
-    center = tree_map(lambda x: ops.median0(x.index_select(0, sel_idx)), stacked_params) \
-        if agg == "clip" else None
-    agg_params = _aggregate(p_used, mask, weights, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
+    center = None
+    if agg == "clip":
+        start = _whole([gather_tree(r) for r in split_rows(stacked_params, k)], first)
+        center = tree_map(lambda x: ops.median0(x.index_select(0, sel_idx)), start)
+    agg_params = _aggregate_rows([r[0] for r in rows], mask_all, w_all, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
+    agg_params = tree_map(lambda a: a.to(first), agg_params)
 
     fedopt_state = ()
     if server_opt:
-        # pseudo-gradient prev_global − aggregate; slot 0's incoming params
+        # pseudo-gradient prev_global − aggregate; node 0's incoming params
         # are the previous global (diffusion left every slot identical)
-        prev_global = tree_map(lambda x: x[0], stacked_params)
+        prev_global = tree_map(lambda x: x[0], gather_tree(split_rows(stacked_params, k)[0]))
         agg_params, opt_m, opt_v = ops.fedopt_update(
             prev_global, agg_params, opt_m, opt_v, opt_t, opt=server_opt, lr=server_lr
         )
         fedopt_state = (opt_m, opt_v)
 
     # diffusion: every node receives the aggregate
-    out_params = tree_map(lambda a: a[None].expand(n, *a.shape).clone(), agg_params)
+    out_params = _diffuse(agg_params, stacked_params)
     # keep_opt_state carries every node's own trained moments across rounds
-    out_opt = o if keep_opt_state else tx.init(out_params)
-    train = mask.bool()
+    if keep_opt_state:
+        out_opt = join_rows([r[1] for r in rows], opt_states) if placed else rows[0][1]
+    else:
+        out_opt = init_opt_state(tx, out_params)
+    train = mask_all.bool()
     mean_loss = torch.where(train, losses, torch.zeros_like(losses)).sum() / train.sum()
 
     scaffold_state = ()
     if scaffold:
         # only train-set nodes commit their new variates; the server
         # variate moves by |S|/N times the mean train-set delta
-        c_local_out = tree_map(sel, ci_new, c_local)
-        n_train = torch.clamp(mask.sum(), min=1.0)
+        c_local_out = join_rows([r[4] for r in rows], c_local) if placed else rows[0][4]
+        n_train = torch.clamp(mask_all.sum(), min=1.0)
+        deltas = [
+            tree_map(lambda cn, co, m=m: (cn - co) * m.reshape((m.shape[0],) + (1,) * (cn.dim() - 1)), r[3], cl)
+            for r, cl, m in zip(rows, split_rows(c_local, k), split_rows(mask, k))
+        ]
 
-        def upd(c, cn, co):
-            m = mask.reshape((n,) + (1,) * (cn.dim() - 1))
-            return c + (n_train / n) * (((cn - co) * m).sum(dim=0) / n_train)
+        def upd(c, *ds):
+            return c + (n_train / n) * (_node_sum(list(ds)).to(c.device) / n_train)
 
-        scaffold_state = (tree_map(upd, c_global, ci_new, c_local), c_local_out)
+        scaffold_state = (tree_map(upd, c_global, *deltas), c_local_out)
     return out_params, out_opt, mean_loss, scaffold_state, fedopt_state, agg_params
 
 
 def _agg_acc(module, agg_params, x_test, y_test) -> torch.Tensor:
     """Mean over nodes of the aggregated model's accuracy on each node's
-    test shard (``argmax`` takes the first of tied logits, as JAX's)."""
-    n, t = x_test.shape[:2]
-    logits = module(agg_params, x_test.reshape(n * t, *x_test.shape[2:]))
-    return (logits.argmax(dim=-1).reshape(n, t) == y_test.long()).float().mean(dim=1).mean()
+    test shard (``argmax`` takes the first of tied logits, as JAX's); a
+    row of the mesh's nodes axis on its device."""
+    k = n_rows(x_test)
+    accs = []
+    for xt, yt in zip(split_rows(x_test, k), split_rows(y_test, k)):
+        n, t = xt.shape[:2]
+        logits = module(tree_map(lambda a: a.to(xt.device), agg_params), xt.reshape(n * t, *xt.shape[2:]))
+        accs.append((logits.argmax(dim=-1).reshape(n, t) == yt.long()).float().mean(dim=1))
+    return _whole(accs, accs[0].device).mean()
 
 
 @torch.no_grad()
@@ -336,7 +502,8 @@ def spmd_rounds_fused(
     t = torch.zeros((), dtype=torch.float32, device=mask.device) if opt_t is None else opt_t
     p, o, cg, cl, m_, v_ = stacked_params, opt_states, c_global, c_local, opt_m, opt_v
     losses, accs = [], []
-    for perm in perms:
+    for r in range(perms.shape[0]):
+        perm = select0(perms, r)
         t = t + 1.0
         p, o, loss, sstate, fstate, agg_params = _round_core(
             p, o, x_all, y_all, perm, mask, weights, sel_idx,
@@ -356,11 +523,15 @@ def spmd_rounds_fused(
 
 @torch.no_grad()
 def spmd_eval(stacked_params, x_test, y_test, *, module):
-    """Per-node eval over node-stacked test shards: ([N] loss, [N] acc)."""
-    logits = torch.func.vmap(module)(stacked_params, x_test)
-    loss = softmax_cross_entropy(logits, y_test).mean(dim=-1)
-    acc = (logits.argmax(dim=-1) == y_test.long()).float().mean(dim=-1)
-    return loss, acc
+    """Per-node eval over node-stacked test shards: ([N] loss, [N] acc),
+    a row of the mesh's nodes axis on its device."""
+    k = n_rows(x_test)
+    losses, accs = [], []
+    for p, xt, yt in zip(split_rows(stacked_params, k), split_rows(x_test, k), split_rows(y_test, k)):
+        logits = torch.func.vmap(module)(gather_tree(p), xt)
+        losses.append(softmax_cross_entropy(logits, yt).mean(dim=-1))
+        accs.append((logits.argmax(dim=-1) == yt.long()).float().mean(dim=-1))
+    return _whole(losses, losses[0].device), _whole(accs, accs[0].device)
 
 
 class _CapturedSpan:
@@ -379,8 +550,9 @@ class _CapturedSpan:
     """
 
     def __init__(self, fed: "SpmdFederation", perms, mask, sel_idx, eval_: bool) -> None:
-        self.state = torch.utils._pytree.tree_map(torch.clone, (fed.params, fed.opt_state))
-        self.perms, self.mask, self.sel_idx = perms.clone(), mask.clone(), sel_idx.clone()
+        clone = partial(torch.utils._pytree.tree_map, torch.clone)
+        self.state = clone((fed.params, fed.opt_state))
+        self.perms, self.mask, self.sel_idx = clone((perms, mask, sel_idx))
         kw = fed._round_kwargs()
         test = (fed.x_test, fed.y_test) if eval_ else (None, None)
 
@@ -405,10 +577,7 @@ class _CapturedSpan:
     def run(self, fed: "SpmdFederation", perms, mask, sel_idx) -> tuple:
         """Replay on ``fed``'s state and inputs; returns (params, opt,
         *outputs) as ``spmd_rounds_fused`` does."""
-        _copy_tree((fed.params, fed.opt_state), self.state)
-        self.perms.copy_(perms)
-        self.mask.copy_(mask)
-        self.sel_idx.copy_(sel_idx)
+        _copy_tree((fed.params, fed.opt_state, perms, mask, sel_idx), (*self.state, self.perms, self.mask, self.sel_idx))
         self.graph.replay()
         return (*self.state, *(t.clone() for t in self.outs))
 
@@ -520,18 +689,23 @@ class CapturedTrainStep:
     params, opt state, batch and FedProx anchor from its own buffers and
     writes the stepped params and opt state back into them. Replays run
     the captured kernels, so an epoch of replays computes what
-    :func:`train_epoch` computes. A failed capture raises.
+    :func:`train_epoch` computes. ``step(params, opt_state, x, y,
+    anchor=) -> (params, opt_state, loss)`` replaces :func:`train_step`
+    (a GPipe step: ``spmd_lm.py::PipelineFederation``). A failed capture
+    raises.
     """
 
-    def __init__(self, params, opt_state, x, y, *, module, tx, prox_mu: float = 0.0) -> None:
+    def __init__(self, params, opt_state, x, y, *, module=None, tx=None, prox_mu: float = 0.0, step=None) -> None:
         device = x.device
         clone = partial(torch.utils._pytree.tree_map, torch.clone)
         self.state = clone((params, opt_state))
         self.batch = (x.clone(), y.clone())
         self.anchor = clone(params) if prox_mu > 0.0 else None
+        if step is None:
+            step = partial(train_step, module=module, tx=tx, prox_mu=prox_mu)
 
         def body():
-            p, o, loss = train_step(*self.state, *self.batch, module, tx, prox_mu, self.anchor)
+            p, o, loss = step(*self.state, *self.batch, anchor=self.anchor)
             _copy_tree((p, o), self.state)
             return loss
 
@@ -665,17 +839,28 @@ def elect_train_set_mask(n: int, py_rng) -> np.ndarray:
     return mask
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
+def node_slice(stacked: dict, i: int) -> dict:
+    """Node ``i`` of a node-stacked tree, plain or placed along a mesh's
+    nodes axis: whole tensors on the node's row's device."""
+    k = n_rows(tree_leaves(stacked)[0])
+    nk = tree_leaves(stacked)[0].shape[0] // k
+    row, j = divmod(i, nk)
+    return tree_map(lambda x: gather(row_block(x, row, k))[j], stacked)
 
 
 class SpmdFederation:
-    """N federated nodes stacked on one device's leading tensor axis.
+    """N federated nodes stacked on a leading tensor axis, one row of them
+    a position of the mesh's nodes axis.
 
     The drop-in high-throughput alternative to running N ``Node`` objects:
     same round semantics, same aggregators and algorithms as the JAX
-    class, none of the per-message overhead. ``device=None`` is the card.
+    class, none of the per-message overhead. ``device=None`` is the card
+    (the visible cards for the default mesh); ``mesh`` must hold devices of
+    that type.
     """
+
+    #: a subclass that places a node's tensors over a model axis sets this
+    _MODEL_AXIS = False
 
     def __init__(
         self,
@@ -703,13 +888,14 @@ class SpmdFederation:
         device=None,
     ) -> None:
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise _not_ported("a device mesh for SpmdFederation", "5")
         self.model = model
         self.module = model.module
         self.n = len(datasets)
         if self.n < 1:
             raise ValueError("need at least one dataset shard")
+        self.mesh = self._default_mesh(device) if mesh is None else self._check_mesh(mesh)
+        # replicated state (globals, the selected rows) lives on the first slot
+        self.device = next(iter(self.mesh.devices.flat))
         if Settings.SECURE_AGGREGATION:
             # secagg hides updates from the peers that relay them; one
             # program on one device is a single trust domain
@@ -743,6 +929,9 @@ class SpmdFederation:
         self.dp_noise = float(dp_noise)
         if self.dp_noise > 0.0 and self.dp_clip <= 0.0:
             raise ValueError("dp_noise > 0 requires dp_clip > 0")
+        if self.dp_clip > 0.0 and len(set(self.mesh.devices.flat)) > 1:
+            # the round's noise generator lives on one device
+            raise ValueError("DP-SGD runs on a mesh of one device (its slots may repeat it)")
         if aggregator not in _AGGREGATORS:
             raise ValueError(f"unknown aggregator {aggregator!r}")
         self.aggregator = aggregator
@@ -779,6 +968,48 @@ class SpmdFederation:
         self.history: list[dict] = []
         self.last_profile: Optional[dict] = None
 
+    def _default_mesh(self, device) -> Mesh:
+        """JAX's ``_default_mesh``: as many rows as divide N, capped at the
+        visible devices (every card for ``device=None``, else the one device
+        asked for)."""
+        if device is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [self.device]
+        slots = min(self.n, len(devices))
+        while self.n % slots != 0:  # fold nodes evenly onto mesh slots
+            slots -= 1
+        return federation_mesh(n_nodes=slots, devices=devices[:slots])
+
+    def _check_mesh(self, mesh) -> Mesh:
+        nodes = Settings.MESH_NODES_AXIS
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a p2pfl_tpu_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+        if mesh.axis_names[0] != nodes:
+            raise ValueError(f"the mesh's first axis must be {nodes!r}, got {mesh.axis_names}")
+        for d in mesh.devices.flat:
+            if d.type != self.device.type:
+                raise ValueError(f"mesh slot on {d}: the federation runs on {self.device.type}")
+        k = mesh.shape[nodes]
+        if self.n % k:
+            raise ValueError(f"{self.n} nodes do not fold evenly onto {k} rows of the {nodes!r} axis")
+        if mesh.devices.size != k and not self._MODEL_AXIS:
+            raise ValueError(
+                f"{type(self).__name__} places a node's tensors on one slot: a mesh of {dict(mesh.shape)} "
+                "needs a subclass that splits them (SpmdLmFederation, SpmdLoraFederation)"
+            )
+        return mesh
+
+    def _node_sharding(self, lead: int = 0) -> SlotSharding:
+        """A node-stacked input's layout: the node axis (after ``lead``
+        unsplit leading dims) over the mesh's nodes axis."""
+        return SlotSharding(self.mesh, (None,) * lead + (Settings.MESH_NODES_AXIS,))
+
+    def _param_shardings(self, params: dict) -> dict:
+        """The node-stacked params' layout (a one-node tree in): the nodes
+        axis only; the subclasses add tensor and expert parallelism."""
+        return node_stacked_shardings(self.mesh, params)
+
     def reset(self, seed: int = 0) -> None:
         """Back to round 0 with fresh state, keeping data and device."""
         self._rng = np.random.default_rng(seed)
@@ -795,13 +1026,16 @@ class SpmdFederation:
         def zeros(x):
             return torch.zeros(x.shape, dtype=torch.float32, device=dev)
 
-        self.params = tree_map(lambda x: x.to(dev)[None].expand(n, *x.shape).clone(), self.model.params)
-        self.opt_state = self.tx.init(self.params)
+        shardings = self._param_shardings(self.model.params)
+        self.params = tree_map(
+            lambda x, sh: place(x.to(dev)[None].expand(n, *x.shape).clone(), sh), self.model.params, shardings
+        )
+        self.opt_state = init_opt_state(self.tx, self.params)
         self._server_t = 0  # FedOpt server step count (stays 0 without server_opt)
         if self.scaffold:
             # control variates start at zero (Karimireddy et al. 2020 §3)
             self.c_global = tree_map(zeros, self.model.params)
-            self.c_local = tree_map(zeros, self.params)
+            self.c_local = tree_map(lambda x, sh: place(zeros(x), sh), self.params, shardings)
         if self.server_opt:
             self.opt_m = tree_map(zeros, self.model.params)
             self.opt_v = tree_map(zeros, self.model.params)
@@ -812,15 +1046,14 @@ class SpmdFederation:
         staged = stage_node_shards(self.datasets, self.batch_size)
 
         def put(arrays):
-            return torch.from_numpy(np.stack(arrays)).to(self.device)
+            return place(torch.from_numpy(np.stack(arrays)), self._node_sharding())
 
         self.x_all = put(staged["x"])
         self.y_all = put(staged["y"])
         self.x_test = put(staged["x_test"])
         self.y_test = put(staged["y_test"])
-        self._samples = torch.tensor(
-            [float(s) for s in staged["sizes"]], dtype=torch.float32, device=self.device
-        )
+        self._samples = place(torch.tensor([float(s) for s in staged["sizes"]], dtype=torch.float32),
+                              self._node_sharding())
         self._sizes = staged["sizes"]
         self._nb = staged["nb"]
 
@@ -835,7 +1068,7 @@ class SpmdFederation:
         return draw_node_perms(self._rng, self._sizes, self._nb, self.batch_size, epochs)
 
     def _make_perm(self, epochs: int) -> torch.Tensor:
-        return torch.from_numpy(self._make_perm_np(epochs)).to(self.device)
+        return place(torch.from_numpy(self._make_perm_np(epochs)), self._node_sharding())
 
     def _effective_mask(self) -> np.ndarray:
         """Train-set ∩ active nodes, optionally client-sampled per round."""
@@ -851,8 +1084,9 @@ class SpmdFederation:
         return effective
 
     def _mask_inputs(self, effective: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-        """The mask [N] and the selected rows' indices [K] on the device."""
-        mask = torch.from_numpy(effective).to(self.device)
+        """The mask [N] (placed like the nodes) and the selected rows'
+        indices [K] on the first slot's device."""
+        mask = place(torch.from_numpy(effective), self._node_sharding())
         return mask, torch.from_numpy(np.flatnonzero(effective)).to(self.device)
 
     def drop_node(self, i: int) -> None:
@@ -911,9 +1145,9 @@ class SpmdFederation:
                 "run_fused needs a fixed mask: per-round voting/client "
                 "sampling re-elects between rounds — use run_round"
             )
-        perms = torch.from_numpy(
-            np.stack([self._make_perm_np(epochs) for _ in range(rounds)])
-        ).to(self.device)
+        perms = place(
+            torch.from_numpy(np.stack([self._make_perm_np(epochs) for _ in range(rounds)])), self._node_sharding(1)
+        )
         return (perms, *self._mask_inputs(self._effective_mask()))
 
     def _capturable(self) -> bool:
@@ -926,6 +1160,8 @@ class SpmdFederation:
         return (
             self.device.type == "cuda" and self.tx.capturable
             and not (self.scaffold or self.server_opt or self.dp_clip > 0.0)
+            # a graph records one device's stream
+            and len(set(self.mesh.devices.flat)) == 1
         )
 
     def _take_state(self, result: tuple) -> int:
@@ -1054,8 +1290,9 @@ class SpmdFederation:
 
         @torch.no_grad()
         def agg_call():
-            out = _aggregate(self.params, mask, self._samples, sel_idx, agg, self.trim)
-            return tree_map(lambda a: a[None].expand(self.n, *a.shape).clone(), out)
+            rows = [gather_tree(r) for r in split_rows(self.params, n_rows(mask))]
+            out = _aggregate_rows(rows, gather(mask), gather(self._samples), sel_idx, agg, self.trim)
+            return _diffuse(tree_map(lambda a: a.to(self.device), out), self.params)
 
         t_agg = self._median_s(agg_call, tuple, iters)
         return {
@@ -1176,8 +1413,9 @@ class SpmdFederation:
     # ---- interop ----
 
     def node_params(self, i: int) -> dict:
-        """One node's slice of the node-stacked state."""
-        return tree_map(lambda x: x[i], self.params)
+        """One node's slice of the node-stacked state (whole tensors, on
+        its row's device)."""
+        return node_slice(self.params, i)
 
     @classmethod
     def from_dataset(

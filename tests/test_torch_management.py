@@ -543,11 +543,12 @@ def test_dispatch_span_opens_a_profiler_range_when_annotating(tmp_path):
 def test_compiled_flops_against_round_flops_on_the_mlp_round(optimizer, per_param):
     """``compiled_flops`` over one MLP round (4 nodes, 2 steps) held to the
     federation's analytic ``round_flops``: FlopCounterMode counts the
-    GEMMs of every step (``round_flops``' per-step model FLOPs) and the
-    aggregation's contraction (2 a parameter a node), and leaves out what
-    has no formula: the optimizer's elementwise operations (``per_param``
-    a parameter a step) and the rest of the aggregation (3 a parameter a
-    node of ``round_flops``' 5)."""
+    GEMMs of every step (``round_flops``' per-step model FLOPs) and leaves
+    out what has no formula: the optimizer's elementwise operations
+    (``per_param`` a parameter a step) and the aggregation (``round_flops``'
+    5 a parameter a node), which sums ``w_i · x_i`` node by node in
+    elementwise products and adds (so a mesh's rows fold to one row's
+    bits), no contraction."""
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.management.profiling import compiled_flops
     from p2pfl_tpu_torch.models.vision import mlp
@@ -561,8 +562,8 @@ def test_compiled_flops_against_round_flops_on_the_mlp_round(optimizer, per_para
     counted = compiled_flops(fed.run_round)
     assert fed.round == 1  # the counted call ran
     n, steps, p = fed.n, fed._nb, fed.model.param_count
-    assert counted == n * steps * step + 2 * n * p
-    assert analytic - counted == n * steps * per_param * p + 3 * n * p
+    assert counted == n * steps * step
+    assert analytic - counted == n * steps * per_param * p + 5 * n * p
     with pytest.raises(ZeroDivisionError):
         compiled_flops(lambda: 1 / 0)
 

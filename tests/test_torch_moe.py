@@ -12,6 +12,7 @@ sum the products in other orders.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -305,35 +306,48 @@ def test_lm_federation_round_matches_jax(fused):
 
 
 def test_lm_federation_refusals():
-    """SCAFFOLD, FedOpt, DP-SGD and FedProx are refused as in JAX; a mesh
-    and expert parallelism are not ported (ROADMAP item 5), nor is the
-    GPipe federation."""
+    """SCAFFOLD, FedOpt, DP-SGD and FedProx are refused as in JAX. The
+    mesh and expert parallelism run (ROADMAP item 5's SPMD meshes): a
+    non-Mesh is refused clearly, expert parallelism wider than the one
+    device asked for raises as JAX's does without the devices, and on a
+    (2, 2) CPU mesh it trains; the GPipe federation runs a round."""
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh, pipeline_mesh
+
     cfg = ttr.TransformerConfig(**FED, dtype=torch.float32)
     model = ttr.tiny_transformer(seq_len=32, cfg=cfg, device="cpu")
     data = FederatedDataset.synthetic_lm(**FED_DATA)
     for kw in ({"scaffold": True}, {"server_opt": "adam"}, {"dp_clip": 1.0}, {"dp_noise": 1.0}, {"prox_mu": 0.1}):
         with pytest.raises(ValueError, match="does not support"):
             SpmdLmFederation.from_dataset(model, data, n_nodes=2, batch_size=8, device="cpu", **kw)
-    for kw in ({"expert_parallel": 2}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            SpmdLmFederation.from_dataset(model, data, n_nodes=2, batch_size=8, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PipelineFederation(model, [data])
+    with pytest.raises(ValueError, match="needs at least 2 devices"):
+        SpmdLmFederation.from_dataset(model, data, n_nodes=2, batch_size=8, device="cpu", expert_parallel=2)
+    with pytest.raises(TypeError, match="Mesh"):
+        SpmdLmFederation.from_dataset(model, data, n_nodes=2, batch_size=8, device="cpu", mesh=object())
+    ep = SpmdLmFederation.from_dataset(model, data, n_nodes=2, batch_size=8, device="cpu", expert_parallel=2,
+                                       mesh=federation_mesh(2, 2, devices=["cpu"] * 4))
+    assert math.isfinite(float(ep.run_round()["train_loss"]))
+    pipe = PipelineFederation(model, [data.partition(i, 2) for i in range(2)],
+                              mesh=pipeline_mesh(2, devices=["cpu"] * 2), batch_size=8, device="cpu")
+    assert math.isfinite(pipe.run_round()["train_loss"])
     tfed = SpmdLmFederation.from_dataset(model, data, n_nodes=2, batch_size=8, device="cpu", tx=sgd(0.1))
     assert tfed.round_flops() > 0
 
 
 def test_moe_example_runs_on_the_cpu_and_gpipe_raises(capsys):
     """``examples/moe_gpipe_federation.py --mode moe`` trains a small MoE
-    federation on the CPU; ``--mode gpipe`` names the ROADMAP item."""
+    federation with its experts split over a (2, 2) CPU mesh, and
+    ``--mode gpipe`` a GPipe federation over 4 CPU stages; each prints
+    its mesh as JAX's example does."""
     from p2pfl_tpu_torch.examples import moe_gpipe_federation as ex
 
     ex.main(["--mode", "moe", "--device", "cpu", "--nodes", "2", "--rounds", "1", "--layers", "1",
              "--dim", "32", "--seq-len", "32", "--samples", "32"])
     out = capsys.readouterr().out
-    assert "round 1" in out and "done in" in out
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ex.main(["--mode", "gpipe", "--device", "cpu"])
+    assert "mesh: {'nodes': 2, 'model': 2}" in out and "round 1" in out and "done in" in out
+    ex.main(["--mode", "gpipe", "--device", "cpu", "--nodes", "2", "--rounds", "1", "--dim", "32", "--seq-len", "32",
+             "--samples", "32"])
+    out = capsys.readouterr().out
+    assert "mesh: {'pipe': 4}" in out and "round 1" in out and "done in" in out
 
 
 def test_entry_points_default_to_the_card():

@@ -207,20 +207,28 @@ def test_submesh_federation_mesh_and_node_slices():
 
 
 def test_the_refusals_this_slice_keeps_cite_item_5():
-    """JAX's SpmdLmFederation folds an expert-parallel default mesh; the
-    port's expert and pipeline parallelism stay refused, citing item 5."""
+    """Expert and pipeline parallelism run now (the SPMD federations'
+    meshes): an expert-parallel federation places its node-stacked leaves
+    by the node-shifted rules, and a GPipe federation builds its stages.
+    The sharded megafleet engine stays refused, citing item 5."""
+    from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.transformer import tiny_transformer
     from p2pfl_tpu_torch.parallel import PipelineFederation, SpmdLmFederation
 
-    cfg = TransformerConfig(vocab_size=64, dim=32, n_layers=1, n_heads=2, n_kv_heads=1, ffn_hidden=64)
+    cfg = TransformerConfig(vocab_size=64, dim=32, n_layers=2, n_heads=2, n_kv_heads=1, ffn_hidden=64, lora_rank=0)
     data = FederatedDataset.synthetic_lm(vocab_size=64, seq_len=16, n_train=32, n_test=8)
     model = tiny_transformer(seq_len=16, cfg=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SpmdLmFederation.from_dataset(model, data, n_nodes=2, expert_parallel=2, batch_size=4, vote=False,
-                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PipelineFederation()
+    fed = SpmdLmFederation.from_dataset(model, data, n_nodes=2, expert_parallel=2, batch_size=4, vote=False,
+                                        device="cpu", mesh=tmesh.federation_mesh(2, 2, devices=CPU * 4))
+    wq = dict(tree_items(fed.params))["layer_0/attn/wq/kernel"]
+    assert wq.spec == (Settings.MESH_NODES_AXIS, None, Settings.MESH_MODEL_AXIS)
+    assert tuple(wq.shards[0].shape) == (1, 32, 16)
+    pipe = PipelineFederation(model, [data], mesh=tmesh.pipeline_mesh(2, devices=CPU * 2), batch_size=4, device="cpu")
+    assert pipe.stage_devices == [torch.device("cpu")] * 2
+    with pytest.raises(UnsupportedByPortError, match="item 5"):
+        MegaFleet(FleetSpec.synth(40, seed=1905, dim=4), shards=2, device="cpu")
 
 
 # ---- placement: shard shapes and blocks against JAX ----

@@ -492,8 +492,18 @@ def test_refusals(tmp_path):
     ):
         with pytest.raises(ValueError, match=match):
             SpmdFederation.from_dataset(model, _data(), **kw, **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 5"):
+    # a mesh must be the port's Mesh; a real two-slot nodes axis builds
+    # (ROADMAP Queue A item 5, the SPMD federations' meshes), a model axis
+    # wider than one is for the subclasses that split a node's tensors
+    with pytest.raises(TypeError, match="must be a p2pfl_tpu_torch.parallel.mesh.Mesh"):
         SpmdFederation.from_dataset(model, _data(), mesh=object(), **kw)
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+
+    two = SpmdFederation.from_dataset(model, _data(), mesh=federation_mesh(2, devices=["cpu"] * 2), **kw)
+    assert dict(two.mesh.shape) == {Settings.MESH_NODES_AXIS: 2, Settings.MESH_MODEL_AXIS: 1}
+    assert all(len(x.shards) == 2 for x in tree_leaves(two.params))
+    with pytest.raises(ValueError, match="needs a subclass"):
+        SpmdFederation.from_dataset(model, _data(), mesh=federation_mesh(2, 2, devices=["cpu"] * 4), **kw)
     fed = SpmdFederation.from_dataset(model, _data(), participation=0.5, **kw)
     with pytest.raises(ValueError, match="fixed mask"):
         fed.run_fused(2)
