@@ -285,6 +285,9 @@ class GrpcProtocol(CommunicationProtocol):
         #: peers that rejected streaming: the loud fallback logs ONCE per
         #: peer, then keeps falling back silently
         self._stream_fallback_noted: set[str] = set()
+        #: why the last failed stream failed (the RPC status or the
+        #: receiver's reply), "" until one fails
+        self.last_stream_error = ""
 
     # ---- server ----
 
@@ -411,13 +414,15 @@ class GrpcProtocol(CommunicationProtocol):
                 # pre-streaming peer: its generic handler has no such route
                 self._note_stream_fallback(nei, "UNIMPLEMENTED")
                 return None
-            return False  # mid-stream death/timeout — one failed send
+            # mid-stream death/timeout — one failed send
+            return self._note_stream_failure(nei, sent["chunks"], f"{exc.code().name}: {exc.details()}")
         if not _reply_ok(resp):
             if _reply_error(resp) == "stream-unsupported":
                 # peer runs with WIRE_STREAM_ENABLED off — fall back loudly
                 self._note_stream_fallback(nei, "stream-unsupported")
                 return None
-            return False  # receiver aborted (CRC, decode, dispatch error)
+            # receiver aborted (CRC, decode, dispatch error)
+            return self._note_stream_failure(nei, sent["chunks"], f"receiver: {_reply_error(resp)!r}")
         with self._lock:
             self.wire_stats["weights_bytes"] += sent["bytes"]
             self.wire_stats["weights_msgs"] += 1
@@ -426,6 +431,13 @@ class GrpcProtocol(CommunicationProtocol):
         logger.log_comm_metric(self._address, "stream_send")
         logger.log_comm_metric(self._address, "stream_chunks_sent", sent["chunks"])
         return True
+
+    def _note_stream_failure(self, nei: str, chunks: int, why: str) -> bool:
+        """Keep and log why a stream to ``nei`` failed after ``chunks``
+        chunks; the send's result (False)."""
+        self.last_stream_error = f"{why} (after {chunks} chunks)"
+        logger.warning(self._address, f"stream send to {nei} failed: {self.last_stream_error}")
+        return False
 
     def _note_stream_fallback(self, nei: str, why: str) -> None:
         with self._lock:

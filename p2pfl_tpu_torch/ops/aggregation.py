@@ -70,14 +70,19 @@ def fedavg_fold_acc(
     return tree_map(lambda s, r: (s / wsum).to(r.dtype), psum, ref)
 
 
-def sum_nodes(x: torch.Tensor) -> torch.Tensor:
+def sum_nodes(x) -> torch.Tensor:
     """The sum over the leading node axis, node by node in order: one
     elementwise add a node, so an element's sum does not depend on the
     shape of the tensor it sits in (a reduction kernel's order may), and
-    a stack of slot shards sums to the bits of the whole."""
-    out = x[0]
-    for i in range(1, x.shape[0]):
-        out = out + x[i]
+    a stack of slot shards sums to the bits of the whole. ``x`` is one
+    ``[N, ...]`` stack or a list of row blocks ``[n_r, ...]`` in node
+    order, possibly on several devices: the order carries from block to
+    block, so any split into rows sums to the one stack's bits, on the
+    last block's device."""
+    out = None
+    for b in ([x] if isinstance(x, torch.Tensor) else x):
+        for i in range(b.shape[0]):
+            out = b[i] if out is None else out.to(b.device) + b[i]
     return out
 
 

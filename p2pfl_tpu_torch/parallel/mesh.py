@@ -99,6 +99,13 @@ def _devices(devices: Optional[Sequence[Union[str, torch.device]]]) -> list[torc
     ]
 
 
+def default_devices(device=None) -> list[torch.device]:
+    """The devices a federation's default mesh spans: every visible card
+    for ``device=None`` (raising without one), else the one device asked
+    for."""
+    return _devices(None if device is None else [device])
+
+
 def _object_array(devs: list, shape: tuple) -> np.ndarray:
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs

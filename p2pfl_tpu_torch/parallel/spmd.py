@@ -37,7 +37,7 @@ nodes a row (``parallel/sharding.py::split_rows``), and each row's nodes
 step on that row's device. The default mesh is JAX's: as many rows as
 divide N, capped at the visible devices (one card: one row, every tensor
 plain). The aggregation folds across rows: FedAvg sums ``w_i · x_i``
-node by node in node order (:func:`_node_sum`, ``ops.sum_nodes``'
+node by node in node order (:func:`_fedavg_rows`, ``ops.sum_nodes``'
 order), so k rows fold to one row's bits; the robust rules and the clip
 center take the selected rows to the first row's device and run there;
 the diffusion writes every row. A model axis wider than one is for the
@@ -71,7 +71,7 @@ from p2pfl_tpu_torch.learning.privacy import PrivacyAccountant, dp_grads
 from p2pfl_tpu_torch.models.base import TorchModel
 from p2pfl_tpu_torch.ops import aggregation as ops
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_unflatten
-from p2pfl_tpu_torch.parallel.mesh import Mesh, federation_mesh
+from p2pfl_tpu_torch.parallel.mesh import Mesh, default_devices, federation_mesh
 from p2pfl_tpu_torch.parallel.sharding import (
     SlotSharded, SlotSharding, from_shard_flat, gather, gather_tree, join_rows, map_state, n_rows, node_stacked_shardings,
     place, row_block, select0, shard_flat, split_like, split_rows, tree_is_placed,
@@ -192,36 +192,27 @@ def _local_epoch(
     return params, opt_state, mean
 
 
-def _node_sum(blocks: list) -> torch.Tensor:
-    """The sum over the node axis of a tensor held as row blocks ``[n_i,
-    ...]`` (one block: the whole stack), node by node in node order: one
-    elementwise add a node, ``ops.sum_nodes``' order carried from row to
-    row, so an element's sum depends neither on the shape it sits in nor
-    on how many rows hold the nodes. The sum lies on the last row's
-    device."""
-    acc = None
-    for b in blocks:
-        for i in range(b.shape[0]):
-            acc = b[i] if acc is None else acc.to(b.device) + b[i]
-    return acc
-
-
 def _fedavg_rows(rows: list, weights: torch.Tensor) -> dict:
     """FedAvg over node-stacked row trees: the weights [N] normalized over
-    all nodes, each node's ``w_i · x_i`` in fp32, summed by
-    :func:`_node_sum`, cast back to the leaf's dtype."""
+    all nodes, each node's ``w_i · x_i`` in fp32, summed node by node
+    across the rows (``ops.sum_nodes``), cast back to each leaf's dtype.
+    A row's leaves go into one ``[n_r, P]`` buffer first, so the fold
+    launches one add a node, not one a node a leaf; the products and adds
+    are elementwise, so the bits are the leaf-by-leaf fold's."""
     w = weights.float()
     w = w / w.sum()
-
-    def leaf(*blocks):
-        terms, lo = [], 0
-        for b in blocks:
-            wb = w[lo:lo + b.shape[0]].to(b.device).reshape(-1, *([1] * (b.dim() - 1)))
-            terms.append(wb * b.float())
-            lo += b.shape[0]
-        return _node_sum(terms).to(blocks[0].dtype)
-
-    return tree_map(leaf, *rows)
+    paths = [p for p, _ in tree_items(rows[0])]
+    like = tree_leaves(rows[0])
+    flats, lo = [], 0
+    for r in rows:
+        leaves = tree_leaves(r)
+        n = leaves[0].shape[0]
+        flat = torch.cat([x.reshape(n, -1) for x in leaves], dim=1).float()
+        flats.append(flat.mul_(w[lo:lo + n].to(flat.device)[:, None]))
+        lo += n
+    total = ops.sum_nodes(flats)
+    parts = total.split([x[0].numel() for x in like])
+    return tree_unflatten({p: t.reshape(x.shape[1:]).to(x.dtype) for p, t, x in zip(paths, parts, like)})
 
 
 def _whole(rows: list, device) -> dict:
@@ -232,7 +223,7 @@ def _whole(rows: list, device) -> dict:
     return tree_map(lambda *bs: torch.cat([b.to(device) for b in bs]), *rows)
 
 
-def _aggregate_rows(rows: list, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
+def _aggregate(rows: list, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
     """Combine node-stacked params, held as row trees of whole tensors
     (one row: the ``[N, ...]`` stack), into one model (fp32 accumulate).
     ``mask`` and ``weights`` are the whole ``[N]`` vectors.
@@ -263,11 +254,6 @@ def _aggregate_rows(rows: list, mask, weights, sel_idx, agg: str, trim: int, cen
             raise ValueError("the clip aggregator needs the round's center")
         return ops.centered_clip(p_sel, center, clip_tau)
     raise ValueError(f"unknown aggregator {agg}")
-
-
-def _aggregate(p_used, mask, weights, sel_idx, agg: str, trim: int, center=None, clip_tau: float = 1.0):
-    """:func:`_aggregate_rows` of one node-stacked tree ``[N, ...]``."""
-    return _aggregate_rows([p_used], mask, weights, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
 
 
 def _on_row(state, device):
@@ -381,7 +367,7 @@ def _round_core(
     opt_t=None,
     dp_clip: float = 0.0,
     dp_noise: float = 0.0,
-    dp_gen: Optional[torch.Generator] = None,
+    dp_gens: Optional[list] = None,  # DP-SGD's noise generators, one a row on its device
 ):
     """One federated round (train → aggregate → diffuse). The node-stacked
     inputs are plain tensors or placed along a mesh's nodes axis; each row
@@ -397,10 +383,13 @@ def _round_core(
     node_kw = dict(
         module=module, tx=tx, remat=remat, prox_mu=prox_mu, scaffold=scaffold,
         scaffold_fused_ci=scaffold_fused_ci, local_lr=local_lr, c_global=c_global,
-        dp_clip=dp_clip, dp_noise=dp_noise, dp_gen=dp_gen,
+        dp_clip=dp_clip, dp_noise=dp_noise,
     )
     inputs = (stacked_params, opt_states, x_all, y_all, perm, mask, c_local)
-    rows = [_node_round(*parts, **node_kw) for parts in zip(*(split_rows(t, k) for t in inputs))]
+    rows = [
+        _node_round(*parts, dp_gen=gen, **node_kw)
+        for parts, gen in zip(zip(*(split_rows(t, k) for t in inputs)), dp_gens or [None] * k)
+    ]
     mask_all, w_all = gather(mask), gather(weights)
     losses = _whole([r[2] for r in rows], first)  # [N]
 
@@ -411,7 +400,7 @@ def _round_core(
     if agg == "clip":
         start = _whole([gather_tree(r) for r in split_rows(stacked_params, k)], first)
         center = tree_map(lambda x: ops.median0(x.index_select(0, sel_idx)), start)
-    agg_params = _aggregate_rows([r[0] for r in rows], mask_all, w_all, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
+    agg_params = _aggregate([r[0] for r in rows], mask_all, w_all, sel_idx, agg, trim, center=center, clip_tau=clip_tau)
     agg_params = tree_map(lambda a: a.to(first), agg_params)
 
     fedopt_state = ()
@@ -446,7 +435,7 @@ def _round_core(
         ]
 
         def upd(c, *ds):
-            return c + (n_train / n) * (_node_sum(list(ds)).to(c.device) / n_train)
+            return c + (n_train / n) * (ops.sum_nodes(list(ds)).to(c.device) / n_train)
 
         scaffold_state = (tree_map(upd, c_global, *deltas), c_local_out)
     return out_params, out_opt, mean_loss, scaffold_state, fedopt_state, agg_params
@@ -929,9 +918,6 @@ class SpmdFederation:
         self.dp_noise = float(dp_noise)
         if self.dp_noise > 0.0 and self.dp_clip <= 0.0:
             raise ValueError("dp_noise > 0 requires dp_clip > 0")
-        if self.dp_clip > 0.0 and len(set(self.mesh.devices.flat)) > 1:
-            # the round's noise generator lives on one device
-            raise ValueError("DP-SGD runs on a mesh of one device (its slots may repeat it)")
         if aggregator not in _AGGREGATORS:
             raise ValueError(f"unknown aggregator {aggregator!r}")
         self.aggregator = aggregator
@@ -968,18 +954,24 @@ class SpmdFederation:
         self.history: list[dict] = []
         self.last_profile: Optional[dict] = None
 
+    def _row_width(self) -> int:
+        """The model-axis size of the default mesh (a subclass's expert
+        parallelism)."""
+        return 1
+
     def _default_mesh(self, device) -> Mesh:
-        """JAX's ``_default_mesh``: as many rows as divide N, capped at the
-        visible devices (every card for ``device=None``, else the one device
-        asked for)."""
-        if device is None:
-            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        else:
-            devices = [self.device]
-        slots = min(self.n, len(devices))
+        """JAX's ``_default_mesh``: ``min(N, devices // width)`` rows,
+        lowered until they divide N, ``width`` devices a row
+        (:meth:`_row_width`), from every visible card for ``device=None``,
+        else from the one device asked for; too few devices raise."""
+        devices = default_devices(device)
+        width = self._row_width()
+        slots = min(self.n, len(devices) // width)
+        if slots < 1:
+            raise ValueError(f"expert_parallel={width} needs at least {width} devices, have {len(devices)}")
         while self.n % slots != 0:  # fold nodes evenly onto mesh slots
             slots -= 1
-        return federation_mesh(n_nodes=slots, devices=devices[:slots])
+        return federation_mesh(n_nodes=slots, model_parallel=width, devices=devices[:slots * width])
 
     def _check_mesh(self, mesh) -> Mesh:
         nodes = Settings.MESH_NODES_AXIS
@@ -1125,15 +1117,18 @@ class SpmdFederation:
             dp_noise=self.dp_noise,
         )
 
-    def _dp_round_keys(self) -> Optional[torch.Generator]:
-        """The DP noise generator of a round or fused span, or None
-        without DP. It takes the one draw of the numpy stream that JAX's
-        root key takes, so the shuffles after it stay in step with JAX's;
-        the noise itself cannot match JAX's threefry bits."""
+    def _dp_round_keys(self) -> Optional[list]:
+        """The DP noise generators of a round or fused span, one a row of
+        the nodes axis on the row's device, or None without DP. They take
+        the one draw of the numpy stream that JAX's root key takes, so the
+        shuffles after it stay in step with JAX's; row r's generator is
+        seeded with the draw plus r (one row: the draw). The noise cannot
+        match JAX's threefry bits."""
         if self.dp_clip <= 0.0:
             return None
         seed = int(self._rng.integers(2**31))
-        return torch.Generator(device=self.device).manual_seed(seed)
+        rows = self.mesh.axis_devices(Settings.MESH_NODES_AXIS)
+        return [torch.Generator(device=d).manual_seed(seed + r) for r, d in enumerate(rows)]
 
     def _fused_inputs(self, rounds: int, epochs: int):
         """Guards + device inputs of a fused span: ``(perms [R, N, epochs,
@@ -1193,7 +1188,7 @@ class SpmdFederation:
             result = spmd_round(
                 self.params, self.opt_state, self.x_all, self.y_all, perm, mask, self._samples, sel_idx,
                 x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
-                dp_gen=self._dp_round_keys(), **self._round_kwargs(),
+                dp_gens=self._dp_round_keys(), **self._round_kwargs(),
                 **self._algo_kwargs(self._server_t + 1 if self.server_opt else 0),
             )
         self._take_state(result)
@@ -1270,7 +1265,7 @@ class SpmdFederation:
             def call(p, o, kw):
                 return spmd_round(
                     p, o, self.x_all, self.y_all, perm, mask, self._samples, sel_idx,
-                    dp_gen=self._dp_round_keys(), **self._round_kwargs(), **kw,
+                    dp_gens=self._dp_round_keys(), **self._round_kwargs(), **kw,
                 )
 
             return self._median_s(call, stage, iters)
@@ -1291,7 +1286,7 @@ class SpmdFederation:
         @torch.no_grad()
         def agg_call():
             rows = [gather_tree(r) for r in split_rows(self.params, n_rows(mask))]
-            out = _aggregate_rows(rows, gather(mask), gather(self._samples), sel_idx, agg, self.trim)
+            out = _aggregate(rows, gather(mask), gather(self._samples), sel_idx, agg, self.trim)
             return _diffuse(tree_map(lambda a: a.to(self.device), out), self.params)
 
         t_agg = self._median_s(agg_call, tuple, iters)
@@ -1323,7 +1318,7 @@ class SpmdFederation:
         (:class:`_CapturedSpan`); the other spans, and every span on the
         CPU, run eagerly."""
         perms, mask, sel_idx = self._fused_inputs(rounds, epochs)
-        dp_gen = self._dp_round_keys()
+        dp_gens = self._dp_round_keys()
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
         span = None
@@ -1339,7 +1334,7 @@ class SpmdFederation:
                 result = spmd_rounds_fused(
                     self.params, self.opt_state, self.x_all, self.y_all, perms, mask, self._samples, sel_idx,
                     x_test=self.x_test if eval else None, y_test=self.y_test if eval else None,
-                    dp_gen=dp_gen, **self._round_kwargs(), **self._algo_kwargs(self._server_t),
+                    dp_gens=dp_gens, **self._round_kwargs(), **self._algo_kwargs(self._server_t),
                 )
         i = self._take_state(result)
         if self.server_opt:

@@ -37,7 +37,7 @@ from p2pfl_tpu_torch import resolve_device
 from p2pfl_tpu_torch.learning.learner import adam, apply_updates, ce_eval, softmax_cross_entropy
 from p2pfl_tpu_torch.ops.aggregation import fedavg
 from p2pfl_tpu_torch.ops.tree import tree_items, tree_leaves, tree_map, tree_stack, tree_unflatten
-from p2pfl_tpu_torch.parallel.mesh import Mesh, federation_mesh, pipeline_mesh
+from p2pfl_tpu_torch.parallel.mesh import Mesh, default_devices, pipeline_mesh
 from p2pfl_tpu_torch.parallel.pipeline import pipelined_lm_apply
 from p2pfl_tpu_torch.parallel.sharding import (
     DEFAULT_TRANSFORMER_RULES, gather_tree, n_rows, node_stacked_shardings, split_rows,
@@ -97,20 +97,8 @@ class SpmdLmFederation(SpmdFederation):
             # a norm or a factored moment would be taken shard by shard
             raise ValueError("a transform that is not elementwise cannot step a node's tensors shard by shard")
 
-    def _default_mesh(self, device) -> Mesh:
-        """JAX's default: ``min(N, devices // expert_parallel)`` rows,
-        lowered until they divide N, ``expert_parallel`` devices a row."""
-        if device is None:
-            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        else:
-            devices = [self.device]
-        ep = self.expert_parallel
-        slots = min(self.n, len(devices) // ep)
-        if slots < 1:
-            raise ValueError(f"expert_parallel={ep} needs at least {ep} devices, have {len(devices)}")
-        while slots > 1 and self.n % slots != 0:
-            slots -= 1
-        return federation_mesh(n_nodes=slots, model_parallel=ep, devices=devices[:slots * ep])
+    def _row_width(self) -> int:
+        return self.expert_parallel
 
     def _param_shardings(self, params: dict) -> dict:
         """``(nodes, *tp_spec)`` a leaf: the tensor- and expert-parallel
@@ -165,7 +153,7 @@ class PipelineFederation:
             raise ValueError("model must be a tiny_transformer-built CausalLM")
         dev = resolve_device(device)
         if mesh is None and device is None:
-            visible = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            visible = default_devices()
             n_stages = n_stages or max(s for s in range(1, len(visible) + 1) if cfg.n_layers % s == 0)
             mesh = pipeline_mesh(n_stages, devices=visible)
         elif mesh is None:
@@ -205,8 +193,7 @@ class PipelineFederation:
         self.round = 0
         self.history: list[dict] = []
         self.last_profile: Optional[dict] = None
-        # captured train steps by batch shape (one card); False steps eagerly
-        self._capture = True
+        # captured train steps by batch shape (one card)
         self._steps: dict = {}
 
     # ---- placement: a stage's layers on its device ----
@@ -263,7 +250,7 @@ class PipelineFederation:
         CUDA graph (``spmd.py::CapturedTrainStep``, one a batch shape),
         replayed a batch: the host's ~M·L block calls a step, each a few
         small kernels, would otherwise keep the card waiting."""
-        if self._capture and self.device.type == "cuda" and len(set(self.stage_devices)) == 1:
+        if self.device.type == "cuda" and len(set(self.stage_devices)) == 1:
             from p2pfl_tpu_torch.parallel.spmd import CapturedTrainStep
 
             key = tuple(xs.shape[1:])

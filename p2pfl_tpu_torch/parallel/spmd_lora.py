@@ -34,7 +34,7 @@ from p2pfl_tpu_torch.parallel.sharding import (
     gather, join_rows, n_rows, place_tree, row_block, shard_transformer, split_rows,
     tree_is_placed,
 )
-from p2pfl_tpu_torch.parallel.spmd import SpmdFederation, _aggregate_rows, _diffuse, _on_row, _steps_mean, _whole
+from p2pfl_tpu_torch.parallel.spmd import SpmdFederation, _aggregate, _diffuse, _on_row, _steps_mean, _whole
 
 
 def _node_epochs(lora, opt, base, x_all, y_all, perm, *, module, tx, remat: bool):
@@ -121,7 +121,7 @@ def _lora_round_core(
         rows.append((tree_map(sel, lora, lora_i), opt, losses))
     first = sel_idx.device
     mask_all = gather(mask)
-    agg_lora = _aggregate_rows([r[0] for r in rows], mask_all, gather(weights), sel_idx, agg, trim)
+    agg_lora = _aggregate([r[0] for r in rows], mask_all, gather(weights), sel_idx, agg, trim)
     out = _diffuse(tree_map(lambda a: a.to(first), agg_lora), stacked_lora)
     if keep_opt_state:
         out_opt = join_rows([r[1] for r in rows], opt_states) if tree_is_placed(stacked_lora) else rows[0][1]

@@ -104,6 +104,32 @@ def test_spmd_federation_over_k_slots_is_one_slot_bit_for_bit(k, agg):
     assert one.evaluate() == many.evaluate()
 
 
+@pytest.mark.parametrize("k", [2, 4])
+def test_dp_sgd_over_k_slots(k):
+    """DP-SGD on a nodes axis of k rows, each row's noise from its own
+    generator on its slot: clipping alone gives the one-slot federation's
+    bits; with noise two federations of one seed give the same bits, the
+    noise moves the params off the noiseless run's, and the accountant
+    counts what one slot counts."""
+    _, tm = _mlp_pair()
+    data = FederatedDataset.synthetic_mnist(**MLP_DATA)
+    kw = dict(n_nodes=8, batch_size=16, vote=False, seed=3, optimizer="sgd", learning_rate=0.05, dp_clip=1.0,
+              device="cpu")
+    mesh = federation_mesh(k, devices=CPU * k)
+    feds = {}
+    for name, extra in (("one", {}), ("many", dict(mesh=mesh)), ("noised", dict(mesh=mesh, dp_noise=1.1)),
+                        ("noised_again", dict(mesh=mesh, dp_noise=1.1)), ("noised_one", dict(dp_noise=1.1))):
+        fed = SpmdFederation.from_dataset(tm, data, **kw, **extra)
+        fed.losses = [float(fed.run_round()["train_loss"])] + [float(e["train_loss"]) for e in fed.run_fused(2)]
+        feds[name] = fed
+    one, many, noised, again = feds["one"], feds["many"], feds["noised"], feds["noised_again"]
+    assert one.losses == many.losses and all(_equal(one.node_params(i), many.node_params(i)) for i in range(8))
+    assert noised.losses == again.losses and all(_equal(noised.node_params(i), again.node_params(i)) for i in range(8))
+    assert all(math.isfinite(x) for x in noised.losses)
+    assert not _equal(noised.node_params(0), many.node_params(0))
+    assert noised.accountant.epsilon() == feds["noised_one"].accountant.epsilon()
+
+
 def test_spmd_federation_mesh_matches_jax():
     """The port over 4 slots against JAX's federation over its default
     mesh (8 virtual devices, one node each): two SGD rounds of 8 nodes

@@ -121,11 +121,11 @@ def test_fedavg_matches_jax_aggregate():
     sel = np.flatnonzero(mask).astype(np.int32)
     want = jspmd._aggregate(jax.tree.map(jnp.asarray, stack), jnp.asarray(mask), jnp.asarray(weights), sel, "fedavg", 0)
     tsel = torch.tensor(sel, dtype=torch.long)
-    got = tspmd._aggregate(tree_map(torch.tensor, stack), torch.tensor(mask), torch.tensor(weights), tsel, "fedavg", 0)
+    got = tspmd._aggregate([tree_map(torch.tensor, stack)], torch.tensor(mask), torch.tensor(weights), tsel, "fedavg", 0)
     np.testing.assert_allclose(got["w"]["lora_a"].numpy(), np.asarray(want["w"]["lora_a"]), atol=1e-7)
     # the robust rules aggregate the selected rows only: the median of 3
     want = jspmd._aggregate(jax.tree.map(jnp.asarray, stack), jnp.asarray(mask), jnp.asarray(weights), sel, "median", 0)
-    got = tspmd._aggregate(tree_map(torch.tensor, stack), torch.tensor(mask), torch.tensor(weights), tsel, "median", 0)
+    got = tspmd._aggregate([tree_map(torch.tensor, stack)], torch.tensor(mask), torch.tensor(weights), tsel, "median", 0)
     np.testing.assert_array_equal(got["w"]["lora_a"].numpy(), np.asarray(want["w"]["lora_a"]))
 
 
