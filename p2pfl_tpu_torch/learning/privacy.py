@@ -8,7 +8,9 @@
   ``torch.utils.checkpoint`` available for ``remat``.
 - Each example's gradient is clipped to global L2 norm ``clip``.
 - Gaussian noise ``N(0, (noise · clip / B)²)`` is added to the mean, drawn
-  from a ``torch.Generator``: JAX's threefry streams have no torch
+  from a ``torch.Generator``, or with a node axis from one generator a
+  node (as JAX splits one key a node), so a node's noise does not depend
+  on which nodes share its row: JAX's threefry streams have no torch
   counterpart, so the noise matches JAX's in distribution only.
 - :func:`dp_train_epoch` is the gossip Node's DP epoch
   (``TorchLearner(dp_clip=...)``); the SPMD federation calls
@@ -47,9 +49,23 @@ def clip_by_global_norm(grads: dict, clip: float, batch_dims: int = 0) -> dict:
     return tree_map(apply, grads)
 
 
+def gaussian(like: torch.Tensor, generator=None) -> torch.Tensor:
+    """fp32 standard normals shaped ``like`` on its device: from one
+    ``generator``, or, given a list of them (one a node along ``like``'s
+    first axis), node ``i``'s slice from generator ``i`` alone."""
+    if not isinstance(generator, (list, tuple)):
+        return torch.randn(like.shape, generator=generator, device=like.device, dtype=torch.float32)
+    if len(generator) != like.shape[0]:
+        raise ValueError(f"{len(generator)} noise generators for {like.shape[0]} nodes")
+    out = torch.empty(like.shape, device=like.device, dtype=torch.float32)
+    for i, gen in enumerate(generator):
+        out[i].normal_(generator=gen)
+    return out
+
+
 def dp_grads(
     loss_one: Callable, params: dict, x: torch.Tensor, y: torch.Tensor, clip: float,
-    noise: float, generator: Optional[torch.Generator] = None, remat: bool = False,
+    noise: float, generator=None, remat: bool = False,
     anchor: Optional[dict] = None, node_axis: bool = False,
 ):
     """Per-example clipped + noised mean gradient (the DP-SGD estimator).
@@ -59,8 +75,10 @@ def dp_grads(
     through. ``x``/``y`` carry the batch axis, after the node axis when
     ``node_axis`` (then ``params`` and ``anchor`` are node-stacked too).
     ``remat`` recomputes the forward in the backward
-    (``torch.utils.checkpoint``). Returns ``(grads, mean loss)``, the loss
-    per node when ``node_axis``.
+    (``torch.utils.checkpoint``). The noise comes from ``generator``, or
+    with ``node_axis`` from a list of generators, one a node
+    (:func:`gaussian`). Returns ``(grads, mean loss)``, the loss per node
+    when ``node_axis``.
     """
     lead = 2 if node_axis else 1  # [N,] B
     batch = x.shape[lead - 1]
@@ -87,9 +105,7 @@ def dp_grads(
     def finish(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
         mean = g.float().mean(dim=lead - 1)
         if sigma > 0.0:
-            mean = mean + sigma * torch.randn(
-                mean.shape, generator=generator, device=mean.device, dtype=torch.float32
-            )
+            mean = mean + sigma * gaussian(mean, generator)
         return mean.to(p.dtype)
 
     return tree_map(finish, clipped, params), per.detach().mean(dim=-1)

@@ -367,7 +367,7 @@ def _round_core(
     opt_t=None,
     dp_clip: float = 0.0,
     dp_noise: float = 0.0,
-    dp_gens: Optional[list] = None,  # DP-SGD's noise generators, one a row on its device
+    dp_gens: Optional[list] = None,  # DP-SGD's noise generators, one a node on its row's device
 ):
     """One federated round (train → aggregate → diffuse). The node-stacked
     inputs are plain tensors or placed along a mesh's nodes axis; each row
@@ -386,9 +386,11 @@ def _round_core(
         dp_clip=dp_clip, dp_noise=dp_noise,
     )
     inputs = (stacked_params, opt_states, x_all, y_all, perm, mask, c_local)
+    per = n // k
+    gens = [None] * k if dp_gens is None else [dp_gens[r * per:(r + 1) * per] for r in range(k)]
     rows = [
         _node_round(*parts, dp_gen=gen, **node_kw)
-        for parts, gen in zip(zip(*(split_rows(t, k) for t in inputs)), dp_gens or [None] * k)
+        for parts, gen in zip(zip(*(split_rows(t, k) for t in inputs)), gens)
     ]
     mask_all, w_all = gather(mask), gather(weights)
     losses = _whole([r[2] for r in rows], first)  # [N]
@@ -490,13 +492,15 @@ def spmd_rounds_fused(
     server_opt = kw.get("server_opt", "")
     t = torch.zeros((), dtype=torch.float32, device=mask.device) if opt_t is None else opt_t
     p, o, cg, cl, m_, v_ = stacked_params, opt_states, c_global, c_local, opt_m, opt_v
+    dp_gens = kw.pop("dp_gens", None)
     losses, accs = [], []
     for r in range(perms.shape[0]):
         perm = select0(perms, r)
         t = t + 1.0
         p, o, loss, sstate, fstate, agg_params = _round_core(
             p, o, x_all, y_all, perm, mask, weights, sel_idx,
-            c_global=cg, c_local=cl, opt_m=m_, opt_v=v_, opt_t=t, **kw,
+            c_global=cg, c_local=cl, opt_m=m_, opt_v=v_, opt_t=t,
+            dp_gens=None if dp_gens is None else dp_gens[r], **kw,
         )
         cg, cl = sstate if scaffold else (cg, cl)
         m_, v_ = fstate if server_opt else (m_, v_)
@@ -1117,18 +1121,25 @@ class SpmdFederation:
             dp_noise=self.dp_noise,
         )
 
-    def _dp_round_keys(self) -> Optional[list]:
-        """The DP noise generators of a round or fused span, one a row of
-        the nodes axis on the row's device, or None without DP. They take
-        the one draw of the numpy stream that JAX's root key takes, so the
-        shuffles after it stay in step with JAX's; row r's generator is
-        seeded with the draw plus r (one row: the draw). The noise cannot
-        match JAX's threefry bits."""
+    def _dp_round_keys(self, rounds: int = 0) -> Optional[list]:
+        """The DP noise generators of a round, one a node (``[N]``), or of a
+        fused span of ``rounds`` rounds (``[R][N]``), as JAX splits one key
+        a node a round; or None without DP. Node ``i``'s generator lies on
+        its row's device and is seeded with the draw plus ``i`` (round
+        ``t`` of a span: plus ``t·N + i``), so a node's noise does not
+        depend on the mesh. They take the one draw of the numpy stream that
+        JAX's root key takes, so the shuffles after it stay in step with
+        JAX's. The noise cannot match JAX's threefry bits."""
         if self.dp_clip <= 0.0:
             return None
         seed = int(self._rng.integers(2**31))
         rows = self.mesh.axis_devices(Settings.MESH_NODES_AXIS)
-        return [torch.Generator(device=d).manual_seed(seed + r) for r, d in enumerate(rows)]
+        per = self.n // len(rows)
+
+        def nodes(base: int) -> list:
+            return [torch.Generator(device=rows[i // per]).manual_seed(base + i) for i in range(self.n)]
+
+        return [nodes(seed + t * self.n) for t in range(rounds)] if rounds else nodes(seed)
 
     def _fused_inputs(self, rounds: int, epochs: int):
         """Guards + device inputs of a fused span: ``(perms [R, N, epochs,
@@ -1318,7 +1329,7 @@ class SpmdFederation:
         (:class:`_CapturedSpan`); the other spans, and every span on the
         CPU, run eagerly."""
         perms, mask, sel_idx = self._fused_inputs(rounds, epochs)
-        dp_gens = self._dp_round_keys()
+        dp_gens = self._dp_round_keys(rounds)
         from p2pfl_tpu_torch.management.profiling import dispatch_span
 
         span = None

@@ -236,11 +236,11 @@ def test_default_federation_on_two_cards_or_more_runs_dp_sgd_and_fused_spans(cud
     """``device=None`` spans every visible card (JAX's default mesh: as
     many rows as divide N): a plain federation's round and fused span
     (eager across cards) equal the same rows on one card (a captured span)
-    bit for bit; DP-SGD runs on it, each row's noise from a generator on
-    its card, clipping alone equal to the one-card rows' bits and the
-    noised rounds repeatable from the seed. (Rows of 2 nodes against one
-    row of 8 differed in the last bits on the H100: cuBLAS picks its
-    batched GEMM by the batch count.)"""
+    bit for bit; DP-SGD runs on it, each node's noise from a generator on
+    its row's card, clipping alone and the noised rounds equal to the
+    one-card rows' bits, the noised rounds repeatable from the seed. (Rows
+    of 2 nodes against one row of 8 differed in the last bits on the H100:
+    cuBLAS picks its batched GEMM by the batch count.)"""
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         pytest.skip("needs two cards or more")
@@ -254,7 +254,7 @@ def test_default_federation_on_two_cards_or_more_runs_dp_sgd_and_fused_spans(cud
 
     rows = max(r for r in range(1, n_cards + 1) if 8 % r == 0)
     one = dict(mesh=federation_mesh(rows, devices=["cuda:0"] * rows))
-    for extra in ({}, dict(dp_clip=1.0)):
+    for extra in ({}, dict(dp_clip=1.0), dict(dp_clip=1.0, dp_noise=1.1)):
         (fed, losses), (ref, ref_losses) = run(**extra), run(**one, **extra)
         assert fed.mesh.devices.size == rows and len(set(fed.mesh.devices.flat)) == rows
         assert losses == ref_losses

@@ -106,9 +106,10 @@ def test_spmd_federation_over_k_slots_is_one_slot_bit_for_bit(k, agg):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_dp_sgd_over_k_slots(k):
-    """DP-SGD on a nodes axis of k rows, each row's noise from its own
-    generator on its slot: clipping alone gives the one-slot federation's
-    bits; with noise two federations of one seed give the same bits, the
+    """DP-SGD on a nodes axis of k rows, each node's noise from its own
+    generator on its row's slot: clipping alone gives the one-slot
+    federation's bits, and so does noise (a node's noise does not depend
+    on its row); two federations of one seed give the same bits, the
     noise moves the params off the noiseless run's, and the accountant
     counts what one slot counts."""
     _, tm = _mlp_pair()
@@ -127,7 +128,10 @@ def test_dp_sgd_over_k_slots(k):
     assert noised.losses == again.losses and all(_equal(noised.node_params(i), again.node_params(i)) for i in range(8))
     assert all(math.isfinite(x) for x in noised.losses)
     assert not _equal(noised.node_params(0), many.node_params(0))
-    assert noised.accountant.epsilon() == feds["noised_one"].accountant.epsilon()
+    noised_one = feds["noised_one"]
+    assert noised.losses == noised_one.losses
+    assert all(_equal(noised.node_params(i), noised_one.node_params(i)) for i in range(8))
+    assert noised.accountant.epsilon() == noised_one.accountant.epsilon()
 
 
 def test_spmd_federation_mesh_matches_jax():
