@@ -24,6 +24,9 @@
     python3 chip_smoke.py --only meshes              # the SPMD federations' meshes and GPipe
     python3 chip_smoke.py --only gpipe_target        # config 10's GPipe row to 0.60
     python3 chip_smoke.py --only meshes_cards        # the default mesh on every card (two or more)
+    python3 chip_smoke.py --only megafleet_sharded   # the 1M fleet on 2 and 8 slots of cuda:0
+    python3 chip_smoke.py --only megafleet_cards     # the 1M fleet on four cards (shards=4)
+    python3 chip_smoke.py --only dp_launches         # an eager DP-SGD round's kernels, 1 and 8 slots
 
 Phases, each of which makes the script exit non-zero if it fails (the
 ``--only`` name in brackets):
@@ -309,7 +312,12 @@ Phases, each of which makes the script exit non-zero if it fails (the
    chunk loop's s, µs a chunk); the card's latencies and the latency
    bound; (e) ``chunk="auto"``
    on a 20k-client fleet measured once, then replayed from the cache
-   file with no measurement;
+   file with no measurement; (f) the sharded engine on slots of
+   ``cuda:0`` (``MF_PARITY_CELLS``: ``bench_async.py``'s 20,000-client
+   parity cells, flat on 2 slots and clusters of 64 on 8) against the
+   one-slot engine: merges, the loss curve and the params bit-equal,
+   kernel 10's launches one a chunk and one a resume, its resumes and
+   host syncs;
 17c. [meshes] the SPMD federations' meshes on slots of ``cuda:0``
    (``drive_meshes``): (a) config 10's GPipe row (``GPIPE10``: 2 nodes on
    ``pipeline_mesh(4)``, 4L/128d, batch 32 in 16 microbatches, bf16): two
@@ -343,7 +351,8 @@ Phases, each of which makes the script exit non-zero if it fails (the
    for 1-4 the meshes phase's pipelined step (``meshes_gpipe5``) and its
    LoRA round with the base split (``meshes_lora_tp``);
    ``fleet_chunk`` the megafleet phase's 1M run (one
-   launch), its ``ms`` the kernel's time a chunk inside a span there,
+   launch; ``megafleet_sharded_slots`` part (f)'s staged launches), its
+   ``ms`` the kernel's time a chunk inside a span there,
    ``plain_ms`` the twin's a chunk on the CPU, ``bound_ms`` the bytes
    bound and ``latency_bound_ms`` the latency bound a chunk,
    ``max_abs_err`` the largest param gap of part (c) and of (d)'s 1M
@@ -369,6 +378,15 @@ accuracy (at least 5, at most 10 profiled rounds), never by default.
 kernel 9 storing from cuda:0 into cuda:1's memory over NVLink.
 ``--only meshes_cards`` (two cards or more) times the default mesh on
 every visible card against a one-card mesh (``drive_meshes_cards``).
+``--only megafleet_cards`` (four cards) runs the 1M fleet with
+``shards=4`` on the first four cards against one card
+(``drive_megafleet_cards``), and ``--only megafleet_sharded`` on 2 and 8
+slots of ``cuda:0`` (``drive_megafleet_sharded``): wall s, host
+preparation s, the chunk loop's s split into pass A, the gather and
+kernel 10, launches, resumes, host syncs, peak memory and the sha256
+against one slot's. ``--only dp_launches`` counts the kernels of an eager
+DP-SGD round on 1 and 8 slots (``drive_dp_launches``; loaded from another
+checkout's root, it counts that tree's round).
 
 Imports only torch, numpy and ``p2pfl_tpu_torch`` (and ``grpc``, where
 installed, to print its version). Weights are random, drawn from seeded
@@ -5390,18 +5408,19 @@ def _mf_attack(fold: str, cluster: int):
                      device="cuda")
 
 
-def _mf_faults(kind: str):
+def _mf_faults(kind: str, **over):
     """(c)'s fault cases on 300 clients: ``chaos`` (drop, jitter,
     duplicates, slow aggregators, a crash; pace steering, selection and
     both rate limits), ``byzantine`` (every stateless kind at the edge and
     at elected regionals' aggregate sends), ``churn`` (joins and a
-    graceful and an abrupt leave)."""
+    graceful and an abrupt leave). ``over`` replaces ``MegaFleet``
+    arguments (a ``mesh``)."""
     from p2pfl_tpu_torch.communication import faults as f
     from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
 
     n, seed = 300, MF_SMALL["seed"]
     spec = FleetSpec.synth(n, seed=seed, dim=MF_SMALL["dim"], slow_frac=0.1)
-    kw = dict(updates_per_node=4, local_lr=0.7, chunk=48, device="cuda")
+    kw = dict(updates_per_node=4, local_lr=0.7, chunk=48, device="cuda", **over)
     if kind == "chaos":
         plan = f.FaultPlan(seed=seed, default=f.EdgeFault(drop=0.05, jitter=0.002, duplicate=0.2),
                            slow_nodes={f"sim-{i:04d}": 0.3 for i in range(1, n, 37)},
@@ -5898,6 +5917,191 @@ def megafleet_autotune() -> dict:
     }}
 
 
+#: ``bench_async.py``'s sharded parity cells (``run_megafleet_sharded``,
+#: :957-975): 20,000 clients, K 32, 4 updates, 256 events a chunk; flat on
+#: 2 shards, clusters of 64 on 8
+MF_PARITY = dict(n=20_000, seed=1905, slow_frac=0.10, k=32, updates=4, local_lr=0.7, chunk=256)
+MF_PARITY_CELLS = ((0, 2), (64, 8))
+
+
+@contextlib.contextmanager
+def sharded_engines():
+    """Collect the :class:`ShardedFleet` engines that run inside the block
+    (``MegaFleet.run`` builds its own): the list they are appended to."""
+    from p2pfl_tpu_torch.ops import fleet_kernels
+
+    seen, real = [], fleet_kernels.ShardedFleet.run
+
+    def run(self, *a, **kw):
+        seen.append(self)
+        return real(self, *a, **kw)
+
+    fleet_kernels.ShardedFleet.run = run
+    try:
+        yield seen
+    finally:
+        fleet_kernels.ShardedFleet.run = real
+
+
+def _sha(res) -> str:
+    return hashlib.sha256(res.params["w"].cpu().numpy().tobytes()).hexdigest()
+
+
+def megafleet_sharded_parity() -> dict:
+    """(f) the sharded engine on slots of ``cuda:0`` against the one-slot
+    engine (``MF_PARITY_CELLS``): merges equal, the loss curve equal and
+    the final params bit-equal; kernel 10's launches (one a chunk, one a
+    resume), resumes and host syncs on the sharded path."""
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
+    from p2pfl_tpu_torch.ops import _kernels
+    from p2pfl_tpu_torch.parallel.fleet_mesh import fleet_clients_mesh
+
+    cfg = MF_PARITY
+    spec = FleetSpec.synth(cfg["n"], seed=cfg["seed"], slow_frac=cfg["slow_frac"])
+    kw = dict(k=cfg["k"], updates_per_node=cfg["updates"], local_lr=cfg["local_lr"], chunk=cfg["chunk"])
+    cells, launches = {}, 0
+    for cluster, shards in MF_PARITY_CELLS:
+        ref, ref_s = _timed_s(MegaFleet(spec, cluster_size=cluster, device="cuda", **kw).run)
+        mesh = fleet_clients_mesh(shards, devices=["cuda:0"] * shards)
+        _kernels.reset_launches()
+        with sharded_engines() as engines:
+            got, got_s = _timed_s(MegaFleet(spec, cluster_size=cluster, mesh=mesh, **kw).run)
+        torch.cuda.synchronize()
+        n = _kernels.LAUNCHES["fleet_chunk"]
+        launches += n
+        eng = engines[0] if engines else None
+        cells[f"cluster{cluster}_shards{shards}"] = row = {
+            "clients": cfg["n"], "cluster_size": cluster, "shards": shards, "merges": got.merges,
+            "one_slot_s": ref_s, "sharded_s": got_s, "launches_fleet_chunk": n,
+            "chunks": eng.n_chunks if eng else None, "resumes": eng.resumes if eng else None,
+            "host_syncs": eng.host_syncs if eng else None, "sha256": _sha(got), "one_slot_sha256": _sha(ref)}
+        row["checks"] = {
+            "the sharded engine ran (one engine, on the mesh)": len(engines) == 1 and eng.mesh is mesh,
+            "merges equal": got.merges == ref.merges > 0,
+            "loss curve equal": got.loss_curve == ref.loss_curve,
+            "params bit-equal": torch.equal(got.params["w"].cpu(), ref.params["w"].cpu()),
+            "launches: one a chunk and one a resume": eng is not None and n == eng.n_chunks + eng.resumes,
+        }
+    return {"cells": cells, "launches": launches}
+
+
+def _stage_marks():
+    """An ``on_stage`` hook recording a CUDA event on the current stream at
+    each stage's end, and the function that sums each stage's device
+    timeline (ms) from the start event."""
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    marks = []
+
+    def mark(name: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def split() -> dict:
+        torch.cuda.synchronize()
+        out, prev = {}, start
+        for name, ev in marks:
+            out[name] = out.get(name, 0.0) + prev.elapsed_time(ev)
+            prev = ev
+        return out
+
+    return mark, split
+
+
+def megafleet_sharded_1m(meshes: dict) -> dict:
+    """The 1M fleet (``MEGAFLEET``) through ``MegaFleet.run`` on one slot
+    and on each mesh of ``meshes`` (name → a ``(clients,)`` mesh): wall s,
+    kernel 10's launches, resumes and host syncs, peak memory, the final
+    global model's sha256, which must equal one slot's; then the sharded
+    engine built alone (the host preparation s) and stepped through every
+    chunk with a CUDA event at each stage's end (the chunk loop's s, split
+    into pass A on the shards, the gather with the kernel's staging, and
+    kernel 10 with its resumes: ms of the first card's timeline); the
+    stepped engine must end where ``MegaFleet.run`` ended."""
+    from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
+    from p2pfl_tpu_torch.ops import _kernels
+
+    cfg = MEGAFLEET
+    spec = FleetSpec.synth(cfg["n"], seed=cfg["seed"], slow_frac=cfg["slow_frac"])
+    kw = dict(cluster_size=cfg["cluster"], k=cfg["k"], updates_per_node=cfg["updates"], local_lr=cfg["local_lr"],
+              chunk=cfg["chunk"])
+    one, one_s = _timed_s(MegaFleet(spec, device="cuda", **kw).run)
+    out = {"one_slot": {"wall_s": one_s, "merges": one.merges, "sha256": _sha(one)}}
+    del one
+    for name, mesh in meshes.items():
+        _free_card()
+        for d in set(mesh.devices.flat):
+            torch.cuda.reset_peak_memory_stats(d)
+        held = {str(d): torch.cuda.memory_allocated(d) for d in set(mesh.devices.flat)}
+        mega = MegaFleet(spec, mesh=mesh, **kw)
+        _kernels.reset_launches()
+        with sharded_engines() as engines:
+            res, wall = _timed_s(mega.run)
+        launches = _kernels.LAUNCHES["fleet_chunk"]
+        eng = engines[0]
+        row = {"slots": mesh.size, "devices": sorted(held), "wall_s": wall, "merges": res.merges,
+               "regional_merges": res.regional_merges, "chunks": eng.n_chunks, "cp": eng.cp,
+               "launches_fleet_chunk": launches, "resumes": eng.resumes, "host_syncs": eng.host_syncs,
+               "peak_memory_gb": {d: (torch.cuda.max_memory_allocated(d) - held[str(d)]) / 1e9
+                                  for d in held},
+               "sha256": _sha(res)}
+        del engines, eng
+        stepped, prep_s = _timed_s(mega.sharded_engine)
+        mark, split = _stage_marks()
+        stepped.on_stage = mark
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        end = stepped.run()
+        for d in set(mesh.devices.flat):
+            torch.cuda.synchronize(d)
+        loop_s = time.perf_counter() - t0
+        row.update({"host_prep_s": prep_s, "chunk_loop_s": loop_s, "loop_split_ms": split(),
+                    "loop_ms_per_chunk": loop_s / stepped.n_chunks * 1e3})
+        row["checks"] = {
+            "sha256 equal to one slot's": row["sha256"] == out["one_slot"]["sha256"],
+            "merges equal to one slot's and BENCH_ASYNC.json's": res.merges == out["one_slot"]["merges"]
+            == MEGAFLEET_COUNTS["merges"],
+            "launches: one a chunk and one a resume": launches == row["chunks"] + row["resumes"],
+            "the stepped engine ends where MegaFleet.run ended": int(end["merges"]) == res.merges
+            and torch.equal(end["G"][res.version].cpu(), res.params["w"].cpu()),
+        }
+        out[name] = row
+        del mega, res, stepped, end
+    return out
+
+
+def drive_megafleet_sharded() -> tuple[bool, dict]:
+    """``--only megafleet_sharded``: the 1M fleet on 2 and on 8 slots of
+    ``cuda:0`` against one slot (:func:`megafleet_sharded_1m`)."""
+    from p2pfl_tpu_torch.parallel.fleet_mesh import fleet_clients_mesh
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    set_test_settings()
+    out = megafleet_sharded_1m({f"slots{p}": fleet_clients_mesh(p, devices=["cuda:0"] * p) for p in (2, 8)})
+    ok = all(all(r["checks"].values()) for k, r in out.items() if k != "one_slot")
+    log(f"[megafleet_sharded] {json.dumps(out, default=str)} {'OK' if ok else 'FAIL'}")
+    return ok, out
+
+
+def drive_megafleet_cards() -> tuple[bool, dict]:
+    """``--only megafleet_cards`` (four cards): the 1M fleet with
+    ``shards=4`` on the default mesh (``fleet_clients_mesh(4)``: the first
+    four cards) against one card; the only part where the gather crosses
+    cards."""
+    from p2pfl_tpu_torch.parallel.fleet_mesh import fleet_clients_mesh
+    from p2pfl_tpu_torch.settings import set_test_settings
+
+    set_test_settings()
+    if torch.cuda.device_count() < 4:
+        log(f"[megafleet_cards] needs four cards, have {torch.cuda.device_count()}")
+        return False, {}
+    out = megafleet_sharded_1m({"cards4": fleet_clients_mesh(4)})
+    ok = all(all(r["checks"].values()) for k, r in out.items() if k != "one_slot")
+    log(f"[megafleet_cards] {json.dumps(out, default=str)} {'OK' if ok else 'FAIL'}")
+    return ok, out
+
+
 def drive_megafleet() -> tuple[bool, dict]:
     """The megafleet engine on the card, parts (a)-(e) (see the module
     docs); each part fails the phase on its own."""
@@ -5938,6 +6142,9 @@ def drive_megafleet() -> tuple[bool, dict]:
         f"{full['kernel_row']['latency_bound_ms']:.5f} ms latency), final G sha256 {full['final_global_sha256']}")
     out["autotune"] = megafleet_autotune()
     part("(e) chunk='auto' and its replay", out["autotune"])
+    out["sharded"] = megafleet_sharded_parity()
+    for name, row in out["sharded"]["cells"].items():
+        part(f"(f) sharded on slots of cuda:0 against one slot, {name}", row)
     out["kernel_row"] = dict(full["kernel_row"],
                              max_abs_err=max(out["twin"]["max_abs_err"], full["twin_1m"]["params_max_abs_gap"]),
                              launches=full["launches_fleet_chunk"])
@@ -6645,14 +6852,58 @@ def drive_meshes_cards() -> tuple[bool, dict]:
     return ok, out
 
 
+def drive_dp_launches() -> tuple[bool, dict]:
+    """``--only dp_launches``: the kernels of one warm eager DP-SGD round
+    (clip 1.0, noise 1.1) of ``bench.py``'s 64 MLP nodes on one slot and on
+    8 slots of ``cuda:0`` (``round_kernels``), logged first; then the noise
+    streams of one round's draw on 8 slots against one slot, leaf by leaf:
+    bit-equal (each node's from its own generator). Whole noised rounds
+    are not compared across row counts: cuBLAS picks its batched GEMM by
+    the batch count, so rows of 8 nodes miss one row of 64 by the last
+    bits with or without noise. Loaded from another checkout's root
+    (``importlib`` on this file), it counts that tree's round."""
+    from p2pfl_tpu_torch.examples import bench_mnist
+    from p2pfl_tpu_torch.learning.dataset import FederatedDataset
+    from p2pfl_tpu_torch.models.vision import mlp
+    from p2pfl_tpu_torch.ops.tree import tree_leaves
+    from p2pfl_tpu_torch.parallel.mesh import federation_mesh
+    from p2pfl_tpu_torch.parallel.spmd import SpmdFederation
+
+    data = FederatedDataset.mnist(None, **bench_mnist.HARD_TASK)
+    n = bench_mnist.N_NODES
+
+    def fed(slots: int):
+        mesh = federation_mesh(slots, devices=["cuda:0"] * slots)
+        return SpmdFederation.from_dataset(mlp(), data, n_nodes=n, batch_size=bench_mnist.BATCH, vote=False,
+                                           seed=3, keep_opt_state=True, mesh=mesh, dp_clip=1.0, dp_noise=1.1)
+
+    out = {f"slots{slots}": round_kernels(fed(slots)) for slots in (1, 8)}
+    log(f"[dp_launches] eager DP round, kernels: {json.dumps(out, default=str)}")
+    from p2pfl_tpu_torch.learning.privacy import gaussian
+
+    one, eight = fed(1), fed(8)
+    gens1, gens8 = one._dp_round_keys(), eight._dp_round_keys()
+    per = n // 8
+    same = True
+    for leaf in tree_leaves(one.model.params):
+        like = torch.empty((n, *leaf.shape), device="cuda:0")
+        whole = gaussian(like, gens1)
+        rows = torch.cat([gaussian(like[r * per:(r + 1) * per], gens8[r * per:(r + 1) * per]) for r in range(8)])
+        same &= torch.equal(whole, rows)
+    out["noise_8_slots_bit_equal_to_1"] = same
+    ok = same and all(out[k]["kernels"] for k in ("slots1", "slots8"))
+    log(f"[dp_launches] noise streams of 8 slots bit-equal to one slot's: {same} {'OK' if ok else 'FAIL'}")
+    return ok, out
+
+
 PHASES = ("kernels", "offs", "main", "node_lora", "ring", "parity", "exchange", "gossip", "sharded", "wire",
           "compress", "mnist", "cifar", "chunked", "nameplate", "config7", "moe", "async", "megafleet", "meshes")
 #: phases that need more than one card: run only when named in --only
-MULTI_CARD_PHASES = ("exchange_peer", "meshes_cards")
+MULTI_CARD_PHASES = ("exchange_peer", "meshes_cards", "megafleet_cards")
 #: the runs to a target accuracy (minutes each) and the control of the
 #: lossy codecs' spread limit: run only when named in --only
 TARGET_PHASES = ("chunked_target", "nameplate_target", "compress_control", "moe_target", "round_flops", "trace_flash",
-                 "trace_cifar", "gpipe_target")
+                 "trace_cifar", "gpipe_target", "megafleet_sharded", "dp_launches")
 
 
 def main(argv=None) -> int:
@@ -6803,6 +7054,8 @@ def main(argv=None) -> int:
         good, megafleet = timed("megafleet", drive_megafleet)
         ok &= good
         count("megafleet", {"fleet_chunk": megafleet["kernel_row"]["launches"]}, ("fleet_chunk",))
+        # kernel 10's staged launches on the sharded path, part (f)'s cells
+        count("megafleet_sharded_slots", {"fleet_chunk": megafleet["sharded"]["launches"]}, ("fleet_chunk",))
     if "meshes" in args.only:
         good, meshes = timed("meshes", drive_meshes)
         ok &= good
@@ -6838,6 +7091,15 @@ def main(argv=None) -> int:
         ok &= timed("exchange_peer", check_exchange_peer, {})
     if "meshes_cards" in args.only:
         good, _ = timed("meshes_cards", drive_meshes_cards)
+        ok &= good
+    for name, drive in (("megafleet_sharded", drive_megafleet_sharded), ("megafleet_cards", drive_megafleet_cards)):
+        if name in args.only:
+            good, fleets = timed(name, drive)
+            ok &= good
+            count(name, {"fleet_chunk": sum(r.get("launches_fleet_chunk", 0) for r in fleets.values())},
+                  ("fleet_chunk",))
+    if "dp_launches" in args.only:
+        good, _ = timed("dp_launches", drive_dp_launches)
         ok &= good
     log(f"[time] seconds per phase: {json.dumps(phase_s)}")
     log(f"[time] whole run {time.perf_counter() - t_run:.1f} s")

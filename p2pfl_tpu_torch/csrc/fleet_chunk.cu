@@ -20,7 +20,9 @@
 // its row and adopted version back and keeps its sent (possibly
 // corrupted) payload in shared memory. A gradient-task fleet's round is
 // PyTorch's: there pass A runs in PyTorch before a one-chunk launch, which
-// reads its outputs. Then for each live event j in chunk order: adj = the
+// reads its outputs; so does a sharded fleet's (ShardedFleet: pass A on
+// each shard's block, the rows gathered), whose launch gets no client
+// table and reads none. Then for each live event j in chunk order: adj = the
 // chunk's mints older than its adoption time; a lane with adj > 0 adopted
 // that in-chunk mint, so its row is retrained from global v0 + adj (a
 // gradient-task launch stops before such a lane instead: it writes its
@@ -114,7 +116,7 @@ struct FleetArgs {
   const float* samples;
   const float* noise;
   // the carry (updated in place)
-  float* w;
+  float* w;  // [N + 1, dim + 1]; null in a staged launch (a sharded engine's rows lie in its shards)
   float* G;
   float* mint;
   float* gbuf;
@@ -622,18 +624,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tid >= 64) {
       // the other warps, while warp 0 walks the chain: the next chunk's
       // records and the rows its pass A reads, into L2 (a hint: the
-      // values are read again after the barrier)
-      if (sc + 1 < s0 + n_span) {
+      // values are read again after the barrier). A staged launch walks
+      // one chunk and reads no client row (a sharded engine hands it none)
+      if (!staged && sc + 1 < s0 + n_span) {
         const size_t nb = base + C;
         for (int j = tid - 64; j < C; j += kThreads - 64) {
           const size_t client = static_cast<size_t>(a.client[nb + j]);
           const float* wr = a.w + client * row;
           asm volatile("prefetch.global.L2 [%0];" ::"l"(wr));
           asm volatile("prefetch.global.L2 [%0];" ::"l"(wr + dim));
-          if (!staged) {
-            asm volatile("prefetch.global.L2 [%0];" ::"l"(a.targets + client * dim));
-            asm volatile("prefetch.global.L2 [%0];" ::"l"(a.targets + client * dim + dim - 1));
-          }
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(a.targets + client * dim));
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(a.targets + client * dim + dim - 1));
           asm volatile("prefetch.global.L2 [%0];" ::"l"(a.samples + client));
         }
       }
@@ -1139,9 +1140,10 @@ cudaError_t launch(const FleetArgs& a, int s0, int n_span, int j_start, int v0, 
 bool unpack(const void* args, int n_words, FleetArgs* a) {
   if (args == nullptr || n_words != static_cast<int>(sizeof(FleetArgs) / 8)) return false;
   memcpy(a, args, sizeof(FleetArgs));
+  // only a launch with pass A inside reads and writes the client rows
   return a->chunk >= 1 && a->dim >= 1 && a->k_glob >= 1 && a->k_max >= 1 && a->gf_cap >= 1 && a->hist_bins >= 1 &&
          a->v_cap >= 1 && a->stop != nullptr && (a->hier == 0 || a->n_reg >= 1) && a->reg_layout >= REG_AUTO &&
-         a->reg_layout <= REG_DEVICE;
+         a->reg_layout <= REG_DEVICE && (a->staged != 0 || (a->w != nullptr && a->targets != nullptr));
 }
 
 }  // namespace

@@ -14,7 +14,10 @@ router over the same addresses).
 The default engine takes ``Settings.MEGAFLEET_CHUNK`` events a step (the
 chunked engine: pass A in PyTorch, passes B-D in the ``fleet_chunk`` CUDA
 kernel on the card); ``chunk=1`` is the per-event reference engine, and
-the two are bit-identical on flat topologies.
+the two are bit-identical on flat topologies. ``shards=P`` splits the
+chunked engine's client rows over P slots (the sharded engine, which
+trains each shard's lanes on its slot and keeps admission replicated:
+bit-identical to the chunked engine).
 
 **The heap engine is the parity anchor.** At 1k nodes on the consensus
 task the flat engine reproduces the heap's merge count, version sequence
@@ -198,8 +201,14 @@ class MegaFleet:
     (events a step: 1 the per-event engine, 0 or ``"auto"`` measures
     :data:`~p2pfl_tpu_torch.ops.fleet_autotune.DEFAULT_CANDIDATES` once on
     the device and replays the winner from the fleet-tune cache),
-    ``shards`` (more than one raises: the sharded engine waits for ROADMAP
-    Queue A item 5), ``task`` (a :class:`GradTask` for the consensus step)
+    ``shards`` (split the chunked engine's client rows over a ``(clients,)``
+    mesh of that many slots, :class:`~p2pfl_tpu_torch.ops.fleet_kernels.
+    ShardedFleet`: P CPU slots for a CPU fleet, the first P visible cards
+    for a card fleet, raising past them; ``mesh`` names the slots instead,
+    e.g. ``fleet_clients_mesh(P, devices=["cuda:0"] * P)`` for P slots of
+    one card, and the fleet then lies on its first slot; admission stays
+    replicated, so the results are the one-slot engine's bit for bit; 0 or
+    1 is one slot), ``task`` (a :class:`GradTask` for the consensus step)
     and ``fold`` / ``trim`` (the window fold family). Defaults come from
     ``Settings.MEGAFLEET_*`` (and ``ASYNC_ROBUST_AGG`` / ``ASYNC_TRIM``) at
     construction.
@@ -230,12 +239,10 @@ class MegaFleet:
         trim: Optional[int] = None,
         evict_delay: float = 0.5,
         device=None,
+        mesh=None,
     ) -> None:
-        from p2pfl_tpu_torch import resolve_device
-        from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
         from p2pfl_tpu_torch.settings import Settings
 
-        self.device = resolve_device(device)
         self.spec = spec
         self.n = spec.n
         self.dim = spec.dim
@@ -262,10 +269,9 @@ class MegaFleet:
         self._chunk_auto = chunk_val == "auto" or (not isinstance(chunk_val, str) and int(chunk_val) == 0)
         self.chunk = 256 if self._chunk_auto else max(1, int(chunk_val))
         self.shards = max(0, int(Settings.MEGAFLEET_SHARDS if shards is None else shards))
-        if self.shards > 1:
-            raise UnsupportedByPortError(
-                f"MegaFleet(shards={self.shards}): the sharded engine needs a device mesh and waits for "
-                "ROADMAP Queue A item 5 (several devices and several processes)")
+        self.shard_slack = max(1.0, float(Settings.MEGAFLEET_SHARD_SLACK))
+        self.mesh = None
+        self.device = self._seat(device, mesh, shards is not None)
         self.task = task
         self.fold = str(Settings.ASYNC_ROBUST_AGG if fold is None else fold)
         self.trim = int(Settings.ASYNC_TRIM if trim is None else trim)
@@ -290,6 +296,33 @@ class MegaFleet:
         self._task_cache = None
         self._check_plan(plan)
         self._churn = self._derive_churn()
+
+    def _seat(self, device, mesh, asked: bool):
+        """The fleet's device, and its ``(clients,)`` mesh when sharded: the
+        given ``mesh`` (the fleet on its first slot), else ``shards`` slots
+        of the CPU for a CPU fleet or the first ``shards`` visible cards
+        (raising past them)."""
+        from p2pfl_tpu_torch import resolve_device
+        from p2pfl_tpu_torch.parallel.fleet_mesh import fleet_clients_mesh
+        from p2pfl_tpu_torch.parallel.mesh import _devices
+        from p2pfl_tpu_torch.settings import Settings
+
+        if mesh is None:
+            dev = resolve_device(device)
+            if self.shards > 1:
+                self.mesh = fleet_clients_mesh(self.shards, [dev] * self.shards if dev.type == "cpu" else None)
+                dev = self.mesh.devices.flat[0]
+            return dev
+        if tuple(mesh.shape) != (Settings.MESH_CLIENTS_AXIS,):
+            raise ValueError(f"a fleet's mesh has the one axis {Settings.MESH_CLIENTS_AXIS!r}, got {dict(mesh.shape)}")
+        if asked and max(self.shards, 1) != mesh.size:
+            raise ValueError(f"shards={self.shards} against a mesh of {mesh.size} slots")
+        first = mesh.devices.flat[0]
+        if device is not None and _devices([device])[0] != first:
+            raise ValueError(f"device={device} against a mesh whose first slot is {first}")
+        self.shards = mesh.size
+        self.mesh = mesh if mesh.size > 1 else None
+        return first
 
     def _check_plan(self, plan) -> None:
         if plan is None:
@@ -608,6 +641,76 @@ class MegaFleet:
             out.extend(cur + [-1] * (C - len(cur)))
         return np.asarray(out, np.int64).reshape(-1, C)
 
+    def _shard_layout(self, client: np.ndarray, C: int, P: int, cp: int,
+                      ncap: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The sharded engine's chunk layout: :meth:`_chunk_layout`'s chunks,
+        each also split into per-shard segments of ``cp`` lanes (shard = the
+        owner ``client // ncap``, lanes in chronological order). Returns
+        ``(rows [S, C], seg_ev [S, P·cp], invperm [S, C])``: ``rows`` the
+        chronological grid the replicated passes read (−1 = pad), ``seg_ev``
+        each segment lane's event (−1 = dead lane), ``invperm`` each
+        chronological position's segment slot, which puts the gathered
+        segments back in order. The aligned reshape when no client repeats
+        in a group and every (group, shard) count fits ``cp`` (the slack
+        sizes ``cp`` so this is the fleet-scale case), else greedy chunks
+        closed at a repeat or a full segment."""
+        E = int(client.shape[0])
+        S = -(-E // C) if E else 0
+        sh = client.astype(np.int64) // ncap
+        rows = np.full(S * C, -1, np.int64)
+        rows[:E] = np.arange(E)
+        gid_full = np.arange(S * C) // C
+        cl = np.where(rows >= 0, client[np.clip(rows, 0, None)], -1)
+        o = np.lexsort((cl, gid_full))
+        gs, cs = gid_full[o], cl[o]
+        collide = (gs[1:] == gs[:-1]) & (cs[1:] == cs[:-1]) & (cs[1:] >= 0)
+        gid = np.arange(E) // C
+        key = gid * P + sh
+        counts = np.bincount(key, minlength=S * P)
+        if not collide.any() and (counts <= cp).all():
+            order = np.lexsort((np.arange(E), sh, gid))
+            sk = key[order]
+            starts = np.r_[0, 1 + np.flatnonzero(np.diff(sk))]
+            lens = np.diff(np.r_[starts, E])
+            within = np.arange(E) - np.repeat(starts, lens)
+            seg_slot = np.empty(E, np.int64)
+            seg_slot[order] = sh[order] * cp + within
+            seg_ev = np.full((S, P * cp), -1, np.int64)
+            seg_ev[gid, seg_slot] = np.arange(E)
+            invperm = np.zeros((S, C), np.int32)
+            invperm[gid, np.arange(E) - gid * C] = seg_slot
+            return rows.reshape(S, C), seg_ev, invperm
+        row_chunks: List[List[int]] = []
+        seg_chunks: List[np.ndarray] = []
+        inv_chunks: List[np.ndarray] = []
+        cur: List[int] = []
+        slots: List[int] = []
+        seen: set = set()
+        cnt = np.zeros(P, np.int64)
+
+        def close() -> None:
+            row_chunks.append(cur + [-1] * (C - len(cur)))
+            seg_row = np.full(P * cp, -1, np.int64)
+            seg_row[np.asarray(slots, np.int64)] = np.asarray(cur, np.int64)
+            inv_row = np.zeros(C, np.int32)
+            inv_row[: len(slots)] = np.asarray(slots, np.int32)
+            seg_chunks.append(seg_row)
+            inv_chunks.append(inv_row)
+
+        for j in range(E):
+            cj, sj = int(client[j]), int(sh[j])
+            if cj in seen or len(cur) == C or cnt[sj] == cp:
+                close()
+                cur, slots, seen = [], [], set()
+                cnt[:] = 0
+            cur.append(j)
+            slots.append(sj * cp + int(cnt[sj]))
+            seen.add(cj)
+            cnt[sj] += 1
+        if cur:
+            close()
+        return np.asarray(row_chunks, np.int64).reshape(-1, C), np.stack(seg_chunks), np.stack(inv_chunks)
+
     def _task_arrays(self):
         if self._task_cache is None:
             self._task_cache = self.task.arrays(self.n)
@@ -684,33 +787,71 @@ class MegaFleet:
         events, reg = self._chunk_grids(cfg, tiers, ev, clients, agg, rows)
         return ChunkedFleet(cfg, events, clients, reg, init, self.device).run()
 
+    def _sharded_grids(self, cfg, tiers, ev, clients, agg):
+        """:meth:`_chunk_grids` of the segment layout (:meth:`_shard_layout`)
+        plus the shards' grids ``[S, P·cp]``: ``seg_fwd`` (each segment
+        lane's chronological position, with which a shard reads the
+        replicated grids), ``seg_loc`` (its client's row in the owner's
+        block; dead lanes the trash row ``ncap``), ``seg_live``, and
+        ``invperm [S, C]``."""
+        from p2pfl_tpu_torch.parallel.fleet_mesh import shard_capacity
+
+        P = self.shards
+        ncap = shard_capacity(self.n, P)
+        cp = max(1, int(np.ceil(self.shard_slack * cfg.chunk / P)))
+        rows, seg_ev, invperm = self._shard_layout(ev["client"], cfg.chunk, P, cp, ncap)
+        events, reg = self._chunk_grids(cfg, tiers, ev, clients, agg, rows)
+        pos = np.zeros(int(ev["client"].shape[0]), np.int64)
+        sidx, cidx = np.nonzero(rows >= 0)
+        pos[rows[sidx, cidx]] = cidx
+        seg_live = seg_ev >= 0
+        safe = np.clip(seg_ev, 0, None)
+        events["seg_fwd"] = np.where(seg_live, pos[safe], 0).astype(np.int32)
+        events["seg_loc"] = np.where(seg_live, ev["client"][safe] % ncap, ncap).astype(np.int32)
+        events["seg_live"] = seg_live
+        events["invperm"] = invperm
+        return events, reg
+
+    def _run_sharded(self, cfg, tiers, ev, clients, agg, init):
+        from p2pfl_tpu_torch.ops.fleet_kernels import ShardedFleet
+
+        events, reg = self._sharded_grids(cfg, tiers, ev, clients, agg)
+        return ShardedFleet(cfg, events, clients, reg, init, self.mesh).run()
+
     def _autotune_chunk(self, make_cfg, tiers, ev, clients, agg, init) -> int:
-        """Resolve ``chunk="auto"``: time the engine over a bounded event
-        prefix for each candidate, once a (device kind, workload) key, then
+        """Resolve ``chunk="auto"``: time the engine that will run (the
+        sharded one for ``shards > 1``) over a bounded event prefix for each
+        candidate, once a (device kind, shard count, workload) key, then
         replay from the cache."""
         from p2pfl_tpu_torch.ops import fleet_autotune as ft
 
         kind = ft.device_kind(self.device)
+        n_sh = self.shards if self.shards > 1 else 1
         extra = (f"task={self.task.kind if self.task else 'consensus'}|dim={self.dim}|hier={int(self.hier)}"
                  f"|k={self.k}|n~1e{len(str(max(1, self.n))) - 1}")
-        got = ft.get_fleet_chunk(extra=extra, kind=kind)
+        got = ft.get_fleet_chunk(n_shards=n_sh, extra=extra, kind=kind)
         if got is not None:
             return got
         cands = ft.DEFAULT_CANDIDATES
         budget = max(min(int(ev["client"].shape[0]), 8 * max(cands)), 1)
         ev_cut = {k: (v[:budget] if isinstance(v, np.ndarray) else v) for k, v in ev.items()}
+        runner = self._run_sharded if n_sh > 1 else self._run_chunked
+        devices = set(self.mesh.devices.flat) if n_sh > 1 else {self.device}
+
+        def sync() -> None:
+            for d in devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
         def measure(c: int) -> float:
-            self._run_chunked(make_cfg(c), tiers, ev_cut, dict(clients), agg, init)  # warm-up
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            runner(make_cfg(c), tiers, ev_cut, dict(clients), agg, init)  # warm-up
+            sync()
             t0 = time.perf_counter()
-            self._run_chunked(make_cfg(c), tiers, ev_cut, dict(clients), agg, init)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            runner(make_cfg(c), tiers, ev_cut, dict(clients), agg, init)
+            sync()
             return time.perf_counter() - t0
 
-        return ft.autotune_fleet_chunk(measure, cands, extra=extra, kind=kind)
+        return ft.autotune_fleet_chunk(measure, cands, n_shards=n_sh, extra=extra, kind=kind)
 
     # ---- the drive ----
 
@@ -736,7 +877,8 @@ class MegaFleet:
         else:
             v_cap = E // k_glob + 2
             stride = 2
-        use_chunked = (self.chunk > 1 or self._chunk_auto or task is not None or self.fold != "fedavg"
+        use_chunked = (self.chunk > 1 or self._chunk_auto or self.shards > 1 or task is not None
+                       or self.fold != "fedavg"
                        or self._byz is not None or self._churn is not None
                        or (self.hier and plan is not None and plan.default.duplicate > 0.0))
 
@@ -778,6 +920,19 @@ class MegaFleet:
         events, reg = self._chunk_grids(cfg, p["tiers"], p["ev"], p["clients"], p["agg"], rows)
         return ChunkedFleet(cfg, events, p["clients"], reg, p["init"], self.device if device is None else device)
 
+    def sharded_engine(self, chunk: Optional[int] = None):
+        """The sharded engine of this fleet on its mesh (``shards > 1``),
+        built and not run: :meth:`run`'s engine, for callers that step it or
+        time its stages."""
+        from p2pfl_tpu_torch.ops.fleet_kernels import ShardedFleet
+
+        if self.mesh is None:
+            raise ValueError("sharded_engine needs shards > 1 or a mesh of several slots")
+        p = self._prepare()
+        cfg = p["make_cfg"](chunk or self.chunk)
+        events, reg = self._sharded_grids(cfg, p["tiers"], p["ev"], p["clients"], p["agg"])
+        return ShardedFleet(cfg, events, p["clients"], reg, p["init"], self.mesh)
+
     def run(self) -> MegaFleetResult:
         from p2pfl_tpu_torch.ops import fleet_kernels as fk
 
@@ -790,7 +945,9 @@ class MegaFleet:
         if self._chunk_auto and p["use_chunked"]:
             self.chunk = self._autotune_chunk(make_cfg, tiers, ev, clients, agg, init)
         cfg = make_cfg(self.chunk if p["use_chunked"] else 1)
-        if p["use_chunked"]:
+        if self.shards > 1:
+            out = self._run_sharded(cfg, tiers, ev, clients, agg, init)
+        elif p["use_chunked"]:
             out = self._run_chunked(cfg, tiers, ev, clients, agg, init)
         else:
             clients["adopt_delay"] = tiers["adopt_delay"][0].astype(np.float32)

@@ -515,10 +515,12 @@ FLEET_PROF = ("stage", "pass_a", "events", "regional_folds", "global_folds", "fo
 class FleetChunkArgs:
     """The argument table of one chunked engine, built once: every tensor
     checked (CUDA device, dtype, contiguity) and kept alive here; a
-    tensor the configuration does not use is a null pointer."""
+    tensor the configuration does not use is a null pointer (the client
+    rows ``w`` of a staged launch among them: a sharded engine's rows lie
+    in its shards' blocks)."""
 
     def __init__(self, values: dict) -> None:
-        device = values["w"].device
+        device = values["G"].device
         words = []
         self.tensors = []
         for name, kind in FLEET_ARGS:

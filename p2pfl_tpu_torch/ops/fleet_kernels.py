@@ -13,7 +13,7 @@ with :func:`~p2pfl_tpu_torch.ops.aggregation.fedavg` (or the pad-aware rank
 rules) and :func:`~p2pfl_tpu_torch.ops.aggregation.server_merge`, weighted by
 ``num_samples · w(τ)``.
 
-Two engines, bit-identical on flat topologies:
+The engines, bit-identical on flat topologies:
 
 - :func:`run_fleet_program`, the per-event reference: a host loop over the
   events, scalars on the host, rows on the device (the parity anchor; for
@@ -36,6 +36,10 @@ Two engines, bit-identical on flat topologies:
   gradient task the launch stops at the lane,
   :meth:`ChunkedFleet.retrain` runs the task's round in PyTorch, and a
   second launch resumes there.
+- :class:`ShardedFleet`, the chunked engine with the client rows split over
+  the slots of a ``(clients,)`` mesh: pass A a shard, one gather a chunk,
+  passes B-D replicated on the first slot (the kernel's staged launch a
+  chunk); bit-identical to :class:`ChunkedFleet`.
 
 JAX runs both as one ``lax.scan``; it has no Pallas kernel here. Times are
 fp32, versions and keys int32 as in JAX (x64 off); the staleness weights
@@ -498,7 +502,7 @@ class ChunkedFleet:
         row0 = torch.cat([init, torch.zeros(1, **f32)])
         K, B = cfg.k_global, cfg.hist_bins
         self.carry = {
-            "w": row0.repeat(n + 1, 1),  # row N: the pad lanes' trash row
+            **self._client_rows(row0),
             "G": torch.cat([init[None], torch.zeros((cfg.v_cap, dim), **f32)]),
             "mint": torch.full((cfg.v_cap,), _INF, **f32),
             "gbuf": torch.zeros((K, dim), **f32), "gwt": torch.zeros(K, **f32),
@@ -536,8 +540,21 @@ class ChunkedFleet:
         # before the first launch to time the kernel's sections
         self.prof = None
         self.resumes = 0  # launches that resumed a chunk at a retrained lane
+        self.host_syncs = 0  # reads of the stop record after a launch
+        # called with "pass_a", "gather" and "kernel" as each stage of a
+        # chunk is issued (a timer's hook; None: nothing is called)
+        self.on_stage = None
         self.n_chunks = int(self.ev["client"].shape[0])
         self.kernel_args = None  # built at the first launch
+
+    def _client_rows(self, row0: torch.Tensor) -> dict:
+        """The carry's client rows ``w [N + 1, dim + 1]``, every row the
+        initial model at version 0; row ``N`` is the pad lanes' trash row."""
+        return {"w": row0.repeat(self.cfg.n_clients + 1, 1)}
+
+    def client_rows(self) -> torch.Tensor:
+        """Every client's row ``[N, dim + 1]`` (params, adopted version)."""
+        return self.carry["w"][: self.cfg.n_clients]
 
     # ---- pass A ----
 
@@ -630,8 +647,142 @@ class ChunkedFleet:
         c = self.carry
         si = c["si"].cpu().numpy()
         ints = {name: si[i] for i, name in enumerate(SCALARS)}
-        return _result(self.cfg, c["G"], c["mint"], c["w"], ints, c["hist_edge"].cpu().numpy(),
+        return _result(self.cfg, c["G"], c["mint"], self.client_rows(), ints, c["hist_edge"].cpu().numpy(),
                        c["hist_glob"].cpu().numpy())
+
+
+class ShardedFleet(ChunkedFleet):
+    """The chunked engine with the client rows split over a 1-D
+    ``(clients,)`` mesh (:func:`~p2pfl_tpu_torch.parallel.fleet_mesh.
+    fleet_clients_mesh`), the counterpart of JAX's
+    ``run_fleet_program_sharded``; bit-identical to :class:`ChunkedFleet`
+    on the same fleet.
+
+    - **Sharded**: shard ``p`` holds the block ``w [ncap + 1, dim + 1]`` on
+      its slot's device, client ``i`` at row ``i % ncap`` of shard ``i //
+      ncap`` and row ``ncap`` its trash row, and its ``cp`` segment lanes of
+      every chunk (``events["seg_fwd"]``, ``seg_loc``, ``seg_live``: the
+      chunk's events it owns, in chronological order).
+    - **Replicated**: everything sized by the version count (``G``,
+      ``mint``, the windows, the counters, the regionals) lies once on the
+      mesh's first slot, with the event grids; the per-client tables
+      (``targets``, ``samples``; ``mu``/``tw``/``tb`` for a gradient task)
+      are copied to every slot that trains (a slot of the same device
+      shares them).
+
+    A chunk (:meth:`pass_a`): each shard adopts and trains its own lanes
+    against the pre-chunk mint history (local gather at ``seg_loc``, the
+    start version from the replicated ``mint`` at ``seg_fwd``, local
+    scatter; dead lanes go through the shard's trash row). Each shard's
+    packed ``[cp, dim + 2]`` (the trained row and version, then the
+    pre-chunk version) goes to the first slot (``Tensor.to``), is joined
+    (``torch.cat``) and put back in chronological order
+    (``index_select(invperm)``): concatenation and a permutation, so no
+    float sum runs across shards. The joined rows stage the kernel's
+    buffers (``rows0`` with the pre-chunk version in column ``dim``, the
+    payloads after the Byzantine transforms, ``base0``, ``rv0``), and
+    passes B-D run there: the ``fleet_chunk`` kernel's staged launch on a
+    card (it reads no client row), the plain twin on the CPU. A lane an
+    in-chunk mint moved stops the launch; :meth:`retrain` trains it from
+    that mint and writes it into its owner's block only, and the launch
+    resumes at it."""
+
+    def __init__(self, cfg: FleetConfig, events: dict, clients: dict, reg: dict, init_params, mesh) -> None:
+        from p2pfl_tpu_torch.parallel.fleet_mesh import shard_capacity
+
+        events = dict(events)
+        seg = {k: np.asarray(events.pop(k)) for k in ("seg_fwd", "seg_loc", "seg_live", "invperm")}
+        self.mesh = mesh
+        self.slot_devices = [torch.device(d) for d in mesh.devices.flat]
+        n_sh = len(self.slot_devices)
+        self.ncap = shard_capacity(cfg.n_clients, n_sh)
+        self.cp = seg["seg_fwd"].shape[1] // n_sh
+        super().__init__(cfg, events, clients, reg, init_params, self.slot_devices[0])
+        self.torch_pass_a = True  # passes B-D read the staged outputs of the shards' pass A
+        dev0, cp = self.device, self.cp
+        fwd = seg["seg_fwd"].astype(np.int64)
+        client = np.asarray(events["client"], np.int64)
+        # each segment lane's client (dead lanes: the trash row N of the tables)
+        seg_client = np.where(seg["seg_live"], np.take_along_axis(client, fwd, axis=1), cfg.n_clients)
+        self.client_host = client  # the owner of a stopped lane, read without a sync
+        self.fwd = torch.from_numpy(fwd).to(dev0)
+        self.invperm = torch.from_numpy(seg["invperm"].astype(np.int64)).to(dev0)
+        # the kernel's staged rows: the trained params, then the pre-chunk
+        # version, picked from the packed columns of the gather
+        self.stage_cols = torch.tensor([*range(cfg.dim), cfg.dim + 1], device=dev0)
+
+        def put(a, d, dtype=torch.int64):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device=d, dtype=dtype)
+
+        self.shards = []
+        for p, d in enumerate(self.slot_devices):
+            lanes = slice(p * cp, (p + 1) * cp)
+            sh = {"device": d, "loc": put(seg["seg_loc"][:, lanes], d),
+                  "client": put(seg_client[:, lanes], d), "targets": self.targets.to(d)}
+            if self.task is not None:
+                for k in ("key_hi", "key_lo"):
+                    sh[k] = put(np.take_along_axis(np.asarray(events[k]), fwd[:, lanes], axis=1), d, torch.int32)
+                sh.update(mu=self.mu.to(d), tw=self.tw.to(d), tb=self.tb.to(d))
+            self.shards.append(sh)
+
+    def _client_rows(self, row0: torch.Tensor) -> dict:
+        """No global table: ``blocks[p]`` is shard ``p``'s, on its slot's
+        device."""
+        self.blocks = [row0.to(d).repeat(self.ncap + 1, 1) for d in self.slot_devices]
+        return {}
+
+    def client_rows(self) -> torch.Tensor:
+        """Every client's row ``[N, dim + 1]``, joined from the blocks on the
+        first slot."""
+        return torch.cat([w[: self.ncap].to(self.device) for w in self.blocks])[: self.cfg.n_clients]
+
+    def _train_shard(self, sh: dict, starts: torch.Tensor, s: int) -> torch.Tensor:
+        """:meth:`ChunkedFleet.train` over shard ``sh``'s lanes of chunk ``s``."""
+        idx = sh["client"][s]
+        if self.task is None:
+            t = sh["targets"].index_select(0, idx)
+            return starts + self.cfg.local_lr * (t - starts)
+        return self.task(starts, sh["key_hi"][s], sh["key_lo"][s], sh["mu"].index_select(0, idx), sh["tw"], sh["tb"])
+
+    def pass_a(self, s: int) -> None:
+        """Pass A of chunk ``s`` on each shard's lanes, the gather, and the
+        staging of the kernel's buffers (see the class docs)."""
+        c, dim, cp = self.carry, self.cfg.dim, self.cp
+        torch.searchsorted(c["mint"], self.ev["t_adopt"][s], out=self.base0)
+        base_seg = self.base0.index_select(0, self.fwd[s])
+        g_seg = c["G"].index_select(0, base_seg)
+        base_f = base_seg.to(torch.float32)
+        packed = []
+        for p, (sh, w) in enumerate(zip(self.shards, self.blocks)):
+            d, lanes, loc = sh["device"], slice(p * cp, (p + 1) * cp), sh["loc"][s]
+            b = base_f[lanes].to(d)
+            rows = w.index_select(0, loc)
+            prev0 = rows[:, dim]
+            starts = torch.where((b > prev0)[:, None], g_seg[lanes].to(d), rows[:, :dim])
+            new = torch.cat([self._train_shard(sh, starts, s), torch.maximum(b, prev0)[:, None], prev0[:, None]], 1)
+            w.index_copy_(0, loc, new[:, : dim + 1])
+            packed.append(new.to(self.device))
+        if self.on_stage is not None:
+            self.on_stage("pass_a")
+        chron = torch.cat(packed).index_select(0, self.invperm[s])
+        torch.index_select(chron, 1, self.stage_cols, out=self.rows0)
+        self.payload.copy_(self.apply_byz(chron[:, :dim], s))
+        if self.cfg.hier:
+            torch.searchsorted(c["mint"], self.ev["t_radopt"][s], out=self.rv0)
+        if self.on_stage is not None:
+            self.on_stage("gather")
+
+    def retrain(self, s: int, j: int, version: int) -> torch.Tensor:
+        """Lane ``j`` of chunk ``s`` adopted in-chunk global ``version``:
+        its round from that global, written into its owner's block only;
+        returns its sent (possibly corrupted) payload."""
+        dim, lane = self.cfg.dim, slice(j, j + 1)
+        p, loc = divmod(int(self.client_host[s, j]), self.ncap)
+        w = self.blocks[p]
+        honest = self.train(self.carry["G"][version][None], self.ev["client"][s][lane], s, lane)
+        w[loc, :dim] = honest[0].to(w.device)
+        w[loc, dim] = float(version)
+        return self.apply_byz(honest, s, lane)[0]
 
 
 def fleet_chunk(eng: ChunkedFleet, s: int, span: int = 1) -> None:
@@ -658,11 +809,14 @@ def fleet_chunk(eng: ChunkedFleet, s: int, span: int = 1) -> None:
         # it here, stage its payload, resume at it
         while True:
             j, adj, v0 = eng.stop.tolist()
+            eng.host_syncs += 1
             if j >= eng.cfg.chunk:
                 break
             eng.payload[j] = eng.retrain(c, j, v0 + adj)
             eng.resumes += 1
             _kernels.fleet_chunk(eng.kernel_args, c, 1, j, v0)
+        if eng.on_stage is not None:
+            eng.on_stage("kernel")
 
 
 def fleet_span_plain(eng: ChunkedFleet, s: int, span: int = 1) -> None:
@@ -671,6 +825,8 @@ def fleet_span_plain(eng: ChunkedFleet, s: int, span: int = 1) -> None:
     for c in range(s, s + span):
         eng.pass_a(c)
         fleet_chunk_plain(eng, c)
+        if eng.on_stage is not None:
+            eng.on_stage("kernel")
 
 
 def slot_sum(values: np.ndarray) -> np.float32:

@@ -5,9 +5,9 @@
 ``PipelineFederation``, the meshes (``federation_mesh``,
 ``submesh_federation_mesh``, ``node_slices``, ``pipeline_mesh``) and the
 GPipe functions (``pipeline_apply``, ``pipelined_lm_apply``,
-``stack_layers``) are importable from here; each loads its module on
-first use. The sharded megafleet's ``fleet_clients_mesh`` and
-``shard_capacity`` are not ported yet (ROADMAP Queue A item 5).
+``stack_layers``) and the sharded megafleet's ``fleet_clients_mesh``
+and ``shard_capacity`` are importable from here; each loads its module on
+first use.
 """
 
 _EXPORTS = {
@@ -21,6 +21,8 @@ _EXPORTS = {
     "submesh_federation_mesh": "p2pfl_tpu_torch.parallel.mesh",
     "node_slices": "p2pfl_tpu_torch.parallel.mesh",
     "pipeline_mesh": "p2pfl_tpu_torch.parallel.mesh",
+    "fleet_clients_mesh": "p2pfl_tpu_torch.parallel.fleet_mesh",
+    "shard_capacity": "p2pfl_tpu_torch.parallel.fleet_mesh",
     "pipeline_apply": "p2pfl_tpu_torch.parallel.pipeline",
     "pipelined_lm_apply": "p2pfl_tpu_torch.parallel.pipeline",
     "stack_layers": "p2pfl_tpu_torch.parallel.pipeline",

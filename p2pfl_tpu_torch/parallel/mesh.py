@@ -69,6 +69,11 @@ class Mesh:
         self._rows: Optional[list] = None
 
     @property
+    def size(self) -> int:
+        """The number of positions (slots), as ``jax.sharding.Mesh.size``."""
+        return int(self.devices.size)
+
+    @property
     def slot_keys(self) -> frozenset:
         """The global identity of every position: ``(uid, slot)`` pairs."""
         return frozenset((self.uid, int(s)) for s in self.slots.flat)

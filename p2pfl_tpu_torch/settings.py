@@ -149,6 +149,11 @@ class Settings:
     MESH_NODES_AXIS: str = "nodes"
     MESH_MODEL_AXIS: str = "model"
     MESH_DATA_AXIS: str = "data"
+    # ``clients`` is the megafleet engine's 1-D mesh axis: the simulated
+    # edge population's parameter rows are sharded over it while the small
+    # admission and window state stays replicated
+    # (parallel/fleet_mesh.py, ops/fleet_kernels.py ShardedFleet)
+    MESH_CLIENTS_AXIS: str = "clients"
 
     # --- wire (learning/weights.py, communication/grpc_transport.py) ---
     # outgoing gRPC frame format: "envelope" (JSON-header frames) or
@@ -239,9 +244,19 @@ class Settings:
     # reference engine; 0 = measure the candidates once on the device and
     # replay the winner from the fleet-tune cache, ops/fleet_autotune.py)
     MEGAFLEET_CHUNK: int = 256
-    # device shards of the JAX package's sharded engine: the port refuses
-    # more than one (ROADMAP Queue A item 5)
+    # shards of the sharded megafleet engine (ops/fleet_kernels.py
+    # ShardedFleet): the per-client parameter rows are split over
+    # MESH_CLIENTS_AXIS (CPU slots of a CPU fleet, the first visible cards
+    # of a card fleet) while admission stays replicated, so verdicts are
+    # bit-identical to the one-slot chunked engine. 0/1 = one slot
     MEGAFLEET_SHARDS: int = 0
+    # per-shard segment head-room of the sharded chunk layout: each shard
+    # owns ceil(SLACK * chunk / shards) lanes of a chunk, so a mildly
+    # imbalanced chunk (one shard's clients over-represented) still packs
+    # without closing the chunk early. Raising it trades per-shard work
+    # (chunk/shards * SLACK trained lanes a shard) for fewer short chunks;
+    # 2.0 keeps the aligned layout on every schedule the simulator makes
+    MEGAFLEET_SHARD_SLACK: float = 2.0
     # path of the fleet-tune cache (chunk winners by device kind); empty =
     # ~/.cache/p2pfl_tpu_torch/fleet_tune.json
     FLEET_TUNE_CACHE: str = ""
@@ -391,4 +406,6 @@ def set_test_settings() -> None:
     # a small odd chunk: every parity test crosses chunk boundaries
     Settings.MEGAFLEET_CHUNK = 48
     Settings.MEGAFLEET_SHARDS = 0
+    Settings.MEGAFLEET_SHARD_SLACK = 2.0
+    Settings.MESH_CLIENTS_AXIS = "clients"
     Settings.FLEET_TUNE_CACHE = ""

@@ -1,5 +1,7 @@
 """The megafleet chunk step's kernel (``csrc/fleet_chunk.cu``: a span of
-chunks a launch, pass A inside for the consensus task) on the card.
+chunks a launch, pass A inside for the consensus task) on the card, and
+the sharded engine (pass A a shard on slots of ``cuda:0`` or on two
+cards, the kernel's staged launches) against the one-slot engine.
 
 Marked ``cuda``: they need an NVIDIA GPU with ``nvcc`` and skip elsewhere
 (the kernel has no CPU mode; on the CPU the engine runs its plain twin,
@@ -8,7 +10,9 @@ imports only the port (the card machine has no flax):
 
     timeout 600 python -m pytest -m cuda tests/test_torch_cuda_megafleet.py
 
-``chip_smoke.py --only megafleet`` drives the same paths and the 1M fleet.
+``chip_smoke.py --only megafleet`` drives the same paths and the 1M fleet;
+``--only megafleet_sharded`` the 1M fleet on 2 and 8 slots. The two-card
+case runs on a machine with two cards or more (``-k two_cards``).
 """
 
 import pytest
@@ -164,3 +168,63 @@ def test_gradient_task_fleet_runs_on_the_card(cuda):
     assert res.params["w"].device.type == "cuda"
     assert (res.merges, [x[:2] for x in res.loss_curve]) == (ref.merges, [x[:2] for x in ref.loss_curve])
     assert abs(res.final_loss() - ref.final_loss()) <= 1e-4 * max(abs(ref.final_loss()), 1.0)
+
+
+# ---- the sharded engine on slots of cuda:0 and on two cards ----
+
+
+def _slots(p: int):
+    from p2pfl_tpu_torch.parallel.fleet_mesh import fleet_clients_mesh
+
+    return fleet_clients_mesh(p, devices=["cuda:0"] * p)
+
+
+def _sharded_fleet(case, **over):
+    if case in ("chaos", "byzantine", "churn"):
+        return chip_smoke._mf_faults(case, **over)
+    return chip_smoke._mf_small(cluster_size=0 if case == "flat" else 32, chunk=48, **{"device": "cuda", **over})
+
+
+def _same_result(a, b) -> bool:
+    return (a.merges, a.regional_merges, a.loss_curve, a.staleness_hist_edge, a.staleness_hist_global,
+            a.byz_corrupted, a.duplicates_injected) == (
+        b.merges, b.regional_merges, b.loss_curve, b.staleness_hist_edge, b.staleness_hist_global,
+        b.byz_corrupted, b.duplicates_injected) and torch.equal(a.params["w"].cpu(), b.params["w"].cpu())
+
+
+@pytest.mark.parametrize("case", ["flat", "hier", "chaos", "byzantine", "churn"])
+@pytest.mark.parametrize("shards", [2, 8])
+def test_sharded_slots_equal_one_slot(cuda, case, shards):
+    """The sharded engine on ``shards`` slots of ``cuda:0`` (pass A a
+    shard, the gather, kernel 10's staged launches) against the one-slot
+    engine (one launch, pass A inside): the same results bit for bit, and
+    one launch a chunk plus one a resume."""
+    ref = _sharded_fleet(case).run()
+    _kernels.reset_launches()
+    with chip_smoke.sharded_engines() as engines:
+        got = _sharded_fleet(case, mesh=_slots(shards)).run()
+    torch.cuda.synchronize()
+    assert len(engines) == 1 and len(engines[0].blocks) == shards
+    assert _kernels.LAUNCHES["fleet_chunk"] == engines[0].n_chunks + engines[0].resumes
+    assert ref.merges > 0 and _same_result(ref, got)
+
+
+def test_sharded_parity_cells(cuda):
+    """``chip_smoke``'s part (f): ``bench_async.py``'s 20,000-client parity
+    cells on 2 and 8 slots, every check."""
+    out = chip_smoke.megafleet_sharded_parity()
+    bad = {name: row["checks"] for name, row in out["cells"].items() if not all(row["checks"].values())}
+    assert not bad
+
+
+def test_sharded_on_two_cards_equals_one_card(cuda):
+    """``shards=2`` on a card fleet: the first two cards (the gather
+    crosses cards), bit-equal to one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    ref = _sharded_fleet("hier").run()
+    got = _sharded_fleet("hier", shards=2, device=None).run()
+    assert _same_result(ref, got)
+    fleet = _sharded_fleet("flat", shards=2, device=None)
+    assert [str(d) for d in fleet.mesh.devices.flat] == ["cuda:0", "cuda:1"]
+    assert _same_result(_sharded_fleet("flat").run(), fleet.run())

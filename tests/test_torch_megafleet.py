@@ -25,7 +25,7 @@ from p2pfl_tpu.federation import megafleet as jm
 from p2pfl_tpu.ops import fleet_kernels as jfk
 from p2pfl_tpu.settings import Settings as JSettings
 from p2pfl_tpu_torch.communication import faults as tf
-from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
+from p2pfl_tpu_torch import DeviceUnavailableError
 from p2pfl_tpu_torch.federation import megafleet as tm
 from p2pfl_tpu_torch.federation.simfleet import SimulatedAsyncFleet
 from p2pfl_tpu_torch.ops import fleet_kernels as tfk
@@ -334,11 +334,14 @@ def test_from_sim_matches_jax():
 
 
 def test_refusals():
-    """What the JAX engine refuses the port refuses too, and the sharded
-    engine raises citing ROADMAP item 5."""
+    """What the JAX engine refuses the port refuses too. The sharded
+    engine runs (two CPU slots); a card fleet asked for more shards than
+    the visible cards raises."""
     spec = tm.FleetSpec.synth(40, seed=SEED, dim=4)
-    with pytest.raises(UnsupportedByPortError, match="item 5"):
-        tm.MegaFleet(spec, shards=2, device="cpu")
+    two = tm.MegaFleet(spec, shards=2, device="cpu")
+    assert two.mesh.size == 2 and two.run().merges > 0
+    with pytest.raises((ValueError, DeviceUnavailableError)):
+        tm.MegaFleet(spec, shards=torch.cuda.device_count() + 1)
     with pytest.raises(ValueError, match="per-edge"):
         tm.MegaFleet(spec, plan=tf.FaultPlan(seed=SEED, edges={("a", "b"): tf.EdgeFault(drop=1.0)}), device="cpu")
     with pytest.raises(ValueError, match="heap engine"):
@@ -352,8 +355,6 @@ def test_refusals():
     with pytest.raises(ValueError, match="param"):
         tm.MegaFleet(spec, task=tm.GradTask(kind="linear", d_in=6, n_out=3), device="cpu")
     if not torch.cuda.is_available():
-        from p2pfl_tpu_torch import DeviceUnavailableError
-
         with pytest.raises(DeviceUnavailableError):
             tm.MegaFleet(spec)
 

@@ -206,12 +206,13 @@ def test_submesh_federation_mesh_and_node_slices():
         tmesh.submesh_federation_mesh(3, model_parallel=3, devices=CPU * 8)  # 9 slots asked, 8 given
 
 
-def test_the_refusals_this_slice_keeps_cite_item_5():
-    """Expert and pipeline parallelism run now (the SPMD federations'
-    meshes): an expert-parallel federation places its node-stacked leaves
-    by the node-shifted rules, and a GPipe federation builds its stages.
-    The sharded megafleet engine stays refused, citing item 5."""
-    from p2pfl_tpu_torch.exceptions import UnsupportedByPortError
+def test_expert_pipeline_and_sharded_fleet_meshes_run():
+    """Expert and pipeline parallelism run (the SPMD federations' meshes):
+    an expert-parallel federation places its node-stacked leaves by the
+    node-shifted rules, and a GPipe federation builds its stages. The
+    sharded megafleet engine runs on two CPU slots; a card fleet asked for
+    more shards than the visible cards raises."""
+    from p2pfl_tpu_torch import DeviceUnavailableError
     from p2pfl_tpu_torch.federation.megafleet import FleetSpec, MegaFleet
     from p2pfl_tpu_torch.learning.dataset import FederatedDataset
     from p2pfl_tpu_torch.models.transformer import tiny_transformer
@@ -227,8 +228,11 @@ def test_the_refusals_this_slice_keeps_cite_item_5():
     assert tuple(wq.shards[0].shape) == (1, 32, 16)
     pipe = PipelineFederation(model, [data], mesh=tmesh.pipeline_mesh(2, devices=CPU * 2), batch_size=4, device="cpu")
     assert pipe.stage_devices == [torch.device("cpu")] * 2
-    with pytest.raises(UnsupportedByPortError, match="item 5"):
-        MegaFleet(FleetSpec.synth(40, seed=1905, dim=4), shards=2, device="cpu")
+    spec = FleetSpec.synth(40, seed=1905, dim=4)
+    fleet = MegaFleet(spec, shards=2, device="cpu")
+    assert fleet.mesh.size == 2 and fleet.run().merges > 0
+    with pytest.raises((ValueError, DeviceUnavailableError)):
+        MegaFleet(spec, shards=torch.cuda.device_count() + 1)
 
 
 # ---- placement: shard shapes and blocks against JAX ----
