@@ -17,6 +17,7 @@ chunked tolerance (``REL``, as ``tests/test_torch_megafleet.py``).
 
 import json
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -108,7 +109,7 @@ def test_fleet_clients_mesh_against_jax():
     mixed = fleet_clients_mesh(2, devices=["cpu", "meta", "cpu"])
     assert [d.type for d in mixed.devices.flat] == ["cpu", "meta"]
     with pytest.raises(ValueError, match="exceeds"):
-        jfm.fleet_clients_mesh(len(want.devices.flat) * 4 + 1)
+        jfm.fleet_clients_mesh(jax.device_count() + 1)
     with pytest.raises(ValueError, match=r"exceeds the 2 available devices.*\['cuda:0'\] \* 3"):
         fleet_clients_mesh(3, devices=CPU * 2)
     for mod, kw in ((jfm, {}), (None, {"devices": CPU * 2})):
